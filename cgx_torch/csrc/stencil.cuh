@@ -1,12 +1,24 @@
-// Constant-coefficient stencil row, shared by the SpMV kernel (stencil.cu)
-// and the whole-solve CG kernel (resident_cg.cu).
+// Operator rows and reductions shared by the kernels: the stencil SpMV
+// (stencil.cu), the whole-solve CG (resident_cg.cu) and the two-pass
+// engine (fused_engine.cu).
 //
-// y[row] = sum_t c[t] * x[(i+dx[t], j+dy[t], k+dz[t])] over the taps whose
-// neighbour lies inside the nx × ny × nz grid (zero Dirichlet boundary):
-// the boundary masks come from index arithmetic, nothing is stored.
-// Node (i, j, k) is row (i*ny + j)*nz + k, as in the JAX package.  Each
-// product and sum is rounded on its own, in tap order, as the plain
-// PyTorch version (GeneralStencil3D.matvec) rounds them.
+// stencil_row: y[row] = sum_t c[t] * x[(i+dx[t], j+dy[t], k+dz[t])] over
+// the taps whose neighbour lies inside the nx × ny × nz grid (zero
+// Dirichlet boundary): the boundary masks come from index arithmetic,
+// nothing is stored.  Node (i, j, k) is row (i*ny + j)*nz + k, as in the
+// JAX package.
+//
+// plane_row: the same with coefficient-plane taps mixed in (the Jacobi-
+// scaled DIA operators): a plane tap t reads planes[t][row] · x[row+off]
+// with off = dx·ny·nz + dy·nz + dz under a flat range guard.  The boundary
+// zeros live in the plane data, which is why the DIA routes require
+// wrap_entries_zero: under that condition the flat reading equals the JAX
+// package's halo-padded lane layout.  In the symmetric mode each plane
+// also serves its mirror tap, planes[t][row−off] · x[row−off].
+//
+// Each product and sum is rounded on its own, in tap order, as the plain
+// PyTorch versions (GeneralStencil3D.matvec, fused_engine.tap_matvec)
+// round them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,6 +36,14 @@ struct StencilTaps {
   float c[kMaxTaps];
 };
 
+// A mixed operator: constant taps (plane[t] < 0, coefficient s.c[t]) and
+// plane taps (plane[t] = index of the tap's coefficient plane).
+struct PlaneTaps {
+  StencilTaps s;
+  int plane[kMaxTaps];
+  int off[kMaxTaps];  // flat offset dx·ny·nz + dy·nz + dz
+};
+
 // Host side: pack (n, taps[3n], coeffs[n]) host arrays into the struct.
 inline StencilTaps make_taps(int n, const int* taps, const float* coeffs) {
   StencilTaps t{};
@@ -37,10 +57,22 @@ inline StencilTaps make_taps(int n, const int* taps, const float* coeffs) {
   return t;
 }
 
+inline PlaneTaps make_plane_taps(int n, const int* taps, const float* coeffs,
+                                 const int* plane, int ny, int nz) {
+  PlaneTaps t{};
+  t.s = make_taps(n, taps, coeffs);
+  for (int s = 0; s < n; ++s) {
+    t.plane[s] = plane[s];
+    t.off[s] = (t.s.dx[s] * ny + t.s.dy[s]) * nz + t.s.dz[s];
+  }
+  return t;
+}
+
 // kReadOnly selects the non-coherent read-only path (__ldg).  It is only
-// valid for data no thread writes during the kernel: the SpMV's x.  The
-// CG kernel rewrites p every iteration, so it reads with plain loads,
-// which the grid-wide barrier orders.
+// valid for data no thread writes during the kernel (the SpMV's x, the
+// two-pass engine's p and planes).  The whole-solve kernel rewrites p
+// every iteration, so it reads with plain loads, which the grid-wide
+// barrier orders.
 template <bool kReadOnly>
 __device__ __forceinline__ float load(const float* p) {
   if constexpr (kReadOnly) {
@@ -48,6 +80,19 @@ __device__ __forceinline__ float load(const float* p) {
   } else {
     return *p;
   }
+}
+
+// One constant tap at node (i, j, k): c·x[neighbour], 0 outside the grid.
+template <bool kReadOnly>
+__device__ __forceinline__ float const_tap(const float* x, int i, int j,
+                                           int k, int nx, int ny, int nz,
+                                           const StencilTaps& t, int s) {
+  const int ii = i + t.dx[s];
+  const int jj = j + t.dy[s];
+  const int kk = k + t.dz[s];
+  if (ii >= 0 && ii < nx && jj >= 0 && jj < ny && kk >= 0 && kk < nz)
+    return __fmul_rn(t.c[s], load<kReadOnly>(x + (ii * ny + jj) * nz + kk));
+  return 0.0f;
 }
 
 // kTaps bounds the unrolled tap loop (7 for the 7-point operator, kMaxTaps
@@ -76,6 +121,88 @@ __device__ __forceinline__ float stencil_row(const float* x, int row, int nx,
     }
   }
   return acc;
+}
+
+// Row of a mixed operator over n = nx·ny·nz rows.  Plane p is
+// planes[p·n .. p·n + n).  The range guards are written so that nothing
+// overflows int32 for any n < 2³¹.
+template <bool kReadOnly, int kTaps, bool kSym>
+__device__ __forceinline__ float plane_row(const float* x,
+                                           const float* planes, int row,
+                                           int n, int nx, int ny, int nz,
+                                           const PlaneTaps& t) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kTaps; ++s) {
+    if (s < t.s.n) {
+      const int pl = t.plane[s];
+      if (pl < 0) {
+        if (t.s.dx[s] == 0 && t.s.dy[s] == 0 && t.s.dz[s] == 0) {
+          // The centre tap (the unit diagonal of a scaled DIA operator).
+          acc = __fadd_rn(acc, __fmul_rn(t.s.c[s], load<kReadOnly>(x + row)));
+        } else {
+          const int line = row / nz;
+          const int i = line / ny;
+          acc = __fadd_rn(acc, const_tap<kReadOnly>(x, i, line - i * ny,
+                                                    row - line * nz, nx, ny,
+                                                    nz, t.s, s));
+        }
+        continue;
+      }
+      const float* w = planes + static_cast<size_t>(pl) * n;
+      const int off = t.off[s];
+      float term = 0.0f;
+      if (off >= -row && off < n - row)
+        term = __fmul_rn(load<kReadOnly>(w + row),
+                         load<kReadOnly>(x + row + off));
+      if (kSym && off != 0 && off <= row && off > row - n) {
+        const int m = row - off;
+        term = __fadd_rn(term, __fmul_rn(load<kReadOnly>(w + m),
+                                         load<kReadOnly>(x + m)));
+      }
+      acc = __fadd_rn(acc, term);
+    }
+  }
+  return acc;
+}
+
+// -- Reductions ---------------------------------------------------------------
+// Fixed-order sums, no atomics: the same inputs give bit-identical sums.
+// T is float (the whole-solve kernel) or double (the two-pass engine).
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Block tree sum of one value per thread; every thread gets the result.
+// smem holds kThreads/32 + 1 values.
+template <int kThreads, typename T>
+__device__ __forceinline__ T block_sum(T v, T* smem) {
+  constexpr int kWarps = kThreads / 32;
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T s = 0;
+    for (int w = 0; w < kWarps; ++w) s += smem[w];
+    smem[kWarps] = s;
+  }
+  __syncthreads();
+  const T s = smem[kWarps];
+  __syncthreads();
+  return s;
+}
+
+// Sum of `count` block partials, in the same order in every block.
+// __ldcg reads through L2, where the other blocks' writes land.
+template <int kThreads, typename T>
+__device__ __forceinline__ T grid_sum(const T* part, int count, T* smem) {
+  T v = 0;
+  for (int b = threadIdx.x; b < count; b += kThreads) v += __ldcg(part + b);
+  return block_sum<kThreads>(v, smem);
 }
 
 }  // namespace cgx

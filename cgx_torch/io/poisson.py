@@ -1,0 +1,94 @@
+"""Poisson-type problems in DIA form (PyTorch).
+
+Counterpart of the DIA builders of :mod:`cgx.io.poisson`
+(``poisson2d_dia``, ``poisson3d_dia``, ``poisson3d_dia27``).  The data is
+built with numpy exactly as the JAX package builds it, from the same
+seed, so both packages hold bit-identical coefficients; the result is a
+:class:`~cgx_torch.sparse.types.DIAMatrix` on the CPU (``.to(device)``
+moves it).  The CSR builders wait for the reference-parity slice (ROADMAP
+queue A item 5).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cgx_torch.sparse.types import DIAMatrix
+
+__all__ = ["poisson2d_dia", "poisson3d_dia", "poisson3d_dia27"]
+
+
+def poisson2d_dia(nx: int, ny: int, dtype=np.float64) -> DIAMatrix:
+    """2-D 5-point Laplacian (Dirichlet), node (i, j) → i·ny + j.  No
+    ``grid`` is set, as in the JAX package; pass ``grid=(nx, 1, ny)`` to
+    reach the kernels."""
+    n = nx * ny
+    j = np.tile(np.arange(ny), nx)
+    i = np.repeat(np.arange(nx), ny)
+    data = np.zeros((5, n), dtype=dtype)
+    data[0] = np.where(i > 0, -1.0, 0.0)          # A[r, r-ny]
+    data[1] = np.where(j > 0, -1.0, 0.0)          # A[r, r-1]
+    data[2] = 4.0                                  # A[r, r]
+    data[3] = np.where(j < ny - 1, -1.0, 0.0)     # A[r, r+1]
+    data[4] = np.where(i < nx - 1, -1.0, 0.0)     # A[r, r+ny]
+    return DIAMatrix(data=torch.from_numpy(data),
+                     offsets=(-ny, -1, 0, 1, ny), shape=(n, n))
+
+
+def poisson3d_dia(nx: int, ny: int, nz: int, dtype=np.float64) -> DIAMatrix:
+    """3-D 7-point Laplacian (Dirichlet), node (i, j, k) → (i·ny + j)·nz +
+    k, with ``grid`` set."""
+    n = nx * ny * nz
+    flat = np.arange(n)
+    k = flat % nz
+    j = (flat // nz) % ny
+    i = flat // (ny * nz)
+    data = np.zeros((7, n), dtype=dtype)
+    data[0] = np.where(i > 0, -1.0, 0.0)
+    data[1] = np.where(j > 0, -1.0, 0.0)
+    data[2] = np.where(k > 0, -1.0, 0.0)
+    data[3] = 6.0
+    data[4] = np.where(k < nz - 1, -1.0, 0.0)
+    data[5] = np.where(j < ny - 1, -1.0, 0.0)
+    data[6] = np.where(i < nx - 1, -1.0, 0.0)
+    return DIAMatrix(data=torch.from_numpy(data),
+                     offsets=(-ny * nz, -nz, -1, 0, 1, nz, ny * nz),
+                     shape=(n, n), grid=(nx, ny, nz))
+
+
+def poisson3d_dia27(nx: int, ny: int, nz: int, *, variable: bool = False,
+                    seed: int = 0, dtype=np.float32) -> DIAMatrix:
+    """Wrap-free SPD 27-point banded operator in DIA form.
+
+    ``variable=True`` draws each coupling from U[0.2, 1) (numpy, ``seed``);
+    the diagonal is made strictly dominant, every grid-boundary-crossing
+    slot is zero and the data is entrywise symmetric, so the kernels take
+    it in their symmetric mode (13 planes and a unit diagonal after
+    Jacobi scaling).
+    """
+    n = nx * ny * nz
+    flat = np.arange(n)
+    k = flat % nz
+    j = (flat // nz) % ny
+    i = flat // (ny * nz)
+    rng = np.random.default_rng(seed)
+    # Positive-offset taps in lexicographic order; negatives mirrored.
+    pos = [(dx, dy, dk) for dx in (0, 1) for dy in (-1, 0, 1)
+           for dk in (-1, 0, 1) if (dx, dy, dk) > (0, 0, 0)]
+    offs_pos = [dx * ny * nz + dy * nz + dk for (dx, dy, dk) in pos]
+    offsets = sorted([-o for o in offs_pos] + [0] + offs_pos)
+    data = np.zeros((len(offsets), n), dtype=dtype)
+    row = {o: r for r, o in enumerate(offsets)}
+    diag = np.full(n, 0.05, dtype=np.float64)
+    for (dx, dy, dk), off in zip(pos, offs_pos):
+        ok = ((k + dk >= 0) & (k + dk < nz) & (j + dy >= 0)
+              & (j + dy < ny) & (i + dx < nx))
+        mag = rng.uniform(0.2, 1.0, n) if variable else 1.0
+        v = np.where(ok, -mag, 0.0)
+        data[row[off]] = v
+        data[row[-off]][off:] = v[:-off]          # symmetric mirror
+        diag += np.abs(v)
+        diag[off:] += np.abs(v[:-off])
+    data[row[0]] = diag.astype(dtype)
+    return DIAMatrix(data=torch.from_numpy(data), offsets=tuple(offsets),
+                     shape=(n, n), grid=(nx, ny, nz))

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels; probe the toolchain.
 
 The sources in ``cgx_torch/csrc/*.cu`` have a plain C interface.  They are
-compiled at first use by ``nvcc`` into one shared library under
-``build/cgx_torch/`` beside the package, named by a hash of the sources and
-the flags (an edited source gets a new library), and loaded with
-``ctypes``.  Nothing here runs when the module is imported: on a machine
-without ``nvcc`` importing the package works, and only a CUDA call raises.
+compiled at first use by ``nvcc``, one process per source, all started
+together, and linked into one shared library under ``build/cgx_torch/``
+beside the package, named by a hash of the sources and the flags (an
+edited source gets a new library), and loaded with ``ctypes``.  Nothing
+here runs when the module is imported: on a machine without ``nvcc``
+importing the package works, and only a CUDA call raises.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cgx_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +35,14 @@ _SIGNATURES = {
     "cgx_resident_cg_grid": [_I, _I, _P],
     "cgx_resident_cg": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                         _P, _I, _I, _P, _P, _P, _P],
+    "cgx_resident_dia_cg_grid": [_I, _I, _I, _P],
+    "cgx_resident_dia_cg": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                            _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
+    "cgx_fused_a_grid": [_I, _I, _I, _I, _P],
+    "cgx_fused_b_grid": [_I, _I, _P],
+    "cgx_fused_a": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                    _P, _P, _P, _I, _P],
+    "cgx_fused_b": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P],
 }
 
 
@@ -71,14 +80,31 @@ def build() -> tuple[Path, float]:
         return so, 0.0
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    # One nvcc per source, all running at once, then one link.
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                         for src, o in zip(cu, objs))]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + out)
+    if failed:
+        raise RuntimeError("cgx_torch: nvcc failed:\n" + "\n".join(failed))
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError("cgx_torch: nvcc failed:\n" + " ".join(cmd)
+        raise RuntimeError("cgx_torch: nvcc link failed:\n" + " ".join(cmd)
                            + "\n" + proc.stdout + proc.stderr)
     os.replace(tmp, so)
+    for o in objs:
+        o.unlink()
     return so, time.perf_counter() - t0
 
 

@@ -1,14 +1,18 @@
-"""Stencil taps in engine convention (PyTorch port).
+"""Fused CG for matrix-free constant-coefficient stencils (PyTorch port).
 
-Counterpart of :mod:`cgx.kernels.fused_cg` lines 30-61: ``stencil_taps``
-and ``supports``, which the whole-solve kernel and the routing use.  The
-two-pass engine itself (``fused_stencil_cg``) is not ported yet.
+Counterpart of :mod:`cgx.kernels.fused_cg`: ``stencil_taps`` and
+``supports`` (engine convention, used by the whole-solve kernel and the
+routing), and ``build_fused``/``fused_stencil_cg``, a thin wrapper over the
+two-pass engine (:mod:`cgx_torch.kernels.fused_engine`, kernel K3).  The
+one-pass engine (``one_pass=True``, kernel K6) is not ported yet.
 """
 from __future__ import annotations
 
+from cgx_torch.kernels.fused_engine import FusedCG
+from cgx_torch.solve.cg import CGResult
 from cgx_torch.sparse.stencil import GeneralStencil3D, Stencil2D, Stencil3D
 
-__all__ = ["stencil_taps", "supports"]
+__all__ = ["stencil_taps", "supports", "build_fused", "fused_stencil_cg"]
 
 
 def stencil_taps(s):
@@ -40,3 +44,29 @@ def supports(s) -> bool:
         return False
     nx, ny, nz, _, _ = spec
     return 1 <= nx <= 4096 and ny * nz >= 2
+
+
+def build_fused(s, dtype, *, one_pass: bool = False) -> FusedCG:
+    """The two-pass engine for a stencil operator."""
+    if one_pass:
+        raise NotImplementedError(
+            "build_fused: one_pass=True is the one-pass engine, kernel K6, "
+            "which is not ported yet (ROADMAP queue B, K6)")
+    spec = stencil_taps(s)
+    if spec is None or not supports(s):
+        raise ValueError("fused_stencil_cg: unsupported operator (need a "
+                         "Stencil2D/Stencil3D/GeneralStencil3D with "
+                         "|dx| <= 1 taps and nx <= 4096)")
+    nx, ny, nz, taps, coeffs = spec
+    return FusedCG(nx, ny, nz, taps, dtype=dtype, coeffs=coeffs)
+
+
+def fused_stencil_cg(s, b, x0=None, *, tol: float = 1e-6, atol: float = 0.0,
+                     maxiter: int = 1000, track_history: bool = False,
+                     one_pass: bool = False) -> CGResult:
+    """Plain CG on a constant-coefficient stencil through the two-pass
+    engine; semantics of ``cg_solve(s, b, x0, ..., track_history=...)``
+    (fp32 sums)."""
+    eng = build_fused(s, b.dtype, one_pass=one_pass)
+    return eng.solve(b, x0, tol=tol, atol=atol, maxiter=maxiter,
+                     track_history=track_history)

@@ -1,12 +1,14 @@
 """Sparse matrix–vector / matrix–matrix products (PyTorch).
 
-Counterpart of :mod:`cgx.ops.spmv` for the matrix-free stencils.  A
-``Stencil3D`` SpMV on a CUDA tensor goes through the hand-written CUDA
-kernel (:func:`cgx_torch.kernels.stencil.stencil3d_spmv`), which takes
-float32 only; on a CPU tensor the same wrapper takes its plain PyTorch
-version, in any dtype.  The 2-D and general stencils use their plain
-``matvec`` on every device, as in the JAX package.  Stored formats
-(CSR/COO/ELL/BSR/DIA/WBELL) are not ported yet and raise ``TypeError``.
+Counterpart of :mod:`cgx.ops.spmv` for the matrix-free stencils and the
+CSR and DIA formats.  A ``Stencil3D`` SpMV on a CUDA tensor goes through
+the hand-written CUDA kernel (:func:`cgx_torch.kernels.stencil.
+stencil3d_spmv`), which takes float32 only; on a CPU tensor the same
+wrapper takes its plain PyTorch version, in any dtype.  The 2-D and
+general stencils, CSR (gather + ``index_add``) and DIA (shifted
+multiply-adds) are plain PyTorch on every device, as the JAX package
+leaves them to XLA.  COO, ELL, BSR and WBELL are not ported yet and raise
+``TypeError``.
 """
 from __future__ import annotations
 
@@ -15,8 +17,9 @@ import functools
 import torch
 
 from cgx_torch.sparse.stencil import GeneralStencil3D, Stencil2D, Stencil3D
+from cgx_torch.sparse.types import CSRMatrix, DIAMatrix
 
-__all__ = ["spmv", "spmm"]
+__all__ = ["spmv", "spmm", "shifted"]
 
 
 @functools.singledispatch
@@ -30,6 +33,58 @@ def spmm(a, x: torch.Tensor) -> torch.Tensor:
     """``Y = A @ X`` for a dense block of right-hand sides ``X: (m, k)``."""
     raise TypeError(f"spmm: unsupported operand type {type(a)!r}")
 
+
+# -- CSR ----------------------------------------------------------------------
+
+@spmv.register(CSRMatrix)
+def _csr_spmv(a, x: torch.Tensor) -> torch.Tensor:
+    prods = a.values * x[a.col_indices]
+    y = torch.zeros(a.shape[0], dtype=prods.dtype, device=prods.device)
+    return y.index_add_(0, a.row_indices, prods)
+
+
+@spmm.register(CSRMatrix)
+def _csr_spmm(a, x: torch.Tensor) -> torch.Tensor:
+    prods = a.values[:, None] * x[a.col_indices]
+    y = torch.zeros((a.shape[0], x.shape[1]), dtype=prods.dtype,
+                    device=prods.device)
+    return y.index_add_(0, a.row_indices, prods)
+
+
+# -- DIA ----------------------------------------------------------------------
+
+def shifted(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """``shifted(x, o)[i] = x[i + o]`` with zero fill (along dim 0)."""
+    if offset == 0:
+        return x
+    out = torch.zeros_like(x)
+    n = x.shape[0]
+    if abs(offset) >= n:
+        return out
+    if offset > 0:
+        out[:n - offset] = x[offset:]
+    else:
+        out[-offset:] = x[:n + offset]
+    return out
+
+
+@spmv.register(DIAMatrix)
+def _dia_spmv(a, x: torch.Tensor) -> torch.Tensor:
+    y = a.data[0] * shifted(x, a.offsets[0])
+    for k in range(1, len(a.offsets)):
+        y = y + a.data[k] * shifted(x, a.offsets[k])
+    return y
+
+
+@spmm.register(DIAMatrix)
+def _dia_spmm(a, x: torch.Tensor) -> torch.Tensor:
+    y = a.data[0][:, None] * shifted(x, a.offsets[0])
+    for k in range(1, len(a.offsets)):
+        y = y + a.data[k][:, None] * shifted(x, a.offsets[k])
+    return y
+
+
+# -- Matrix-free stencils -----------------------------------------------------
 
 @spmv.register(Stencil2D)
 @spmv.register(GeneralStencil3D)

@@ -1,16 +1,27 @@
 """Solver auto-selection (PyTorch).
 
 Counterpart of :mod:`cgx.solve.auto`, for a single right-hand side over
-the matrix-free stencils.  The backend names stay those of the JAX
-package, so callers and checkpoint files keep working:
+the matrix-free stencils and the stored formats.  The backend names stay
+those of the JAX package, so callers and checkpoint files keep working.
+``on_tpu`` reads as "``b`` is a CUDA tensor":
 
-* on CUDA, a stencil the whole-solve kernel supports, with no
-  preconditioner and at least ``RESIDENT_MIN_ROWS`` rows, routes to
-  ``"resident_stencil"`` (:mod:`cgx_torch.kernels.fused_resident`);
+* a stencil the whole-solve kernel supports, with no preconditioner, or a
+  wrap-free DIA operator the engines take, with no preconditioner or a
+  :class:`~cgx_torch.solve.precond.JacobiPrecond`, at least
+  ``RESIDENT_MIN_ROWS`` rows, routes to ``"resident_stencil"`` or
+  ``"resident_dia"`` (kernel K2, :mod:`cgx_torch.kernels.fused_resident`);
 * everything else routes to ``"xla"``, which here means the port's own
   :func:`~cgx_torch.solve.cg.cg_solve` loop.  Where the JAX package would
   return ``"padded"`` (a workaround for XLA's tile padding, not ported)
   the port returns ``"xla"``; ``backend="padded"`` is accepted as an alias.
+
+K2 has no VMEM cap on the card, so the ``resident_*`` routes cover every
+size and :func:`select_backend` never returns ``"fused_*"`` (nor the
+semi-resident ``"sr_*"``).  The two-pass engine (kernel K3) is reached
+with ``track_history=True`` — the whole-solve kernel keeps no history, so
+a ``resident_*`` route with at least ``FUSED_MIN_ROWS`` rows goes to
+``"fused_stencil"``/``"fused_dia"`` (fewer rows: the loop), as in the JAX
+package — or by naming the backend.
 
 Backends not ported yet raise ``NotImplementedError``; nothing is
 re-routed quietly.
@@ -21,9 +32,15 @@ from typing import Optional
 
 import torch
 
-from cgx_torch.kernels.fused_resident import (resident_stencil_cg,
+from cgx_torch.kernels import fused_cg
+from cgx_torch.kernels.fused_cg import fused_stencil_cg
+from cgx_torch.kernels.fused_dia_cg import (fused_dia_cg, supports_dia,
+                                            wrap_entries_zero_or_none)
+from cgx_torch.kernels.fused_resident import (resident_dia_cg,
+                                              resident_stencil_cg,
                                               resident_supported)
 from cgx_torch.solve.cg import CGResult, cg_solve
+from cgx_torch.solve.precond import JacobiPrecond
 
 __all__ = ["auto_solve", "select_backend", "RESIDENT_MIN_ROWS",
            "FUSED_MIN_ROWS"]
@@ -34,24 +51,31 @@ RESIDENT_MIN_ROWS = 200_000
 FUSED_MIN_ROWS = 3_000_000
 
 # Backends of the JAX package that the port does not have yet, with the
-# ROADMAP queue-A item that brings each.
+# ROADMAP item that brings each.
 _NOT_PORTED = {
-    "resident_dia": "ROADMAP queue A item 8 (DIA prep) and K2's planes mode",
     "sr_stencil": "ROADMAP kernel K4",
     "sr_dia": "ROADMAP kernel K4",
-    "fused_stencil": "ROADMAP queue A item 8 (kernel K3)",
-    "fused_dia": "ROADMAP queue A item 8 (kernel K3)",
     "wbell": "ROADMAP queue A item 10 (kernels K7/K8)",
 }
 
 
 def select_backend(a, b: torch.Tensor, preconditioner=None) -> str:
     """The backend :func:`auto_solve` would route this problem to:
-    ``"resident_stencil"`` or ``"xla"``.  The device is ``b.device``."""
-    if (b.device.type == "cuda" and preconditioner is None
-            and b.shape[0] >= RESIDENT_MIN_ROWS
-            and resident_supported(a, b.dtype)):
-        return "resident_stencil"
+    ``"resident_stencil"``, ``"resident_dia"`` or ``"xla"``.  The device
+    is ``b.device``; the DIA checks run on the data's device."""
+    n = b.shape[0]
+    on_cuda = b.device.type == "cuda"
+    jac = isinstance(preconditioner, JacobiPrecond)
+    stencil_ok = (on_cuda and preconditioner is None
+                  and fused_cg.supports(a))
+    # The DIA route also needs zero entries at every x-plane-crossing
+    # slot (fused_dia_cg.wrap_entries_zero); the check reads the data.
+    dia_ok = (on_cuda and (preconditioner is None or jac)
+              and n >= RESIDENT_MIN_ROWS and b.dtype == torch.float32
+              and supports_dia(a) and wrap_entries_zero_or_none(a) is True)
+    if (stencil_ok or dia_ok) and n >= RESIDENT_MIN_ROWS \
+            and resident_supported(a, b.dtype):
+        return "resident_stencil" if stencil_ok else "resident_dia"
     return "xla"
 
 
@@ -81,19 +105,39 @@ def auto_solve(
     if backend is None:
         backend = select_backend(a, b, preconditioner)
     n = b.shape[0]
-    if backend == "resident_stencil" and track_history:
-        # The whole-solve kernel keeps no per-iteration history; the JAX
-        # package falls back to the two-pass engine (large n) or the loop.
-        backend = "fused_stencil" if n >= FUSED_MIN_ROWS else "xla"
+    mi = int(maxiter) if maxiter is not None else n
+    if backend.startswith("resident") and track_history:
+        # The whole-solve kernel keeps no per-iteration history; fall back
+        # to the two-pass engine (large n) or the loop, as the JAX package.
+        backend = ("fused" + backend[len("resident"):]
+                   if n >= FUSED_MIN_ROWS else "xla")
     if backend in _NOT_PORTED:
         raise NotImplementedError(
             f"auto_solve: backend {backend!r} is not ported yet "
             f"({_NOT_PORTED[backend]})")
+    jac = isinstance(preconditioner, JacobiPrecond)
+    inv_diag = preconditioner.inv_diag if jac else None
+    if backend in ("resident_stencil", "fused_stencil") \
+            and preconditioner is not None:
+        raise ValueError(f"{backend}: preconditioner must be None")
+    if backend in ("resident_dia", "fused_dia") \
+            and preconditioner is not None and not jac:
+        raise ValueError(f"{backend}: preconditioner must be None or a "
+                         f"JacobiPrecond")
     if backend == "resident_stencil":
-        if preconditioner is not None:
-            raise ValueError("resident_stencil: preconditioner must be None")
-        mi = int(maxiter) if maxiter is not None else n
         return resident_stencil_cg(a, b, x0, tol=tol, atol=atol, maxiter=mi)
+    if backend == "resident_dia":
+        return resident_dia_cg(a, b, x0, tol=tol, atol=atol, maxiter=mi,
+                               jacobi=jac, inv_diag=inv_diag)
+    if backend == "fused_stencil":
+        return fused_stencil_cg(a, b, x0, tol=tol, atol=atol, maxiter=mi,
+                                track_history=track_history)
+    if backend == "fused_dia":
+        # The caller's inv_diag is passed through, so a custom diagonal
+        # keeps its exact trajectory.
+        return fused_dia_cg(a, b, x0, tol=tol, atol=atol, maxiter=mi,
+                            jacobi=jac, inv_diag=inv_diag,
+                            track_history=track_history)
     if backend not in ("xla", "padded"):
         raise ValueError(f"unknown backend {backend!r}")
     return cg_solve(a, b, x0, tol=tol, atol=atol, maxiter=maxiter,

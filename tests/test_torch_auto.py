@@ -5,6 +5,7 @@ import pytest
 pytest.importorskip("jax")
 pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -18,9 +19,12 @@ import cgx  # noqa: E402
 import cgx.sparse.stencil as jst  # noqa: E402
 import cgx_torch  # noqa: E402
 from cgx_torch.interop import (  # noqa: E402
-    operator_from_cgx, result_to_numpy, tensor_from_numpy)
-from cgx_torch.solve.auto import RESIDENT_MIN_ROWS  # noqa: E402
-from torch_parity import n_, seeded, t  # noqa: E402
+    operator_from_cgx, precond_from_cgx, result_to_numpy, tensor_from_numpy)
+from cgx_torch.io.poisson import (  # noqa: E402
+    poisson2d_dia, poisson3d_dia, poisson3d_dia27)
+from cgx_torch.solve.auto import (  # noqa: E402
+    FUSED_MIN_ROWS, RESIDENT_MIN_ROWS)
+from torch_parity import n_, scaled_dia_data, seeded, t  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -82,12 +86,131 @@ def test_routing_sizes_straddle_the_threshold():
     assert 400 ** 2 < RESIDENT_MIN_ROWS <= 500 ** 2
 
 
-@pytest.mark.parametrize("backend", ["sr_stencil", "sr_dia", "fused_stencil",
-                                     "fused_dia", "resident_dia", "wbell"])
+@pytest.mark.parametrize("backend", ["sr_stencil", "sr_dia", "wbell"])
 def test_unported_backends_raise(backend):
     a = cgx_torch.poisson3d_stencil(4, 4, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cgx_torch.auto_solve(a, torch.ones(64), backend=backend)
+
+
+def _scaled_dia(nx, ny, nz, seed, dtype=np.float32):
+    data, offs, shape = scaled_dia_data(nx, ny, nz, seed)
+    return cgx_torch.DIAMatrix(data=t(data.astype(dtype)), offsets=offs,
+                               shape=shape)
+
+
+@pytest.mark.parametrize("backend", ["fused_stencil", "fused_dia",
+                                     "resident_dia"])
+def test_ported_backends_match_cg_solve(backend):
+    """Each route, named on a CPU tensor (its plain version), solves the
+    system of cg_solve: ±2 iterations, x to rtol 5e-3 / atol 5e-4 (fp32
+    sums in another order, cgx's own kernel-test bounds)."""
+    if backend == "fused_stencil":
+        a, m = cgx_torch.poisson3d_stencil(6, 8, 7), None
+    else:
+        a = _scaled_dia(6, 8, 7, seed=35)
+        m = cgx_torch.JacobiPrecond.from_matrix(a)
+    b = t(seeded(a.shape[0], seed=36, dtype=np.float32))
+    hist = backend.startswith("fused")
+    res = cgx_torch.auto_solve(a, b, tol=1e-6, maxiter=800,
+                               preconditioner=m, backend=backend,
+                               track_history=hist)
+    ref = cgx_torch.cg_solve(a, b, tol=1e-6, maxiter=800, preconditioner=m,
+                             track_history=hist)
+    assert bool(res.converged) and bool(ref.converged)
+    assert abs(int(res.iterations) - int(ref.iterations)) <= 2
+    np.testing.assert_allclose(n_(res.x), n_(ref.x), rtol=5e-3, atol=5e-4)
+    if hist:
+        assert res.history.shape == ref.history.shape == (801,)
+
+
+def test_history_at_fused_size_takes_the_two_pass_engine():
+    """A stencil of ≥ FUSED_MIN_ROWS rows with track_history=True leaves
+    the whole-solve route for "fused_stencil", which raised
+    NotImplementedError before the engine was ported; on a CPU tensor it
+    runs the engine's plain version and returns cg_solve's history."""
+    a = cgx_torch.poisson3d_stencil(150, 150, 150)
+    n = a.shape[0]
+    assert n >= FUSED_MIN_ROWS
+    b = torch.ones(n, dtype=torch.float32)
+    res = cgx_torch.auto_solve(a, b, backend="resident_stencil",
+                               track_history=True, maxiter=3)
+    ref = cgx_torch.cg_solve(a, b, maxiter=3, track_history=True)
+    assert int(res.iterations) == 3 and res.history.shape == (4,)
+    # Three fp32 iterations with sums of 3.4 M terms in another order, and
+    # β from the CA identity α²·qq − rz, which cancels: the history to
+    # 1e-4 relative, x to 1e-4 of its largest entry (measured 1.8e-5).
+    np.testing.assert_allclose(n_(res.history), n_(ref.history), rtol=1e-4)
+    np.testing.assert_allclose(n_(res.x), n_(ref.x), rtol=0,
+                               atol=1e-4 * float(ref.x.abs().max()))
+
+
+@pytest.mark.parametrize("op,n_side,device,dtype,precond,expect", [
+    ("dia7", 60, "cuda", torch.float32, "jacobi", "resident_dia"),
+    ("dia7", 60, "cuda", torch.float32, None, "resident_dia"),
+    ("dia7", 58, "cuda", torch.float32, "jacobi", "xla"),   # below the min
+    ("dia7", 60, "cpu", torch.float32, "jacobi", "xla"),
+    ("dia7", 60, "cuda", torch.float64, "jacobi", "xla"),    # K2 is fp32
+    ("dia7", 60, "cuda", torch.float32, "callable", "xla"),
+    ("dia7_dirty", 60, "cuda", torch.float32, "jacobi", "xla"),
+    ("dia27", 60, "cuda", torch.float32, "jacobi", "resident_dia"),
+    ("dia2d_grid", 500, "cuda", torch.float32, "jacobi", "resident_dia"),
+    ("dia2d", 500, "cuda", torch.float32, "jacobi", "xla"),  # no grid
+])
+def test_dia_routing_table(op, n_side, device, dtype, precond, expect):
+    m = n_side
+    if op.startswith("dia7"):
+        a = poisson3d_dia(m, m, m, dtype=np.float32)
+        if op == "dia7_dirty":
+            data = a.data.clone()
+            data[4, m * m - 1] = -1.0      # offset +1 across an x-plane
+            a = dataclasses.replace(a, data=data)
+    elif op == "dia27":
+        a = poisson3d_dia27(m, m, m, variable=True, seed=0)
+    else:
+        a = poisson2d_dia(m, m, dtype=np.float32)
+        if op == "dia2d_grid":
+            a = dataclasses.replace(a, grid=(m, 1, m))
+    n = a.shape[0]
+    b = (_cuda_like(n, dtype) if device == "cuda"
+         else torch.zeros(n, dtype=dtype))
+    pre = {"jacobi": cgx_torch.JacobiPrecond.from_matrix(a),
+           "callable": (lambda r: r), None: None}[precond]
+    assert cgx_torch.select_backend(a, b, pre) == expect
+
+
+def test_slice_end_to_end_matches_cgx():
+    """auto_solve on a DIA with JacobiPrecond, the coefficient data and the
+    preconditioner carried across from cgx: the "xla" route against
+    cgx.auto_solve in fp64 (equal iterations, 1e-10), and the K2 route
+    (its plain version, fp32) against cgx's resident kernel in interpret
+    mode (±2 iterations, rtol 5e-3 / atol 5e-4)."""
+    import importlib
+    from cgx.sparse.types import DIAMatrix as JDIA
+    jres = importlib.import_module("cgx.kernels.fused_resident")
+
+    data, offs, shape = scaled_dia_data(6, 8, 7, seed=37)
+    aj = JDIA(data=jnp.asarray(data), offsets=offs, shape=shape)
+    mj = cgx.JacobiPrecond.from_matrix(aj)
+    a_t, m_t = operator_from_cgx(aj), precond_from_cgx(mj)
+    b = seeded(shape[0], seed=38)
+    res_j = cgx.auto_solve(aj, jnp.asarray(b), tol=1e-8, preconditioner=mj)
+    res_t = cgx_torch.auto_solve(a_t, t(b), tol=1e-8, preconditioner=m_t)
+    assert int(res_t.iterations) == int(res_j.iterations)
+    np.testing.assert_allclose(n_(res_t.x), np.asarray(res_j.x), rtol=1e-10,
+                               atol=1e-10 * float(np.abs(res_j.x).max()))
+    a32, b32 = a_t.astype(torch.float32), t(b.astype(np.float32))
+    ref = jres.resident_dia_cg(aj.astype(jnp.float32),
+                               jnp.asarray(b.astype(np.float32)), tol=1e-6,
+                               maxiter=800, interpret=True)
+    res = cgx_torch.auto_solve(a32, b32, tol=1e-6, maxiter=800,
+                               preconditioner=cgx_torch.JacobiPrecond(
+                                   m_t.inv_diag.float()),
+                               backend="resident_dia")
+    assert bool(res.converged)
+    assert abs(int(res.iterations) - int(ref.iterations)) <= 2
+    np.testing.assert_allclose(n_(res.x), np.asarray(ref.x), rtol=5e-3,
+                               atol=5e-4)
 
 
 def test_unported_options_raise():
@@ -134,9 +257,50 @@ def test_operator_from_cgx_round_trip(kind):
         operator_from_cgx(object())
 
 
+@pytest.mark.parametrize("kind", ["dia_grid", "dia", "csr"])
+def test_stored_operators_and_precond_round_trip(kind):
+    """DIA (with and without grid) and CSR cross from cgx with their data,
+    cross back unchanged, and solve the same system in both packages."""
+    from cgx.io.poisson import poisson2d, poisson3d_dia
+    if kind == "csr":
+        aj = poisson2d(7, 6)
+    else:
+        aj = poisson3d_dia(4, 5, 6)
+        if kind == "dia":
+            aj = dataclasses.replace(aj, grid=None)
+    a_t = operator_from_cgx(aj)
+    assert type(a_t).__name__ == type(aj).__name__
+    assert a_t.shape == aj.shape
+    back = operator_from_cgx(a_t)
+    if kind == "csr":
+        for f in ("values", "col_indices", "indptr", "row_indices"):
+            np.testing.assert_array_equal(n_(getattr(a_t, f)),
+                                          np.asarray(getattr(aj, f)))
+            assert torch.equal(getattr(back, f), getattr(a_t, f))
+    else:
+        assert a_t.offsets == aj.offsets and a_t.grid == aj.grid
+        np.testing.assert_array_equal(n_(a_t.data), np.asarray(aj.data))
+        assert back.grid == a_t.grid and torch.equal(back.data, a_t.data)
+    mj = cgx.JacobiPrecond.from_matrix(aj)
+    m_t = precond_from_cgx(mj)
+    np.testing.assert_array_equal(n_(m_t.inv_diag), np.asarray(mj.inv_diag))
+    b = seeded(aj.shape[0], seed=39)
+    res_j = cgx.cg_solve(aj, jnp.asarray(b), tol=1e-10, preconditioner=mj)
+    res_t = cgx_torch.cg_solve(a_t, t(b), tol=1e-10, preconditioner=m_t)
+    # fp64: equal iterations, x to 1e-10.
+    assert int(res_t.iterations) == int(res_j.iterations)
+    np.testing.assert_allclose(n_(res_t.x), np.asarray(res_j.x), rtol=1e-10,
+                               atol=1e-12)
+    with pytest.raises(TypeError):
+        precond_from_cgx(object())
+
+
 def test_port_imports_no_jax():
     code = ("import cgx_torch, cgx_torch.interop, cgx_torch.kernels._build, "
-            "cgx_torch.kernels.fused_resident, sys; "
+            "cgx_torch.kernels.fused_resident, cgx_torch.kernels.fused_cg, "
+            "cgx_torch.kernels.fused_engine, cgx_torch.kernels.fused_dia_cg, "
+            "cgx_torch.sparse.types, cgx_torch.solve.precond, "
+            "cgx_torch.io.poisson, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'cgx' not in sys.modules, 'cgx imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

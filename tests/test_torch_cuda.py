@@ -20,10 +20,14 @@ import torch  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import cgx_torch  # noqa: E402
+from cgx_torch.io.poisson import poisson2d_dia, poisson3d_dia27  # noqa: E402
+from cgx_torch.kernels import fused_dia_cg as fdia  # noqa: E402
+from cgx_torch.kernels import fused_engine as k3  # noqa: E402
 from cgx_torch.kernels import fused_resident as k2  # noqa: E402
 from cgx_torch.kernels import stencil as k1  # noqa: E402
-from cgx_torch.kernels.fused_cg import stencil_taps  # noqa: E402
-from torch_parity import cuda_device, seeded, t  # noqa: E402,F401
+from cgx_torch.kernels.fused_cg import build_fused, stencil_taps  # noqa: E402
+from torch_parity import (  # noqa: E402,F401
+    cuda_device, scaled_dia_data, seeded, t)
 
 pytestmark = pytest.mark.cuda
 
@@ -96,3 +100,145 @@ def test_auto_solve_on_card_routes_to_k2(cuda_device):
     r = b - cgx_torch.spmv(a, res.x)
     assert k1.stencil3d_spmv_launches == before1 + 1
     assert float(r.norm() / b.norm()) <= 1e-3
+
+
+def _dia(op, dev):
+    """A DIA operator on the card: the scaled 7-point D·A·D, the variable
+    27-point one, or the 2-D 5-point one with grid metadata."""
+    if op == "dia7":
+        data, offs, shape = scaled_dia_data(33, 29, 31, seed=3)
+        return cgx_torch.DIAMatrix(data=t(data.astype(np.float32), dev),
+                                   offsets=offs, shape=shape)
+    if op == "dia27":
+        return poisson3d_dia27(17, 19, 15, variable=True, seed=1).to(dev)
+    a = poisson2d_dia(61, 67, dtype=np.float32)
+    return cgx_torch.DIAMatrix(data=a.data.to(dev), offsets=a.offsets,
+                               shape=a.shape, grid=(61, 1, 67))
+
+
+@pytest.mark.parametrize("op,jacobi", [("dia7", True), ("dia7", False),
+                                       ("dia27", True), ("dia2d", True)])
+def test_k2_planes_kernel_matches_plain(cuda_device, op, jacobi):
+    a = _dia(op, cuda_device)
+    nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
+        a, torch.float32, jacobi=jacobi)
+    spec = (nx, ny, nz, taps, coeffs)
+    b = t(seeded(a.shape[0], seed=28, dtype=np.float32), cuda_device)
+    b_s = b if e is None else e * b
+    kw = dict(planes=planes, weight=w, sym=sym, tol=1e-6, maxiter=4000)
+    before = k2.resident_dia_launches
+    x, _, _, k, rz, tol_sq = k2.resident_cg_call(spec, b_s, **kw)
+    torch.cuda.synchronize()
+    assert k2.resident_dia_launches == before + 1
+    x_ref, _, _, k_ref, _, _ = k2.resident_cg_reference(spec, b_s, **kw)
+    assert float(rz[1]) <= float(tol_sq)
+    # fp32 sums in another order: ±2 iterations, x to 1e-4 relative.
+    assert abs(int(k) - int(k_ref)) <= 2
+    assert float((x - x_ref).norm() / x_ref.norm()) <= 1e-4
+    again = k2.resident_cg_call(spec, b_s, **kw)
+    assert torch.equal(again[0], x) and int(again[3]) == int(k)
+
+
+def test_k2_planes_resume_and_dia_entry(cuda_device):
+    a = _dia("dia7", cuda_device)
+    nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
+        a, torch.float32)
+    spec = (nx, ny, nz, taps, coeffs)
+    b = t(seeded(a.shape[0], seed=29, dtype=np.float32), cuda_device)
+    b_s = e * b
+    kw = dict(planes=planes, weight=w, sym=sym, tol=1e-6)
+    full = k2.resident_cg_call(spec, b_s, maxiter=4000, **kw)
+    x, r, p, k, rz, _ = k2.resident_cg_call(spec, b_s, maxiter=7, **kw)
+    assert int(k) == 7
+    rest = k2.resident_cg_call(spec, b_s, maxiter=4000,
+                               resume=(x, r, p, rz[0], rz[1]), **kw)
+    assert 7 + int(rest[3]) == int(full[3])
+    assert torch.equal(rest[0], full[0])
+    before = k2.resident_dia_launches
+    res = k2.resident_dia_cg(a, b, tol=1e-6, maxiter=4000)
+    assert k2.resident_dia_launches == before + 1
+    assert bool(res.converged)
+    assert torch.equal(res.x, e * full[0])
+
+
+def _engine(op, dev):
+    if op == "p3d":
+        return build_fused(cgx_torch.poisson3d_stencil(33, 29, 31),
+                           torch.float32), None
+    if op == "2d":
+        return build_fused(cgx_torch.poisson2d_stencil(61, 67),
+                           torch.float32), None
+    eng, e, _ = fdia.build_fused_dia(_dia(op, dev), torch.float32)
+    return eng, e
+
+
+@pytest.mark.parametrize("op", ["p3d", "2d", "dia7", "dia27"])
+def test_k3_matches_plain(cuda_device, op):
+    eng, e = _engine(op, cuda_device)
+    b = t(seeded(eng.n, seed=30, dtype=np.float32), cuda_device)
+    b_s = b if e is None else e * b
+    before = (k3.fused_a_launches, k3.fused_b_launches)
+    res = eng.solve(b_s, tol=1e-6, maxiter=4000, track_history=True)
+    torch.cuda.synchronize()
+    its = int(res.iterations)
+    assert k3.fused_a_launches - before[0] >= its + 1
+    assert k3.fused_b_launches - before[1] >= its
+    ref = eng.solve_reference(b_s, tol=1e-6, maxiter=4000,
+                              track_history=True)
+    assert bool(res.converged)
+    assert abs(its - int(ref.iterations)) <= 2
+    assert float((res.x - ref.x).norm() / ref.x.norm()) <= 1e-4
+    assert res.history.shape == (4001,)
+    m = min(its, int(ref.iterations))
+    np.testing.assert_allclose(res.history[:m + 1].cpu().numpy(),
+                               ref.history[:m + 1].cpu().numpy(), rtol=2e-2)
+    again = eng.solve(b_s, tol=1e-6, maxiter=4000, track_history=True)
+    assert torch.equal(again.x, res.x)
+    assert torch.equal(again.history, res.history)
+    x0 = 0.1 * t(seeded(eng.n, seed=31, dtype=np.float32), cuda_device)
+    warm = eng.solve(b_s, x0, tol=1e-6, maxiter=4000)
+    warm_ref = eng.solve_reference(b_s, x0, tol=1e-6, maxiter=4000)
+    assert abs(int(warm.iterations) - int(warm_ref.iterations)) <= 2
+    assert float((warm.x - warm_ref.x).norm() / warm_ref.x.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize("op", ["p3d", "dia7", "dia27"])
+def test_k3_single_steps_match_plain(cuda_device, op):
+    eng, e = _engine(op, cuda_device)
+    p = t(seeded(eng.n, seed=32, dtype=np.float32), cuda_device)
+    q, pq, qq = eng.kernel_a(p)
+    q_ref, pq_ref, qq_ref = eng.kernel_a_reference(p)
+    # Same products and sums per row: equal to 1e-6 of the largest entry;
+    # the block sums to 1e-5 relative.
+    assert float((q - q_ref).abs().max()) <= 1e-6 * float(q_ref.abs().max())
+    assert abs(float(pq) - float(pq_ref)) <= 1e-5 * abs(float(pq_ref))
+    assert abs(float(qq) - float(qq_ref)) <= 1e-5 * abs(float(qq_ref))
+    rz = torch.sum(p * p)
+    x = torch.zeros_like(p)
+    got = eng.kernel_b(rz, pq_ref, qq_ref, x, p, p, q_ref)
+    ref = eng.kernel_b_reference(rz, pq_ref, qq_ref, x, p, p, q_ref)
+    for g, r in zip(got[:3], ref[:3]):
+        assert float((g - r).abs().max()) <= 1e-6 * float(r.abs().max())
+    for g, r in zip(got[3:], ref[3:]):
+        assert abs(float(g) - float(r)) <= 1e-5 * abs(float(r))
+
+
+def test_auto_solve_on_card_routes_dia_and_history(cuda_device):
+    data, offs, shape = scaled_dia_data(60, 60, 60, seed=4)
+    a = cgx_torch.DIAMatrix(data=t(data.astype(np.float32), cuda_device),
+                            offsets=offs, shape=shape)
+    m = cgx_torch.JacobiPrecond.from_matrix(a)
+    b = torch.ones(a.shape[0], dtype=torch.float32, device=cuda_device)
+    assert cgx_torch.select_backend(a, b, m) == "resident_dia"
+    before = k2.resident_dia_launches
+    res = cgx_torch.auto_solve(a, b, tol=1e-6, preconditioner=m)
+    assert k2.resident_dia_launches == before + 1
+    assert bool(res.converged)
+    s = cgx_torch.poisson3d_stencil(150, 150, 150)
+    bs = torch.ones(s.shape[0], dtype=torch.float32, device=cuda_device)
+    before = (k2.resident_cg_launches, k3.fused_a_launches)
+    res = cgx_torch.auto_solve(s, bs, tol=1e-6, track_history=True,
+                               maxiter=50)
+    assert k2.resident_cg_launches == before[0]
+    assert k3.fused_a_launches > before[1]
+    assert int(res.iterations) == 50 and res.history.shape == (51,)

@@ -28,6 +28,23 @@ def n_(v) -> np.ndarray:
     return np.asarray(v)
 
 
+def scaled_dia_data(nx: int, ny: int, nz: int, seed: int = 0):
+    """Variable-coefficient SPD 7-point operator D·A·D (A the 3-D Poisson
+    matrix, D ~ U[0.5, 2) from ``seed``) as fp64 numpy ``(data, offsets,
+    shape)``, built as the JAX package's tests build it."""
+    from cgx_torch.io.poisson import poisson3d_dia
+
+    a = poisson3d_dia(nx, ny, nz)
+    n = a.shape[0]
+    d = np.random.default_rng(seed).uniform(0.5, 2.0, n)
+    data = a.data.numpy().copy()
+    for k, off in enumerate(a.offsets):
+        tgt = np.arange(n) + off
+        ok = (tgt >= 0) & (tgt < n)
+        data[k, ok] *= d[ok] * d[tgt[ok]]
+    return data, a.offsets, a.shape
+
+
 @pytest.fixture
 def cuda_device():
     """The CUDA card, or a skip: the port's kernels run only there."""
