@@ -9,12 +9,17 @@ package imports neither JAX nor ``cgx`` and needs no GPU.
 from cgx_torch.sparse.stencil import (GeneralStencil3D, Stencil2D, Stencil3D,
                                       poisson2d_stencil, poisson3d_27point,
                                       poisson3d_stencil)
-from cgx_torch.sparse.types import (CSRMatrix, DIAMatrix, csr_from_scipy,
-                                    dia_from_csr)
+from cgx_torch.sparse.types import (CSRMatrix, DIAMatrix, ELLMatrix,
+                                    csr_from_scipy, dia_from_csr,
+                                    ell_from_csr)
+from cgx_torch.sparse.wbell import (WBELL_MIN_ROWS, WBELLMatrix, auto_format,
+                                    pick_format, wbell_from_csr)
 from cgx_torch.ops.spmv import spmm, spmv
 from cgx_torch.ops import blas
 from cgx_torch.solve.cg import CGResult, cg_solve
-from cgx_torch.solve.precond import JacobiPrecond
+from cgx_torch.solve.precond import JacobiPrecond, PolynomialPrecond
+from cgx_torch.solve.wbell import (WBellBlockJacobiPrecond, wbell_cg_solve,
+                                   wbell_cg_solve_multi)
 from cgx_torch.solve.auto import auto_solve, select_backend
 
 __version__ = "0.1.0"
@@ -22,6 +27,9 @@ __version__ = "0.1.0"
 __all__ = [
     "Stencil2D", "Stencil3D", "GeneralStencil3D", "poisson2d_stencil",
     "poisson3d_stencil", "poisson3d_27point", "CSRMatrix", "DIAMatrix",
-    "csr_from_scipy", "dia_from_csr", "spmv", "spmm", "blas", "CGResult",
-    "cg_solve", "JacobiPrecond", "auto_solve", "select_backend",
+    "ELLMatrix", "WBELLMatrix", "csr_from_scipy", "dia_from_csr",
+    "ell_from_csr", "wbell_from_csr", "auto_format", "pick_format",
+    "WBELL_MIN_ROWS", "spmv", "spmm", "blas", "CGResult", "cg_solve",
+    "wbell_cg_solve", "wbell_cg_solve_multi", "WBellBlockJacobiPrecond",
+    "JacobiPrecond", "PolynomialPrecond", "auto_solve", "select_backend",
 ]

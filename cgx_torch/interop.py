@@ -3,9 +3,11 @@ cgx_torch.
 
 Everything crosses as numpy arrays or plain fields, so this module imports
 neither JAX nor ``cgx``: a ``cgx`` object is read by its class name and
-fields.  The coefficient data of a ``DIAMatrix`` or ``CSRMatrix`` and the
-``inv_diag`` of a ``JacobiPrecond`` are copied, so both packages solve the
-same system from the same numbers.
+fields.  The data of a ``DIAMatrix``, ``CSRMatrix`` or ``WBELLMatrix`` (every
+field, the static ones included) and of a ``JacobiPrecond``,
+``WBellBlockJacobiPrecond`` or ``PolynomialPrecond`` is copied to
+``device`` (the card unless the caller asks for the CPU), so both packages
+solve the same system from the same numbers.
 """
 from __future__ import annotations
 
@@ -13,19 +15,21 @@ import numpy as np
 import torch
 
 from cgx_torch.solve.cg import CGResult
-from cgx_torch.solve.precond import JacobiPrecond
+from cgx_torch.solve.precond import JacobiPrecond, PolynomialPrecond
+from cgx_torch.solve.wbell import WBellBlockJacobiPrecond
 from cgx_torch.sparse.stencil import GeneralStencil3D, Stencil2D, Stencil3D
-from cgx_torch.sparse.types import CSRMatrix, DIAMatrix
+from cgx_torch.sparse.types import CSRMatrix, DIAMatrix, resolve_device
+from cgx_torch.sparse.wbell import WBELLMatrix
 
 __all__ = ["operator_from_cgx", "precond_from_cgx", "tensor_from_numpy",
            "result_to_numpy"]
 
 
-def operator_from_cgx(a):
+def operator_from_cgx(a, device="cuda"):
     """The port's operator for a ``cgx`` ``Stencil2D``/``Stencil3D``/
-    ``GeneralStencil3D``/``DIAMatrix``/``CSRMatrix`` (duck-typed by class
-    name and fields; a port operator is read the same way).  Stored data
-    lands on the CPU."""
+    ``GeneralStencil3D``/``DIAMatrix``/``CSRMatrix``/``WBELLMatrix``
+    (duck-typed by class name and fields; a port operator is read the same
+    way).  Stored data lands on ``device``; a stencil stores none."""
     kind = type(a).__name__
     dtype_name = str(getattr(a, "dtype_name", "float32"))
     if kind == "Stencil3D":
@@ -45,25 +49,53 @@ def operator_from_cgx(a):
             dtype_name=dtype_name)
     if kind == "DIAMatrix":
         grid = getattr(a, "grid", None)
-        return DIAMatrix(data=tensor_from_numpy(a.data),
+        return DIAMatrix(data=tensor_from_numpy(a.data, device),
                          offsets=tuple(int(o) for o in a.offsets),
                          shape=(int(a.shape[0]), int(a.shape[1])),
                          grid=None if grid is None
                          else tuple(int(g) for g in grid))
     if kind == "CSRMatrix":
         return CSRMatrix.from_arrays(_numpy(a.values), _numpy(a.col_indices),
-                                     _numpy(a.indptr), a.shape)
+                                     _numpy(a.indptr), a.shape,
+                                     device=device)
+    if kind == "WBELLMatrix":
+        def field(name, dtype=torch.int32):
+            v = tensor_from_numpy(getattr(a, name), device)
+            return v if dtype is None else v.to(dtype)
+        return WBELLMatrix(
+            values=field("values", None),
+            diag_internal=field("diag_internal", None),
+            perm=field("perm", torch.int64), iperm=field("iperm", torch.int64),
+            **{f: field(f) for f in ("lc", "outg", "ps", "wb", "zi", "g0",
+                                     "gn", "pgo", "p_og", "p_ga")},
+            shape=(int(a.shape[0]), int(a.shape[1])),
+            **{f: int(getattr(a, f)) for f in ("ng_real", "nt", "ngw",
+                                               "wbcap", "span", "nnz")})
     raise TypeError(f"operator_from_cgx: unsupported operator {kind!r}")
 
 
-def precond_from_cgx(m) -> JacobiPrecond:
+def precond_from_cgx(m, device="cuda", operator=None):
     """The port's preconditioner for a ``cgx`` ``JacobiPrecond`` (its
-    ``inv_diag`` copied to the CPU)."""
+    ``inv_diag``), ``WBellBlockJacobiPrecond`` (its ``binv``) or
+    ``PolynomialPrecond`` (its ``inv_diag``, ``steps`` and ``omega``, over
+    ``operator``, the port's operator for the same matrix: the JAX
+    object's matvec is a closure and cannot cross).  Data lands on
+    ``device``."""
     kind = type(m).__name__
-    if kind != "JacobiPrecond":
-        raise TypeError(f"precond_from_cgx: unsupported preconditioner "
-                        f"{kind!r}")
-    return JacobiPrecond(inv_diag=tensor_from_numpy(m.inv_diag))
+    if kind == "JacobiPrecond":
+        return JacobiPrecond(inv_diag=tensor_from_numpy(m.inv_diag, device))
+    if kind == "WBellBlockJacobiPrecond":
+        return WBellBlockJacobiPrecond(binv=tensor_from_numpy(m.binv,
+                                                              device))
+    if kind == "PolynomialPrecond":
+        if operator is None:
+            raise ValueError("precond_from_cgx: a PolynomialPrecond needs "
+                             "operator=, the port's operator it applies")
+        return PolynomialPrecond(operator,
+                                 tensor_from_numpy(m.inv_diag, device),
+                                 steps=int(m.steps), omega=float(m.omega))
+    raise TypeError(f"precond_from_cgx: unsupported preconditioner "
+                    f"{kind!r}")
 
 
 def _numpy(v) -> np.ndarray:
@@ -74,8 +106,16 @@ def _numpy(v) -> np.ndarray:
 
 def tensor_from_numpy(v, device="cpu") -> torch.Tensor:
     """A copy of an array (numpy, a tensor, or anything ``np.asarray``
-    takes, such as a JAX array) as a tensor on ``device``."""
-    return torch.from_numpy(np.array(_numpy(v), copy=True)).to(device)
+    takes, such as a JAX array) as a tensor on ``device``.  bfloat16
+    (a tensor, or numpy's ``ml_dtypes`` type) stays bfloat16."""
+    dev = resolve_device(device)
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(dev, copy=True)
+    arr = np.asarray(v)
+    if arr.dtype.name == "bfloat16":      # exact through float32
+        return torch.from_numpy(arr.astype(np.float32)).to(dev).to(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True)).to(dev)
 
 
 def result_to_numpy(res: CGResult) -> dict:

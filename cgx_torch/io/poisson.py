@@ -4,24 +4,26 @@ Counterpart of the DIA builders of :mod:`cgx.io.poisson`
 (``poisson2d_dia``, ``poisson3d_dia``, ``poisson3d_dia27``).  The data is
 built with numpy exactly as the JAX package builds it, from the same
 seed, so both packages hold bit-identical coefficients; the result is a
-:class:`~cgx_torch.sparse.types.DIAMatrix` on the CPU (``.to(device)``
-moves it).  The CSR builders wait for the reference-parity slice (ROADMAP
-queue A item 5).
+:class:`~cgx_torch.sparse.types.DIAMatrix` on ``device``, the card unless
+the caller asks for the CPU.  The CSR builders wait for the
+reference-parity slice (ROADMAP queue A item 5).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from cgx_torch.sparse.types import DIAMatrix
+from cgx_torch.sparse.types import DIAMatrix, resolve_device
 
 __all__ = ["poisson2d_dia", "poisson3d_dia", "poisson3d_dia27"]
 
 
-def poisson2d_dia(nx: int, ny: int, dtype=np.float64) -> DIAMatrix:
+def poisson2d_dia(nx: int, ny: int, dtype=np.float64,
+                  device="cuda") -> DIAMatrix:
     """2-D 5-point Laplacian (Dirichlet), node (i, j) → i·ny + j.  No
     ``grid`` is set, as in the JAX package; pass ``grid=(nx, 1, ny)`` to
     reach the kernels."""
+    dev = resolve_device(device)
     n = nx * ny
     j = np.tile(np.arange(ny), nx)
     i = np.repeat(np.arange(nx), ny)
@@ -31,13 +33,15 @@ def poisson2d_dia(nx: int, ny: int, dtype=np.float64) -> DIAMatrix:
     data[2] = 4.0                                  # A[r, r]
     data[3] = np.where(j < ny - 1, -1.0, 0.0)     # A[r, r+1]
     data[4] = np.where(i < nx - 1, -1.0, 0.0)     # A[r, r+ny]
-    return DIAMatrix(data=torch.from_numpy(data),
+    return DIAMatrix(data=torch.from_numpy(data).to(dev),
                      offsets=(-ny, -1, 0, 1, ny), shape=(n, n))
 
 
-def poisson3d_dia(nx: int, ny: int, nz: int, dtype=np.float64) -> DIAMatrix:
+def poisson3d_dia(nx: int, ny: int, nz: int, dtype=np.float64,
+                  device="cuda") -> DIAMatrix:
     """3-D 7-point Laplacian (Dirichlet), node (i, j, k) → (i·ny + j)·nz +
     k, with ``grid`` set."""
+    dev = resolve_device(device)
     n = nx * ny * nz
     flat = np.arange(n)
     k = flat % nz
@@ -51,13 +55,14 @@ def poisson3d_dia(nx: int, ny: int, nz: int, dtype=np.float64) -> DIAMatrix:
     data[4] = np.where(k < nz - 1, -1.0, 0.0)
     data[5] = np.where(j < ny - 1, -1.0, 0.0)
     data[6] = np.where(i < nx - 1, -1.0, 0.0)
-    return DIAMatrix(data=torch.from_numpy(data),
+    return DIAMatrix(data=torch.from_numpy(data).to(dev),
                      offsets=(-ny * nz, -nz, -1, 0, 1, nz, ny * nz),
                      shape=(n, n), grid=(nx, ny, nz))
 
 
 def poisson3d_dia27(nx: int, ny: int, nz: int, *, variable: bool = False,
-                    seed: int = 0, dtype=np.float32) -> DIAMatrix:
+                    seed: int = 0, dtype=np.float32,
+                    device="cuda") -> DIAMatrix:
     """Wrap-free SPD 27-point banded operator in DIA form.
 
     ``variable=True`` draws each coupling from U[0.2, 1) (numpy, ``seed``);
@@ -66,6 +71,7 @@ def poisson3d_dia27(nx: int, ny: int, nz: int, *, variable: bool = False,
     it in their symmetric mode (13 planes and a unit diagonal after
     Jacobi scaling).
     """
+    dev = resolve_device(device)
     n = nx * ny * nz
     flat = np.arange(n)
     k = flat % nz
@@ -90,5 +96,6 @@ def poisson3d_dia27(nx: int, ny: int, nz: int, *, variable: bool = False,
         diag += np.abs(v)
         diag[off:] += np.abs(v[:-off])
     data[row[0]] = diag.astype(dtype)
-    return DIAMatrix(data=torch.from_numpy(data), offsets=tuple(offsets),
+    return DIAMatrix(data=torch.from_numpy(data).to(dev),
+                     offsets=tuple(offsets),
                      shape=(n, n), grid=(nx, ny, nz))

@@ -43,6 +43,10 @@ _SIGNATURES = {
     "cgx_fused_a": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                     _P, _P, _P, _I, _P],
     "cgx_fused_b": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P],
+    "cgx_wbell_resident": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "cgx_wbell_tiered": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "cgx_wbell_windowed": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _I, _P],
 }
 
 

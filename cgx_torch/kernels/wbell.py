@@ -1,0 +1,391 @@
+"""K7, K8, K9: the WBELL SpMV/SpMM — CUDA kernels and their plain versions.
+
+Counterpart of :mod:`cgx.kernels.wbell`.  All three compute ``Y = A·X`` on
+the internal layout ``(nrhs, nt, 8, 128)`` over the slot planes of a
+:class:`~cgx_torch.sparse.wbell.WBELLMatrix`:
+
+* **K7** (``wbell_resident_raw``, replaces ``_kernel_resident``): planes
+  in plane order, ``og``/``ga`` from ``p_og``/``p_ga``.  ``wbell_spmv`` and
+  ``wbell_spmm`` take it by default: the card has no VMEM cap, so
+  ``_dispatch("auto")`` always picks it.
+* **K8** (``wbell_tiered_raw``, replaces ``_kernel_resident_tiers``): the
+  planes of a :class:`WBellTierPlan`, stored class-major {≤4, ≤8, ≤16}
+  with tight window starts packed as ``og << 16 | ga``.  It walks each
+  group's planes in their original plane order (the plan's ``origin``),
+  not class by class as the TPU grid does: the classes shorten a TPU
+  gather chain the card does not have, and in this order K8 and K7 sum
+  in the same order, so a column of the multi-RHS solve equals the
+  single-RHS solve of that column bit for bit.
+* **K9** (``wbell_spmv(..., backend="windowed")``, replaces ``_kernel``):
+  the planes walked by virtual tile.
+
+The CUDA source is ``cgx_torch/csrc/wbell.cu``.  Each wrapper launches its
+kernel for a CUDA tensor and takes the plain PyTorch version only for a
+CPU tensor.  The plain versions walk the same per-group plane lists in the
+same order and round every product and sum on its own, as the kernels do
+(:func:`walk_product`).  ``wbell_resident_launches``,
+``wbell_tiered_launches`` and ``wbell_windowed_launches`` count launches.
+
+Not ported, because they encode TPU VMEM: ``_resident_fits``,
+``_RESIDENT_VMEM_CAP``, ``_SPLANE``.  Nor is the column-stacked K10
+(``wbell_spmm_stacked``; ROADMAP queue B).
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from cgx_torch.sparse.wbell import WBELLMatrix, group_walk
+
+__all__ = ["wbell_spmv", "wbell_spmm", "wbell_matvec", "wbell_resident_raw",
+           "wbell_windowed", "wbell_tiered_raw", "WBellTierPlan",
+           "build_tier_plan", "wbell_spmm_tiered", "walk_product",
+           "wbell_resident_reference", "wbell_tiered_reference",
+           "wbell_windowed_reference",
+           "wbell_resident_launches", "wbell_tiered_launches",
+           "wbell_windowed_launches"]
+
+# Kernel launches so far (a run resets them to show which kernels it used).
+wbell_resident_launches = 0
+wbell_tiered_launches = 0
+wbell_windowed_launches = 0
+
+
+# -- plain versions ---------------------------------------------------------
+
+def walk_product(x: torch.Tensor, values: torch.Tensor, lc: torch.Tensor,
+                 plane: torch.Tensor, og: torch.Tensor, ga: torch.Tensor,
+                 nt: int) -> torch.Tensor:
+    """Plain ``Y[c, og_s] += Σ_j values[plane_s, :, j, :] ·
+    X[c, ga_s + lc // 128, j, lc % 128]`` over the walk ``s`` (sorted by
+    ``og``), each group's planes in walk order, ``j`` in order, every
+    product and sum rounded on its own.  Runs in rounds: round ``r`` takes
+    the r-th plane of every group at once."""
+    nrhs = x.shape[0]
+    y = torch.zeros((nrhs, nt, 8, 128), dtype=x.dtype, device=x.device)
+    if plane.numel() == 0:
+        return y
+    og, plane, ga = og.long(), plane.long(), ga.long()
+    rank = (torch.arange(og.numel(), device=og.device)
+            - torch.searchsorted(og, og))
+    by_rank = torch.argsort(rank, stable=True)
+    for sel in torch.split(by_rank, torch.bincount(rank).tolist()):
+        p, g = plane[sel], og[sel]
+        lcs = lc[p, 0].long()                          # (s, 128)
+        grp = ga[sel, None] + (lcs >> 7)
+        xg = x[:, grp, :, lcs & 127].permute(2, 0, 3, 1)  # (nrhs, s, 8, 128)
+        v = values[p].to(x.dtype)                      # (s, 8, 8, 128)
+        acc = y[:, g]
+        for j in range(8):
+            acc = acc + v[:, :, j, :] * xg[:, :, j, None, :]
+        y[:, g] = acc
+    return y
+
+
+def _resident_plain(p_og, p_ga, lc, values, x, walk):
+    order = walk[0].long()
+    return walk_product(x, values, lc, order, p_og.long()[order],
+                        p_ga.long()[order], x.shape[1])
+
+
+def _tiered_plain(packed, lc, values, x, walk):
+    order = walk[0].long()
+    pg = packed.long()[order]
+    return walk_product(x, values, lc, order, (pg >> 16) & 0xFFFF,
+                        pg & 0xFFFF, x.shape[1])
+
+
+def wbell_resident_reference(a: WBELLMatrix, x: torch.Tensor):
+    """K7's plain version on any device: ``x`` ``(nrhs, nt, 8, 128)``."""
+    return _resident_plain(a.p_og, a.p_ga, a.lc, a.values,
+                           x.to(a.vector_dtype), a.resident_walk)
+
+
+def wbell_tiered_reference(plan: "WBellTierPlan", x: torch.Tensor):
+    """K8's plain version on any device."""
+    return _tiered_plain(plan.packed, plan.lc, plan.values,
+                         x.to(plan.vector_dtype), plan.walk)
+
+
+def wbell_windowed_reference(a: WBELLMatrix, x: torch.Tensor):
+    """K9's plain version on any device."""
+    x = x.to(a.vector_dtype)
+    torder, _ = a.windowed_walk
+    t = torder.long()
+    cnt = a.wb.long()[t]
+    first = torch.cumsum(cnt, 0) - cnt
+    step = torch.arange(int(cnt.sum()), device=cnt.device)
+    plane = (torch.repeat_interleave(a.ps.long()[t], cnt) + step
+             - torch.repeat_interleave(first, cnt))
+    og = torch.repeat_interleave(a.outg.long()[t], cnt)
+    ga = torch.repeat_interleave(a.g0.long()[t], cnt) + a.pgo.long()[plane]
+    return walk_product(x, a.values, a.lc, plane, og, ga, x.shape[1])
+
+
+# -- launches ---------------------------------------------------------------
+
+def _check_x(x: torch.Tensor, nt: int, what: str) -> None:
+    if x.dim() != 4 or tuple(x.shape[1:]) != (nt, 8, 128):
+        raise ValueError(f"{what}: expected batched internal layout "
+                         f"(nrhs, {nt}, 8, 128), got {tuple(x.shape)}")
+
+
+def _launch(fn: str, what: str, values, lc, x, *ints32):
+    """Check the operands, launch C entry ``fn`` and return ``y``."""
+    from cgx_torch.kernels import _build
+
+    if values.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: the CUDA kernel takes float32 or bfloat16 "
+                        f"planes, got {values.dtype}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what}: the CUDA kernel takes float32 vectors, got "
+                        f"{x.dtype}")
+    for v in (values, x, lc) + ints32:
+        if v.device != x.device or not v.is_contiguous():
+            raise ValueError(f"{what}: the CUDA kernel needs contiguous "
+                             f"operands on {x.device}")
+    for v in (lc,) + ints32:
+        if v.dtype != torch.int32:
+            raise ValueError(f"{what}: index arrays must be int32")
+    bf16 = int(values.dtype == torch.bfloat16)
+    y = torch.empty_like(x)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib, fn)(values.data_ptr(), bf16, lc.data_ptr(),
+                              *(v.data_ptr() for v in ints32), x.data_ptr(),
+                              y.data_ptr(), x.shape[1], x.shape[0], stream)
+    _build.check(rc, f"{what} launch")
+    return y
+
+
+def _on_device(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return True
+
+
+def wbell_resident_raw(p_og: torch.Tensor, p_ga: torch.Tensor,
+                       lc: torch.Tensor, values: torch.Tensor,
+                       x: torch.Tensor, *, walk=None) -> torch.Tensor:
+    """K7 on raw plane arrays: ``x`` ``(nrhs, nt, 8, 128)`` → the same
+    shape.  ``walk`` is the per-group ``(order, ptr)``
+    (:attr:`WBELLMatrix.resident_walk`); built here when None."""
+    global wbell_resident_launches
+    nt = x.shape[1]
+    if walk is None:
+        keep = values.reshape(values.shape[0], -1).ne(0).any(1)
+        walk = group_walk(p_og, keep, nt)
+    if not _on_device(x, "wbell_resident_raw"):
+        return _resident_plain(p_og, p_ga, lc, values, x, walk)
+    y = _launch("cgx_wbell_resident", "wbell_resident_raw", values, lc, x,
+                walk[0], walk[1], p_ga)
+    wbell_resident_launches += 1
+    return y
+
+
+def wbell_windowed(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    """K9: the same product walked by virtual tile."""
+    global wbell_windowed_launches
+    _check_x(x, a.nt, "wbell kernel")
+    x = x.to(a.vector_dtype).contiguous()
+    if not _on_device(x, "wbell_windowed"):
+        return wbell_windowed_reference(a, x)
+    torder, tptr = a.windowed_walk
+    y = _launch("cgx_wbell_windowed", "wbell_windowed", a.values, a.lc, x,
+                torder, tptr, a.ps, a.wb, a.g0, a.pgo)
+    wbell_windowed_launches += 1
+    return y
+
+
+def _wbell_call_resident(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    _check_x(x, a.nt, "wbell kernel")
+    return wbell_resident_raw(a.p_og, a.p_ga, a.lc, a.values,
+                              x.to(a.vector_dtype).contiguous(),
+                              walk=a.resident_walk)
+
+
+def _dispatch(a: WBELLMatrix, x: torch.Tensor, backend: str):
+    # "auto" is always the resident kernel: the card has no VMEM cap.
+    if backend in ("auto", "resident"):
+        return _wbell_call_resident(a, x)
+    if backend == "windowed":
+        return wbell_windowed(a, x)
+    raise ValueError(f"unknown wbell backend {backend!r}")
+
+
+def wbell_spmv(a: WBELLMatrix, x: torch.Tensor, *,
+               backend: str = "auto") -> torch.Tensor:
+    """``y = A @ x`` on internal-layout ``x``: ``(nt, 8, 128)`` → same.
+    ``backend``: ``"auto"`` or ``"resident"`` (K7), ``"windowed"`` (K9)."""
+    return _dispatch(a, x[None], backend)[0]
+
+
+def wbell_spmm(a: WBELLMatrix, x: torch.Tensor, *,
+               backend: str = "auto") -> torch.Tensor:
+    """``Y = A @ X`` on a batch of internal-layout columns ``(nrhs, nt, 8,
+    128)``; the slot-plane stream is shared by the columns."""
+    return _dispatch(a, x, backend)
+
+
+def wbell_matvec(a: WBELLMatrix, v: torch.Tensor) -> torch.Tensor:
+    """``y = A v`` on a standard-order ``(n,)`` vector (a layout round trip
+    per call; the solvers stay in the internal layout)."""
+    return a.from_internal(wbell_spmv(a, a.to_internal(v)))
+
+
+# -- the width-tiered plan (K8) ----------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class WBellTierPlan:
+    """The planes of a :class:`WBELLMatrix` sorted into classes of actual
+    window width {≤4, ≤8, ≤16} with tight per-plane window starts (built by
+    :func:`build_tier_plan`).  On the TPU the classes shorten the per-plane
+    gather chain; on the card K8 walks them as K7 walks the planes."""
+
+    values: torch.Tensor   # (Ptot, 8, 8, 128) class-major
+    lc: torch.Tensor       # (Ptot, 1, 128) int32, tight window offsets
+    packed: torch.Tensor   # (Ptot,) int32, og << 16 | tight ga
+    origin: torch.Tensor   # (Ptot,) int32, the matrix plane (-1: padding)
+    steps: Tuple[int, ...]
+    splane: int
+    nt: int
+
+    @property
+    def vector_dtype(self) -> torch.dtype:
+        return (torch.float32 if self.values.dtype == torch.bfloat16
+                else self.values.dtype)
+
+    @functools.cached_property
+    def walk(self):
+        """K8's ``(order, ptr)``: each output group's non-zero planes in
+        their original plane order."""
+        keep = self.values.reshape(self.values.shape[0], -1).ne(0).any(1)
+        return group_walk((self.packed.long() >> 16) & 0xFFFF, keep, self.nt,
+                          within=self.origin)
+
+
+_TIER_SPANS = (4, 8, 16)
+
+
+def _tier_classes(nz: np.ndarray, lc: np.ndarray, p_og: np.ndarray,
+                  p_ga: np.ndarray, nt: int):
+    """Classify planes by actual window width, with tight window starts
+    clamped so that ``ga + w <= nt`` (host numpy, as the JAX package).
+    ``nz`` ``(P, 128)`` marks the lanes that hold a non-zero block.
+    Returns, per class of :data:`_TIER_SPANS`, ``(idx, lc_rebased, og,
+    ga)`` with ``idx`` the class's planes."""
+    gloc = (lc[:, 0, :] // 128).astype(np.int64)
+    big = np.int64(1) << 40          # int64 before np.where (NEP 50)
+    gmin = np.where(nz, gloc, big).min(axis=1)
+    gmin = np.where(gmin == big, 0, gmin)
+    width = np.maximum(np.where(nz, gloc, -1).max(axis=1) - gmin + 1, 1)
+    cls = np.select([width <= w for w in _TIER_SPANS],
+                    _TIER_SPANS, _TIER_SPANS[-1])
+    out = []
+    for w in _TIER_SPANS:
+        idx = np.flatnonzero(cls == w)
+        l = lc[idx].copy()
+        og = p_og[idx].astype(np.int64)
+        ga = np.minimum(p_ga[idx].astype(np.int64) + gmin[idx], nt - w)
+        shift = (p_ga[idx].astype(np.int64) + gmin[idx]) - ga   # >= 0
+        l[:, 0, :] = np.where(
+            nz[idx], l[:, 0, :] - 128 * (gmin[idx] - shift)[:, None], 0)
+        if len(idx) and not (0 <= (l[:, 0, :] // 128).min()
+                             and (l[:, 0, :] // 128).max() < w
+                             and (ga >= 0).all() and (ga + w <= nt).all()):
+            raise AssertionError(f"tier class {w}: window out of range")
+        out.append((idx, l, og, ga))
+    return out
+
+
+def _pad_tier_class(idx, l, og, ga, n_target: int):
+    """Pad one class to ``n_target`` planes (index -1: a zero plane) and
+    pack ``og << 16 | ga``."""
+    pad = n_target - len(idx)
+    if pad < 0:
+        raise ValueError("tier class larger than its target")
+    if pad:
+        idx = np.concatenate([idx, np.full(pad, -1, np.int64)])
+        l = np.concatenate([l, np.zeros((pad, 1, 128), np.int32)])
+        og = np.concatenate([og, np.zeros(pad, np.int64)])
+        ga = np.concatenate([ga, np.zeros(pad, np.int64)])
+    return idx, l, (og.astype(np.int32) << 16) | ga.astype(np.int32)
+
+
+def build_tier_plan(a: WBELLMatrix,
+                    splane: Optional[int] = None) -> WBellTierPlan:
+    """Classify the planes by actual window width, re-base each plane's
+    window to its own least group, sort class-major and pad each class to
+    a multiple of ``splane`` (8, as the JAX package pads off the TPU, so
+    the plans compare equal).  Needs ``a.span <= 16`` and ``a.nt < 65536``
+    (``og`` and ``ga`` are packed 16 bits each).  The plan lands on
+    ``a``'s device."""
+    if a.span > _TIER_SPANS[-1]:
+        raise ValueError(f"tier plan supports span <= {_TIER_SPANS[-1]}")
+    if a.nt >= 1 << 16:
+        raise ValueError(f"tier plan packs og/ga in 16 bits: nt={a.nt} "
+                         "must be < 65536")
+    splane = 8 if splane is None else int(splane)
+    nz = (a.values.float().abs().sum(dim=(1, 2)) > 0).cpu().numpy()
+    host = [v.cpu().numpy() for v in (a.lc, a.p_og, a.p_ga)]
+    idx_all, lc_all, pg_all, steps = [], [], [], []
+    for idx, l, og, ga in _tier_classes(nz, *host, a.nt):
+        n_pad = -(-len(idx) // splane) * splane
+        idx, l, pg = _pad_tier_class(idx, l, og, ga, n_pad)
+        idx_all.append(idx)
+        lc_all.append(l)
+        pg_all.append(pg)
+        steps.append(n_pad // splane)
+    idx = torch.from_numpy(np.concatenate(idx_all)).to(a.device)
+    values = torch.zeros((idx.shape[0], 8, 8, 128), dtype=a.values.dtype,
+                         device=a.device)
+    real = idx >= 0
+    values[real] = a.values[idx[real]]
+    return WBellTierPlan(
+        values=values,
+        lc=torch.from_numpy(np.concatenate(lc_all)).to(a.device),
+        packed=torch.from_numpy(np.concatenate(pg_all)).to(a.device),
+        origin=idx.to(torch.int32), steps=tuple(steps), splane=splane,
+        nt=a.nt)
+
+
+def wbell_tiered_raw(packed: torch.Tensor, lc: torch.Tensor,
+                     values: torch.Tensor, x: torch.Tensor, *, steps,
+                     splane: int, walk=None) -> torch.Tensor:
+    """K8 on raw class-major plane arrays: ``x`` ``(nrhs, nt, 8, 128)`` →
+    the same shape.  ``walk`` is :attr:`WBellTierPlan.walk`; when None it
+    is built here in the stored (class-major) order."""
+    global wbell_tiered_launches
+    if values.shape[0] != sum(steps) * splane:
+        raise ValueError(f"tier plan: {values.shape[0]} planes for steps "
+                         f"{tuple(steps)} of {splane}")
+    if walk is None:
+        keep = values.reshape(values.shape[0], -1).ne(0).any(1)
+        walk = group_walk((packed.long() >> 16) & 0xFFFF, keep, x.shape[1])
+    if not _on_device(x, "wbell_tiered_raw"):
+        return _tiered_plain(packed, lc, values, x, walk)
+    y = _launch("cgx_wbell_tiered", "wbell_tiered_raw", values, lc, x,
+                walk[0], walk[1], packed)
+    wbell_tiered_launches += 1
+    return y
+
+
+def wbell_spmm_tiered(plan: WBellTierPlan, x: torch.Tensor) -> torch.Tensor:
+    """``Y = A @ X`` through K8; ``x`` batched internal ``(nrhs, nt, 8,
+    128)``.  Equal to :func:`wbell_spmm` up to fp32 summation order."""
+    if x.dim() != 4 or x.shape[1] != plan.nt \
+            or tuple(x.shape[2:]) != (8, 128):
+        raise ValueError(f"tier kernel: expected (nrhs, {plan.nt}, 8, 128), "
+                         f"got {tuple(x.shape)}")
+    return wbell_tiered_raw(plan.packed, plan.lc, plan.values,
+                            x.to(plan.vector_dtype).contiguous(),
+                            steps=plan.steps, splane=plan.splane,
+                            walk=plan.walk)

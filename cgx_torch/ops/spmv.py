@@ -1,14 +1,16 @@
 """Sparse matrix–vector / matrix–matrix products (PyTorch).
 
 Counterpart of :mod:`cgx.ops.spmv` for the matrix-free stencils and the
-CSR and DIA formats.  A ``Stencil3D`` SpMV on a CUDA tensor goes through
-the hand-written CUDA kernel (:func:`cgx_torch.kernels.stencil.
-stencil3d_spmv`), which takes float32 only; on a CPU tensor the same
-wrapper takes its plain PyTorch version, in any dtype.  The 2-D and
-general stencils, CSR (gather + ``index_add``) and DIA (shifted
-multiply-adds) are plain PyTorch on every device, as the JAX package
-leaves them to XLA.  COO, ELL, BSR and WBELL are not ported yet and raise
-``TypeError``.
+CSR, ELL, DIA and WBELL formats.  A ``Stencil3D`` SpMV on a CUDA tensor
+goes through the hand-written CUDA kernel (:func:`cgx_torch.kernels.
+stencil.stencil3d_spmv`), which takes float32 only; on a CPU tensor the
+same wrapper takes its plain PyTorch version, in any dtype.  A
+``WBELLMatrix`` product takes internal-layout vectors and goes through
+K7 (:func:`cgx_torch.kernels.wbell.wbell_spmv`/``wbell_spmm``; ``X`` is
+``(nrhs, nt, 8, 128)``).  The 2-D and general stencils, CSR (gather +
+``index_add``), ELL (gather + row sum) and DIA (shifted multiply-adds) are
+plain PyTorch on every device, as the JAX package leaves them to XLA.  COO
+and BSR are not ported yet and raise ``TypeError``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ import functools
 import torch
 
 from cgx_torch.sparse.stencil import GeneralStencil3D, Stencil2D, Stencil3D
-from cgx_torch.sparse.types import CSRMatrix, DIAMatrix
+from cgx_torch.sparse.types import CSRMatrix, DIAMatrix, ELLMatrix
+from cgx_torch.sparse.wbell import WBELLMatrix
+from cgx_torch.kernels.wbell import wbell_spmm, wbell_spmv
 
 __all__ = ["spmv", "spmm", "shifted"]
 
@@ -51,6 +55,18 @@ def _csr_spmm(a, x: torch.Tensor) -> torch.Tensor:
     return y.index_add_(0, a.row_indices, prods)
 
 
+# -- ELL ----------------------------------------------------------------------
+
+@spmv.register(ELLMatrix)
+def _ell_spmv(a, x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a.values * x[a.col_indices], dim=1)
+
+
+@spmm.register(ELLMatrix)
+def _ell_spmm(a, x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a.values[..., None] * x[a.col_indices], dim=1)
+
+
 # -- DIA ----------------------------------------------------------------------
 
 def shifted(x: torch.Tensor, offset: int) -> torch.Tensor:
@@ -82,6 +98,18 @@ def _dia_spmm(a, x: torch.Tensor) -> torch.Tensor:
     for k in range(1, len(a.offsets)):
         y = y + a.data[k][:, None] * shifted(x, a.offsets[k])
     return y
+
+
+# -- WBELL (internal layout, kernel K7) ---------------------------------------
+
+@spmv.register(WBELLMatrix)
+def _wbell_spmv(a, x: torch.Tensor) -> torch.Tensor:
+    return wbell_spmv(a, x)
+
+
+@spmm.register(WBELLMatrix)
+def _wbell_spmm(a, x: torch.Tensor) -> torch.Tensor:
+    return wbell_spmm(a, x)
 
 
 # -- Matrix-free stencils -----------------------------------------------------

@@ -10,6 +10,10 @@ those of the JAX package, so callers and checkpoint files keep working.
   :class:`~cgx_torch.solve.precond.JacobiPrecond`, at least
   ``RESIDENT_MIN_ROWS`` rows, routes to ``"resident_stencil"`` or
   ``"resident_dia"`` (kernel K2, :mod:`cgx_torch.kernels.fused_resident`);
+* a :class:`~cgx_torch.sparse.wbell.WBELLMatrix` routes to ``"wbell"``
+  on any device: the solve runs in its internal layout over K7
+  (:func:`~cgx_torch.solve.wbell.wbell_cg_solve`), and a 2-D ``b`` goes to
+  :func:`~cgx_torch.solve.wbell.wbell_cg_solve_multi` (K8);
 * everything else routes to ``"xla"``, which here means the port's own
   :func:`~cgx_torch.solve.cg.cg_solve` loop.  Where the JAX package would
   return ``"padded"`` (a workaround for XLA's tile padding, not ported)
@@ -40,7 +44,10 @@ from cgx_torch.kernels.fused_resident import (resident_dia_cg,
                                               resident_stencil_cg,
                                               resident_supported)
 from cgx_torch.solve.cg import CGResult, cg_solve
-from cgx_torch.solve.precond import JacobiPrecond
+from cgx_torch.solve.precond import JacobiPrecond, PolynomialPrecond
+from cgx_torch.solve.wbell import (WBellBlockJacobiPrecond, wbell_cg_solve,
+                                   wbell_cg_solve_multi)
+from cgx_torch.sparse.wbell import WBELLMatrix
 
 __all__ = ["auto_solve", "select_backend", "RESIDENT_MIN_ROWS",
            "FUSED_MIN_ROWS"]
@@ -55,14 +62,15 @@ FUSED_MIN_ROWS = 3_000_000
 _NOT_PORTED = {
     "sr_stencil": "ROADMAP kernel K4",
     "sr_dia": "ROADMAP kernel K4",
-    "wbell": "ROADMAP queue A item 10 (kernels K7/K8)",
 }
 
 
 def select_backend(a, b: torch.Tensor, preconditioner=None) -> str:
     """The backend :func:`auto_solve` would route this problem to:
-    ``"resident_stencil"``, ``"resident_dia"`` or ``"xla"``.  The device
-    is ``b.device``; the DIA checks run on the data's device."""
+    ``"wbell"``, ``"resident_stencil"``, ``"resident_dia"`` or ``"xla"``.
+    The device is ``b.device``; the DIA checks run on the data's device."""
+    if isinstance(a, WBELLMatrix):
+        return "wbell"
     n = b.shape[0]
     on_cuda = b.device.type == "cuda"
     jac = isinstance(preconditioner, JacobiPrecond)
@@ -93,17 +101,34 @@ def auto_solve(
     mixed_precision: bool = False,
 ) -> CGResult:
     """:func:`~cgx_torch.solve.cg.cg_solve` semantics with backend
-    auto-selection.  ``backend`` overrides the routing."""
-    if b.dim() == 2:
-        raise NotImplementedError(
-            "auto_solve: multi-RHS (2-D b) is not ported yet "
-            "(ROADMAP queue A item 8, cg_solve_multi)")
+    auto-selection.  ``backend`` overrides the routing.
+
+    Over a ``WBELLMatrix`` the preconditioner is None, a
+    ``JacobiPrecond``, a ``PolynomialPrecond`` (its ``steps`` and
+    ``omega`` over the matrix diagonal), a ``WBellBlockJacobiPrecond``,
+    ``"block_jacobi"`` or ``"poly"``; anything else raises ``ValueError``.
+    """
     if mixed_precision:
         raise NotImplementedError(
             "auto_solve: mixed_precision is not ported yet "
             "(ROADMAP queue A item 11, ir_cg_solve)")
+    if b.dim() == 2:
+        if isinstance(a, WBELLMatrix):
+            return _wbell_solve(wbell_cg_solve_multi, a, b, x0,
+                                preconditioner, dict(tol=tol, atol=atol,
+                                                     maxiter=maxiter))
+        raise NotImplementedError(
+            "auto_solve: multi-RHS (2-D b) is not ported yet "
+            "(ROADMAP queue A item 8, cg_solve_multi)")
     if backend is None:
         backend = select_backend(a, b, preconditioner)
+    if backend == "wbell":
+        if not isinstance(a, WBELLMatrix):
+            raise ValueError("backend 'wbell' needs a WBELLMatrix "
+                             "(wbell_from_csr or auto_format)")
+        return _wbell_solve(wbell_cg_solve, a, b, x0, preconditioner,
+                            dict(tol=tol, atol=atol, maxiter=maxiter,
+                                 track_history=track_history))
     n = b.shape[0]
     mi = int(maxiter) if maxiter is not None else n
     if backend.startswith("resident") and track_history:
@@ -143,3 +168,23 @@ def auto_solve(
     return cg_solve(a, b, x0, tol=tol, atol=atol, maxiter=maxiter,
                     preconditioner=preconditioner,
                     track_history=track_history)
+
+
+def _wbell_solve(solve, a, b, x0, m, kw) -> CGResult:
+    """Route a WBELL solve's preconditioner onto the internal-layout
+    family of ``solve`` (:func:`wbell_cg_solve` or
+    :func:`wbell_cg_solve_multi`), as the JAX package does."""
+    if isinstance(m, PolynomialPrecond):
+        # The same polynomial over the matrix diagonal, each sweep one K7.
+        return solve(a, b, x0, precond="poly", poly_steps=m.steps,
+                     poly_omega=m.omega, **kw)
+    if isinstance(m, WBellBlockJacobiPrecond) or (
+            isinstance(m, str) and m in ("block_jacobi", "poly")):
+        return solve(a, b, x0, precond=m, **kw)
+    if m is not None and not isinstance(m, JacobiPrecond):
+        raise ValueError(
+            "wbell backend supports preconditioner=None, JacobiPrecond, "
+            "PolynomialPrecond, 'poly', 'block_jacobi', or "
+            "WBellBlockJacobiPrecond — all apply in the internal layout")
+    return solve(a, b, x0, jacobi=m is not None,
+                 inv_diag=m.inv_diag if m is not None else None, **kw)

@@ -1,15 +1,19 @@
-"""Stored sparse formats (PyTorch): CSR and DIA.
+"""Stored sparse formats (PyTorch): CSR, ELL and DIA.
 
-Counterpart of :mod:`cgx.sparse.types` for the two formats the Jacobi-PCG
-slice needs: :class:`CSRMatrix` (what a scipy matrix arrives as) and
+Counterpart of :mod:`cgx.sparse.types` for :class:`CSRMatrix` (what a
+scipy matrix arrives as), :class:`ELLMatrix` (near-uniform row degrees,
+:func:`cgx_torch.sparse.wbell.auto_format`'s first choice) and
 :class:`DIAMatrix` (the variable-coefficient banded operators that the
-whole-solve and two-pass kernels run).  COO, ELL and BSR are not ported
-yet (ROADMAP queue A item 2).
+whole-solve and two-pass kernels run).  COO and BSR are not ported yet
+(ROADMAP queue A item 2).
 
 The containers are frozen dataclasses holding tensors.  Index arrays are
 ``int64``, PyTorch's index type, where the JAX package keeps ``int32``.
-The host conversions (:func:`csr_from_scipy`, :func:`dia_from_csr`) run
-once at set-up in numpy, as in the JAX package.
+The host conversions (:func:`csr_from_scipy`, :func:`ell_from_csr`,
+:func:`dia_from_csr`) run once at set-up in numpy, as in the JAX package.
+A builder puts its result on ``device``, the card unless the caller asks
+for the CPU; :func:`resolve_device` raises when the card is missing
+rather than falling back.
 """
 from __future__ import annotations
 
@@ -20,7 +24,19 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["CSRMatrix", "DIAMatrix", "csr_from_scipy", "dia_from_csr"]
+__all__ = ["CSRMatrix", "ELLMatrix", "DIAMatrix", "csr_from_scipy",
+           "ell_from_csr", "dia_from_csr", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a :class:`torch.device`.  A CUDA device on a machine
+    without a card raises: no builder falls back to the CPU quietly."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("cgx_torch: no CUDA card for device "
+                           f"{str(dev)!r}; pass device='cpu' to build on "
+                           "the CPU")
+    return dev
 
 
 @dataclass(frozen=True, eq=False)
@@ -47,16 +63,21 @@ class CSRMatrix:
         return dataclasses.replace(self, values=self.values.to(dtype))
 
     @classmethod
-    def from_arrays(cls, values, col_indices, indptr, shape) -> "CSRMatrix":
-        """Build from host arrays; expands the row ids eagerly."""
+    def from_arrays(cls, values, col_indices, indptr, shape,
+                    device="cuda") -> "CSRMatrix":
+        """Build from host arrays on ``device``; expands the row ids
+        eagerly."""
+        dev = resolve_device(device)
         indptr_np = np.asarray(indptr, dtype=np.int64)
         rows = np.repeat(np.arange(len(indptr_np) - 1, dtype=np.int64),
                          np.diff(indptr_np))
-        return cls(values=torch.from_numpy(np.array(values, copy=True)),
+        return cls(values=torch.from_numpy(np.array(values,
+                                                    copy=True)).to(dev),
                    col_indices=torch.from_numpy(
-                       np.asarray(col_indices, dtype=np.int64).copy()),
-                   indptr=torch.from_numpy(indptr_np.copy()),
-                   row_indices=torch.from_numpy(rows),
+                       np.asarray(col_indices, dtype=np.int64).copy()
+                   ).to(dev),
+                   indptr=torch.from_numpy(indptr_np.copy()).to(dev),
+                   row_indices=torch.from_numpy(rows).to(dev),
                    shape=(int(shape[0]), int(shape[1])))
 
     def diagonal(self) -> torch.Tensor:
@@ -66,6 +87,28 @@ class CSRMatrix:
                         device=self.values.device)
         return d.index_add_(0, self.row_indices[on_diag],
                             self.values[on_diag])
+
+
+@dataclass(frozen=True, eq=False)
+class ELLMatrix:
+    """Row-padded ELLPACK matrix: every row stores ``width`` (value,
+    column) pairs; padding has value 0 and the row's own column, so the
+    gathers stay in range."""
+
+    values: torch.Tensor        # (n_rows, width) float
+    col_indices: torch.Tensor   # (n_rows, width) int64
+    shape: Tuple[int, int]
+
+    @property
+    def width(self) -> int:
+        return self.values.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    def astype(self, dtype) -> "ELLMatrix":
+        return dataclasses.replace(self, values=self.values.to(dtype))
 
 
 @dataclass(frozen=True, eq=False)
@@ -98,15 +141,47 @@ class DIAMatrix:
         return self.data[self.offsets.index(0)]
 
 
-def csr_from_scipy(a) -> CSRMatrix:
-    """Build a :class:`CSRMatrix` from a ``scipy.sparse`` matrix."""
+def csr_from_scipy(a, device="cuda") -> CSRMatrix:
+    """Build a :class:`CSRMatrix` on ``device`` from a ``scipy.sparse``
+    matrix."""
     a = a.tocsr()
     a.sort_indices()
-    return CSRMatrix.from_arrays(a.data, a.indices, a.indptr, a.shape)
+    return CSRMatrix.from_arrays(a.data, a.indices, a.indptr, a.shape,
+                                 device=device)
+
+
+def ell_from_csr(a: CSRMatrix, width: Optional[int] = None,
+                 width_multiple: int = 1, device="cuda") -> ELLMatrix:
+    """Convert CSR → padded ELLPACK on the host, result on ``device``.
+
+    ``width`` defaults to the longest row, rounded up to
+    ``width_multiple``; padding gets value 0 and the row's own column.
+    """
+    dev = resolve_device(device)
+    vals = a.values.detach().cpu().numpy()
+    cols = a.col_indices.cpu().numpy()
+    indptr = a.indptr.cpu().numpy()
+    n = a.shape[0]
+    counts = np.diff(indptr)
+    natural = int(counts.max()) if n else 0
+    w = natural if width is None else int(width)
+    if w < natural:
+        raise ValueError(f"ELL width {w} < max row length {natural}")
+    w = max(1, -(-w // width_multiple) * width_multiple)
+    ell_vals = np.zeros((n, w), dtype=vals.dtype)
+    ell_cols = np.tile(np.arange(n, dtype=np.int64)[:, None], (1, w))
+    rows = np.repeat(np.arange(n), counts)
+    offs = np.arange(len(vals)) - np.repeat(indptr[:-1], counts)
+    ell_vals[rows, offs] = vals
+    ell_cols[rows, offs] = cols
+    return ELLMatrix(values=torch.from_numpy(ell_vals).to(dev),
+                     col_indices=torch.from_numpy(ell_cols).to(dev),
+                     shape=a.shape)
 
 
 def dia_from_csr(a: CSRMatrix) -> DIAMatrix:
-    """Convert CSR → row-aligned DIA on the host.
+    """Convert CSR → row-aligned DIA on the host; the result lands on the
+    input's device.
 
     Meant for matrices with few populated diagonals (stencils); raises if
     more than 64 distinct offsets are present.
@@ -125,5 +200,5 @@ def dia_from_csr(a: CSRMatrix) -> DIAMatrix:
             "stencil-like operators (<= 64)")
     data = np.zeros((len(uniq), n), dtype=vals.dtype)
     data[np.searchsorted(uniq, offs), rows] = vals
-    return DIAMatrix(data=torch.from_numpy(data),
+    return DIAMatrix(data=torch.from_numpy(data).to(a.values.device),
                      offsets=tuple(int(o) for o in uniq), shape=(n, m))

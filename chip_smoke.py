@@ -31,13 +31,33 @@ Phases (any failed check exits nonzero, and no result line is printed):
    and K3 run twice to show they are bit-reproducible; K3's kernels A and
    B each held against their plain versions for one step;
 9. times of K2's planes mode, of K3 and of K3's two kernels, each beside
-   its plain version, and K2's constant mode beside K3 at 224³.
+   its plain version, and K2's constant mode beside K3 at 224³;
+10. W1, the unstructured path's build: the thermal2 stand-in at full size
+    (``standin("thermal2")``, 1,228,045 rows, seed 0) through
+    ``auto_format``, which must choose WBELL, and its tier plan;
+11. W2, the WBELL kernels K7 (k = 1 and 4), K9 (k = 1) and K8 (k = 4) on
+    seeded operands, each held against its plain version, against an
+    fp64 CSR product through the permutation, and against a second run;
+12. W3, the path as a user drives it: ``auto_solve(op, b, tol=1e-6,
+    maxiter=8000, preconditioner=...)`` with Jacobi (b = ones and a seeded
+    b), none, ``PolynomialPrecond`` and ``"block_jacobi"``, each answer
+    checked through K9 (``wbell_spmv(..., backend="windowed")``) and in
+    fp64 through the CSR; the Jacobi b = ones solve held against the same
+    solve over K7's plain version;
+13. W4, multi-RHS: ``auto_solve(op, B)`` with B (n, 4) under Jacobi (K8),
+    each column against a single-RHS solve of it;
+14. W5, times: K7, K8 and K9 beside their plain versions and beside
+    torch's CSR product of the same matrix, and µs per iteration of the
+    Jacobi solve.
 
-The launch counters are set to 0 just before each of the paths 4, 6 and 7
-and read just after it.  The line before the last is a JSON object
-describing each kernel; the last line is ``{"ok": true, "device":
-{...}}``.  Needs one CUDA card; it imports neither JAX nor the JAX
-package.
+The launch counters are set to 0 just before each of the paths 4, 6, 7
+and W3–W4 and read just after it.  The line before the last is a JSON
+object describing each kernel, with its bound (the larger of its bytes,
+each input read once and each output written once, over 3.35 TB/s, and
+its operations over 67 TFLOP/s fp32) and the time of one PyTorch call
+that computes the same function where there is one; the last line is
+``{"ok": true, "device": {...}}``.  Needs one CUDA card; it imports
+neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -60,6 +80,22 @@ N192 = (192, 192, 192)
 TOL = 1e-6
 JAX_ITERS_ONES_128 = 300  # the JAX package's count (BENCH_r05.json)
 MAXIT_HIST = 5000         # maxiter of the history solves
+# The JAX package's iteration counts on the thermal2 stand-in to 1e-6 on
+# the TPU (BASELINE.md:120,163): a trajectory fact, not a speed figure.
+TPU_ITERS_THERMAL2 = {"none": 5543, "jacobi": 3466}
+MAXIT_WBELL = 8000
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
+# the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+
+def bound(nbytes: float, flops: float):
+    """``(ms, "bytes" | "operations")``: the least time the card could
+    take for the work, the larger of the two."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / FP32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def fail(msg: str) -> None:
@@ -82,17 +118,22 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def event_ms(fn, inner: int = 1) -> float:
+    """ms per call of ``fn`` over ``inner`` calls, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(inner):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / inner
+
+
 def time_pair(kernel, plain, reps: int = 7, inner: int = 1):
     """Median ms per call of ``kernel`` and ``plain``, interleaved."""
     def once(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / inner
+        return event_ms(fn, inner)
 
     kernel()
     plain()
@@ -147,7 +188,7 @@ def scaled_dia7(dims, dev):
     from cgx_torch.io.poisson import poisson3d_dia
     from cgx_torch.sparse.types import DIAMatrix
 
-    a = poisson3d_dia(*dims)
+    a = poisson3d_dia(*dims, device="cpu")
     n = a.shape[0]
     d = np.random.default_rng(SEED).uniform(0.5, 2.0, n)
     data = a.data.numpy()
@@ -180,6 +221,281 @@ def hold(label, x, its, x_ref, its_ref, relres, relres_ref, fwd, fwd_ref):
               f"exceeds 1e-4; the kernel is held to 1.5x it")
     check(fwd <= bound, f"{label}: forward error {fwd} (bound {bound})")
     return dx
+
+
+def maxrel(y, ref) -> float:
+    """Max-norm relative difference (fp64)."""
+    y, ref = y.double(), ref.double()
+    return float((y - ref).abs().max() / ref.abs().max())
+
+
+def wbell_phases(dev, card):
+    """W1–W5: the unstructured path at the thermal2 stand-in's full size.
+    Returns the kernels' entries of the report line."""
+    import cgx_torch
+    from cgx_torch.io.suitesparse import standin
+    from cgx_torch.kernels import wbell as kw
+
+    # -- W1. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    a = standin("thermal2", seed=SEED)
+    t_standin = time.perf_counter() - t0
+    n = a.shape[0]
+    t0 = time.perf_counter()
+    op, fmt = cgx_torch.auto_format(a)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    check(fmt == "wbell", f"auto_format chose {fmt!r} for thermal2")
+    t0 = time.perf_counter()
+    plan = kw.build_tier_plan(op)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    kept7 = int(op.resident_walk[0].numel())
+    kept8 = int(plan.walk[0].numel())
+    n_planes = int(op.values.shape[0])
+    print(f"W1 thermal2 stand-in: {n} rows, {a.nnz} nnz, built in "
+          f"{t_standin:.1f} s; auto_format -> {fmt} in {t_build:.1f} s: "
+          f"{n_planes} planes ({kept7} non-zero), nt {op.nt}, ngw "
+          f"{op.ngw}, span {op.span}, wbcap {op.wbcap}, "
+          f"{op.outg.shape[0]} virtual tiles, fill "
+          f"{op.nnz_stored / a.nnz:.2f}x, planes + lc "
+          f"{n_planes * 65 * 128 * 4 / 1e6:.1f} MB; tier plan in "
+          f"{t_plan:.1f} s, steps {plan.steps} x {plan.splane}")
+
+    # -- W2. the kernels against their plain versions ----------------------
+    rng = np.random.default_rng(SEED)
+    xs = torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32)).to(
+        dev)
+    xi = torch.stack([op.to_internal(xs[:, c]) for c in range(4)])
+    a64 = torch.sparse_csr_tensor(a.indptr, a.col_indices, a.values.double(),
+                                  size=a.shape, check_invariants=False)
+    y64 = a64 @ xs.double()
+    cases = {
+        "K7 k=1": (lambda: kw.wbell_spmm(op, xi[:1]),
+                   lambda: kw.wbell_resident_reference(op, xi[:1]), 1),
+        "K7 k=4": (lambda: kw.wbell_spmm(op, xi),
+                   lambda: kw.wbell_resident_reference(op, xi), 4),
+        "K9 k=1": (lambda: kw.wbell_spmm(op, xi[:1], backend="windowed"),
+                   lambda: kw.wbell_windowed_reference(op, xi[:1]), 1),
+        "K8 k=4": (lambda: kw.wbell_spmm_tiered(plan, xi),
+                   lambda: kw.wbell_tiered_reference(plan, xi), 4),
+    }
+    errs = {}
+    for label, (run, plain, k) in cases.items():
+        y = run()
+        torch.cuda.synchronize()
+        y_ref = plain()
+        again = run()
+        torch.cuda.synchronize()
+        e_plain = maxrel(y, y_ref)
+        y_std = torch.stack([op.from_internal(y[c]) for c in range(k)], 1)
+        e64 = maxrel(y_std, y64[:, :k])
+        errs[label] = float((y - y_ref).abs().max())
+        print(f"W2 {label}: max|y - plain| / max|plain| {e_plain:.3e} "
+              f"(bitwise equal: {torch.equal(y, y_ref)}), vs fp64 CSR "
+              f"{e64:.3e}, two runs bitwise equal: {torch.equal(y, again)}")
+        check(e_plain <= 1e-5, f"{label} disagrees with its plain version")
+        check(e64 <= 1e-5, f"{label} disagrees with the fp64 CSR product")
+        check(torch.equal(y, again), f"{label}: two runs differ")
+
+    # -- W3. the path as a user drives it -----------------------------------
+    b_ones = torch.ones(n, dtype=torch.float32, device=dev)
+    b_rand = torch.from_numpy(np.random.default_rng(SEED + 1)
+                              .standard_normal(n).astype(np.float32)).to(dev)
+    jac = cgx_torch.JacobiPrecond.from_matrix(a.astype(torch.float32))
+    poly = cgx_torch.PolynomialPrecond.from_matrix(op)
+    solves = [("jacobi", "ones", jac, b_ones), ("jacobi", "random", jac,
+                                                 b_rand),
+              ("none", "ones", None, b_ones), ("poly", "ones", poly, b_ones),
+              ("block_jacobi", "ones", "block_jacobi", b_ones)]
+
+    def relres64(b, x):
+        r = b.double() - (a64 @ x.double()[:, None])[:, 0]
+        return float(torch.linalg.vector_norm(r)
+                     / torch.linalg.vector_norm(b.double()))
+
+    kw.wbell_resident_launches = kw.wbell_tiered_launches = 0
+    kw.wbell_windowed_launches = 0
+    results = {}
+    for name, bn, m, b in solves:
+        route = cgx_torch.select_backend(op, b, m)
+        check(route == "wbell", f"thermal2 {name} routed to {route}")
+        before = kw.wbell_resident_launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = cgx_torch.auto_solve(op, b, tol=TOL, maxiter=MAXIT_WBELL,
+                                   preconditioner=m)
+        end.record()
+        end.synchronize()
+        its = int(res.iterations)
+        spmvs = kw.wbell_resident_launches - before
+        want = 3 * its + 2 if name == "poly" else its
+        # The answer checked as a user checks it: the residual through K9.
+        r32 = op.to_internal(b) - kw.wbell_spmv(op, op.to_internal(res.x),
+                                                backend="windowed")
+        rel32 = float(torch.linalg.vector_norm(r32)
+                      / torch.linalg.vector_norm(b))
+        rr64 = relres64(b, res.x)
+        results[name, bn] = (res, its, rr64, start.elapsed_time(end))
+        tpu = TPU_ITERS_THERMAL2.get(name)
+        print(f"W3 {name} b={bn}: {its} iterations"
+              + (f" (the JAX package on the TPU: {tpu})" if tpu and bn ==
+                 "ones" else "")
+              + f", converged {bool(res.converged)}, {spmvs} K7 launches, "
+              f"true relres (fp64) {rr64:.3e}, relres via K9 (fp32) "
+              f"{rel32:.3e}, {start.elapsed_time(end):.1f} ms")
+        check(bool(res.converged), f"thermal2 {name} b={bn} did not converge")
+        check(spmvs == want, f"{name}: {spmvs} K7 launches for {want} SpMVs")
+
+    # The Jacobi b = ones solve over K7's plain version, on the card.
+    res, its, rr64, _ = results["jacobi", "ones"]
+    idi = op.to_internal(jac.inv_diag)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = cgx_torch.cg_solve(
+        lambda v: kw.wbell_resident_reference(op, v[None])[0],
+        op.to_internal(b_ones), tol=TOL, maxiter=MAXIT_WBELL,
+        preconditioner=lambda r: r * idi)
+    end.record()
+    end.synchronize()
+    plain_solve_ms = start.elapsed_time(end)
+    its_ref = int(ref.iterations)
+    x_ref = op.from_internal(ref.x)
+    rr64_ref = relres64(b_ones, x_ref)
+    # The fp64 Jacobi-PCG solution of the same system, for the forward
+    # error (torch's fp64 CSR product as the operator).
+    sol64 = cgx_torch.cg_solve(
+        lambda v: (a64 @ v[:, None])[:, 0], b_ones.double(), tol=1e-10,
+        maxiter=40000, track_history=True,
+        preconditioner=cgx_torch.JacobiPrecond(jac.inv_diag.double()))
+    x64 = sol64.x
+    k64 = int(torch.nonzero(sol64.history <= TOL ** 2 * n)[0, 0])
+    fwd, fwd_ref = rel(res.x, x64), rel(x_ref, x64)
+    print(f"W3 jacobi b=ones against the plain version: {its} vs {its_ref} "
+          f"iterations, true relres {rr64:.3e} vs {rr64_ref:.3e}, x bitwise "
+          f"equal: {torch.equal(res.x, x_ref)}; |x-x64|/|x64| {fwd:.3e} "
+          f"(plain {fwd_ref:.3e}); the fp64 Jacobi-PCG recurrence reaches "
+          f"1e-6 at iteration {k64}")
+    check(abs(its - its_ref) <= 0.03 * its_ref, "jacobi: iterations differ "
+          "from the plain version's by more than 3 %")
+    check(rr64 <= 2 * rr64_ref, f"jacobi: true relres {rr64} (plain "
+          f"{rr64_ref})")
+    # At b = ones the solution is large and smooth, and b - A·x of its fp32
+    # copy cancels: the true relres sits near 0.8 for the kernel and the
+    # plain version alike (0.774 on an H100).  The answer is held by
+    # its forward error against the fp64 solve instead, and the 2e-3 bound
+    # on the true relres by the seeded b, whose solution fp32 holds.
+    check(fwd <= 1e-4, f"jacobi b=ones: forward error {fwd}")
+    rr_rand = results["jacobi", "random"][2]
+    check(rr_rand <= 2e-3, f"jacobi b=random: true relres {rr_rand}")
+
+    # -- W4. multi-RHS --------------------------------------------------------
+    B = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
+        (n, 4)).astype(np.float32)).to(dev)
+    before = kw.wbell_tiered_launches
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    multi = cgx_torch.auto_solve(op, B, tol=TOL, maxiter=MAXIT_WBELL,
+                                 preconditioner=jac)
+    end.record()
+    end.synchronize()
+    k8_spmms = kw.wbell_tiered_launches - before
+    its_m = [int(v) for v in multi.iterations]
+    print(f"W4 multi-RHS k=4 (Jacobi, K8): iterations {its_m}, {k8_spmms} "
+          f"K8 launches, {start.elapsed_time(end):.1f} ms")
+    check(k8_spmms == max(its_m), "W4 did not run K8 once per iteration")
+    for j in range(4):
+        one = cgx_torch.auto_solve(op, B[:, j].contiguous(), tol=TOL,
+                                   maxiter=MAXIT_WBELL, preconditioner=jac)
+        its1 = int(one.iterations)
+        print(f"W4 column {j}: {its_m[j]} iterations, single-RHS {its1}, "
+              f"converged {bool(multi.converged[j])}, x equal to the "
+              f"single solve's: {torch.equal(one.x, multi.x[:, j])}, true "
+              f"relres {relres64(B[:, j], multi.x[:, j]):.3e}")
+        check(bool(multi.converged[j]), f"W4 column {j} did not converge")
+        check(abs(its_m[j] - its1) <= 0.03 * its1,
+              f"W4 column {j}: {its_m[j]} vs {its1} iterations")
+    launches = {"k7": kw.wbell_resident_launches,
+                "k8": kw.wbell_tiered_launches,
+                "k9": kw.wbell_windowed_launches}
+    print(f"W3-W4 launches: K7 {launches['k7']}, K8 {launches['k8']}, K9 "
+          f"{launches['k9']}")
+    check(min(launches.values()) > 0, f"a WBELL kernel did not run on the "
+          f"path: {launches}")
+
+    # -- W5. times ------------------------------------------------------------
+    a32 = torch.sparse_csr_tensor(a.indptr, a.col_indices,
+                                  a.values.float(), size=a.shape,
+                                  check_invariants=False)
+    x1, x4 = xs[:, 0].contiguous(), xs
+    ms = {}
+    for label, (run, plain, k) in cases.items():
+        ms[label] = time_pair(run, plain, reps=5, inner=10)
+    csr1 = time_pair(lambda: a32 @ x1, lambda: a32 @ x1, reps=5, inner=10)[0]
+    csr4 = time_pair(lambda: a32 @ x4, lambda: a32 @ x4, reps=5, inner=10)[0]
+    for label, (t_k, t_p) in ms.items():
+        print(f"[{card}] W5 {label}: {t_k * 1e3:.1f} us (plain "
+              f"{t_p * 1e3:.1f} us); torch CSR product "
+              f"{(csr1 if label.endswith('1') else csr4) * 1e3:.1f} us")
+    its_j = results["jacobi", "ones"][1]
+    t_solve = statistics.median(
+        event_ms(lambda: cgx_torch.auto_solve(
+            op, b_ones, tol=TOL, maxiter=MAXIT_WBELL, preconditioner=jac))
+        for _ in range(3))
+    print(f"[{card}] W5 Jacobi b=ones: {t_solve:.1f} ms/solve, "
+          f"{t_solve / its_j * 1e3:.1f} us/iter ({its_j} it); over the plain "
+          f"version {plain_solve_ms:.1f} ms, "
+          f"{plain_solve_ms / its_ref * 1e3:.1f} us/iter ({its_ref} it)")
+
+    # Where the solve's time goes: the kernels' own device time under
+    # torch.profiler (CUDA activity only: recording the host's ops slows the
+    # host-bound loop several-fold), against the unprofiled solve's event
+    # time above, which runs the same bitwise trajectory.
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cgx_torch.auto_solve(op, b_ones, tol=TOL, maxiter=MAXIT_WBELL,
+                             preconditioner=jac)
+        torch.cuda.synchronize()
+    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if e.self_device_time_total > 0}
+    busy = sum(dev_us.values())
+    k7_us = sum(v for k, v in dev_us.items() if "wbell" in k)
+    others = sorted(((round(v / 1e3, 1), k[:40]) for k, v in dev_us.items()
+                     if "wbell" not in k), reverse=True)[:6]
+    if busy == 0:
+        print("W5 profiler: no device time recorded (times above are from "
+              "CUDA events)")
+    else:
+        print(f"[{card}] W5 profiler, one Jacobi b=ones solve: device busy "
+              f"{busy / 1e3:.1f} ms of the {t_solve:.1f} ms solve (idle "
+              f"share {1 - busy / 1e3 / t_solve:.1%}), K7 "
+              f"{k7_us / 1e3:.1f} ms ({k7_us / busy:.1%} of device time, "
+              f"{k7_us / its_j:.1f} us/launch); other kernels (ms) "
+              f"{others}")
+
+    def stream_bytes(kept, k):
+        # Kept planes (values + lc) and their indices, x in and y out.
+        return kept * (65 * 128 * 4 + 8) + 2 * k * op.nt * 1024 * 4
+
+    entries = []
+    for name, label, key, src, kept, k, csr in (
+            ("wbell_resident", "K7 k=1", "k7", 105, kept7, 1, csr1),
+            ("wbell_tiered", "K8 k=4", "k8", 275, kept8, 4, csr4),
+            ("wbell_windowed", "K9 k=1", "k9", 46,
+             int(op.wb.sum()), 1, csr1)):
+        b_ms, b_by = bound(stream_bytes(kept, k), kept * 64 * 128 * 2 * k)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "cgx_torch/csrc/wbell.cu",
+            "replaces": f"cgx/kernels/wbell.py:{src}",
+            "launches": launches[key], "max_abs_err": errs[label],
+            "ms": ms[label][0], "plain_ms": ms[label][1], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": csr})
+    return entries
 
 
 def main() -> None:
@@ -316,11 +632,29 @@ def main() -> None:
     t_k1, t_k1p = time_pair(
         lambda: k1.stencil3d_spmv(x, nx=nx, ny=ny, nz=nz),
         lambda: k1.stencil3d_spmv_reference(x, nx, ny, nz), inner=20)
+    # One PyTorch call that computes K1's function: conv3d with the seven
+    # taps in a 3x3x3 kernel, padding 1, in full fp32 (cuDNN's TF32 off).
+    torch.backends.cudnn.allow_tf32 = False
+    wk = torch.zeros((1, 1, 3, 3, 3), device=dev)
+    wk[0, 0, 1, 1, 1] = 6.0
+    for tap in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                (1, 1, 2)):
+        wk[(0, 0) + tap] = -1.0
+    xv = x.view(1, 1, nx, ny, nz)
+
+    def conv():
+        return torch.nn.functional.conv3d(xv, wk, padding=1)
+
+    check(maxrel(conv().reshape(-1), k1.stencil3d_spmv_reference(
+        x, nx, ny, nz)) <= 1e-6, "conv3d does not compute K1's function")
+    conv()
+    t_conv = statistics.median(event_ms(conv, inner=20) for _ in range(5))
     print(f"[{card}] K1 128^3: {t_k1 * 1e3:.2f} us/SpMV "
           f"({nnz / (t_k1 * 1e-3) / 1e9:.1f} Gnnz/s); plain "
-          f"{t_k1p * 1e3:.2f} us ({nnz / (t_k1p * 1e-3) / 1e9:.1f} Gnnz/s)")
+          f"{t_k1p * 1e3:.2f} us ({nnz / (t_k1p * 1e-3) / 1e9:.1f} Gnnz/s); "
+          f"conv3d {t_conv * 1e3:.2f} us")
 
-    k2_ms = {}
+    k2_ms, k2_its = {}, {}
     for a in (a128, a224):
         b = torch.ones(a.shape[0], dtype=torch.float32, device=dev)
         spec = stencil_taps(a)
@@ -332,6 +666,7 @@ def main() -> None:
             lambda: k2.resident_cg_reference(spec, b, tol=TOL,
                                              maxiter=a.shape[0]), reps=5)
         k2_ms[a.nx] = (t_k2, t_k2p)
+        k2_its[a.nx] = its
         print(f"[{card}] K2 {a.nx}^3 b=ones: {t_k2:.3f} ms/solve, "
               f"{t_k2 / its * 1e3:.2f} us/iter ({its} it); plain "
               f"{t_k2p:.3f} ms/solve, {t_k2p / its_ref * 1e3:.2f} us/iter "
@@ -533,7 +868,7 @@ def main() -> None:
         t_k, t_p = time_pair(lambda: k2.resident_cg_call(spec, b_s, **kw),
                              lambda: k2.resident_cg_reference(spec, b_s,
                                                               **kw), reps=3)
-        k2p_ms[label] = (t_k, t_p)
+        k2p_ms[label] = (t_k, t_p, planes.shape[0], len(taps), its)
         print(f"[{card}] K2 planes {label} b=ones: {t_k:.3f} ms/solve, "
               f"{t_k / its * 1e3:.2f} us/iter ({its} it, {len(taps)} taps, "
               f"{planes.shape[0]} planes, sym {sym}); plain {t_p:.3f} "
@@ -575,34 +910,50 @@ def main() -> None:
           f"{t_a * 1e3:.2f} us (plain {t_ap * 1e3:.2f} us), B "
           f"{t_b * 1e3:.2f} us (plain {t_bp * 1e3:.2f} us)")
 
+    w_entries = wbell_phases(dev, card)
+
+    # Bounds: each input read once, each output written once (4 B words),
+    # against the operations at the fp32 rate.  K1: x in, y out, 2 flops
+    # per stored entry.  K2 per solve: b in, x out (its planes and weight
+    # in), per iteration the operator's 2 flops per entry plus 10 per row
+    # for the dots and updates.  K3 one call: A reads p and its planes and
+    # writes q; B reads x, r, p, q, w and writes x, r, p.
+    n128 = N128[0] * N128[1] * N128[2]
+    k1_b = bound(8 * n128, 2 * nnz - n128)
+    k2_b = bound(8 * n128, k2_its[128] * (2 * nnz + 10 * n128))
+    n_pl, n_taps, its7 = k2p_ms["DIA-7 192^3"][2:]
+    n192 = N192[0] * N192[1] * N192[2]
+    k2p_b = bound((n_pl + 3) * 4 * n192, its7 * n192 * (2 * n_taps + 12))
+    k3a_b = bound((eng7.planes.shape[0] + 2) * 4 * eng7.n,
+                  eng7.n * (2 * len(eng7.taps) + 4))
+    k3b_b = bound(8 * 4 * eng7.n, 12 * eng7.n)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, b,
+              library_ms=None):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": library_ms}
+
     report = {"kernels": [
-        {"name": "stencil3d_spmv", "route": "cuda",
-         "source": "cgx_torch/csrc/stencil.cu",
-         "replaces": "cgx/kernels/stencil.py:29",
-         "launches": launches["k1"], "max_abs_err": k1_err[N128],
-         "ms": t_k1, "plain_ms": t_k1p},
-        {"name": "resident_cg", "route": "cuda",
-         "source": "cgx_torch/csrc/resident_cg.cu",
-         "replaces": "cgx/kernels/fused_resident.py:115",
-         "launches": launches["k2"], "max_abs_err": k2_err,
-         "ms": k2_ms[128][0], "plain_ms": k2_ms[128][1]},
-        {"name": "resident_cg_planes", "route": "cuda",
-         "source": "cgx_torch/csrc/resident_cg.cu",
-         "replaces": "cgx/kernels/fused_resident.py:115",
-         "launches": launches["k2_planes"], "max_abs_err": k2p_err,
-         "ms": k2p_ms["DIA-7 192^3"][0],
-         "plain_ms": k2p_ms["DIA-7 192^3"][1]},
-        {"name": "fused_kernel_a", "route": "cuda",
-         "source": "cgx_torch/csrc/fused_engine.cu",
-         "replaces": "cgx/kernels/fused_engine.py:272",
-         "launches": launches["k3_a"], "max_abs_err": k3_err["a"],
-         "ms": t_a, "plain_ms": t_ap},
-        {"name": "fused_kernel_b", "route": "cuda",
-         "source": "cgx_torch/csrc/fused_engine.cu",
-         "replaces": "cgx/kernels/fused_engine.py:411",
-         "launches": launches["k3_b"], "max_abs_err": k3_err["b"],
-         "ms": t_b, "plain_ms": t_bp},
-    ]}
+        entry("stencil3d_spmv", "cgx_torch/csrc/stencil.cu",
+              "cgx/kernels/stencil.py:29", launches["k1"], k1_err[N128],
+              t_k1, t_k1p, k1_b, t_conv),
+        entry("resident_cg", "cgx_torch/csrc/resident_cg.cu",
+              "cgx/kernels/fused_resident.py:115", launches["k2"], k2_err,
+              k2_ms[128][0], k2_ms[128][1], k2_b),
+        entry("resident_cg_planes", "cgx_torch/csrc/resident_cg.cu",
+              "cgx/kernels/fused_resident.py:115", launches["k2_planes"],
+              k2p_err, k2p_ms["DIA-7 192^3"][0], k2p_ms["DIA-7 192^3"][1],
+              k2p_b),
+        entry("fused_kernel_a", "cgx_torch/csrc/fused_engine.cu",
+              "cgx/kernels/fused_engine.py:272", launches["k3_a"],
+              k3_err["a"], t_a, t_ap, k3a_b),
+        entry("fused_kernel_b", "cgx_torch/csrc/fused_engine.cu",
+              "cgx/kernels/fused_engine.py:411", launches["k3_b"],
+              k3_err["b"], t_b, t_bp, k3b_b),
+    ] + w_entries}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -89,6 +89,11 @@ def test_routing_sizes_straddle_the_threshold():
 @pytest.mark.parametrize("backend", ["sr_stencil", "sr_dia", "wbell"])
 def test_unported_backends_raise(backend):
     a = cgx_torch.poisson3d_stencil(4, 4, 4)
+    if backend == "wbell":
+        # Ported since: the route needs a WBELLMatrix and refuses others.
+        with pytest.raises(ValueError, match="WBELLMatrix"):
+            cgx_torch.auto_solve(a, torch.ones(64), backend=backend)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cgx_torch.auto_solve(a, torch.ones(64), backend=backend)
 
@@ -160,15 +165,15 @@ def test_history_at_fused_size_takes_the_two_pass_engine():
 def test_dia_routing_table(op, n_side, device, dtype, precond, expect):
     m = n_side
     if op.startswith("dia7"):
-        a = poisson3d_dia(m, m, m, dtype=np.float32)
+        a = poisson3d_dia(m, m, m, dtype=np.float32, device="cpu")
         if op == "dia7_dirty":
             data = a.data.clone()
             data[4, m * m - 1] = -1.0      # offset +1 across an x-plane
             a = dataclasses.replace(a, data=data)
     elif op == "dia27":
-        a = poisson3d_dia27(m, m, m, variable=True, seed=0)
+        a = poisson3d_dia27(m, m, m, variable=True, seed=0, device="cpu")
     else:
-        a = poisson2d_dia(m, m, dtype=np.float32)
+        a = poisson2d_dia(m, m, dtype=np.float32, device="cpu")
         if op == "dia2d_grid":
             a = dataclasses.replace(a, grid=(m, 1, m))
     n = a.shape[0]
@@ -192,7 +197,8 @@ def test_slice_end_to_end_matches_cgx():
     data, offs, shape = scaled_dia_data(6, 8, 7, seed=37)
     aj = JDIA(data=jnp.asarray(data), offsets=offs, shape=shape)
     mj = cgx.JacobiPrecond.from_matrix(aj)
-    a_t, m_t = operator_from_cgx(aj), precond_from_cgx(mj)
+    a_t = operator_from_cgx(aj, device="cpu")
+    m_t = precond_from_cgx(mj, device="cpu")
     b = seeded(shape[0], seed=38)
     res_j = cgx.auto_solve(aj, jnp.asarray(b), tol=1e-8, preconditioner=mj)
     res_t = cgx_torch.auto_solve(a_t, t(b), tol=1e-8, preconditioner=m_t)
@@ -268,10 +274,10 @@ def test_stored_operators_and_precond_round_trip(kind):
         aj = poisson3d_dia(4, 5, 6)
         if kind == "dia":
             aj = dataclasses.replace(aj, grid=None)
-    a_t = operator_from_cgx(aj)
+    a_t = operator_from_cgx(aj, device="cpu")
     assert type(a_t).__name__ == type(aj).__name__
     assert a_t.shape == aj.shape
-    back = operator_from_cgx(a_t)
+    back = operator_from_cgx(a_t, device="cpu")
     if kind == "csr":
         for f in ("values", "col_indices", "indptr", "row_indices"):
             np.testing.assert_array_equal(n_(getattr(a_t, f)),
@@ -282,7 +288,7 @@ def test_stored_operators_and_precond_round_trip(kind):
         np.testing.assert_array_equal(n_(a_t.data), np.asarray(aj.data))
         assert back.grid == a_t.grid and torch.equal(back.data, a_t.data)
     mj = cgx.JacobiPrecond.from_matrix(aj)
-    m_t = precond_from_cgx(mj)
+    m_t = precond_from_cgx(mj, device="cpu")
     np.testing.assert_array_equal(n_(m_t.inv_diag), np.asarray(mj.inv_diag))
     b = seeded(aj.shape[0], seed=39)
     res_j = cgx.cg_solve(aj, jnp.asarray(b), tol=1e-10, preconditioner=mj)
@@ -300,10 +306,31 @@ def test_port_imports_no_jax():
             "cgx_torch.kernels.fused_resident, cgx_torch.kernels.fused_cg, "
             "cgx_torch.kernels.fused_engine, cgx_torch.kernels.fused_dia_cg, "
             "cgx_torch.sparse.types, cgx_torch.solve.precond, "
-            "cgx_torch.io.poisson, sys; "
+            "cgx_torch.io.poisson, cgx_torch.sparse.wbell, "
+            "cgx_torch.kernels.wbell, cgx_torch.solve.wbell, "
+            "cgx_torch.io.suitesparse, cgx_torch.io.matrix_market, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'cgx' not in sys.modules, 'cgx imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
+
+
+def test_chip_smoke_imports_no_jax_and_needs_a_card():
+    """chip_smoke.py names neither JAX nor the JAX package in any import,
+    and without a card it exits nonzero with no result line."""
+    import ast
+    path = os.path.join(ROOT, "chip_smoke.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module]
+    assert not [m for m in names if m.split(".")[0] in ("jax", "cgx")]
+    if torch.cuda.is_available():
+        return
+    proc = subprocess.run([sys.executable, path], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout

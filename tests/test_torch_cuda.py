@@ -25,6 +25,7 @@ from cgx_torch.kernels import fused_dia_cg as fdia  # noqa: E402
 from cgx_torch.kernels import fused_engine as k3  # noqa: E402
 from cgx_torch.kernels import fused_resident as k2  # noqa: E402
 from cgx_torch.kernels import stencil as k1  # noqa: E402
+from cgx_torch.kernels import wbell as kw  # noqa: E402
 from cgx_torch.kernels.fused_cg import build_fused, stencil_taps  # noqa: E402
 from torch_parity import (  # noqa: E402,F401
     cuda_device, scaled_dia_data, seeded, t)
@@ -110,8 +111,8 @@ def _dia(op, dev):
         return cgx_torch.DIAMatrix(data=t(data.astype(np.float32), dev),
                                    offsets=offs, shape=shape)
     if op == "dia27":
-        return poisson3d_dia27(17, 19, 15, variable=True, seed=1).to(dev)
-    a = poisson2d_dia(61, 67, dtype=np.float32)
+        return poisson3d_dia27(17, 19, 15, variable=True, seed=1, device=dev)
+    a = poisson2d_dia(61, 67, dtype=np.float32, device=dev)
     return cgx_torch.DIAMatrix(data=a.data.to(dev), offsets=a.offsets,
                                shape=a.shape, grid=(61, 1, 67))
 
@@ -242,3 +243,98 @@ def test_auto_solve_on_card_routes_dia_and_history(cuda_device):
     assert k2.resident_cg_launches == before[0]
     assert k3.fused_a_launches > before[1]
     assert int(res.iterations) == 50 and res.history.shape == (51,)
+
+
+def _wbell(case, dev, value_dtype=None):
+    """A WBELL operator on the card: random SPD matrices of one group, of
+    five groups (plus pad groups), and the thermal2 stand-in at 4,912
+    rows."""
+    import scipy.sparse as sp
+    from cgx_torch.io.suitesparse import standin
+
+    if case == "thermal":
+        a = standin("thermal2", scale=0.004, device=dev)
+    else:
+        n, density = {"one_group": (700, 0.01), "five_groups": (5000,
+                                                                0.002)}[case]
+        r = sp.random(n, n, density=density, random_state=n, format="csr")
+        a = sp.csr_matrix((r + r.T) + sp.eye(n) * (2.0 + density * n))
+    return cgx_torch.wbell_from_csr(a, device=dev, value_dtype=value_dtype)
+
+
+@pytest.mark.parametrize("case,k,bf16", [
+    ("one_group", 1, False), ("five_groups", 3, False), ("thermal", 4, False),
+    ("thermal", 9, False), ("thermal", 1, True), ("five_groups", 4, True)])
+def test_wbell_kernels_match_plain(cuda_device, case, k, bf16):
+    """K7, K8 and K9 against their plain versions on the same operands:
+    equal bit for bit (each product and sum rounded on its own, in the
+    same order), pad groups zero, two runs bitwise equal, one launch each.
+    k = 3 and 9 leave columns of a chunk unused; bf16 planes upcast."""
+    a = _wbell(case, cuda_device, torch.bfloat16 if bf16 else None)
+    plan = kw.build_tier_plan(a)
+    x = t(np.random.default_rng(k).standard_normal(
+        (k, a.nt, 8, 128)).astype(np.float32), cuda_device)
+    runs = {
+        "k7": (lambda: kw.wbell_spmm(a, x), "wbell_resident_launches",
+               kw.wbell_resident_reference(a, x)),
+        "k8": (lambda: kw.wbell_spmm_tiered(plan, x), "wbell_tiered_launches",
+               kw.wbell_tiered_reference(plan, x)),
+        "k9": (lambda: kw.wbell_spmm(a, x, backend="windowed"),
+               "wbell_windowed_launches", kw.wbell_windowed_reference(a, x)),
+    }
+    for name, (run, counter, ref) in runs.items():
+        before = getattr(kw, counter)
+        y = run()
+        torch.cuda.synchronize()
+        assert getattr(kw, counter) == before + 1, name
+        assert float((y - ref).abs().max()) == 0.0, name
+        assert torch.equal(run(), y), name
+        assert float(y[:, a.ng_real:].abs().max()) == 0.0, name
+    assert torch.equal(runs["k7"][2], runs["k8"][2])
+
+
+def test_wbell_kernels_refuse_what_they_do_not_take(cuda_device):
+    a = _wbell("one_group", cuda_device)
+    x = torch.zeros((1, a.nt, 8, 128), device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kw.wbell_resident_raw(a.p_og, a.p_ga, a.lc, a.values.double(), x)
+    with pytest.raises(TypeError, match="float32 vectors"):
+        kw.wbell_resident_raw(a.p_og, a.p_ga, a.lc, a.values, x.double())
+    with pytest.raises(ValueError, match="internal layout"):
+        kw.wbell_spmv(a, x[0, 0])
+
+
+def test_wbell_auto_solve_on_card(cuda_device):
+    """auto_solve routes a WBELLMatrix to "wbell": K7 once per iteration
+    (Jacobi) and bit for bit the plain version's trajectory; a 2-D b runs
+    K8 and each column equals its single-RHS solve."""
+    a = _wbell("thermal", cuda_device)
+    n = a.n
+    b = torch.ones(n, dtype=torch.float32, device=cuda_device)
+    m = cgx_torch.JacobiPrecond(inv_diag=1.0 / a.from_internal(a.diagonal()))
+    assert cgx_torch.select_backend(a, b, m) == "wbell"
+    before = kw.wbell_resident_launches
+    res = cgx_torch.auto_solve(a, b, tol=1e-6, preconditioner=m)
+    torch.cuda.synchronize()
+    its = int(res.iterations)
+    assert bool(res.converged)
+    assert kw.wbell_resident_launches - before == its
+    idi = a.to_internal(m.inv_diag)
+    ref = cgx_torch.cg_solve(
+        lambda v: kw.wbell_resident_reference(a, v[None])[0],
+        a.to_internal(b), tol=1e-6, maxiter=n, preconditioner=lambda r: r * idi)
+    assert int(ref.iterations) == its
+    assert torch.equal(a.from_internal(ref.x), res.x)
+    B = t(np.random.default_rng(5).standard_normal((n, 2)).astype(np.float32),
+          cuda_device)
+    before = kw.wbell_tiered_launches
+    multi = cgx_torch.auto_solve(a, B, tol=1e-6, preconditioner=m)
+    assert kw.wbell_tiered_launches - before == int(multi.iterations.max())
+    for j in range(2):
+        one = cgx_torch.auto_solve(a, B[:, j].contiguous(), tol=1e-6,
+                                   preconditioner=m)
+        assert int(one.iterations) == int(multi.iterations[j])
+        assert torch.equal(one.x, multi.x[:, j])
+    for pc in ("poly", "block_jacobi"):
+        assert bool(cgx_torch.auto_solve(a, b, tol=1e-6,
+                                         preconditioner=pc).converged)

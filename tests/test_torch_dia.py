@@ -35,7 +35,7 @@ jres = importlib.import_module("cgx.kernels.fused_resident")
 def _poisson11(nx, ny, nz, seed=5):
     """SPD 11-point banded operator: the 7-point Laplacian plus a symmetric
     ±(nz+1) coupling (needs grid metadata), as cgx's kernel tests build."""
-    a = tpo.poisson3d_dia(nx, ny, nz)
+    a = tpo.poisson3d_dia(nx, ny, nz, device="cpu")
     n = a.shape[0]
     flat = np.arange(n)
     k = flat % nz
@@ -57,12 +57,12 @@ def _data(kind):
     if kind == "p11":
         return _poisson11(8, 7, 6)
     if kind in ("p2d_grid", "p2d_nogrid"):
-        a = tpo.poisson2d_dia(12, 9)
+        a = tpo.poisson2d_dia(12, 9, device="cpu")
         return (a.data.numpy(), a.offsets, a.shape,
                 (12, 1, 9) if kind == "p2d_grid" else None)
     if kind == "p27var":
         a = tpo.poisson3d_dia27(5, 6, 7, variable=True, seed=3,
-                                dtype=np.float64)
+                                dtype=np.float64, device="cpu")
         return a.data.numpy(), a.offsets, a.shape, a.grid
     if kind == "asym":
         data, offs, shape = scaled_dia_data(6, 8, 7, seed=1)
@@ -77,17 +77,17 @@ def _pair(kind, dtype=np.float64):
     data, offs, shape, grid = _data(kind)
     aj = jty.DIAMatrix(data=jnp.asarray(data.astype(dtype)), offsets=offs,
                        shape=shape, grid=grid)
-    return aj, operator_from_cgx(aj)
+    return aj, operator_from_cgx(aj, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["p2d", "p3d", "p27", "p27var"])
 def test_builders_bit_identical(kind):
-    nd = {"p2d": (lambda m: m.poisson2d_dia(7, 5)),
-          "p3d": (lambda m: m.poisson3d_dia(4, 5, 6)),
-          "p27": (lambda m: m.poisson3d_dia27(4, 5, 6)),
-          "p27var": (lambda m: m.poisson3d_dia27(4, 5, 6, variable=True,
-                                                 seed=7))}[kind]
-    aj, at = nd(jpo), nd(tpo)
+    nd = {"p2d": (lambda m, **kw: m.poisson2d_dia(7, 5, **kw)),
+          "p3d": (lambda m, **kw: m.poisson3d_dia(4, 5, 6, **kw)),
+          "p27": (lambda m, **kw: m.poisson3d_dia27(4, 5, 6, **kw)),
+          "p27var": (lambda m, **kw: m.poisson3d_dia27(
+              4, 5, 6, variable=True, seed=7, **kw))}[kind]
+    aj, at = nd(jpo), nd(tpo, device="cpu")
     assert at.offsets == tuple(aj.offsets) and at.shape == aj.shape
     assert at.grid == aj.grid
     np.testing.assert_array_equal(n_(at.data), np.asarray(aj.data))
@@ -116,7 +116,7 @@ def test_csr_spmv_and_dia_from_csr(kind):
          if kind == "random_spd"
          else sp.csr_matrix(sp.diags([-1.0, 4.0, -1.0], [-1, 0, 1],
                                      shape=(50, 50))))
-    aj, at = jty.csr_from_scipy(s), csr_from_scipy(s)
+    aj, at = jty.csr_from_scipy(s), csr_from_scipy(s, device="cpu")
     n = s.shape[0]
     x = seeded(n, seed=43)
     xs = np.stack([seeded(n, seed=44 + j) for j in range(2)], axis=1)
@@ -139,7 +139,7 @@ def test_csr_spmv_and_dia_from_csr(kind):
         assert dt.offsets == tuple(dj.offsets) and dt.shape == dj.shape
         np.testing.assert_array_equal(n_(dt.data), np.asarray(dj.data))
     # CSR crosses through interop as well.
-    back = operator_from_cgx(aj)
+    back = operator_from_cgx(aj, device="cpu")
     np.testing.assert_array_equal(n_(back.values), np.asarray(aj.values))
     np.testing.assert_array_equal(n_(back.col_indices),
                                   np.asarray(aj.col_indices))
@@ -151,7 +151,7 @@ def test_jacobi_precond_matches_cgx(kind):
         aj, at = _pair("scaled7")
     else:
         s = random_spd_csr(40, 0.1, np.random.default_rng(4))
-        aj, at = jty.csr_from_scipy(s), csr_from_scipy(s)
+        aj, at = jty.csr_from_scipy(s), csr_from_scipy(s, device="cpu")
     mj = cgx.JacobiPrecond.from_matrix(aj)
     mt = cgx_torch.JacobiPrecond.from_matrix(at)
     r = seeded(aj.shape[0], seed=45)
@@ -161,8 +161,9 @@ def test_jacobi_precond_matches_cgx(kind):
     np.testing.assert_allclose(n_(mt.apply(t(r))),
                                np.asarray(mj.apply(jnp.asarray(r))),
                                rtol=1e-12)
-    np.testing.assert_array_equal(n_(precond_from_cgx(mj).inv_diag),
-                                  np.asarray(mj.inv_diag))
+    np.testing.assert_array_equal(
+        n_(precond_from_cgx(mj, device="cpu").inv_diag),
+        np.asarray(mj.inv_diag))
 
 
 @pytest.mark.parametrize("kind", ["scaled7", "p11", "p2d_grid", "p2d_nogrid",
@@ -183,7 +184,7 @@ def test_engine_spec_and_supports_match_cgx(kind):
 def _dirty(kind):
     """cgx's dirty 7-point matrices (tests/test_kernels.py): a nonzero at an
     x-plane-crossing slot of offset +1 (and its mirror), or of +nz."""
-    a = tpo.poisson3d_dia(4, 5, 6)
+    a = tpo.poisson3d_dia(4, 5, 6, device="cpu")
     data = a.data.numpy().copy()
     if kind == "dirty_pm1":
         data[4, 59] = 1.0
@@ -201,7 +202,7 @@ def test_wrap_entries_and_symmetry_match_cgx(kind):
     else:
         data, offs, shape = _dirty(kind)
         aj = jty.DIAMatrix(data=jnp.asarray(data), offsets=offs, shape=shape)
-        at = operator_from_cgx(aj)
+        at = operator_from_cgx(aj, device="cpu")
     assert tfd.wrap_entries_zero(at) == jfd.wrap_entries_zero(aj)
     assert tfd.data_symmetric_or_none(at) == jfd.data_symmetric_or_none(aj)
     assert tfd.wrap_entries_zero(at) == (kind not in ("dirty_pm1",
@@ -265,7 +266,8 @@ def test_xla_route_jacobi_pcg_matches_cgx_fp64():
                        preconditioner=cgx.JacobiPrecond.from_matrix(aj))
     res = cgx_torch.cg_solve(at, t(b), tol=1e-10, maxiter=800,
                              preconditioner=precond_from_cgx(
-                                 cgx.JacobiPrecond.from_matrix(aj)))
+                                 cgx.JacobiPrecond.from_matrix(aj),
+                                 device="cpu"))
     assert int(res.iterations) == int(ref.iterations)
     np.testing.assert_allclose(n_(res.x), np.asarray(ref.x), rtol=1e-10,
                                atol=1e-10 * np.abs(np.asarray(ref.x)).max())

@@ -80,7 +80,7 @@ def _dia(kind):
                                    a.grid)
     aj = jty.DIAMatrix(data=jnp.asarray(data.astype(np.float32)),
                        offsets=offs, shape=shape, grid=grid)
-    return aj, operator_from_cgx(aj)
+    return aj, operator_from_cgx(aj, device="cpu")
 
 
 @pytest.mark.parametrize("case", ["jacobi", "plain", "warm", "p2d_grid",

@@ -34,7 +34,7 @@ def scaled_dia_data(nx: int, ny: int, nz: int, seed: int = 0):
     shape)``, built as the JAX package's tests build it."""
     from cgx_torch.io.poisson import poisson3d_dia
 
-    a = poisson3d_dia(nx, ny, nz)
+    a = poisson3d_dia(nx, ny, nz, device="cpu")
     n = a.shape[0]
     d = np.random.default_rng(seed).uniform(0.5, 2.0, n)
     data = a.data.numpy().copy()
