@@ -17,7 +17,9 @@ from cgx_torch.sparse.wbell import (WBELL_MIN_ROWS, WBELLMatrix, auto_format,
 from cgx_torch.ops.spmv import spmm, spmv
 from cgx_torch.ops import blas
 from cgx_torch.solve.cg import CGResult, cg_solve
-from cgx_torch.solve.precond import JacobiPrecond, PolynomialPrecond
+from cgx_torch.solve.precond import (BlockJacobiPrecond, JacobiPrecond,
+                                     PolynomialPrecond)
+from cgx_torch.solve.block import block_cg_solve, cg_solve_multi
 from cgx_torch.solve.wbell import (WBellBlockJacobiPrecond, wbell_cg_solve,
                                    wbell_cg_solve_multi)
 from cgx_torch.solve.auto import auto_solve, select_backend
@@ -31,5 +33,6 @@ __all__ = [
     "ell_from_csr", "wbell_from_csr", "auto_format", "pick_format",
     "WBELL_MIN_ROWS", "spmv", "spmm", "blas", "CGResult", "cg_solve",
     "wbell_cg_solve", "wbell_cg_solve_multi", "WBellBlockJacobiPrecond",
-    "JacobiPrecond", "PolynomialPrecond", "auto_solve", "select_backend",
+    "JacobiPrecond", "BlockJacobiPrecond", "PolynomialPrecond",
+    "cg_solve_multi", "block_cg_solve", "auto_solve", "select_backend",
 ]

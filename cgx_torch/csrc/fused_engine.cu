@@ -230,39 +230,16 @@ const void* b_kernel_for(int weighted) {
                   : reinterpret_cast<const void*>(kernel_b<false>);
 }
 
-// A grid of as many blocks as fit on the card at once: every block then
-// runs in one wave and the number of partials is fixed for the card.
-int full_grid(int device, const void* kernel, int* grid) {
-  int sms = 0;
-  int per_sm = 0;
-  cudaError_t e =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                    0);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  *grid = per_sm * sms;
-  return *grid > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
-}
-
-int launch(const void* kernel, int grid, void* args, void* stream) {
-  void* params[] = {args};
-  cudaError_t e = cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads),
-                                   params, 0,
-                                   static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int cgx_fused_a_grid(int device, int ntaps, int variable, int sym,
                                 int* grid) {
-  return full_grid(device, a_kernel_for(ntaps, variable, sym), grid);
+  return cgx::full_grid<kThreads>(device, a_kernel_for(ntaps, variable, sym),
+                                  grid);
 }
 
 extern "C" int cgx_fused_b_grid(int device, int weighted, int* grid) {
-  return full_grid(device, b_kernel_for(weighted), grid);
+  return cgx::full_grid<kThreads>(device, b_kernel_for(weighted), grid);
 }
 
 // Kernel A on `stream`.  `plane[t]` is tap t's plane index (−1: constant
@@ -278,8 +255,8 @@ extern "C" int cgx_fused_a(const float* p, float* q, const float* planes,
   AArgs a{p, q, planes, part_a, part_b, grid_b, reinterpret_cast<Ctl*>(ctl),
           history, init, nx, ny, nz,
           cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz)};
-  return launch(a_kernel_for(ntaps, planes != nullptr, sym), grid_a, &a,
-                stream);
+  return cgx::launch<kThreads>(a_kernel_for(ntaps, planes != nullptr, sym),
+                               grid_a, &a, stream);
 }
 
 // Kernel B on `stream`; `w` is null for an unweighted solve.
@@ -290,5 +267,6 @@ extern "C" int cgx_fused_b(float* x, float* r, float* p, const float* q,
   if (grid_a < 1 || grid_b < 1) return static_cast<int>(cudaErrorInvalidValue);
   BArgs a{x, r, p, q, w, part_a, grid_a, part_b,
           reinterpret_cast<Ctl*>(ctl), n};
-  return launch(b_kernel_for(w != nullptr), grid_b, &a, stream);
+  return cgx::launch<kThreads>(b_kernel_for(w != nullptr), grid_b, &a,
+                               stream);
 }

@@ -1,6 +1,7 @@
-// Operator rows and reductions shared by the kernels: the stencil SpMV
-// (stencil.cu), the whole-solve CG (resident_cg.cu) and the two-pass
-// engine (fused_engine.cu).
+// Operator rows, reductions and launch helpers shared by the kernels: the
+// stencil SpMV (stencil.cu), the whole-solve CG (resident_cg.cu) and the
+// two-pass engines for one and for k right-hand sides (fused_engine.cu,
+// fused_multi.cu).
 //
 // stencil_row: y[row] = sum_t c[t] * x[(i+dx[t], j+dy[t], k+dz[t])] over
 // the taps whose neighbour lies inside the nx × ny × nz grid (zero
@@ -166,6 +167,98 @@ __device__ __forceinline__ float plane_row(const float* x,
   return acc;
 }
 
+// -- k-column rows (the multi-RHS engine, fused_multi.cu) ---------------------
+// The rows of nc ≤ kCols columns at once: column c is x + c·ld.  A boundary
+// mask and a coefficient-plane value are read once per tap and applied to
+// every column from a register.  Each column adds its terms in tap order and
+// rounds every product and sum on its own, exactly as stencil_row and
+// plane_row do, so acc[c] equals the one-column reader on column c bit for
+// bit.  Read-only loads: the two-pass engine never writes p during pass A.
+
+template <int kTaps, int kCols>
+__device__ __forceinline__ void stencil_row_multi(const float* x, size_t ld,
+                                                  int nc, int row, int nx,
+                                                  int ny, int nz,
+                                                  const StencilTaps& t,
+                                                  float (&acc)[kCols]) {
+  const int line = row / nz;
+  const int k = row - line * nz;
+  const int i = line / ny;
+  const int j = line - i * ny;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kTaps; ++s) {
+    if (s < t.n) {
+      const int ii = i + t.dx[s];
+      const int jj = j + t.dy[s];
+      const int kk = k + t.dz[s];
+      if (ii >= 0 && ii < nx && jj >= 0 && jj < ny && kk >= 0 && kk < nz) {
+        const int idx = (ii * ny + jj) * nz + kk;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          if (c < nc)
+            acc[c] = __fadd_rn(acc[c],
+                               __fmul_rn(t.c[s], __ldg(x + c * ld + idx)));
+        }
+      }
+    }
+  }
+}
+
+template <int kTaps, bool kSym, int kCols>
+__device__ __forceinline__ void plane_row_multi(
+    const float* x, size_t ld, int nc, const float* planes, int row, int n,
+    int nx, int ny, int nz, const PlaneTaps& t, float (&acc)[kCols]) {
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kTaps; ++s) {
+    if (s < t.s.n) {
+      const int pl = t.plane[s];
+      if (pl < 0) {
+        // A constant tap: one mask, then c·x[neighbour] (0 outside).
+        int idx = row;
+        bool in = true;
+        if (!(t.s.dx[s] == 0 && t.s.dy[s] == 0 && t.s.dz[s] == 0)) {
+          const int line = row / nz;
+          const int i = line / ny;
+          const int ii = i + t.s.dx[s];
+          const int jj = line - i * ny + t.s.dy[s];
+          const int kk = row - line * nz + t.s.dz[s];
+          in = ii >= 0 && ii < nx && jj >= 0 && jj < ny && kk >= 0 && kk < nz;
+          idx = (ii * ny + jj) * nz + kk;
+        }
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          if (c < nc)
+            acc[c] = __fadd_rn(
+                acc[c], in ? __fmul_rn(t.s.c[s], __ldg(x + c * ld + idx))
+                           : 0.0f);
+        }
+        continue;
+      }
+      const float* w = planes + static_cast<size_t>(pl) * n;
+      const int off = t.off[s];
+      const bool fwd = off >= -row && off < n - row;
+      const bool mir = kSym && off != 0 && off <= row && off > row - n;
+      const int m = row - off;
+      const float wf = fwd ? __ldg(w + row) : 0.0f;
+      const float wm = mir ? __ldg(w + m) : 0.0f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        if (c < nc) {
+          const float* xc = x + c * ld;
+          float term = 0.0f;
+          if (fwd) term = __fmul_rn(wf, __ldg(xc + row + off));
+          if (mir) term = __fadd_rn(term, __fmul_rn(wm, __ldg(xc + m)));
+          acc[c] = __fadd_rn(acc[c], term);
+        }
+      }
+    }
+  }
+}
+
 // -- Reductions ---------------------------------------------------------------
 // Fixed-order sums, no atomics: the same inputs give bit-identical sums.
 // T is float (the whole-solve kernel) or double (the two-pass engine).
@@ -203,6 +296,34 @@ __device__ __forceinline__ T grid_sum(const T* part, int count, T* smem) {
   T v = 0;
   for (int b = threadIdx.x; b < count; b += kThreads) v += __ldcg(part + b);
   return block_sum<kThreads>(v, smem);
+}
+
+// -- Launch helpers (the two-pass engines) --------------------------------------
+
+// A grid of as many blocks as fit on the card at once: every block then
+// runs in one wave and the number of partials is fixed for the card.
+template <int kThreads>
+inline int full_grid(int device, const void* kernel, int* grid) {
+  int sms = 0;
+  int per_sm = 0;
+  cudaError_t e =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                    0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *grid = per_sm * sms;
+  return *grid > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// Launch a kernel that takes one argument struct; returns the launch error.
+template <int kThreads>
+inline int launch(const void* kernel, int grid, void* args, void* stream) {
+  void* params[] = {args};
+  cudaError_t e = cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads), params,
+                                   0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cgx

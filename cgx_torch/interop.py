@@ -5,7 +5,8 @@ Everything crosses as numpy arrays or plain fields, so this module imports
 neither JAX nor ``cgx``: a ``cgx`` object is read by its class name and
 fields.  The data of a ``DIAMatrix``, ``CSRMatrix`` or ``WBELLMatrix`` (every
 field, the static ones included) and of a ``JacobiPrecond``,
-``WBellBlockJacobiPrecond`` or ``PolynomialPrecond`` is copied to
+``BlockJacobiPrecond``, ``WBellBlockJacobiPrecond`` or
+``PolynomialPrecond`` is copied to
 ``device`` (the card unless the caller asks for the CPU), so both packages
 solve the same system from the same numbers.
 """
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 
 from cgx_torch.solve.cg import CGResult
-from cgx_torch.solve.precond import JacobiPrecond, PolynomialPrecond
+from cgx_torch.solve.precond import (BlockJacobiPrecond, JacobiPrecond,
+                                     PolynomialPrecond)
 from cgx_torch.solve.wbell import WBellBlockJacobiPrecond
 from cgx_torch.sparse.stencil import GeneralStencil3D, Stencil2D, Stencil3D
 from cgx_torch.sparse.types import CSRMatrix, DIAMatrix, resolve_device
@@ -76,7 +78,8 @@ def operator_from_cgx(a, device="cuda"):
 
 def precond_from_cgx(m, device="cuda", operator=None):
     """The port's preconditioner for a ``cgx`` ``JacobiPrecond`` (its
-    ``inv_diag``), ``WBellBlockJacobiPrecond`` (its ``binv``) or
+    ``inv_diag``), ``BlockJacobiPrecond`` (its ``inv_blocks`` and
+    ``blocksize``), ``WBellBlockJacobiPrecond`` (its ``binv``) or
     ``PolynomialPrecond`` (its ``inv_diag``, ``steps`` and ``omega``, over
     ``operator``, the port's operator for the same matrix: the JAX
     object's matvec is a closure and cannot cross).  Data lands on
@@ -84,6 +87,10 @@ def precond_from_cgx(m, device="cuda", operator=None):
     kind = type(m).__name__
     if kind == "JacobiPrecond":
         return JacobiPrecond(inv_diag=tensor_from_numpy(m.inv_diag, device))
+    if kind == "BlockJacobiPrecond":
+        return BlockJacobiPrecond(
+            inv_blocks=tensor_from_numpy(m.inv_blocks, device),
+            blocksize=int(m.blocksize))
     if kind == "WBellBlockJacobiPrecond":
         return WBellBlockJacobiPrecond(binv=tensor_from_numpy(m.binv,
                                                               device))
@@ -119,11 +126,15 @@ def tensor_from_numpy(v, device="cpu") -> torch.Tensor:
 
 
 def result_to_numpy(res: CGResult) -> dict:
-    """A :class:`CGResult`'s fields as numpy arrays."""
+    """A :class:`CGResult`'s fields as numpy arrays.  ``iterations`` and
+    ``converged`` are a Python int and bool for a single right-hand side
+    and ``(k,)`` arrays for a batched result."""
+    its = res.iterations.detach().cpu().numpy()
+    conv = res.converged.detach().cpu().numpy()
     return {
         "x": res.x.detach().cpu().numpy(),
-        "iterations": int(res.iterations),
+        "iterations": int(its) if its.ndim == 0 else its,
         "residual_norm_sq": res.residual_norm_sq.detach().cpu().numpy(),
-        "converged": bool(res.converged),
+        "converged": bool(conv) if conv.ndim == 0 else conv,
         "history": res.history.detach().cpu().numpy(),
     }

@@ -43,6 +43,11 @@ _SIGNATURES = {
     "cgx_fused_a": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                     _P, _P, _P, _I, _P],
     "cgx_fused_b": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P],
+    "cgx_multi_a_grid": [_I, _I, _I, _I, _P],
+    "cgx_multi_b_grid": [_I, _I, _P],
+    "cgx_multi_a": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                    _I, _P],
+    "cgx_multi_b": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
     "cgx_wbell_resident": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cgx_wbell_tiered": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cgx_wbell_windowed": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

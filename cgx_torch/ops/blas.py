@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["dot", "dot_compensated", "norm_sq", "norm", "axpy",
+__all__ = ["dot", "dot_rows", "dot_compensated", "norm_sq", "norm", "axpy",
            "safe_recip"]
 
 
@@ -19,6 +19,13 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dot: shape mismatch {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
     return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def dot_rows(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``(k,)`` inner products of the rows of two ``(k, ...)`` blocks, each
+    row summed as :func:`dot` sums one vector (a batched solve's column
+    then follows its single-RHS solve bit for bit)."""
+    return torch.stack([dot(u[j], v[j]) for j in range(u.shape[0])])
 
 
 def dot_compensated(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

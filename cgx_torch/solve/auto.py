@@ -1,8 +1,11 @@
 """Solver auto-selection (PyTorch).
 
-Counterpart of :mod:`cgx.solve.auto`, for a single right-hand side over
-the matrix-free stencils and the stored formats.  The backend names stay
+Counterpart of :mod:`cgx.solve.auto` over the matrix-free stencils and
+the stored formats.  The backend names stay
 those of the JAX package, so callers and checkpoint files keep working.
+A 2-D ``b`` (``(n, k)``) goes to
+:func:`~cgx_torch.solve.block.cg_solve_multi`, which routes itself (K5,
+K3 per column, or the batched loop), except over a ``WBELLMatrix``.
 ``on_tpu`` reads as "``b`` is a CUDA tensor":
 
 * a stencil the whole-solve kernel supports, with no preconditioner, or a
@@ -43,6 +46,7 @@ from cgx_torch.kernels.fused_dia_cg import (fused_dia_cg, supports_dia,
 from cgx_torch.kernels.fused_resident import (resident_dia_cg,
                                               resident_stencil_cg,
                                               resident_supported)
+from cgx_torch.solve.block import FUSED_MIN_ROWS, cg_solve_multi
 from cgx_torch.solve.cg import CGResult, cg_solve
 from cgx_torch.solve.precond import JacobiPrecond, PolynomialPrecond
 from cgx_torch.solve.wbell import (WBellBlockJacobiPrecond, wbell_cg_solve,
@@ -52,10 +56,10 @@ from cgx_torch.sparse.wbell import WBELLMatrix
 __all__ = ["auto_solve", "select_backend", "RESIDENT_MIN_ROWS",
            "FUSED_MIN_ROWS"]
 
-# Carried over from the JAX package, where both were measured on a TPU
-# v5e; neither has been measured on the H100 yet.
+# Carried over from the JAX package, where it was measured on a TPU v5e;
+# not measured on the H100 yet.  FUSED_MIN_ROWS is defined in
+# cgx_torch.solve.block, whose multi-RHS routes read it too.
 RESIDENT_MIN_ROWS = 200_000
-FUSED_MIN_ROWS = 3_000_000
 
 # Backends of the JAX package that the port does not have yet, with the
 # ROADMAP item that brings each.
@@ -108,18 +112,30 @@ def auto_solve(
     ``omega`` over the matrix diagonal), a ``WBellBlockJacobiPrecond``,
     ``"block_jacobi"`` or ``"poly"``; anything else raises ``ValueError``.
     """
-    if mixed_precision:
-        raise NotImplementedError(
-            "auto_solve: mixed_precision is not ported yet "
-            "(ROADMAP queue A item 11, ir_cg_solve)")
     if b.dim() == 2:
         if isinstance(a, WBELLMatrix):
             return _wbell_solve(wbell_cg_solve_multi, a, b, x0,
                                 preconditioner, dict(tol=tol, atol=atol,
                                                      maxiter=maxiter))
+        # The batched solver routes itself (K5, K3 per column, or the
+        # loop); the options it cannot honour are refused, not dropped.
+        if track_history:
+            raise ValueError("track_history is not supported for "
+                             "multi-RHS (2-D b) solves")
+        if mixed_precision:
+            raise ValueError("mixed_precision is single-RHS only; for "
+                             "multi-RHS use fused_dia_cg_multi("
+                             "plane_dtype=bfloat16) directly (plane_dtype "
+                             "is not ported yet: ROADMAP queue A item 11)")
+        mb = "auto"
+        if backend is not None:
+            mb = "xla" if backend in ("xla", "padded") else "fused"
+        return cg_solve_multi(a, b, x0, tol=tol, atol=atol, maxiter=maxiter,
+                              preconditioner=preconditioner, backend=mb)
+    if mixed_precision:
         raise NotImplementedError(
-            "auto_solve: multi-RHS (2-D b) is not ported yet "
-            "(ROADMAP queue A item 8, cg_solve_multi)")
+            "auto_solve: mixed_precision is not ported yet "
+            "(ROADMAP queue A item 11, ir_cg_solve)")
     if backend is None:
         backend = select_backend(a, b, preconditioner)
     if backend == "wbell":

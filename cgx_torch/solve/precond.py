@@ -1,8 +1,8 @@
 """Preconditioners for PCG (PyTorch).
 
-Counterpart of :mod:`cgx.solve.precond`: :class:`JacobiPrecond` and
-:class:`PolynomialPrecond`; ``BlockJacobiPrecond`` waits for a later slice
-(ROADMAP queue A item 8).  A preconditioner has ``apply(r) -> z`` with
+Counterpart of :mod:`cgx.solve.precond`: :class:`JacobiPrecond`,
+:class:`BlockJacobiPrecond` and :class:`PolynomialPrecond`.  A
+preconditioner has ``apply(r) -> z`` with
 ``z = M⁻¹ r``; :func:`cgx_torch.solve.cg.cg_solve` calls it once per
 iteration.  ``auto_solve`` hands a Jacobi ``inv_diag`` to the DIA kernels,
 which fold it into a symmetric scaling of the operator, and runs a
@@ -13,12 +13,13 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from cgx_torch.ops.blas import safe_recip
 from cgx_torch.solve.cg import as_matvec
 
-__all__ = ["JacobiPrecond", "PolynomialPrecond"]
+__all__ = ["JacobiPrecond", "BlockJacobiPrecond", "PolynomialPrecond"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -36,6 +37,53 @@ class JacobiPrecond:
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         return self.inv_diag * r
+
+
+@dataclass(frozen=True, eq=False)
+class BlockJacobiPrecond:
+    """Block-Jacobi: ``M⁻¹ = blockdiag(D₁⁻¹, …, D_m⁻¹)``.
+
+    ``inv_blocks`` holds the dense inverses of the ``(bs, bs)`` diagonal
+    blocks of A; ``apply`` is a batched ``(bs, bs)`` matvec.
+    """
+
+    inv_blocks: torch.Tensor   # (n_blocks, bs, bs)
+    blocksize: int
+
+    @classmethod
+    def from_matrix(cls, a, blocksize: int) -> "BlockJacobiPrecond":
+        """Extract the diagonal blocks of a ``CSRMatrix`` and invert them
+        on the host in numpy; the inverses land on the matrix's device."""
+        vals = a.values.detach().cpu().numpy()
+        cols = a.col_indices.cpu().numpy()
+        rows = a.row_indices.cpu().numpy()
+        n = a.shape[0]
+        bs = int(blocksize)
+        nb = -(-n // bs)
+        blocks = np.zeros((nb, bs, bs), dtype=vals.dtype)
+        on_blockdiag = rows // bs == cols // bs
+        blocks[(rows // bs)[on_blockdiag], (rows % bs)[on_blockdiag],
+               (cols % bs)[on_blockdiag]] = vals[on_blockdiag]
+        # Padding rows (beyond n) get the identity so the inverse exists.
+        tail = np.arange(n, nb * bs)
+        blocks[tail // bs, tail % bs, tail % bs] = 1.0
+        # Empty diagonal slots also get 1 to keep blocks nonsingular.
+        idx = np.arange(bs)
+        d = blocks[:, idx, idx]
+        blocks[:, idx, idx] = np.where(d == 0, 1.0, d)
+        inv = np.linalg.inv(blocks)
+        return cls(inv_blocks=torch.from_numpy(inv).to(a.values.device),
+                   blocksize=bs)
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        n = r.shape[0]
+        bs = self.blocksize
+        nb = self.inv_blocks.shape[0]
+        pad = nb * bs - n
+        rb = torch.nn.functional.pad(r, (0, pad)).reshape(nb, bs)
+        dt = torch.promote_types(self.inv_blocks.dtype, r.dtype)
+        zb = torch.einsum("bij,bj->bi", self.inv_blocks.to(dt), rb.to(dt))
+        return zb.reshape(-1)[:n].to(r.dtype)
 
 
 class PolynomialPrecond:

@@ -155,12 +155,6 @@ def wbell_cg_solve(
     return dataclasses.replace(res, x=a.from_internal(res.x))
 
 
-def _col_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Per-column ``uᵀv``, each column summed as the single-RHS solve sums
-    it (:func:`cgx_torch.ops.blas.dot`)."""
-    return torch.stack([blas.dot(u[j], v[j]) for j in range(u.shape[0])])
-
-
 def wbell_cg_solve_multi(
     a: WBELLMatrix,
     b: torch.Tensor,
@@ -224,10 +218,10 @@ def wbell_cg_solve_multi(
     r = bi if xi0 is None else bi - spmm(xi0)
     z = apply_m(r)
     p = z
-    rz = _col_dot(r, z)
-    rr = _col_dot(r, r) if precond_on else rz
+    rz = blas.dot_rows(r, z)
+    rr = blas.dot_rows(r, r) if precond_on else rz
     tol_sq = torch.clamp(torch.tensor(tol, dtype=torch.float32) ** 2
-                         * _col_dot(bi, bi),
+                         * blas.dot_rows(bi, bi),
                          min=float(torch.tensor(atol,
                                                 dtype=torch.float32) ** 2))
     it = torch.zeros(k, dtype=torch.int32, device=bi.device)
@@ -237,15 +231,15 @@ def wbell_cg_solve_multi(
         if not bool(active.any()):
             break
         q = spmm(p)
-        pq = _col_dot(p, q)
+        pq = blas.dot_rows(p, q)
         alpha = torch.where(active, rz / torch.where(pq != 0, pq, one),
                             torch.zeros_like(pq))
         ax = alpha[:, None, None, None].to(x.dtype)
         x = x + ax * p
         r = r - ax * q
         z = apply_m(r)
-        rz_new = _col_dot(r, z)
-        rr_new = _col_dot(r, r) if precond_on else rz_new
+        rz_new = blas.dot_rows(r, z)
+        rr_new = blas.dot_rows(r, r) if precond_on else rz_new
         beta = torch.where(active, rz_new / torch.where(rz != 0, rz, one),
                            torch.zeros_like(rz))
         bx = beta[:, None, None, None].to(x.dtype)

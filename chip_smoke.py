@@ -31,7 +31,8 @@ Phases (any failed check exits nonzero, and no result line is printed):
    and K3 run twice to show they are bit-reproducible; K3's kernels A and
    B each held against their plain versions for one step;
 9. times of K2's planes mode, of K3 and of K3's two kernels, each beside
-   its plain version, and K2's constant mode beside K3 at 224³;
+   its plain version (and K3 A beside torch's CSR product of Ã), and K2's
+   constant mode beside K3 at 224³;
 10. W1, the unstructured path's build: the thermal2 stand-in at full size
     (``standin("thermal2")``, 1,228,045 rows, seed 0) through
     ``auto_format``, which must choose WBELL, and its tier plan;
@@ -48,10 +49,30 @@ Phases (any failed check exits nonzero, and no result line is printed):
     each column against a single-RHS solve of it;
 14. W5, times: K7, K8 and K9 beside their plain versions and beside
     torch's CSR product of the same matrix, and µs per iteration of the
-    Jacobi solve.
+    Jacobi solve;
+15. M1, the multi-RHS engine K5: kernels A and B one step each against
+    their plain versions at DIA-27 160³ (``poisson3d_dia27(160, 160, 160,
+    variable=True, seed=0)`` under Jacobi, 13 symmetric planes) and at the
+    224³ stencil, k = 4 seeded columns; each column's q against K3 A's;
+16. M2 and M3, the path as a user drives it: ``auto_solve(a, B)`` with B
+    (n, 4) seeded, on DIA-27 160³ with ``JacobiPrecond`` and on the 224³
+    stencil (K5 alone), each column against an fp64 solve and its
+    single-RHS K3 solve, twice for reproducibility, and against the same
+    solve through K5's plain versions;
+17. M4, the narrow-band route: DIA-7 192³ with B (n, 4) under Jacobi runs
+    K3 per column, each column equal to ``fused_dia_cg`` bit for bit;
+18. M5, the batched loop below ``FUSED_MIN_ROWS`` (DIA-27 128³, B (n, 4),
+    Jacobi; no kernel), each column against its own ``cg_solve``; then
+    ``block_cg_solve`` on the 64³ stencil with 8 clustered right-hand
+    sides against single CG;
+19. M6, times: K5 per iteration beside the four sequential K3 solves of
+    the same B (at DIA-27 160³, the 224³ stencil and the narrow-band DIA-7
+    192³ of M4, which ``auto`` sends to K3), the profiler's device time of K5 A and B, one call of each
+    beside its plain version and bound, and the PyTorch calls that compute
+    K5 A's product (the CSR product of Ã, conv3d with batch 4).
 
-The launch counters are set to 0 just before each of the paths 4, 6, 7
-and W3–W4 and read just after it.  The line before the last is a JSON
+The launch counters are set to 0 just before each of the paths 4, 6, 7,
+W3–W4 and M2–M5 and read just after it.  The line before the last is a JSON
 object describing each kernel, with its bound (the larger of its bytes,
 each input read once and each output written once, over 3.35 TB/s, and
 its operations over 67 TFLOP/s fp32) and the time of one PyTorch call
@@ -77,6 +98,8 @@ SEED = 0
 N128 = (128, 128, 128)
 N224 = (224, 224, 224)
 N192 = (192, 192, 192)
+N160 = (160, 160, 160)
+K_MULTI = 4               # right-hand sides of the multi-RHS phases
 TOL = 1e-6
 JAX_ITERS_ONES_128 = 300  # the JAX package's count (BENCH_r05.json)
 MAXIT_HIST = 5000         # maxiter of the history solves
@@ -498,6 +521,406 @@ def wbell_phases(dev, card):
     return entries
 
 
+def seeded_block(n, k, seed, dev):
+    """A seeded (n, k) fp32 block of right-hand sides."""
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, k)).astype(np.float32)).to(dev)
+
+
+def multi_engine(a, m):
+    """K5's engine for a stencil (``m`` None) or for a DIA operator under
+    the Jacobi scaling of ``m``, and the scaling vector (None: stencil)."""
+    from cgx_torch.kernels.fused_cg import stencil_taps
+    from cgx_torch.kernels.fused_dia_cg import dia_prep
+    from cgx_torch.kernels.fused_multi import FusedCGMulti
+
+    if m is None:
+        nx, ny, nz, taps, coeffs = stencil_taps(a)
+        return FusedCGMulti(nx, ny, nz, taps, coeffs=coeffs), None
+    nx, ny, nz, taps, coeffs, planes, e, w, sym = dia_prep(
+        a, torch.float32, inv_diag=m.inv_diag)
+    return FusedCGMulti(nx, ny, nz, taps, coeffs=coeffs, planes=planes,
+                        weight=w, sym=sym), e
+
+
+def scaled_csr(a, e):
+    """Ã = E·A·E of a DIA operator as a torch CSR tensor on its device,
+    each value rounded as the DIA preparation rounds it."""
+    n = a.shape[0]
+    dev = a.data.device
+    rows = torch.arange(n, device=dev)
+    cols = rows[:, None] + torch.tensor(a.offsets, device=dev)[None, :]
+    vals = a.data.T * e[:, None] * e[cols.clamp(0, n - 1)]
+    keep = (cols >= 0) & (cols < n) & (vals != 0)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(keep.sum(dim=1), 0)
+    return torch.sparse_csr_tensor(crow, cols[keep], vals[keep], size=(n, n),
+                                   check_invariants=False)
+
+
+def multi_phases(dev, card, dias):
+    """M1–M6: the multi-RHS path over stencils and DIA.  Returns K5's
+    entries of the report line."""
+    import cgx_torch
+    from cgx_torch.io.poisson import poisson3d_dia27
+    from cgx_torch.kernels import fused_engine as k3
+    from cgx_torch.kernels import fused_multi as k5
+    from cgx_torch.kernels import fused_resident as k2
+    from cgx_torch.kernels.fused_cg import fused_stencil_cg
+    from cgx_torch.kernels.fused_dia_cg import fused_dia_cg
+    from cgx_torch.solve.block import _multi_route
+
+    k = K_MULTI
+    t0 = time.perf_counter()
+    d160 = poisson3d_dia27(*N160, variable=True, seed=SEED, device=dev)
+    cells = {"DIA-27 160^3": (d160, cgx_torch.JacobiPrecond.from_matrix(
+                 d160)),
+             "stencil 224^3": (cgx_torch.poisson3d_stencil(*N224), None)}
+    print(f"M DIA-27 160^3 built in {time.perf_counter() - t0:.1f} s")
+
+    def zero():
+        k5.multi_a_launches = k5.multi_b_launches = 0
+        k3.fused_a_launches = k3.fused_b_launches = 0
+        k2.resident_cg_launches = k2.resident_dia_launches = 0
+
+    def counts():
+        return {"k5_a": k5.multi_a_launches, "k5_b": k5.multi_b_launches,
+                "k3_a": k3.fused_a_launches, "k3_b": k3.fused_b_launches,
+                "k2": k2.resident_cg_launches + k2.resident_dia_launches}
+
+    def relmax(g, r):
+        return float(((g - r).abs() / r.abs()).max())
+
+    # -- M1. K5's kernels one step each, at both cells' full shapes ----------
+    errs = {"a": 0.0, "b": 0.0}
+    steps = {}
+    for label, (a, m) in cells.items():
+        eng, e = multi_engine(a, m)
+        one = k3.FusedCG(eng.nx, eng.ny, eng.nz, eng.taps, coeffs=eng.coeffs,
+                         planes=eng.planes, weight=eng.weight, sym=eng.sym)
+        p = seeded_block(eng.n, k, SEED + 3, dev).T.contiguous()   # (k, n)
+        q, pq, qq = eng.kernel_a(p)
+        torch.cuda.synchronize()
+        q_ref, pq_ref, qq_ref = eng.kernel_a_reference(p)
+        as_k3 = all(torch.equal(q[j], one.kernel_a(p[j])[0])
+                    for j in range(k))
+        rel_a = maxrel(q, q_ref)
+        rel_as = max(relmax(pq, pq_ref), relmax(qq, qq_ref))
+        rz = torch.sum(p.double() ** 2, dim=1).float()
+        z = torch.zeros_like(p)
+        out = eng.kernel_b(rz, pq_ref, qq_ref, z, p, p, q_ref)
+        torch.cuda.synchronize()
+        out_ref = eng.kernel_b_reference(rz, pq_ref, qq_ref, z, p, p, q_ref)
+        rel_b = max(maxrel(g, r) for g, r in zip(out[:3], out_ref[:3]))
+        rel_bs = max(relmax(g, r) for g, r in zip(out[3:], out_ref[3:]))
+        n_pl = 0 if eng.planes is None else eng.planes.shape[0]
+        print(f"M1 {label} (k={k}, {len(eng.taps)} taps, {n_pl} planes, sym "
+              f"{eng.sym}): A max|q-plain|/max|plain| {rel_a:.3e} (bitwise "
+              f"{torch.equal(q, q_ref)}), sums {rel_as:.3e}, each column's q "
+              f"equal to K3 A's: {as_k3}; B max|x,r,p-plain|/max|plain| "
+              f"{rel_b:.3e}, sums {rel_bs:.3e}")
+        check(rel_a <= 1e-6 and rel_as <= 1e-5 and as_k3,
+              f"M1 {label}: K5 A disagrees")
+        check(rel_b <= 1e-6 and rel_bs <= 1e-5, f"M1 {label}: K5 B disagrees")
+        errs["a"] = max(errs["a"], float((q - q_ref).abs().max()))
+        errs["b"] = max(errs["b"], max(float((g - r).abs().max())
+                                       for g, r in zip(out[:3], out_ref[:3])))
+        steps[label] = (eng, e, one, p, q_ref, pq_ref, qq_ref, rz)
+
+    # -- M2, M3. The path as a user drives it -------------------------------
+    launches = {"a": 0, "b": 0}
+    main_runs = {}
+    for tag, (label, (a, m)) in zip(("M2", "M3"), cells.items()):
+        n = a.shape[0]
+        B = seeded_block(n, k, SEED + 4, dev)
+        route = _multi_route(a, B, m, "auto")[0]
+        check(route == "fused", f"{tag} {label} routed to {route}")
+        zero()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = cgx_torch.auto_solve(a, B, tol=TOL, preconditioner=m)
+        end.record()
+        end.synchronize()
+        c = counts()
+        print(f"{tag} {label} launches: K5 A {c['k5_a']}, K5 B {c['k5_b']}, "
+              f"K3 A {c['k3_a']}, K3 B {c['k3_b']}, K2 {c['k2']}")
+        check(c["k5_a"] > 0 and c["k5_b"] > 0 and c["k3_a"] == 0
+              and c["k3_b"] == 0 and c["k2"] == 0,
+              f"{tag}: the path did not run through K5 alone: {c}")
+        launches["a"] += c["k5_a"]
+        launches["b"] += c["k5_b"]
+        its_all = res.iterations.tolist()
+        its = its_all[0]
+        check(len(set(its_all)) == 1, f"{tag}: iterations {its_all}")
+        check(bool(res.converged.all()), f"{tag}: not every column converged")
+        # The fp64 (Jacobi-)PCG solution of each column, for the forward
+        # error: the batched loop in fp64.
+        a64 = a if m is None else a.astype(torch.float64)
+        m64 = None if m is None else cgx_torch.JacobiPrecond.from_matrix(a64)
+        x64 = cgx_torch.cg_solve_multi(a64, B.double(), tol=1e-10,
+                                       maxiter=20000, preconditioner=m64,
+                                       backend="xla").x
+        fwd = [rel(res.x[:, j], x64[:, j]) for j in range(k)]
+        # Each column alone through K3, with the multi solve's cap.
+        singles = [(fused_stencil_cg(a, B[:, j].contiguous(), tol=TOL,
+                                     maxiter=n) if m is None else
+                    fused_dia_cg(a, B[:, j].contiguous(), tol=TOL, maxiter=n,
+                                 inv_diag=m.inv_diag)) for j in range(k)]
+        its1 = [int(s.iterations) for s in singles]
+        last = its1.index(max(its1))
+        last_equal = torch.equal(res.x[:, last], singles[last].x)
+        dev_last = rel(res.x[:, last], singles[last].x)
+        again = cgx_torch.auto_solve(a, B, tol=TOL, preconditioner=m)
+        same = (torch.equal(again.x, res.x)
+                and torch.equal(again.iterations, res.iterations))
+        eng, e = multi_engine(a, m)
+        b2 = B.T if e is None else B.T * e[None]
+        ref = eng.solve_reference(b2, tol=TOL, maxiter=n)
+        x_ref = ref.x if e is None else ref.x * e[:, None]
+        its_ref = int(ref.iterations[0])
+        dx = rel(res.x, x_ref)
+        print(f"{tag} {label}, B ({n}, {k}): {its} iterations shared, "
+              f"{start.elapsed_time(end):.1f} ms; single-RHS K3 counts "
+              f"{its1}; column {last} (exits last) equal to its single "
+              f"solve bit for bit: {last_equal} (|dx|/|x| {dev_last:.3e}); "
+              f"|x-x64|/|x64| per column "
+              f"{[float(f'{v:.3e}') for v in fwd]}; reproducible: {same}; "
+              f"plain version {its_ref} iterations, |x-x_plain|/|x_plain| "
+              f"{dx:.3e} (bitwise {torch.equal(res.x, x_ref)})")
+        check(max(fwd) <= 1e-4, f"{tag}: forward error {max(fwd)}")
+        check(abs(its - max(its1)) <= 2,
+              f"{tag}: {its} shared vs single counts {its1}")
+        check(same, f"{tag}: two runs differ")
+        check(its_ref == its, f"{tag}: {its} vs plain {its_ref} iterations")
+        check(dx <= 1e-5, f"{tag}: x differs from the plain version by {dx}")
+        main_runs[label] = (B, its, its1, start.elapsed_time(end))
+
+    # -- M4. The narrow-band route: K3 per column ---------------------------
+    a7 = dias["DIA-7 192^3"]
+    m7 = cgx_torch.JacobiPrecond.from_matrix(a7)
+    n7 = a7.shape[0]
+    B7 = seeded_block(n7, k, SEED + 5, dev)
+    route = _multi_route(a7, B7, m7, "auto")[0]
+    check(route == "sequential", f"M4 DIA-7 routed to {route}")
+    zero()
+    res7 = cgx_torch.auto_solve(a7, B7, tol=TOL, preconditioner=m7)
+    torch.cuda.synchronize()
+    c = counts()
+    print(f"M4 DIA-7 192^3 launches: K3 A {c['k3_a']}, K3 B {c['k3_b']}, "
+          f"K5 A {c['k5_a']}, K5 B {c['k5_b']}, K2 {c['k2']}")
+    check(c["k3_a"] > 0 and c["k3_b"] > 0 and c["k5_a"] == 0
+          and c["k5_b"] == 0 and c["k2"] == 0,
+          f"M4: the narrow-band route did not run K3 alone: {c}")
+    for j in range(k):
+        one = fused_dia_cg(a7, B7[:, j].contiguous(), tol=TOL, maxiter=n7,
+                           inv_diag=m7.inv_diag)
+        eq = (int(one.iterations) == int(res7.iterations[j])
+              and torch.equal(one.x, res7.x[:, j]))
+        print(f"M4 column {j}: {int(res7.iterations[j])} iterations, "
+              f"converged {bool(res7.converged[j])}, equal to fused_dia_cg "
+              f"bit for bit: {eq}")
+        check(eq and bool(res7.converged[j]), f"M4 column {j} differs")
+
+    # -- M5. The batched loop below FUSED_MIN_ROWS; block CG ----------------
+    a27 = dias["DIA-27 128^3"]
+    m27 = cgx_torch.JacobiPrecond.from_matrix(a27)
+    B27 = seeded_block(a27.shape[0], k, SEED + 6, dev)
+    route = _multi_route(a27, B27, m27, "auto")[0]
+    check(route == "xla", f"M5 DIA-27 128^3 routed to {route}")
+    zero()
+    t0 = time.perf_counter()
+    res27 = cgx_torch.auto_solve(a27, B27, tol=TOL, preconditioner=m27)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    c = counts()
+    check(sum(c.values()) == 0, f"M5: the loop launched a kernel: {c}")
+    for j in range(k):
+        one = cgx_torch.cg_solve(a27, B27[:, j].contiguous(), tol=TOL,
+                                 preconditioner=m27)
+        dxj = rel(res27.x[:, j], one.x)
+        print(f"M5 column {j}: {int(res27.iterations[j])} iterations (its "
+              f"own cg_solve {int(one.iterations)}), |dx|/|x| {dxj:.3e} "
+              f"(bitwise {torch.equal(res27.x[:, j], one.x)})")
+        check(int(one.iterations) == int(res27.iterations[j]) and dxj <= 1e-5
+              and bool(res27.converged[j]), f"M5 column {j} differs")
+    print(f"M5 batched loop DIA-27 128^3, k={k}: {t_loop:.2f} s (host "
+          f"clock), no K2, K3 or K5 launch")
+    s64 = cgx_torch.poisson3d_stencil(64, 64, 64)
+    rng = np.random.default_rng(SEED + 7)
+    base = rng.standard_normal(s64.shape[0])
+    b8 = torch.from_numpy(np.stack(
+        [base + 0.05 * rng.standard_normal(s64.shape[0]) for _ in range(8)],
+        axis=1).astype(np.float32)).to(dev)
+    blk = cgx_torch.block_cg_solve(s64, b8, tol=1e-5)
+    single = cgx_torch.cg_solve(s64, b8[:, 0].contiguous(), tol=1e-5)
+    its_blk = int(blk.iterations[0])
+    print(f"M5 block_cg_solve 64^3, 8 clustered right-hand sides: {its_blk} "
+          f"iterations, converged {blk.converged.tolist()}; single CG on "
+          f"column 0: {int(single.iterations)}")
+    check(bool(blk.converged.all()) and its_blk < int(single.iterations),
+          "M5: block CG did not beat single CG")
+
+    # -- M6. Times -----------------------------------------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    def versus_k3(label, eng, one, b2, its, its1):
+        """K5 against the four sequential K3 solves of the same block, in
+        turns; returns K5's ms per solve."""
+        n = eng.n
+        cols = [b2[j] for j in range(k)]
+        t5, t3 = time_pair(
+            lambda: eng.solve(b2, tol=TOL, maxiter=n),
+            lambda: [one.solve(c, tol=TOL, maxiter=n) for c in cols],
+            reps=3)
+        print(f"[{card}] M6 {label}, k={k}: K5 {t5:.2f} ms/solve, "
+              f"{t5 / its * 1e3:.2f} us/iter ({its} it), "
+              f"{t5 / its / k * 1e3:.2f} us per column and iteration; four "
+              f"sequential K3 solves {t3:.2f} ms, "
+              f"{t3 / sum(its1) * 1e3:.2f} us per column and iteration "
+              f"({sum(its1)} column-iterations); K5 / K3 "
+              f"{(t5 / (its * k)) / (t3 / sum(its1)):.3f}")
+        return t5
+
+    dev_ms, per_call, bounds = {}, {}, {}
+    for label, (a, m) in cells.items():
+        eng, e, one, p, q_ref, pq_ref, qq_ref, rz = steps[label]
+        B, its, its1, _ = main_runs[label]
+        n = eng.n
+        b2 = (B.T if e is None else B.T * e[None]).contiguous()
+        cols = [b2[j] for j in range(k)]
+        t5 = versus_k3(label, eng, one, b2, its, its1)
+        # The kernels' own device time over one solve (CUDA activity only).
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.solve(b2, tol=TOL, maxiter=n)
+            torch.cuda.synchronize()
+        us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
+              if ev.self_device_time_total > 0}
+        busy = sum(us.values())
+        ka = sum(v for kk, v in us.items() if "multi_a" in kk)
+        kb = sum(v for kk, v in us.items() if "multi_b" in kk)
+        if ka == 0 or kb == 0:
+            print("M6 profiler: no device time for K5 recorded; per-call "
+                  "times below are one call from Python")
+        else:
+            dev_ms[label] = (ka / its / 1e3, kb / its / 1e3)
+            print(f"[{card}] M6 profiler, one K5 solve {label}: device busy "
+                  f"{busy / 1e3:.2f} ms of {t5:.2f} (idle share "
+                  f"{1 - busy / 1e3 / t5:.1%}); K5 A {ka / its:.2f} us and "
+                  f"K5 B {kb / its:.2f} us of device time per iteration "
+                  f"({(ka + kb) / busy:.1%} of the device time)")
+        # K3's kernels over one column's solve, to set K5's per-column
+        # cost beside them.
+        j = its1.index(max(its1))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            one.solve(cols[j], tol=TOL, maxiter=n)
+            torch.cuda.synchronize()
+        us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()}
+        k3a = sum(v for kk, v in us.items() if "kernel_a<" in kk)
+        k3b = sum(v for kk, v in us.items() if "kernel_b<" in kk)
+        if k3a and k3b:
+            print(f"[{card}] M6 profiler, K3 on column {j} of {label}: A "
+                  f"{k3a / its1[j]:.2f} us and B {k3b / its1[j]:.2f} us of "
+                  f"device time per iteration; K5 A / K3 A "
+                  f"{ka / its / (k3a / its1[j]):.2f}, K5 B / K3 B "
+                  f"{kb / its / (k3b / its1[j]):.2f} at k = {k}")
+        # One call each from Python beside its plain version.
+        z = torch.zeros_like(p)
+        t_a, t_ap = time_pair(lambda: eng.kernel_a(p),
+                              lambda: eng.kernel_a_reference(p), inner=10)
+        t_b, t_bp = time_pair(
+            lambda: eng.kernel_b(rz, pq_ref, qq_ref, z, p, p, q_ref),
+            lambda: eng.kernel_b_reference(rz, pq_ref, qq_ref, z, p, p,
+                                           q_ref), inner=10)
+        per_call[label] = (t_a, t_ap, t_b, t_bp)
+        # Bounds: A reads the planes and P and writes Q (2 flops per tap
+        # and mirror, 4 for the sums); B reads X, R, P, Q and w and writes
+        # X, R, P (12 flops per entry).
+        n_pl = 0 if eng.planes is None else eng.planes.shape[0]
+        terms = sum(2 if (c is None and eng.sym and tap != (0, 0, 0)) else 1
+                    for tap, c in zip(eng.taps, eng.coeffs))
+        bounds[label] = (
+            bound((n_pl + 2 * k) * 4 * n, k * n * (2 * terms + 4)),
+            bound((7 * k + (eng.weight is not None)) * 4 * n, 12 * k * n))
+        print(f"[{card}] M6 {label} one call from Python: K5 A "
+              f"{t_a * 1e3:.2f} us (plain {t_ap * 1e3:.2f} us, bound "
+              f"{bounds[label][0][0] * 1e3:.2f} us, {bounds[label][0][1]}), "
+              f"K5 B {t_b * 1e3:.2f} us (plain {t_bp * 1e3:.2f} us, bound "
+              f"{bounds[label][1][0] * 1e3:.2f} us, {bounds[label][1][1]}; "
+              f"the call copies X, R, P first)")
+
+    # The narrow-band DIA-7 of M4, which auto sends to K3 per column by the
+    # JAX package's plane count (_narrow_band): K5 on the same B, checked
+    # and timed against the four K3 solves.
+    eng7, e7 = multi_engine(a7, m7)
+    one7 = k3.FusedCG(eng7.nx, eng7.ny, eng7.nz, eng7.taps,
+                      coeffs=eng7.coeffs, planes=eng7.planes,
+                      weight=eng7.weight, sym=eng7.sym)
+    b7 = (B7.T * e7[None]).contiguous()
+    r5 = eng7.solve(b7, tol=TOL, maxiter=n7)
+    its5, its7 = int(r5.iterations[0]), res7.iterations.tolist()
+    print(f"M6 DIA-7 192^3 through K5: {its5} iterations shared (K3 per "
+          f"column {its7}), converged {r5.converged.tolist()}")
+    check(bool(r5.converged.all()) and abs(its5 - max(its7)) <= 2,
+          f"M6: K5 on DIA-7 took {its5} iterations vs K3's {its7}")
+    versus_k3("DIA-7 192^3", eng7, one7, b7, its5, its7)
+    del eng7, one7, b7, r5
+
+    # PyTorch calls that compute K5 A's product (without its sums): the CSR
+    # product of Ã at DIA-27 160^3 and conv3d with batch k at 224^3 (fp32,
+    # cuDNN's TF32 off).
+    d_label = "DIA-27 160^3"
+    eng, e, _, p, q_ref = steps[d_label][:5]
+    csr = scaled_csr(d160, e)
+    pn = p.T.contiguous()
+    check(maxrel(csr @ pn, q_ref.T) <= 1e-5,
+          "the CSR product does not compute K5 A's product")
+    t_csr = statistics.median(event_ms(lambda: csr @ pn, inner=10)
+                              for _ in range(5))
+    del csr
+    s_label = "stencil 224^3"
+    p224, q224 = steps[s_label][3], steps[s_label][4]
+    torch.backends.cudnn.allow_tf32 = False
+    wk = torch.zeros((1, 1, 3, 3, 3), device=dev)
+    wk[0, 0, 1, 1, 1] = 6.0
+    for tap in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                (1, 1, 2)):
+        wk[(0, 0) + tap] = -1.0
+    xv = p224.view(k, 1, *N224)
+
+    def conv():
+        return torch.nn.functional.conv3d(xv, wk, padding=1)
+
+    check(maxrel(conv().reshape(k, -1), q224) <= 1e-6,
+          "conv3d does not compute K5 A's product")
+    conv()
+    t_conv = statistics.median(event_ms(conv, inner=10) for _ in range(5))
+    print(f"[{card}] M6 PyTorch calls of K5 A's product alone: CSR product "
+          f"of Ã at {d_label} {t_csr * 1e3:.2f} us (K5 A one call "
+          f"{per_call[d_label][0] * 1e3:.2f} us); conv3d batch {k} at "
+          f"{s_label} {t_conv * 1e3:.2f} us (K5 A one call "
+          f"{per_call[s_label][0] * 1e3:.2f} us)")
+
+    t_a, t_ap, t_b, t_bp = per_call[d_label]
+    ms_a, ms_b = dev_ms.get(d_label, (t_a, t_b))
+    return [
+        {"name": "fused_multi_a", "route": "cuda",
+         "source": "cgx_torch/csrc/fused_multi.cu",
+         "replaces": "cgx/kernels/fused_multi.py:64",
+         "launches": launches["a"], "max_abs_err": errs["a"], "ms": ms_a,
+         "plain_ms": t_ap, "bound_ms": bounds[d_label][0][0],
+         "bound_by": bounds[d_label][0][1], "library_ms": t_csr},
+        {"name": "fused_multi_b", "route": "cuda",
+         "source": "cgx_torch/csrc/fused_multi.cu",
+         "replaces": "cgx/kernels/fused_multi.py:204",
+         "launches": launches["b"], "max_abs_err": errs["b"], "ms": ms_b,
+         "plain_ms": t_bp, "bound_ms": bounds[d_label][1][0],
+         "bound_by": bounds[d_label][1][1], "library_ms": None},
+    ]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -906,11 +1329,22 @@ def main() -> None:
         lambda: eng7.kernel_b(rz7, pq7, qq7, z7, p7, p7, q7),
         lambda: eng7.kernel_b_reference(rz7, pq7, qq7, z7, p7, p7, q7),
         inner=20)
+    # One PyTorch call that computes K3 A's product (without its sums):
+    # torch's CSR product of Ã.
+    csr7 = scaled_csr(dias["DIA-7 192^3"], e7)
+    pc7 = p7[:, None]
+    check(maxrel((csr7 @ pc7)[:, 0], q7) <= 1e-5,
+          "the CSR product does not compute K3 A's product")
+    t_csr7 = statistics.median(event_ms(lambda: csr7 @ pc7, inner=20)
+                               for _ in range(5))
+    del csr7
     print(f"[{card}] K3 one call from Python at DIA-7 192^3: A "
-          f"{t_a * 1e3:.2f} us (plain {t_ap * 1e3:.2f} us), B "
+          f"{t_a * 1e3:.2f} us (plain {t_ap * 1e3:.2f} us; torch's CSR "
+          f"product of Ã alone {t_csr7 * 1e3:.2f} us), B "
           f"{t_b * 1e3:.2f} us (plain {t_bp * 1e3:.2f} us)")
 
     w_entries = wbell_phases(dev, card)
+    m_entries = multi_phases(dev, card, dias)
 
     # Bounds: each input read once, each output written once (4 B words),
     # against the operations at the fp32 rate.  K1: x in, y out, 2 flops
@@ -949,11 +1383,11 @@ def main() -> None:
               k2p_b),
         entry("fused_kernel_a", "cgx_torch/csrc/fused_engine.cu",
               "cgx/kernels/fused_engine.py:272", launches["k3_a"],
-              k3_err["a"], t_a, t_ap, k3a_b),
+              k3_err["a"], t_a, t_ap, k3a_b, t_csr7),
         entry("fused_kernel_b", "cgx_torch/csrc/fused_engine.cu",
               "cgx/kernels/fused_engine.py:411", launches["k3_b"],
               k3_err["b"], t_b, t_bp, k3b_b),
-    ] + w_entries}
+    ] + w_entries + m_entries}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -221,8 +221,13 @@ def test_slice_end_to_end_matches_cgx():
 
 def test_unported_options_raise():
     a = cgx_torch.poisson3d_stencil(4, 4, 4)
+    # A 2-D b is ported (cg_solve_multi); its bf16 planes are not.
+    assert bool(cgx_torch.auto_solve(a, torch.ones(64, 2)).converged.all())
+    from cgx_torch.kernels.fused_multi import fused_dia_cg_multi
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cgx_torch.auto_solve(a, torch.ones(64, 2))
+        fused_dia_cg_multi(poisson3d_dia(4, 4, 4, dtype=np.float32,
+                                         device="cpu"), torch.ones(64, 2),
+                           plane_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cgx_torch.auto_solve(a, torch.ones(64), mixed_precision=True)
     with pytest.raises(ValueError):
@@ -308,7 +313,8 @@ def test_port_imports_no_jax():
             "cgx_torch.sparse.types, cgx_torch.solve.precond, "
             "cgx_torch.io.poisson, cgx_torch.sparse.wbell, "
             "cgx_torch.kernels.wbell, cgx_torch.solve.wbell, "
-            "cgx_torch.io.suitesparse, cgx_torch.io.matrix_market, sys; "
+            "cgx_torch.io.suitesparse, cgx_torch.io.matrix_market, "
+            "cgx_torch.kernels.fused_multi, cgx_torch.solve.block, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'cgx' not in sys.modules, 'cgx imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

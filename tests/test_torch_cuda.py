@@ -338,3 +338,128 @@ def test_wbell_auto_solve_on_card(cuda_device):
     for pc in ("poly", "block_jacobi"):
         assert bool(cgx_torch.auto_solve(a, b, tol=1e-6,
                                          preconditioner=pc).converged)
+
+
+def _multi(op, dev):
+    """K5's engine for a case, and its Jacobi scaling: the 3-D and 2-D
+    constant stencils, DIA-7 and DIA-27 with symmetric planes, and DIA-27
+    with all 27 planes (the non-symmetric mode)."""
+    from cgx_torch.kernels.fused_multi import FusedCGMulti
+
+    if op in ("p3d", "2d"):
+        a = (cgx_torch.poisson3d_stencil(33, 29, 31) if op == "p3d"
+             else cgx_torch.poisson2d_stencil(61, 67))
+        nx, ny, nz, taps, coeffs = stencil_taps(a)
+        return FusedCGMulti(nx, ny, nz, taps, coeffs=coeffs), None
+    nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
+        _dia(op.split("_")[0], dev), torch.float32,
+        assume_symmetric=False if op.endswith("full") else None)
+    assert sym == (not op.endswith("full"))
+    return FusedCGMulti(nx, ny, nz, taps, coeffs=coeffs, planes=planes,
+                        weight=w, sym=sym), e
+
+
+def _multi_block(n, k, seed, dev):
+    """A seeded (k, n) block whose last row is zero when k > 1."""
+    p = t(np.random.default_rng(seed).standard_normal((k, n)).astype(
+        np.float32), dev)
+    if k > 1:
+        p[-1] = 0.0
+    return p
+
+
+@pytest.mark.parametrize("op,k", [
+    ("p3d", 1), ("p3d", 3), ("2d", 8), ("dia7", 3), ("dia27", 1),
+    ("dia27", 8), ("dia27_full", 3), ("dia27", 11)])
+def test_k5_single_steps_match_plain(cuda_device, op, k):
+    """K5's kernels A and B, one launch each, against their plain versions
+    and K3's kernel A per column; a zero column is frozen (x and r kept,
+    p = r) and stays finite.  The kernels take 4 columns per pass: k = 8
+    runs two full groups, k = 1 and 3 leave lanes unused, k = 11 runs
+    three groups (4, 4 and 3)."""
+    from cgx_torch.kernels import fused_multi as k5
+
+    eng, _ = _multi(op, cuda_device)
+    p = _multi_block(eng.n, k, 40 + k, cuda_device)
+    before = (k5.multi_a_launches, k5.multi_b_launches)
+    q, pq, qq = eng.kernel_a(p)
+    torch.cuda.synchronize()
+    q_ref, pq_ref, qq_ref = eng.kernel_a_reference(p)
+    # The same products and sums per row, in tap order: q bit for bit.
+    assert torch.equal(q, q_ref)
+    one = k3.FusedCG(eng.nx, eng.ny, eng.nz, eng.taps, coeffs=eng.coeffs,
+                     planes=eng.planes, weight=eng.weight, sym=eng.sym)
+    for j in range(k):
+        assert torch.equal(q[j], one.kernel_a(p[j])[0])
+    # Exact fp64 sums in another order, one rounding: to 1e-6 relative.
+    for g, r in ((pq, pq_ref), (qq, qq_ref)):
+        assert float((g - r).abs().max()) <= 1e-6 * float(r.abs().max())
+    rz = torch.sum(p.double() ** 2, dim=1).float()
+    x = 0.5 * p
+    got = eng.kernel_b(rz, pq_ref, qq_ref, x, p, p, q_ref)
+    torch.cuda.synchronize()
+    ref = eng.kernel_b_reference(rz, pq_ref, qq_ref, x, p, p, q_ref)
+    assert (k5.multi_a_launches, k5.multi_b_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    for g, r in zip(got[:3], ref[:3]):
+        assert torch.isfinite(g).all()
+        assert float((g - r).abs().max()) <= 1e-6 * float(r.abs().max())
+    for g, r in zip(got[3:], ref[3:]):
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    if k > 1:
+        assert torch.equal(got[0][-1], x[-1]) and torch.equal(got[1][-1],
+                                                              p[-1])
+        assert torch.equal(got[2][-1], p[-1])
+
+
+@pytest.mark.parametrize("op,k", [("p3d", 4), ("dia7", 8), ("dia27", 3),
+                                  ("dia27_full", 2), ("p3d", 11)])
+def test_k5_matches_plain(cuda_device, op, k):
+    """K5's solve (cold and warm) against its plain version on the card:
+    the shared count ±2, x to 1e-4; two runs bit-identical; at least one
+    (A, B) pair per iteration."""
+    from cgx_torch.kernels import fused_multi as k5
+
+    eng, e = _multi(op, cuda_device)
+    b = t(np.random.default_rng(50 + k).standard_normal((k, eng.n)).astype(
+        np.float32), cuda_device)
+    b = b if e is None else e * b
+    x0 = 0.1 * _multi_block(eng.n, k, 60 + k, cuda_device)
+    for start in (None, x0):
+        before = k5.multi_b_launches
+        res = eng.solve(b, start, tol=1e-6, maxiter=4000)
+        torch.cuda.synchronize()
+        its = int(res.iterations[0])
+        assert k5.multi_b_launches - before >= its
+        assert bool(res.converged.all())
+        ref = eng.solve_reference(b, start, tol=1e-6, maxiter=4000)
+        assert abs(its - int(ref.iterations[0])) <= 2
+        assert float((res.x - ref.x).norm() / ref.x.norm()) <= 1e-4
+        again = eng.solve(b, start, tol=1e-6, maxiter=4000)
+        assert torch.equal(again.x, res.x)
+        assert torch.equal(again.iterations, res.iterations)
+
+
+def test_auto_solve_on_card_routes_multi(cuda_device):
+    """A 2-D b at FUSED_MIN_ROWS or more: the stencil runs K5 (no K2 or
+    K3), the narrow-band DIA runs K3 per column (no K5)."""
+    from cgx_torch.kernels import fused_multi as k5
+
+    s = cgx_torch.poisson3d_stencil(150, 150, 150)
+    b = t(np.random.default_rng(70).standard_normal((s.shape[0], 2)).astype(
+        np.float32), cuda_device)
+    before = (k5.multi_a_launches, k3.fused_a_launches,
+              k2.resident_cg_launches)
+    res = cgx_torch.auto_solve(s, b, tol=1e-6, maxiter=20)
+    assert k5.multi_a_launches > before[0]
+    assert (k3.fused_a_launches, k2.resident_cg_launches) == before[1:]
+    assert res.iterations.tolist() == [20, 20] and res.x.shape == b.shape
+    data, offs, shape = scaled_dia_data(150, 150, 150, seed=5)
+    a = cgx_torch.DIAMatrix(data=t(data.astype(np.float32), cuda_device),
+                            offsets=offs, shape=shape)
+    m = cgx_torch.JacobiPrecond.from_matrix(a)
+    before = (k5.multi_a_launches, k3.fused_a_launches)
+    res = cgx_torch.auto_solve(a, b, tol=1e-6, maxiter=10, preconditioner=m)
+    assert k5.multi_a_launches == before[0]
+    assert k3.fused_a_launches > before[1]
+    assert res.iterations.tolist() == [10, 10]
