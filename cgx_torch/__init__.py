@@ -9,9 +9,10 @@ package imports neither JAX nor ``cgx`` and needs no GPU.
 from cgx_torch.sparse.stencil import (GeneralStencil3D, Stencil2D, Stencil3D,
                                       poisson2d_stencil, poisson3d_27point,
                                       poisson3d_stencil)
-from cgx_torch.sparse.types import (CSRMatrix, DIAMatrix, ELLMatrix,
-                                    csr_from_scipy, dia_from_csr,
-                                    ell_from_csr)
+from cgx_torch.sparse.types import (BSRMatrix, COOMatrix, CSRMatrix,
+                                    DIAMatrix, ELLMatrix, bsr_from_csr,
+                                    coo_from_scipy, csr_from_scipy,
+                                    dia_from_csr, ell_from_csr)
 from cgx_torch.sparse.wbell import (WBELL_MIN_ROWS, WBELLMatrix, auto_format,
                                     pick_format, wbell_from_csr)
 from cgx_torch.ops.spmv import spmm, spmv
@@ -28,8 +29,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Stencil2D", "Stencil3D", "GeneralStencil3D", "poisson2d_stencil",
-    "poisson3d_stencil", "poisson3d_27point", "CSRMatrix", "DIAMatrix",
-    "ELLMatrix", "WBELLMatrix", "csr_from_scipy", "dia_from_csr",
+    "poisson3d_stencil", "poisson3d_27point", "COOMatrix", "CSRMatrix",
+    "BSRMatrix", "DIAMatrix", "ELLMatrix", "WBELLMatrix", "csr_from_scipy",
+    "coo_from_scipy", "bsr_from_csr", "dia_from_csr",
     "ell_from_csr", "wbell_from_csr", "auto_format", "pick_format",
     "WBELL_MIN_ROWS", "spmv", "spmm", "blas", "CGResult", "cg_solve",
     "wbell_cg_solve", "wbell_cg_solve_multi", "WBellBlockJacobiPrecond",

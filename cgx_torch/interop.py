@@ -3,8 +3,9 @@ cgx_torch.
 
 Everything crosses as numpy arrays or plain fields, so this module imports
 neither JAX nor ``cgx``: a ``cgx`` object is read by its class name and
-fields.  The data of a ``DIAMatrix``, ``CSRMatrix`` or ``WBELLMatrix`` (every
-field, the static ones included) and of a ``JacobiPrecond``,
+fields.  The data of a ``DIAMatrix``, ``CSRMatrix``, ``COOMatrix``,
+``BSRMatrix``, ``BlockELL`` or ``WBELLMatrix`` (every field, the static
+ones included; bfloat16 values stay bfloat16) and of a ``JacobiPrecond``,
 ``BlockJacobiPrecond``, ``WBellBlockJacobiPrecond`` or
 ``PolynomialPrecond`` is copied to
 ``device`` (the card unless the caller asks for the CPU), so both packages
@@ -20,7 +21,9 @@ from cgx_torch.solve.precond import (BlockJacobiPrecond, JacobiPrecond,
                                      PolynomialPrecond)
 from cgx_torch.solve.wbell import WBellBlockJacobiPrecond
 from cgx_torch.sparse.stencil import GeneralStencil3D, Stencil2D, Stencil3D
-from cgx_torch.sparse.types import CSRMatrix, DIAMatrix, resolve_device
+from cgx_torch.kernels.bsr import BlockELL
+from cgx_torch.sparse.types import (BSRMatrix, COOMatrix, CSRMatrix,
+                                    DIAMatrix, resolve_device)
 from cgx_torch.sparse.wbell import WBELLMatrix
 
 __all__ = ["operator_from_cgx", "precond_from_cgx", "tensor_from_numpy",
@@ -29,9 +32,10 @@ __all__ = ["operator_from_cgx", "precond_from_cgx", "tensor_from_numpy",
 
 def operator_from_cgx(a, device="cuda"):
     """The port's operator for a ``cgx`` ``Stencil2D``/``Stencil3D``/
-    ``GeneralStencil3D``/``DIAMatrix``/``CSRMatrix``/``WBELLMatrix``
-    (duck-typed by class name and fields; a port operator is read the same
-    way).  Stored data lands on ``device``; a stencil stores none."""
+    ``GeneralStencil3D``/``DIAMatrix``/``CSRMatrix``/``COOMatrix``/
+    ``BSRMatrix``/``BlockELL``/``WBELLMatrix`` (duck-typed by class name and
+    fields; a port operator is read the same way).  Stored data lands on
+    ``device``; a stencil stores none."""
     kind = type(a).__name__
     dtype_name = str(getattr(a, "dtype_name", "float32"))
     if kind == "Stencil3D":
@@ -60,17 +64,36 @@ def operator_from_cgx(a, device="cuda"):
         return CSRMatrix.from_arrays(_numpy(a.values), _numpy(a.col_indices),
                                      _numpy(a.indptr), a.shape,
                                      device=device)
+    shape = tuple(int(d) for d in getattr(a, "shape", ()))
+
+    def field(name, dtype=None):
+        v = tensor_from_numpy(getattr(a, name), device)
+        return v if dtype is None else v.to(dtype)
+
+    if kind == "COOMatrix":
+        return COOMatrix(values=field("values"),
+                         row_indices=field("row_indices", torch.int64),
+                         col_indices=field("col_indices", torch.int64),
+                         shape=shape)
+    if kind == "BSRMatrix":
+        return BSRMatrix(values=field("values"),
+                         col_indices=field("col_indices", torch.int64),
+                         indptr=field("indptr", torch.int64),
+                         row_indices=field("row_indices", torch.int64),
+                         shape=shape, blocksize=int(a.blocksize))
+    if kind == "BlockELL":
+        return BlockELL(values=field("values"),
+                        block_cols=field("block_cols", torch.int32),
+                        shape=shape)
     if kind == "WBELLMatrix":
-        def field(name, dtype=torch.int32):
-            v = tensor_from_numpy(getattr(a, name), device)
-            return v if dtype is None else v.to(dtype)
         return WBELLMatrix(
-            values=field("values", None),
-            diag_internal=field("diag_internal", None),
-            perm=field("perm", torch.int64), iperm=field("iperm", torch.int64),
-            **{f: field(f) for f in ("lc", "outg", "ps", "wb", "zi", "g0",
-                                     "gn", "pgo", "p_og", "p_ga")},
-            shape=(int(a.shape[0]), int(a.shape[1])),
+            values=field("values"), diag_internal=field("diag_internal"),
+            perm=field("perm", torch.int64),
+            iperm=field("iperm", torch.int64),
+            **{f: field(f, torch.int32)
+               for f in ("lc", "outg", "ps", "wb", "zi", "g0", "gn", "pgo",
+                         "p_og", "p_ga")},
+            shape=shape,
             **{f: int(getattr(a, f)) for f in ("ng_real", "nt", "ngw",
                                                "wbcap", "span", "nnz")})
     raise TypeError(f"operator_from_cgx: unsupported operator {kind!r}")

@@ -1,21 +1,107 @@
-"""Poisson-type problems in DIA form (PyTorch).
+"""Poisson-type problems in CSR and DIA form (PyTorch).
 
-Counterpart of the DIA builders of :mod:`cgx.io.poisson`
+Counterpart of :mod:`cgx.io.poisson`: the CSR builders (``poisson2d``,
+``poisson3d`` and their host arrays) and the DIA builders
 (``poisson2d_dia``, ``poisson3d_dia``, ``poisson3d_dia27``).  The data is
 built with numpy exactly as the JAX package builds it, from the same
-seed, so both packages hold bit-identical coefficients; the result is a
+seed, so both packages hold bit-identical coefficients and index arrays;
+the result is a :class:`~cgx_torch.sparse.types.CSRMatrix` or
 :class:`~cgx_torch.sparse.types.DIAMatrix` on ``device``, the card unless
-the caller asks for the CPU.  The CSR builders wait for the
-reference-parity slice (ROADMAP queue A item 5).
+the caller asks for the CPU.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from cgx_torch.sparse.types import DIAMatrix, resolve_device
+from cgx_torch.sparse.types import CSRMatrix, DIAMatrix, resolve_device
 
-__all__ = ["poisson2d_dia", "poisson3d_dia", "poisson3d_dia27"]
+__all__ = ["poisson2d_csr_arrays", "poisson3d_csr_arrays", "poisson2d",
+           "poisson3d", "poisson2d_dia", "poisson3d_dia", "poisson3d_dia27"]
+
+
+def poisson2d_csr_arrays(nx: int, ny: int, dtype=np.float64):
+    """5-point 2-D Laplacian (Dirichlet) as host CSR arrays ``(values,
+    col_indices, indptr, n)``, node (i, j) → i·ny + j; diagonal 4,
+    off-diagonals -1.  Indices are int32, as the JAX package builds them."""
+    n = nx * ny
+    i = np.arange(nx)[:, None]
+    j = np.arange(ny)[None, :]
+    idx = (i * ny + j)
+
+    rows, cols, vals = [], [], []
+
+    def add(mask, r, c, v):
+        rows.append(r[mask].ravel())
+        cols.append(c[mask].ravel())
+        vals.append(np.full(int(mask.sum()), v, dtype=dtype))
+
+    full = np.ones((nx, ny), bool)
+    add(full, idx, idx, 4.0)
+    west = np.broadcast_to(j > 0, (nx, ny))
+    add(west, np.broadcast_to(idx, (nx, ny)), idx - 1, -1.0)
+    east = np.broadcast_to(j < ny - 1, (nx, ny))
+    add(east, np.broadcast_to(idx, (nx, ny)), idx + 1, -1.0)
+    north = np.broadcast_to(i > 0, (nx, ny))
+    add(north, np.broadcast_to(idx, (nx, ny)), idx - ny, -1.0)
+    south = np.broadcast_to(i < nx - 1, (nx, ny))
+    add(south, np.broadcast_to(idx, (nx, ny)), idx + ny, -1.0)
+
+    return _triplets_to_csr(np.concatenate(rows), np.concatenate(cols),
+                            np.concatenate(vals), n)
+
+
+def poisson3d_csr_arrays(nx: int, ny: int, nz: int, dtype=np.float64):
+    """7-point 3-D Laplacian (Dirichlet) as host CSR arrays, node (i, j,
+    k) → (i·ny + j)·nz + k; diagonal 6, off-diagonals -1."""
+    n = nx * ny * nz
+    i = np.arange(nx)[:, None, None]
+    j = np.arange(ny)[None, :, None]
+    k = np.arange(nz)[None, None, :]
+    idx = (i * ny + j) * nz + k
+    shape = (nx, ny, nz)
+
+    rows, cols, vals = [], [], []
+
+    def add(mask, c_off, v):
+        m = np.broadcast_to(mask, shape)
+        r = np.broadcast_to(idx, shape)
+        rows.append(r[m].ravel())
+        cols.append((r + c_off)[m].ravel())
+        vals.append(np.full(int(m.sum()), v, dtype=dtype))
+
+    add(np.ones(shape, bool), 0, 6.0)
+    add(k > 0, -1, -1.0)
+    add(k < nz - 1, +1, -1.0)
+    add(j > 0, -nz, -1.0)
+    add(j < ny - 1, +nz, -1.0)
+    add(i > 0, -ny * nz, -1.0)
+    add(i < nx - 1, +ny * nz, -1.0)
+
+    return _triplets_to_csr(np.concatenate(rows), np.concatenate(cols),
+                            np.concatenate(vals), n)
+
+
+def _triplets_to_csr(rows, cols, vals, n):
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    indptr = np.zeros(n + 1, dtype=np.int32)
+    np.add.at(indptr, rows + 1, 1)
+    indptr = np.cumsum(indptr, dtype=np.int64).astype(np.int32)
+    return vals, cols.astype(np.int32), indptr, n
+
+
+def poisson2d(nx: int, ny: int, dtype=np.float64, device="cuda") -> CSRMatrix:
+    """2-D Poisson as a :class:`CSRMatrix` on ``device``."""
+    vals, cols, indptr, n = poisson2d_csr_arrays(nx, ny, dtype)
+    return CSRMatrix.from_arrays(vals, cols, indptr, (n, n), device=device)
+
+
+def poisson3d(nx: int, ny: int, nz: int, dtype=np.float64,
+              device="cuda") -> CSRMatrix:
+    """3-D Poisson as a :class:`CSRMatrix` on ``device``."""
+    vals, cols, indptr, n = poisson3d_csr_arrays(nx, ny, nz, dtype)
+    return CSRMatrix.from_arrays(vals, cols, indptr, (n, n), device=device)
 
 
 def poisson2d_dia(nx: int, ny: int, dtype=np.float64,

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "cgx_wbell_tiered": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cgx_wbell_windowed": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _I, _P],
+    "cgx_bell_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

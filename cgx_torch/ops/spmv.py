@@ -1,16 +1,18 @@
 """Sparse matrix–vector / matrix–matrix products (PyTorch).
 
 Counterpart of :mod:`cgx.ops.spmv` for the matrix-free stencils and the
-CSR, ELL, DIA and WBELL formats.  A ``Stencil3D`` SpMV on a CUDA tensor
+COO, CSR, BSR, ELL, DIA and WBELL formats.  A ``Stencil3D`` SpMV on a CUDA tensor
 goes through the hand-written CUDA kernel (:func:`cgx_torch.kernels.
 stencil.stencil3d_spmv`), which takes float32 only; on a CPU tensor the
 same wrapper takes its plain PyTorch version, in any dtype.  A
 ``WBELLMatrix`` product takes internal-layout vectors and goes through
 K7 (:func:`cgx_torch.kernels.wbell.wbell_spmv`/``wbell_spmm``; ``X`` is
-``(nrhs, nt, 8, 128)``).  The 2-D and general stencils, CSR (gather +
-``index_add``), ELL (gather + row sum) and DIA (shifted multiply-adds) are
-plain PyTorch on every device, as the JAX package leaves them to XLA.  COO
-and BSR are not ported yet and raise ``TypeError``.
+``(nrhs, nt, 8, 128)``).  The 2-D and general stencils, COO and CSR
+(gather + ``index_add``), BSR (gather of ``x``'s blocks, a batched
+``(bs, bs)`` product, ``index_add`` over block rows), ELL (gather + row
+sum) and DIA (shifted multiply-adds) are plain PyTorch on every device,
+as the JAX package leaves them to XLA.  The block-ELL kernel K11 is
+reached through :func:`cgx_torch.kernels.bsr.bell_spmm`, not from here.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import functools
 import torch
 
 from cgx_torch.sparse.stencil import GeneralStencil3D, Stencil2D, Stencil3D
-from cgx_torch.sparse.types import CSRMatrix, DIAMatrix, ELLMatrix
+from cgx_torch.sparse.types import (BSRMatrix, COOMatrix, CSRMatrix,
+                                    DIAMatrix, ELLMatrix)
 from cgx_torch.sparse.wbell import WBELLMatrix
 from cgx_torch.kernels.wbell import wbell_spmm, wbell_spmv
 
@@ -38,8 +41,9 @@ def spmm(a, x: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"spmm: unsupported operand type {type(a)!r}")
 
 
-# -- CSR ----------------------------------------------------------------------
+# -- COO and CSR (both carry the row id of every nonzero) ---------------------
 
+@spmv.register(COOMatrix)
 @spmv.register(CSRMatrix)
 def _csr_spmv(a, x: torch.Tensor) -> torch.Tensor:
     prods = a.values * x[a.col_indices]
@@ -47,12 +51,31 @@ def _csr_spmv(a, x: torch.Tensor) -> torch.Tensor:
     return y.index_add_(0, a.row_indices, prods)
 
 
+@spmm.register(COOMatrix)
 @spmm.register(CSRMatrix)
 def _csr_spmm(a, x: torch.Tensor) -> torch.Tensor:
     prods = a.values[:, None] * x[a.col_indices]
     y = torch.zeros((a.shape[0], x.shape[1]), dtype=prods.dtype,
                     device=prods.device)
     return y.index_add_(0, a.row_indices, prods)
+
+
+# -- BSR ----------------------------------------------------------------------
+
+@spmv.register(BSRMatrix)
+def _bsr_spmv(a, x: torch.Tensor) -> torch.Tensor:
+    return _bsr_spmm(a, x[:, None])[:, 0]
+
+
+@spmm.register(BSRMatrix)
+def _bsr_spmm(a, x: torch.Tensor) -> torch.Tensor:
+    bs = a.blocksize
+    k = x.shape[1]
+    xb = x.reshape(-1, bs, k)                   # (n_block_cols, bs, k)
+    prods = torch.bmm(a.values, xb[a.col_indices])   # (nnzb, bs, k)
+    y = torch.zeros((a.shape[0] // bs, bs, k), dtype=prods.dtype,
+                    device=prods.device)
+    return y.index_add_(0, a.row_indices, prods).reshape(-1, k)
 
 
 # -- ELL ----------------------------------------------------------------------

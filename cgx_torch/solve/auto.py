@@ -17,8 +17,11 @@ K3 per column, or the batched loop), except over a ``WBELLMatrix``.
   on any device: the solve runs in its internal layout over K7
   (:func:`~cgx_torch.solve.wbell.wbell_cg_solve`), and a 2-D ``b`` goes to
   :func:`~cgx_torch.solve.wbell.wbell_cg_solve_multi` (K8);
-* everything else routes to ``"xla"``, which here means the port's own
-  :func:`~cgx_torch.solve.cg.cg_solve` loop.  Where the JAX package would
+* everything else (CSR, COO, BSR, ELL, and what the kernels do not take)
+  routes to ``"xla"``, which here means the port's own
+  :func:`~cgx_torch.solve.cg.cg_solve` loop over
+  :func:`~cgx_torch.ops.spmv.spmv` (a 2-D ``b``: the batched loop over
+  ``spmm``).  Where the JAX package would
   return ``"padded"`` (a workaround for XLA's tile padding, not ported)
   the port returns ``"xla"``; ``backend="padded"`` is accepted as an alias.
 

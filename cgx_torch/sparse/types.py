@@ -1,19 +1,22 @@
-"""Stored sparse formats (PyTorch): CSR, ELL and DIA.
+"""Stored sparse formats (PyTorch): COO, CSR, BSR, ELL and DIA.
 
-Counterpart of :mod:`cgx.sparse.types` for :class:`CSRMatrix` (what a
-scipy matrix arrives as), :class:`ELLMatrix` (near-uniform row degrees,
+Counterpart of :mod:`cgx.sparse.types`: :class:`COOMatrix` (triplets,
+sorted by row then column), :class:`CSRMatrix` (what a scipy matrix
+arrives as), :class:`BSRMatrix` (dense ``(bs, bs)`` blocks, the input of
+the block-ELL kernel K11, :mod:`cgx_torch.kernels.bsr`),
+:class:`ELLMatrix` (near-uniform row degrees,
 :func:`cgx_torch.sparse.wbell.auto_format`'s first choice) and
 :class:`DIAMatrix` (the variable-coefficient banded operators that the
-whole-solve and two-pass kernels run).  COO and BSR are not ported yet
-(ROADMAP queue A item 2).
+whole-solve and two-pass kernels run).
 
 The containers are frozen dataclasses holding tensors.  Index arrays are
 ``int64``, PyTorch's index type, where the JAX package keeps ``int32``.
-The host conversions (:func:`csr_from_scipy`, :func:`ell_from_csr`,
-:func:`dia_from_csr`) run once at set-up in numpy, as in the JAX package.
-A builder puts its result on ``device``, the card unless the caller asks
-for the CPU; :func:`resolve_device` raises when the card is missing
-rather than falling back.
+The host conversions (:func:`csr_from_scipy`, :func:`coo_from_scipy`,
+:func:`bsr_from_csr`, :func:`ell_from_csr`, :func:`dia_from_csr`) run once
+at set-up in numpy and scipy, as in the JAX package.  A builder puts its
+result on ``device``, the card unless the caller asks for the CPU;
+:func:`resolve_device` raises when the card is missing rather than
+falling back.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["CSRMatrix", "ELLMatrix", "DIAMatrix", "csr_from_scipy",
+__all__ = ["COOMatrix", "CSRMatrix", "BSRMatrix", "ELLMatrix", "DIAMatrix",
+           "csr_from_scipy", "coo_from_scipy", "bsr_from_csr",
            "ell_from_csr", "dia_from_csr", "resolve_device"]
 
 
@@ -37,6 +41,32 @@ def resolve_device(device) -> torch.device:
                            f"{str(dev)!r}; pass device='cpu' to build on "
                            "the CPU")
     return dev
+
+
+def _index(v, dev) -> torch.Tensor:
+    """A host index array as an int64 tensor on ``dev``."""
+    return torch.from_numpy(np.asarray(v, dtype=np.int64).copy()).to(dev)
+
+
+@dataclass(frozen=True, eq=False)
+class COOMatrix:
+    """Coordinate-format matrix (sorted by row, then column)."""
+
+    values: torch.Tensor        # (nnz,) float
+    row_indices: torch.Tensor   # (nnz,) int64
+    col_indices: torch.Tensor   # (nnz,) int64
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    def astype(self, dtype) -> "COOMatrix":
+        return dataclasses.replace(self, values=self.values.to(dtype))
 
 
 @dataclass(frozen=True, eq=False)
@@ -87,6 +117,35 @@ class CSRMatrix:
                         device=self.values.device)
         return d.index_add_(0, self.row_indices[on_diag],
                             self.values[on_diag])
+
+    def to_coo(self) -> COOMatrix:
+        return COOMatrix(self.values, self.row_indices, self.col_indices,
+                         self.shape)
+
+
+@dataclass(frozen=True, eq=False)
+class BSRMatrix:
+    """Block-CSR matrix with dense ``(bs, bs)`` blocks; ``row_indices`` is
+    the cached block-row id of every block.  ``shape`` is padded to a
+    multiple of ``blocksize``."""
+
+    values: torch.Tensor        # (nnzb, bs, bs) float
+    col_indices: torch.Tensor   # (nnzb,) int64, block-column ids
+    indptr: torch.Tensor        # (n_block_rows + 1,) int64
+    row_indices: torch.Tensor   # (nnzb,) int64, block-row ids
+    shape: Tuple[int, int]
+    blocksize: int
+
+    @property
+    def nnzb(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    def astype(self, dtype) -> "BSRMatrix":
+        return dataclasses.replace(self, values=self.values.to(dtype))
 
 
 @dataclass(frozen=True, eq=False)
@@ -148,6 +207,51 @@ def csr_from_scipy(a, device="cuda") -> CSRMatrix:
     a.sort_indices()
     return CSRMatrix.from_arrays(a.data, a.indices, a.indptr, a.shape,
                                  device=device)
+
+
+def coo_from_scipy(a, device="cuda") -> COOMatrix:
+    """Build a :class:`COOMatrix` on ``device`` from a ``scipy.sparse``
+    matrix, sorted by row, then column."""
+    dev = resolve_device(device)
+    a = a.tocoo()
+    order = np.lexsort((a.col, a.row))
+    return COOMatrix(values=torch.from_numpy(a.data[order].copy()).to(dev),
+                     row_indices=_index(a.row[order], dev),
+                     col_indices=_index(a.col[order], dev),
+                     shape=(int(a.shape[0]), int(a.shape[1])))
+
+
+def bsr_from_csr(a: CSRMatrix, blocksize: int) -> BSRMatrix:
+    """Convert CSR → BSR on the host (scipy, sorted block indices), with
+    n and m padded to a multiple of ``blocksize``; the result lands on the
+    input's device."""
+    import scipy.sparse as sp
+
+    dev = a.values.device
+    vals = a.values.detach().cpu().numpy()
+    cols = a.col_indices.cpu().numpy()
+    indptr = a.indptr.cpu().numpy()
+    n, m = a.shape
+    bs = int(blocksize)
+    n_pad = (-n) % bs
+    m_pad = (-m) % bs
+    s = sp.csr_matrix((vals, cols, indptr), shape=(n, m))
+    if n_pad or m_pad:
+        s = sp.csr_matrix(
+            sp.vstack([
+                sp.hstack([s, sp.csr_matrix((n, m_pad), dtype=s.dtype)]),
+                sp.csr_matrix((n_pad, m + m_pad), dtype=s.dtype),
+            ]))
+    b = sp.bsr_matrix(s, blocksize=(bs, bs))
+    b.sort_indices()
+    counts = np.diff(b.indptr).astype(np.int64)
+    rows = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+    return BSRMatrix(values=torch.from_numpy(np.ascontiguousarray(b.data))
+                     .to(dev),
+                     col_indices=_index(b.indices, dev),
+                     indptr=_index(b.indptr, dev),
+                     row_indices=torch.from_numpy(rows).to(dev),
+                     shape=(n + n_pad, m + m_pad), blocksize=bs)
 
 
 def ell_from_csr(a: CSRMatrix, width: Optional[int] = None,

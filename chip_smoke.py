@@ -69,14 +69,33 @@ Phases (any failed check exits nonzero, and no result line is printed):
     the same B (at DIA-27 160³, the 224³ stencil and the narrow-band DIA-7
     192³ of M4, which ``auto`` sends to K3), the profiler's device time of K5 A and B, one call of each
     beside its plain version and bound, and the PyTorch calls that compute
-    K5 A's product (the CSR product of Ã, conv3d with batch 4).
+    K5 A's product (the CSR product of Ã, conv3d with batch 4);
+20. B1, the block-ELL SpMM K11 (``cgx_torch.kernels.bell_spmm``) on the
+    JAX package's block-dense record (512 block rows of 8 distinct seeded
+    64×64 fp32 blocks, X (32768, k)) at k = 256 and 512, engines
+    ``"auto"`` and ``"dma"``: against its plain version and a numpy fp64
+    product (1e-5 · max|y|), twice for reproducibility;
+21. B2, bf16 operands at 1024 block rows, k = 256 (float32 out): against
+    its plain version and, within 3e-2 in the 2-norm, the fp32 product;
+22. B3, ``poisson3d(128, 128, 128)`` in fp32 through ``bsr_from_csr(·,
+    8)`` and ``bell_from_bsr``: ``bell_spmv`` (k = 1) and ``bell_spmm``
+    (k = 4) against the CSR ``spmv``/``spmm``;
+23. B4, the path as a user drives it (no kernel): ``auto_solve`` over the
+    BSR and COO forms of ``poisson3d(64, 64, 64)`` (route ``"xla"``)
+    against an fp64 solve and the CSR solve's count, ``cg_solve_multi``
+    over the BSR with B (n, 4) against each column's solve, and the
+    legacy 4-line file of ``poisson2d(256, 256)`` written, read back equal,
+    and solved (``tol=0``, 50 updates, fp64) on the card against the CPU;
+24. B5, times: K11 in B1–B3 beside its plain version, its bound and
+    torch's BSR product (B3 also beside torch's CSR product).
 
 The launch counters are set to 0 just before each of the paths 4, 6, 7,
-W3–W4 and M2–M5 and read just after it.  The line before the last is a JSON
-object describing each kernel, with its bound (the larger of its bytes,
-each input read once and each output written once, over 3.35 TB/s, and
-its operations over 67 TFLOP/s fp32) and the time of one PyTorch call
-that computes the same function where there is one; the last line is
+W3–W4, M2–M5 and B1–B4 and read just after it.  The line before the last
+is a JSON object describing each kernel, with its bound (the larger of
+its bytes, each input read once and each output written once, over 3.35
+TB/s, and its operations over 67 TFLOP/s fp32, or 989 TFLOP/s on the
+tensor cores for bf16 operands) and the time of one PyTorch call that
+computes the same function where there is one; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; it imports
 neither JAX nor the JAX package.
 """
@@ -108,16 +127,24 @@ MAXIT_HIST = 5000         # maxiter of the history solves
 TPU_ITERS_THERMAL2 = {"none": 5543, "jacobi": 3466}
 MAXIT_WBELL = 8000
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
-# the tensor cores.
+# the tensor cores, dense bf16 FLOP/s on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
+# The block-sparse phases: the JAX package's block-dense records
+# (BASELINE.md:79-80, docs/PERF_NOTES.md round 5g), bs 64 and wb 8.
+BELL_BS = 64
+BELL_WB = 8
+BELL_ROWS = {"B1": 512, "B2": 1024}   # block rows
+N64 = (64, 64, 64)                   # B4's solves
+LEGACY_2D = (256, 256)               # B4's legacy file
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
     """``(ms, "bytes" | "operations")``: the least time the card could
-    take for the work, the larger of the two."""
+    take for the work, the larger of the two (operations at ``peak``)."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / FP32_FLOPS * 1e3
+    tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -921,6 +948,305 @@ def multi_phases(dev, card, dias):
     ]
 
 
+def random_bell(nbr, seed, dev):
+    """The records' block-dense operator: ``nbr`` block rows of BELL_WB
+    distinct sorted block columns each (numpy, ``seed``), values standard
+    normal fp32, as a BlockELL on ``dev`` and as the CSR-of-blocks arrays
+    ``(crow, col, values)`` of the same matrix for torch's BSR product.
+    (experiments/bell_pair_proto.py:65 drew columns with repeats; distinct
+    columns make the same matrix a valid BSR.)"""
+    from cgx_torch.kernels.bsr import BlockELL
+
+    rng = np.random.default_rng(seed)
+    cols = np.sort(np.stack([rng.choice(nbr, BELL_WB, replace=False)
+                             for _ in range(nbr)]), axis=1).astype(np.int32)
+    vals = torch.from_numpy(rng.standard_normal(
+        (nbr, BELL_WB, BELL_BS, BELL_BS), dtype=np.float32)).to(dev)
+    a = BlockELL(values=vals, block_cols=torch.from_numpy(cols).to(dev),
+                 shape=(nbr * BELL_BS, nbr * BELL_BS))
+    crow = torch.arange(0, nbr * BELL_WB + 1, BELL_WB, device=dev)
+    return a, (crow, a.block_cols.reshape(-1).long(),
+               vals.reshape(-1, BELL_BS, BELL_BS))
+
+
+def product64(a, x) -> np.ndarray:
+    """``A @ X`` of a BlockELL in numpy fp64, slot by slot."""
+    vals = a.values.double().cpu().numpy()
+    cols = a.block_cols.long().cpu().numpy()
+    nbr, wb, bs, _ = vals.shape
+    xb = x.double().cpu().numpy().reshape(-1, bs, x.shape[1])
+    y = np.zeros((nbr, bs, x.shape[1]))
+    for j in range(wb):
+        y += np.matmul(vals[:, j], xb[cols[:, j]])
+    return y.reshape(nbr * bs, -1)
+
+
+def other_launches() -> dict:
+    """The launch counters of every kernel but K11, by (module, name)."""
+    from cgx_torch.kernels import fused_engine as k3
+    from cgx_torch.kernels import fused_multi as k5
+    from cgx_torch.kernels import fused_resident as k2
+    from cgx_torch.kernels import stencil as k1
+    from cgx_torch.kernels import wbell as kw
+
+    names = ((k1, "stencil3d_spmv_launches"), (k2, "resident_cg_launches"),
+             (k2, "resident_dia_launches"), (k3, "fused_a_launches"),
+             (k3, "fused_b_launches"), (k5, "multi_a_launches"),
+             (k5, "multi_b_launches"), (kw, "wbell_resident_launches"),
+             (kw, "wbell_tiered_launches"), (kw, "wbell_windowed_launches"))
+    return {(m, nm): getattr(m, nm) for m, nm in names}
+
+
+def bsr_phases(dev, card):
+    """B1–B5: the block-sparse path (K11, BSR/COO, the CSR builders, the
+    legacy format).  Returns K11's entry of the report line."""
+    import cgx_torch
+    from cgx_torch.io.legacy import read_legacy, write_legacy
+    from cgx_torch.io.poisson import poisson2d, poisson3d
+    from cgx_torch.kernels import bsr as kb
+
+    # The plain versions' fp32 matmuls must run in full fp32, not TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on for fp32 matmuls")
+    for (m, nm) in other_launches():
+        setattr(m, nm, 0)
+    kb.bell_spmm_launches = 0
+    phase_launches = {}
+
+    def held(label, run, plain, y64=None):
+        """Run K11 once (one launch), hold it to its plain version (and to
+        an fp64 product), and once more for bitwise reproducibility."""
+        before = kb.bell_spmm_launches
+        y = run()
+        torch.cuda.synchronize()
+        check(kb.bell_spmm_launches == before + 1,
+              f"{label}: the launch counter moved by "
+              f"{kb.bell_spmm_launches - before}")
+        y_ref = plain()
+        scale = float(y_ref.abs().max())
+        err = float((y - y_ref).abs().max())
+        line = (f"{label}: max|y - plain| {err:.3e} (bound 1e-5 * "
+                f"{scale:.3e})")
+        check(y.dtype == torch.float32, f"{label}: output {y.dtype}")
+        check(err <= 1e-5 * scale, f"{label} disagrees with its plain "
+              f"version: {err}")
+        if y64 is not None:
+            e64 = float(np.abs(y.double().cpu().numpy() - y64).max())
+            line += f", max|y - fp64| {e64:.3e}"
+            check(e64 <= 1e-5 * float(np.abs(y64).max()),
+                  f"{label} disagrees with the fp64 product: {e64}")
+        same = torch.equal(run(), y)
+        print(line + f", two runs bitwise equal: {same}")
+        check(same, f"{label}: two runs differ")
+        return y, err
+
+    # -- B1. fp32, 512 block rows, k = 256 and 512 ---------------------------
+    t0 = time.perf_counter()
+    a1, bsr1 = random_bell(BELL_ROWS["B1"], SEED, dev)
+    rng = np.random.default_rng(SEED + 10)
+    xs1 = {k: torch.from_numpy(rng.standard_normal(
+        (a1.shape[1], k), dtype=np.float32)).to(dev) for k in (256, 512)}
+    print(f"B1 block-ELL {BELL_ROWS['B1']} block rows, bs {BELL_BS}, wb "
+          f"{BELL_WB}: "
+          f"{a1.values.numel()} stored values, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    errs = {}
+    for k, x in xs1.items():
+        y64 = product64(a1, x)
+        for engine in ("auto", "dma"):
+            _, errs["B1", k, engine] = held(
+                f"B1 fp32 k={k} engine={engine}",
+                lambda: kb.bell_spmm(a1, x, engine=engine),
+                lambda: kb.bell_spmm_reference(a1, x), y64)
+    phase_launches["B1"] = kb.bell_spmm_launches
+
+    # -- B2. bf16 operands, 1024 block rows, k = 256 -------------------------
+    a2, bsr2 = random_bell(BELL_ROWS["B2"], SEED + 1, dev)
+    x2 = torch.from_numpy(np.random.default_rng(SEED + 11).standard_normal(
+        (a2.shape[1], 256), dtype=np.float32)).to(dev)
+    a2h, x2h = a2.astype(torch.bfloat16), x2.to(torch.bfloat16)
+    y2, errs["B2"] = held("B2 bf16 k=256", lambda: kb.bell_spmm(a2h, x2h),
+                          lambda: kb.bell_spmm_reference(a2h, x2h))
+    y2_32 = kb.bell_spmm_reference(a2, x2)
+    rel2 = float(torch.linalg.vector_norm(y2 - y2_32)
+                 / torch.linalg.vector_norm(y2_32))
+    print(f"B2 bf16: {a2h.values.numel()} stored values, output "
+          f"{y2.dtype}; |y - y_fp32| / |y_fp32| {rel2:.3e} (bound 3e-2)")
+    check(rel2 <= 3e-2, f"B2: bf16 product {rel2} from the fp32 one")
+    del y2, y2_32
+    phase_launches["B2"] = kb.bell_spmm_launches - phase_launches["B1"]
+
+    # -- B3. poisson3d(128, 128, 128) through BSR (bs 8) and block-ELL ------
+    t0 = time.perf_counter()
+    a3c = poisson3d(*N128, dtype=np.float32, device=dev)
+    t_csr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b3 = cgx_torch.bsr_from_csr(a3c, 8)
+    a3 = kb.bell_from_bsr(b3)
+    torch.cuda.synchronize()
+    n_pad = a3.values.shape[0] * a3.wb - b3.nnzb
+    print(f"B3 poisson3d 128^3: {a3c.shape[0]} rows, {a3c.nnz} nnz (CSR "
+          f"built in {t_csr:.1f} s); BSR bs 8 and block-ELL in "
+          f"{time.perf_counter() - t0:.1f} s: {b3.nnzb} blocks, wb "
+          f"{a3.wb}, {n_pad} padding blocks")
+    x3 = torch.from_numpy(np.random.default_rng(SEED + 12).standard_normal(
+        (a3c.shape[0], 4), dtype=np.float32)).to(dev)
+    x31 = x3[:, 0].contiguous()
+    held("B3 bell_spmv k=1", lambda: kb.bell_spmv(a3, x31),
+         lambda: cgx_torch.spmv(a3c, x31))
+    held("B3 bell_spmm k=4", lambda: kb.bell_spmm(a3, x3),
+         lambda: cgx_torch.spmm(a3c, x3))
+    phase_launches["B3"] = (kb.bell_spmm_launches - phase_launches["B1"]
+                            - phase_launches["B2"])
+    k11_launches = kb.bell_spmm_launches
+
+    # -- B4. the path as a user drives it: BSR/COO solves, the legacy file ---
+    a4c = poisson3d(*N64, dtype=np.float32, device=dev)
+    n4 = a4c.shape[0]
+    b4 = torch.from_numpy(np.random.default_rng(SEED + 13).standard_normal(
+        n4).astype(np.float32)).to(dev)
+    its_csr = int(cgx_torch.auto_solve(a4c, b4, tol=TOL).iterations)
+    x64 = cgx_torch.cg_solve(a4c.astype(torch.float64), b4.double(),
+                             tol=1e-10, maxiter=20000).x
+    bsr4 = cgx_torch.bsr_from_csr(a4c, 8)
+    for label, op in (("BSR", bsr4), ("COO", a4c.to_coo())):
+        route = cgx_torch.select_backend(op, b4)
+        check(route == "xla", f"B4 {label} routed to {route}")
+        t0 = time.perf_counter()
+        res = cgx_torch.auto_solve(op, b4, tol=TOL)
+        torch.cuda.synchronize()
+        its = int(res.iterations)
+        fwd = rel(res.x, x64)
+        print(f"B4 auto_solve over {label} 64^3 (route {route}): {its} "
+              f"iterations (CSR {its_csr}), converged "
+              f"{bool(res.converged)}, |x-x64|/|x64| {fwd:.3e}, "
+              f"{time.perf_counter() - t0:.2f} s (host clock)")
+        check(bool(res.converged), f"B4 {label} did not converge")
+        check(abs(its - its_csr) <= 0.02 * its_csr,
+              f"B4 {label}: {its} vs CSR {its_csr} iterations")
+        check(fwd <= 1e-4, f"B4 {label}: forward error {fwd}")
+    B4 = seeded_block(n4, K_MULTI, SEED + 14, dev)
+    multi = cgx_torch.cg_solve_multi(bsr4, B4, tol=TOL)
+    for j in range(K_MULTI):
+        one = cgx_torch.cg_solve(bsr4, B4[:, j].contiguous(), tol=TOL)
+        its_m, its1 = int(multi.iterations[j]), int(one.iterations)
+        dxj = rel(multi.x[:, j], one.x)
+        print(f"B4 cg_solve_multi over BSR, column {j}: {its_m} iterations "
+              f"(single {its1}), |dx|/|x| {dxj:.3e}")
+        check(bool(multi.converged[j]) and abs(its_m - its1) <= max(
+            2, 0.02 * its1) and dxj <= 1e-4, f"B4 column {j} differs")
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "legacy_poisson2d_256.txt")
+    a5 = poisson2d(*LEGACY_2D, device=dev)
+    b5 = torch.from_numpy(np.random.default_rng(SEED + 15).standard_normal(
+        a5.shape[0])).to(dev)
+    write_legacy(path, a5, b5)
+    ra, rb = read_legacy(path, device=dev)
+    same = all(torch.equal(getattr(ra, f), getattr(a5, f))
+               for f in ("values", "col_indices", "indptr")) \
+        and torch.equal(rb, b5)
+    rc, rcb = read_legacy(path, device="cpu")
+    xg = cgx_torch.cg_solve(ra, rb, tol=0.0, maxiter=50).x
+    xc = cgx_torch.cg_solve(rc, rcb, tol=0.0, maxiter=50).x
+    dleg = rel(xg.cpu(), xc)
+    print(f"B4 legacy 4-line file of poisson2d(256, 256) "
+          f"({os.path.getsize(path)} bytes): read back equal: {same}; "
+          f"cg_solve(tol=0, maxiter=50) fp64 on the card vs the CPU: "
+          f"|dx|/|x| {dleg:.3e} (bound 1e-12)")
+    check(same, "B4: the legacy file did not read back equal")
+    check(dleg <= 1e-12, f"B4: the legacy solve differs by {dleg}")
+    others = {nm: v for (_, nm), v in other_launches().items() if v}
+    print(f"B1-B4 launches: K11 {k11_launches} (B1 {phase_launches['B1']}, "
+          f"B2 {phase_launches['B2']}, B3 {phase_launches['B3']}, B4 "
+          f"{kb.bell_spmm_launches - k11_launches}); other kernels "
+          f"{others or 'none'}")
+    check(min(phase_launches.values()) > 0, f"K11 did not run in every "
+          f"phase: {phase_launches}")
+    check(kb.bell_spmm_launches == k11_launches and not others,
+          "B4 launched a kernel")
+
+    # -- B5. times -------------------------------------------------------------
+    def library(label, bsr_arrays, size, x, ref):
+        """ms of torch's BSR product of the same matrix, or None where it
+        raises for the dtype."""
+        crow, col, vals = bsr_arrays
+        try:
+            m = torch.sparse_bsr_tensor(crow, col, vals, size=size,
+                                        check_invariants=False)
+            y = m @ x
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, ValueError) as exc:
+            print(f"B5 {label}: torch's BSR product raised "
+                  f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}")
+            return None
+        dev_ = maxrel(y.float(), ref)
+        print(f"B5 {label}: torch's BSR product within {dev_:.3e} of the "
+              f"plain version")
+        check(dev_ <= (1e-5 if x.dtype == torch.float32 else 2e-2),
+              f"B5 {label}: torch's BSR product does not compute K11's "
+              f"function")
+        return statistics.median(event_ms(lambda: m @ x, inner=5)
+                                 for _ in range(5))
+
+    def work(nblocks, bs, k, elem, nbc, nbr, peak):
+        """Each input read once (the real blocks, their column ids, X), Y
+        written once in fp32; 2 bs² k operations per real block."""
+        nbytes = (nblocks * (bs * bs * elem + 4) + nbc * bs * k * elem
+                  + nbr * bs * k * 4)
+        return bound(nbytes, 2.0 * nblocks * bs * bs * k, peak)
+
+    b3_arrays = (b3.indptr, b3.col_indices, b3.values)
+    timed = {
+        "B1 fp32 k=256": (a1, xs1[256], bsr1, FP32_FLOPS),
+        "B1 fp32 k=512": (a1, xs1[512], bsr1, FP32_FLOPS),
+        "B2 bf16 k=256": (a2h, x2h, (bsr2[0], bsr2[1],
+                                     bsr2[2].to(torch.bfloat16)),
+                          BF16_TC_FLOPS),
+        "B3 poisson3d 128^3 k=1": (a3, x3[:, :1].contiguous(), b3_arrays,
+                                   FP32_FLOPS),
+        "B3 poisson3d 128^3 k=4": (a3, x3, b3_arrays, FP32_FLOPS),
+    }
+    csr3 = torch.sparse_csr_tensor(a3c.indptr, a3c.col_indices, a3c.values,
+                                   size=a3c.shape, check_invariants=False)
+    times = {}
+    for label, (a, x, arrays, peak) in timed.items():
+        t_k, t_p = time_pair(lambda: kb.bell_spmm(a, x),
+                             lambda: kb.bell_spmm_reference(a, x), reps=5,
+                             inner=5)
+        nbr, _, bs, _ = a.values.shape
+        nblocks = b3.nnzb if label.startswith("B3") else nbr * a.wb
+        b_ms, b_by = work(nblocks, bs, x.shape[1], x.element_size(),
+                          a.shape[1] // bs, nbr, peak)
+        lib = library(label, arrays, a.shape, x,
+                      kb.bell_spmm_reference(a, x))
+        extra = ""
+        if label.startswith("B3"):
+            t_csr3 = statistics.median(event_ms(lambda: csr3 @ x, inner=5)
+                                       for _ in range(5))
+            extra = f"; torch CSR product {t_csr3 * 1e3:.1f} us"
+        flops = 2.0 * nblocks * bs * bs * x.shape[1]
+        times[label] = (t_k, t_p, b_ms, b_by, lib)
+        print(f"[{card}] B5 {label}: K11 {t_k * 1e3:.1f} us "
+              f"({flops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s), plain "
+              f"{t_p * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}), "
+              f"share of bound {b_ms / t_k:.1%}; torch BSR product "
+              + (f"{lib * 1e3:.1f} us" if lib is not None else "n/a")
+              + extra)
+
+    t_k, t_p, b_ms, b_by, lib = times["B1 fp32 k=256"]
+    return [{"name": "bell_spmm", "route": "cuda",
+             "source": "cgx_torch/csrc/bsr.cu",
+             "replaces": "cgx/kernels/bsr.py:93,151",
+             "launches": k11_launches,
+             "max_abs_err": errs["B1", 256, "auto"], "ms": t_k,
+             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": lib}]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1345,6 +1671,7 @@ def main() -> None:
 
     w_entries = wbell_phases(dev, card)
     m_entries = multi_phases(dev, card, dias)
+    b_entries = bsr_phases(dev, card)
 
     # Bounds: each input read once, each output written once (4 B words),
     # against the operations at the fp32 rate.  K1: x in, y out, 2 flops
@@ -1387,7 +1714,7 @@ def main() -> None:
         entry("fused_kernel_b", "cgx_torch/csrc/fused_engine.cu",
               "cgx/kernels/fused_engine.py:411", launches["k3_b"],
               k3_err["b"], t_b, t_bp, k3b_b),
-    ] + w_entries + m_entries}
+    ] + w_entries + m_entries + b_entries}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

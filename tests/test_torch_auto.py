@@ -314,7 +314,9 @@ def test_port_imports_no_jax():
             "cgx_torch.io.poisson, cgx_torch.sparse.wbell, "
             "cgx_torch.kernels.wbell, cgx_torch.solve.wbell, "
             "cgx_torch.io.suitesparse, cgx_torch.io.matrix_market, "
-            "cgx_torch.kernels.fused_multi, cgx_torch.solve.block, sys; "
+            "cgx_torch.kernels.fused_multi, cgx_torch.solve.block, "
+            "cgx_torch.kernels, cgx_torch.kernels.bsr, cgx_torch.io.legacy, "
+            "cgx_torch.ops.spmv, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'cgx' not in sys.modules, 'cgx imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -21,6 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import cgx_torch  # noqa: E402
 from cgx_torch.io.poisson import poisson2d_dia, poisson3d_dia27  # noqa: E402
+from cgx_torch.kernels import bsr as kb  # noqa: E402
 from cgx_torch.kernels import fused_dia_cg as fdia  # noqa: E402
 from cgx_torch.kernels import fused_engine as k3  # noqa: E402
 from cgx_torch.kernels import fused_resident as k2  # noqa: E402
@@ -463,3 +464,106 @@ def test_auto_solve_on_card_routes_multi(cuda_device):
     assert k5.multi_a_launches == before[0]
     assert k3.fused_a_launches > before[1]
     assert res.iterations.tolist() == [10, 10]
+
+
+# -- K11: the block-ELL SpMM ---------------------------------------------------
+
+def _bell(nbr, wb, bs, seed, device, dtype=torch.float32, pad=True):
+    """A seeded BlockELL over nbr block rows and columns: wb distinct
+    sorted block columns per row; with ``pad``, every third row keeps fewer
+    real blocks (the rest zero, pointing at column 0)."""
+    rng = np.random.default_rng(seed)
+    cols = np.sort(np.stack([rng.choice(nbr, wb, replace=False)
+                             for _ in range(nbr)]), axis=1).astype(np.int32)
+    vals = rng.standard_normal((nbr, wb, bs, bs)).astype(np.float32)
+    if pad and wb > 1:
+        for i in range(0, nbr, 3):
+            keep = 1 + i % wb
+            vals[i, keep:] = 0.0
+            cols[i, keep:] = 0
+    return kb.BlockELL(values=t(vals, device).to(dtype),
+                       block_cols=t(cols, device), shape=(nbr * bs, nbr * bs))
+
+
+def _held_to_plain(a, x):
+    """K11 once (one launch), its plain version, and a second run."""
+    before = kb.bell_spmm_launches
+    y = kb.bell_spmm(a, x)
+    torch.cuda.synchronize()
+    assert kb.bell_spmm_launches == before + 1
+    y_ref = kb.bell_spmm_reference(a, x)
+    assert y.dtype == torch.float32 and y.shape == y_ref.shape
+    # fp32 accumulation in another order than the plain matmul's.
+    assert float((y - y_ref).abs().max()) <= 1e-5 * float(y_ref.abs().max())
+    assert torch.equal(kb.bell_spmm(a, x), y)
+    return y
+
+
+@pytest.mark.parametrize("k", [1, 7, 64, 256])
+@pytest.mark.parametrize("bs", [8, 16, 64])
+def test_k11_matches_plain(cuda_device, bs, k):
+    a = _bell(24, 4, bs, 80 + bs + k, cuda_device)
+    x = t(np.random.default_rng(k).standard_normal(
+        (a.shape[1], k)).astype(np.float32), cuda_device)
+    _held_to_plain(a, x)
+
+
+@pytest.mark.parametrize("dtype,bs,k", [("bf16", 16, 33), ("bf16", 64, 256),
+                                        ("fp32", 128, 70), ("bf16", 128, 64),
+                                        ("fp32", 37, 5)])
+def test_k11_bf16_odd_and_dynamic_blocks(cuda_device, dtype, bs, k):
+    """bf16 operands (fp32 out), an odd block, and bs = 128 (dynamic shared
+    memory)."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    a = _bell(10, 3, bs, 90 + bs, cuda_device, dtype=dt)
+    x = t(np.random.default_rng(bs).standard_normal(
+        (a.shape[1], k)).astype(np.float32), cuda_device).to(dt)
+    _held_to_plain(a, x)
+
+
+def test_k11_wb1_and_inert_padding(cuda_device):
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(11)
+    diag = sp.csr_matrix(sp.block_diag(
+        [rng.standard_normal((8, 8)) for _ in range(12)], format="csr"))
+    d = sp.lil_matrix((64, 64))
+    d.setdiag(2.0)
+    d[0, :] = 1.0
+    d[:, 0] = 1.0
+    for s, wb_one in ((diag, True), (sp.csr_matrix(d), False)):
+        csr = cgx_torch.csr_from_scipy(s.astype(np.float32),
+                                       device=cuda_device)
+        a = kb.bell_from_bsr(cgx_torch.bsr_from_csr(csr, 8))
+        assert (a.wb == 1) == wb_one
+        x = t(rng.standard_normal((s.shape[0], 4)).astype(np.float32),
+              cuda_device)
+        y = _held_to_plain(a, x)
+        ref = s.astype(np.float32) @ x.double().cpu().numpy()
+        assert float(np.abs(y.double().cpu().numpy() - ref).max()) <= \
+            1e-5 * float(np.abs(ref).max())
+        yv = kb.bell_spmv(a, x[:, 0])
+        assert torch.equal(yv, y[:, 0])
+
+
+def test_k11_engines_and_refusals(cuda_device):
+    a = _bell(6, 2, 8, 7, cuda_device)
+    x = t(np.ones((a.shape[1], 3), np.float32), cuda_device)
+    before = kb.bell_spmm_launches
+    ys = [kb.bell_spmm(a, x, engine=e) for e in ("auto", "resident", "dma")]
+    assert kb.bell_spmm_launches == before + 3
+    assert all(torch.equal(y, ys[0]) for y in ys)
+    with pytest.raises(TypeError):
+        kb.bell_spmm(a.astype(torch.float64), x.double())
+    with pytest.raises(TypeError):
+        kb.bell_spmm(a, x.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        kb.bell_spmm(a, x[:-8])
+    big = kb.BlockELL(values=torch.zeros((1, 1, 129, 129),
+                                         device=cuda_device),
+                      block_cols=torch.zeros((1, 1), dtype=torch.int32,
+                                             device=cuda_device),
+                      shape=(129, 129))
+    with pytest.raises(ValueError):
+        kb.bell_spmm(big, torch.zeros((129, 1), device=cuda_device))
+    assert kb.bell_spmm_launches == before + 3
