@@ -23,6 +23,7 @@ from cgx_torch.solve.precond import (BlockJacobiPrecond, JacobiPrecond,
 from cgx_torch.solve.block import block_cg_solve, cg_solve_multi
 from cgx_torch.solve.wbell import (WBellBlockJacobiPrecond, wbell_cg_solve,
                                    wbell_cg_solve_multi)
+from cgx_torch.solve.ir import ir_cg_solve, ir_supported
 from cgx_torch.solve.auto import auto_solve, select_backend
 
 __version__ = "0.1.0"
@@ -37,4 +38,5 @@ __all__ = [
     "wbell_cg_solve", "wbell_cg_solve_multi", "WBellBlockJacobiPrecond",
     "JacobiPrecond", "BlockJacobiPrecond", "PolynomialPrecond",
     "cg_solve_multi", "block_cg_solve", "auto_solve", "select_backend",
+    "ir_cg_solve", "ir_supported",
 ]

@@ -42,6 +42,26 @@
 // writes x, r, p.  That is 9 vector streams plus the planes per iteration,
 // as in the Pallas engine.  Rows are a flat grid-stride loop; there is no
 // halo layout (see stencil.cuh for the flat reading of plane taps).
+//
+// Narrow modes (mixed precision; the Pallas kernels' bf16 vectors and
+// plane_dtype, cgx/kernels/fused_engine.py:366-381, :399-404, :428-429).
+// Both kernels are templates on the vector type V and kernel A also on
+// the plane type P, each float or bf16: fp32/fp32 (unchanged bit for bit),
+// fp32 vectors with bf16 planes, and bf16 vectors with bf16 planes or none.
+// Halving the bytes of a stream is the lever, since both kernels are bound
+// by bytes.  The rounding:
+//   * every value is widened to fp32 in registers as it is loaded;
+//   * kernel A sums a row's taps in fp32, in tap order, and rounds q once
+//     to V when it stores it; its sums read the stored q;
+//   * kernel B rounds α and β to V, as the Pallas kernel does, then computes
+//     x + αp, r − αq and r' + βp in fp32 and rounds each once on store (p
+//     from the stored r');
+//   * the four sums stay exact: fp64 products of the widened values.
+// The JAX package on the CPU rounds each bf16 term instead, so the port
+// agrees with it to a bf16 tolerance and with its own plain version
+// (fused_engine.py: kernel_a_reference, kernel_b_reference), which rounds
+// as above, bit for bit.  The bf16 loads are 2-byte scalar loads.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "stencil.cuh"
@@ -72,10 +92,12 @@ struct Ctl {
 };
 static_assert(sizeof(Ctl) == 64, "Ctl is 16 words");
 
+using bf16 = __nv_bfloat16;
+
 struct AArgs {
-  const float* p;
-  float* q;
-  const float* planes;  // null: constant taps only
+  const void* p;       // V
+  void* q;             // V
+  const void* planes;  // P; null: constant taps only
   double* part_a;        // 2 × gridDim.x: Σ p·q, Σ q·q
   const double* part_b;  // 2 × grid_b: kernel B's Σ r², Σ r²·w
   int grid_b;
@@ -86,9 +108,11 @@ struct AArgs {
   cgx::PlaneTaps taps;
 };
 
-template <int kTaps, bool kPlanes, bool kSym>
+template <int kTaps, bool kPlanes, bool kSym, typename V, typename P>
 __global__ void __launch_bounds__(kThreads) kernel_a(AArgs a) {
   __shared__ double smem[kWarps + 1];
+  const V* p = static_cast<const V*>(a.p);
+  V* q = static_cast<V*>(a.q);
   if (!a.init) {
     const Ctl* c = a.ctl;
     if (c->done) return;
@@ -121,15 +145,17 @@ __global__ void __launch_bounds__(kThreads) kernel_a(AArgs a) {
        row += stride) {
     float qv;
     if constexpr (kPlanes) {
-      qv = cgx::plane_row<true, kTaps, kSym>(a.p, a.planes, row, n, a.nx,
-                                             a.ny, a.nz, a.taps);
+      qv = cgx::plane_row<true, kTaps, kSym>(
+          p, static_cast<const P*>(a.planes), row, n, a.nx, a.ny, a.nz,
+          a.taps);
     } else {
-      qv = cgx::stencil_row<true, kTaps>(a.p, row, a.nx, a.ny, a.nz,
-                                         a.taps.s);
+      qv = cgx::stencil_row<true, kTaps>(p, row, a.nx, a.ny, a.nz, a.taps.s);
     }
-    a.q[row] = qv;
-    const double qd = qv;
-    pq = __dadd_rn(pq, __dmul_rn(qd, static_cast<double>(__ldg(a.p + row))));
+    const V qs = cgx::narrow<V>(qv);
+    q[row] = qs;
+    const double qd = cgx::widen(qs);
+    pq = __dadd_rn(
+        pq, __dmul_rn(qd, static_cast<double>(cgx::load<true>(p + row))));
     qq = __dadd_rn(qq, __dmul_rn(qd, qd));
   }
   pq = cgx::block_sum<kThreads>(pq, smem);
@@ -140,12 +166,12 @@ __global__ void __launch_bounds__(kThreads) kernel_a(AArgs a) {
   }
 }
 
-struct BArgs {
-  float* x;
-  float* r;
-  float* p;
-  const float* q;
-  const float* w;        // null: unweighted (Σr²·w = Σr²)
+struct BArgs {  // x, r, p, q, w of the vector type V
+  void* x;
+  void* r;
+  void* p;
+  const void* q;
+  const void* w;         // null: unweighted (Σr²·w = Σr²)
   const double* part_a;  // 2 × grid_a: kernel A's Σ p·q, Σ q·q
   int grid_a;
   double* part_b;  // 2 × gridDim.x
@@ -153,9 +179,14 @@ struct BArgs {
   int n;
 };
 
-template <bool kWeighted>
+template <bool kWeighted, typename V>
 __global__ void __launch_bounds__(kThreads) kernel_b(BArgs a) {
   __shared__ double smem[kWarps + 1];
+  V* x = static_cast<V*>(a.x);
+  V* r = static_cast<V*>(a.r);
+  V* p = static_cast<V*>(a.p);
+  const V* q = static_cast<const V*>(a.q);
+  const V* w = static_cast<const V*>(a.w);
   Ctl* c = a.ctl;
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
   if (c->n_done) {
@@ -174,22 +205,29 @@ __global__ void __launch_bounds__(kThreads) kernel_b(BArgs a) {
       static_cast<float>(cgx::grid_sum<kThreads>(a.part_a, a.grid_a, smem));
   const float qq = static_cast<float>(
       cgx::grid_sum<kThreads>(a.part_a + a.grid_a, a.grid_a, smem));
-  const float alpha = __fdiv_rn(rz, pq);
-  const float beta = __fdiv_rn(
-      __fsub_rn(__fmul_rn(__fmul_rn(alpha, alpha), qq), rz), rz);
+  const float alpha32 = __fdiv_rn(rz, pq);
+  const float beta32 = __fdiv_rn(
+      __fsub_rn(__fmul_rn(__fmul_rn(alpha32, alpha32), qq), rz), rz);
+  // α and β rounded to the vector type, as the Pallas kernel rounds them.
+  const float alpha = cgx::widen(cgx::narrow<V>(alpha32));
+  const float beta = cgx::widen(cgx::narrow<V>(beta32));
   const int stride = gridDim.x * kThreads;
   double acc = 0.0, accw = 0.0;
   for (int row = blockIdx.x * kThreads + threadIdx.x; row < a.n;
        row += stride) {
-    const float pv = a.p[row];
-    a.x[row] = __fadd_rn(a.x[row], __fmul_rn(alpha, pv));
-    const float rv = __fsub_rn(a.r[row], __fmul_rn(alpha, a.q[row]));
-    a.r[row] = rv;
-    a.p[row] = __fadd_rn(rv, __fmul_rn(beta, pv));
+    const float pv = cgx::widen(p[row]);
+    x[row] = cgx::narrow<V>(
+        __fadd_rn(cgx::widen(x[row]), __fmul_rn(alpha, pv)));
+    const V rs = cgx::narrow<V>(
+        __fsub_rn(cgx::widen(r[row]), __fmul_rn(alpha, cgx::widen(q[row]))));
+    r[row] = rs;
+    const float rv = cgx::widen(rs);
+    p[row] = cgx::narrow<V>(__fadd_rn(rv, __fmul_rn(beta, pv)));
     const double rsq = __dmul_rn(rv, rv);
     acc = __dadd_rn(acc, rsq);
     if constexpr (kWeighted)
-      accw = __dadd_rn(accw, __dmul_rn(rsq, static_cast<double>(a.w[row])));
+      accw = __dadd_rn(accw,
+                       __dmul_rn(rsq, static_cast<double>(cgx::widen(w[row]))));
   }
   acc = cgx::block_sum<kThreads>(acc, smem);
   if constexpr (kWeighted) {
@@ -210,63 +248,85 @@ __global__ void __launch_bounds__(kThreads) kernel_b(BArgs a) {
   }
 }
 
-const void* a_kernel_for(int ntaps, int variable, int sym) {
+template <typename V, typename P>
+const void* a_kernel_typed(int ntaps, int variable, int sym) {
   const bool wide = ntaps > 7;
   if (!variable)
     return wide ? reinterpret_cast<const void*>(
-                      kernel_a<cgx::kMaxTaps, false, false>)
-                : reinterpret_cast<const void*>(kernel_a<7, false, false>);
+                      kernel_a<cgx::kMaxTaps, false, false, V, P>)
+                : reinterpret_cast<const void*>(kernel_a<7, false, false, V, P>);
   if (sym)
     return wide ? reinterpret_cast<const void*>(
-                      kernel_a<cgx::kMaxTaps, true, true>)
-                : reinterpret_cast<const void*>(kernel_a<7, true, true>);
+                      kernel_a<cgx::kMaxTaps, true, true, V, P>)
+                : reinterpret_cast<const void*>(kernel_a<7, true, true, V, P>);
   return wide ? reinterpret_cast<const void*>(
-                    kernel_a<cgx::kMaxTaps, true, false>)
-              : reinterpret_cast<const void*>(kernel_a<7, true, false>);
+                    kernel_a<cgx::kMaxTaps, true, false, V, P>)
+              : reinterpret_cast<const void*>(kernel_a<7, true, false, V, P>);
 }
 
-const void* b_kernel_for(int weighted) {
-  return weighted ? reinterpret_cast<const void*>(kernel_b<true>)
-                  : reinterpret_cast<const void*>(kernel_b<false>);
+// The instance for the operator and the types; null for bf16 vectors with
+// fp32 planes, which no caller builds.
+const void* a_kernel_for(int ntaps, int variable, int sym, int vec_bf16,
+                         int plane_bf16) {
+  if (!vec_bf16)
+    return plane_bf16 ? a_kernel_typed<float, bf16>(ntaps, variable, sym)
+                      : a_kernel_typed<float, float>(ntaps, variable, sym);
+  if (variable && !plane_bf16) return nullptr;
+  return a_kernel_typed<bf16, bf16>(ntaps, variable, sym);
+}
+
+const void* b_kernel_for(int weighted, int vec_bf16) {
+  if (vec_bf16)
+    return weighted ? reinterpret_cast<const void*>(kernel_b<true, bf16>)
+                    : reinterpret_cast<const void*>(kernel_b<false, bf16>);
+  return weighted ? reinterpret_cast<const void*>(kernel_b<true, float>)
+                  : reinterpret_cast<const void*>(kernel_b<false, float>);
 }
 
 }  // namespace
 
 extern "C" int cgx_fused_a_grid(int device, int ntaps, int variable, int sym,
-                                int* grid) {
-  return cgx::full_grid<kThreads>(device, a_kernel_for(ntaps, variable, sym),
-                                  grid);
+                                int vec_bf16, int plane_bf16, int* grid) {
+  const void* k = a_kernel_for(ntaps, variable, sym, vec_bf16, plane_bf16);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return cgx::full_grid<kThreads>(device, k, grid);
 }
 
-extern "C" int cgx_fused_b_grid(int device, int weighted, int* grid) {
-  return cgx::full_grid<kThreads>(device, b_kernel_for(weighted), grid);
+extern "C" int cgx_fused_b_grid(int device, int weighted, int vec_bf16,
+                                int* grid) {
+  return cgx::full_grid<kThreads>(device, b_kernel_for(weighted, vec_bf16),
+                                  grid);
 }
 
 // Kernel A on `stream`.  `plane[t]` is tap t's plane index (−1: constant
 // tap coeffs[t]); `planes` is null for a constant-coefficient operator.
-extern "C" int cgx_fused_a(const float* p, float* q, const float* planes,
+// p and q hold bf16 when vec_bf16, planes bf16 when plane_bf16.
+extern "C" int cgx_fused_a(const void* p, void* q, const void* planes,
                            double* part_a, int grid_a, const double* part_b,
                            int grid_b, int* ctl, float* history, int init,
                            int nx, int ny, int nz, int ntaps,
                            const int* taps, const float* coeffs,
-                           const int* plane, int sym, void* stream) {
-  if (ntaps < 1 || ntaps > cgx::kMaxTaps || grid_a < 1)
+                           const int* plane, int sym, int vec_bf16,
+                           int plane_bf16, void* stream) {
+  const void* k =
+      a_kernel_for(ntaps, planes != nullptr, sym, vec_bf16, plane_bf16);
+  if (ntaps < 1 || ntaps > cgx::kMaxTaps || grid_a < 1 || k == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   AArgs a{p, q, planes, part_a, part_b, grid_b, reinterpret_cast<Ctl*>(ctl),
           history, init, nx, ny, nz,
           cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz)};
-  return cgx::launch<kThreads>(a_kernel_for(ntaps, planes != nullptr, sym),
-                               grid_a, &a, stream);
+  return cgx::launch<kThreads>(k, grid_a, &a, stream);
 }
 
-// Kernel B on `stream`; `w` is null for an unweighted solve.
-extern "C" int cgx_fused_b(float* x, float* r, float* p, const float* q,
-                           const float* w, const double* part_a, int grid_a,
+// Kernel B on `stream`; `w` is null for an unweighted solve.  x, r, p, q
+// and w hold bf16 when vec_bf16.
+extern "C" int cgx_fused_b(void* x, void* r, void* p, const void* q,
+                           const void* w, const double* part_a, int grid_a,
                            double* part_b, int grid_b, int* ctl, int n,
-                           void* stream) {
+                           int vec_bf16, void* stream) {
   if (grid_a < 1 || grid_b < 1) return static_cast<int>(cudaErrorInvalidValue);
   BArgs a{x, r, p, q, w, part_a, grid_a, part_b,
           reinterpret_cast<Ctl*>(ctl), n};
-  return cgx::launch<kThreads>(b_kernel_for(w != nullptr), grid_b, &a,
-                               stream);
+  return cgx::launch<kThreads>(b_kernel_for(w != nullptr, vec_bf16), grid_b,
+                               &a, stream);
 }

@@ -43,6 +43,13 @@
 // (α = β = 0: x and r unchanged, p ← r), so a zero column coasts without
 // NaN.  The four sums are taken exactly, as K3 takes them: fp64 products of
 // fp32 values, fp64 sums, one rounding to fp32.
+//
+// bf16 planes (the Pallas kernel's plane_dtype, cgx/kernels/fused_multi.py
+// :160): kernel A is a template on the plane type P, float or bf16.  A bf16
+// plane value is widened to fp32 in a register as it is loaded (exact) and
+// everything else is unchanged, so the bf16 mode equals the fp32 mode run on
+// the planes rounded through bf16, bit for bit.  Kernel B streams no planes.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -95,7 +102,7 @@ __device__ __forceinline__ bool last_block(int* count) {
 struct AArgs {
   const float* p;        // ncols × n
   float* q;              // ncols × n
-  const float* planes;   // null: constant taps only
+  const void* planes;    // P; null: constant taps only
   double* part;          // 2·ncols × gridDim.x: Σ p·q per column, then Σ q·q
   int* ctl;
   int ncols;
@@ -103,7 +110,7 @@ struct AArgs {
   cgx::PlaneTaps taps;
 };
 
-template <int kTaps, bool kPlanes, bool kSym>
+template <int kTaps, bool kPlanes, bool kSym, typename P>
 __global__ void __launch_bounds__(kThreads) multi_a(AArgs a) {
   __shared__ double smem[kWarps + 1];
   if (a.ctl[kDone]) return;
@@ -122,9 +129,9 @@ __global__ void __launch_bounds__(kThreads) multi_a(AArgs a) {
          row += stride) {
       float acc[kCols];
       if constexpr (kPlanes) {
-        cgx::plane_row_multi<kTaps, kSym, kCols>(p, ld, nc, a.planes, row, n,
-                                                 a.nx, a.ny, a.nz, a.taps,
-                                                 acc);
+        cgx::plane_row_multi<kTaps, kSym, kCols>(
+            p, ld, nc, static_cast<const P*>(a.planes), row, n, a.nx, a.ny,
+            a.nz, a.taps, acc);
       } else {
         cgx::stencil_row_multi<kTaps, kCols>(p, ld, nc, row, a.nx, a.ny,
                                              a.nz, a.taps.s, acc);
@@ -274,19 +281,26 @@ __global__ void __launch_bounds__(kThreads) multi_b(BArgs a) {
   }
 }
 
-const void* a_kernel_for(int ntaps, int variable, int sym) {
+template <typename P>
+const void* a_kernel_typed(int ntaps, int variable, int sym) {
   const bool wide = ntaps > 7;
   if (!variable)
     return wide ? reinterpret_cast<const void*>(
-                      multi_a<cgx::kMaxTaps, false, false>)
-                : reinterpret_cast<const void*>(multi_a<7, false, false>);
+                      multi_a<cgx::kMaxTaps, false, false, P>)
+                : reinterpret_cast<const void*>(multi_a<7, false, false, P>);
   if (sym)
     return wide ? reinterpret_cast<const void*>(
-                      multi_a<cgx::kMaxTaps, true, true>)
-                : reinterpret_cast<const void*>(multi_a<7, true, true>);
+                      multi_a<cgx::kMaxTaps, true, true, P>)
+                : reinterpret_cast<const void*>(multi_a<7, true, true, P>);
   return wide ? reinterpret_cast<const void*>(
-                    multi_a<cgx::kMaxTaps, true, false>)
-              : reinterpret_cast<const void*>(multi_a<7, true, false>);
+                    multi_a<cgx::kMaxTaps, true, false, P>)
+              : reinterpret_cast<const void*>(multi_a<7, true, false, P>);
+}
+
+const void* a_kernel_for(int ntaps, int variable, int sym, int plane_bf16) {
+  return plane_bf16 && variable
+             ? a_kernel_typed<__nv_bfloat16>(ntaps, variable, sym)
+             : a_kernel_typed<float>(ntaps, variable, sym);
 }
 
 const void* b_kernel_for(int weighted) {
@@ -297,9 +311,9 @@ const void* b_kernel_for(int weighted) {
 }  // namespace
 
 extern "C" int cgx_multi_a_grid(int device, int ntaps, int variable, int sym,
-                                int* grid) {
-  return cgx::full_grid<kThreads>(device, a_kernel_for(ntaps, variable, sym),
-                                  grid);
+                                int plane_bf16, int* grid) {
+  return cgx::full_grid<kThreads>(
+      device, a_kernel_for(ntaps, variable, sym, plane_bf16), grid);
 }
 
 extern "C" int cgx_multi_b_grid(int device, int weighted, int* grid) {
@@ -308,19 +322,21 @@ extern "C" int cgx_multi_b_grid(int device, int weighted, int* grid) {
 
 // Kernel A on `stream` over ncols columns of n = nx·ny·nz rows.
 // `plane[t]` is tap t's plane index (−1: constant tap coeffs[t]); `planes`
-// is null for a constant-coefficient operator.  `part` holds
-// 2·ncols·grid doubles; `ctl` is the control block.
-extern "C" int cgx_multi_a(const float* p, float* q, const float* planes,
+// is null for a constant-coefficient operator and holds bf16 when
+// plane_bf16.  `part` holds 2·ncols·grid doubles; `ctl` is the control
+// block.
+extern "C" int cgx_multi_a(const float* p, float* q, const void* planes,
                            double* part, int grid, int* ctl, int ncols, int nx,
                            int ny, int nz, int ntaps, const int* taps,
                            const float* coeffs, const int* plane, int sym,
-                           void* stream) {
+                           int plane_bf16, void* stream) {
   if (ntaps < 1 || ntaps > cgx::kMaxTaps || grid < 1 || ncols < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   AArgs a{p,     q,  planes, part, ctl, ncols, nx, ny, nz,
           cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz)};
   return cgx::launch<kThreads>(
-      a_kernel_for(ntaps, planes != nullptr, sym), grid, &a, stream);
+      a_kernel_for(ntaps, planes != nullptr, sym, plane_bf16), grid, &a,
+      stream);
 }
 
 // Kernel B on `stream`; `w` is null for an unweighted solve.

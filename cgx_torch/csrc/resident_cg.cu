@@ -42,7 +42,17 @@
 // There is no VMEM-like cap: larger grids stream from HBM.  Fusing phase 3
 // into the next phase 1, and weighing this design against per-iteration
 // kernels in a CUDA graph, are later work.
+//
+// bf16 planes (the Pallas kernel's plane_dtype, cgx/kernels/
+// fused_resident.py:149): the planes-mode kernel is a template on the plane
+// type P, float or bf16, and the vectors stay fp32.  A bf16 plane value is
+// widened to fp32 in a register as it is loaded (exact) and nothing else
+// changes, so at one grid the bf16 mode equals the fp32 mode run on the
+// planes rounded through bf16, bit for bit; it halves the plane bytes.  The
+// occupancy grid is the instance's own, and the iteration's sums depend on
+// the grid, so the wrapper can launch either instance at a given grid.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "stencil.cuh"
@@ -155,7 +165,7 @@ struct DiaArgs {
   float* p;
   float* q;
   float* partials;      // 3 × gridDim.x
-  const float* planes;  // (n_planes, n)
+  const void* planes;   // (n_planes, n) of P
   const float* w;       // (n,) weights, or null: rw = rz
   int nx, ny, nz;
   const float* tol_sq;  // device scalar: max(tol²·Σ b²·w, atol²)
@@ -169,10 +179,11 @@ struct DiaArgs {
 
 // Planes/weight mode.  The same three phases; phase 2 also sums r·r·w
 // (rounded as (r·r)·w, as the plain version does) when w is given.
-template <int kTaps, bool kSym>
+template <int kTaps, bool kSym, typename P>
 __global__ void __launch_bounds__(kThreads) resident_dia_kernel(DiaArgs a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float smem[kWarps + 1];
+  const P* planes = static_cast<const P*>(a.planes);
   const int n = a.nx * a.ny * a.nz;
   const int first = blockIdx.x * kThreads + threadIdx.x;
   const int stride = gridDim.x * kThreads;
@@ -198,7 +209,7 @@ __global__ void __launch_bounds__(kThreads) resident_dia_kernel(DiaArgs a) {
     for (int row = first; row < n; row += stride) {
       const float rv = __fsub_rn(
           a.r[row], cgx::plane_row<false, kTaps, kSym>(
-                        a.x, a.planes, row, n, a.nx, a.ny, a.nz, a.taps));
+                        a.x, planes, row, n, a.nx, a.ny, a.nz, a.taps));
       a.r[row] = rv;
       a.p[row] = rv;
       const float rsq = __fmul_rn(rv, rv);
@@ -221,7 +232,7 @@ __global__ void __launch_bounds__(kThreads) resident_dia_kernel(DiaArgs a) {
     float acc = 0.0f;
     for (int row = first; row < n; row += stride) {
       const float qv = cgx::plane_row<false, kTaps, kSym>(
-          a.p, a.planes, row, n, a.nx, a.ny, a.nz, a.taps);
+          a.p, planes, row, n, a.nx, a.ny, a.nz, a.taps);
       a.q[row] = qv;
       acc = __fadd_rn(acc, __fmul_rn(a.p[row], qv));
     }
@@ -271,14 +282,21 @@ const void* kernel_for(int ntaps) {
                           resident_cg_kernel<cgx::kMaxTaps>);
 }
 
-const void* dia_kernel_for(int ntaps, int sym) {
+template <typename P>
+const void* dia_kernel_typed(int ntaps, int sym) {
   if (ntaps <= 7)
-    return sym ? reinterpret_cast<const void*>(resident_dia_kernel<7, true>)
-               : reinterpret_cast<const void*>(resident_dia_kernel<7, false>);
+    return sym ? reinterpret_cast<const void*>(resident_dia_kernel<7, true, P>)
+               : reinterpret_cast<const void*>(
+                     resident_dia_kernel<7, false, P>);
   return sym ? reinterpret_cast<const void*>(
-                   resident_dia_kernel<cgx::kMaxTaps, true>)
+                   resident_dia_kernel<cgx::kMaxTaps, true, P>)
              : reinterpret_cast<const void*>(
-                   resident_dia_kernel<cgx::kMaxTaps, false>);
+                   resident_dia_kernel<cgx::kMaxTaps, false, P>);
+}
+
+const void* dia_kernel_for(int ntaps, int sym, int plane_bf16) {
+  return plane_bf16 ? dia_kernel_typed<__nv_bfloat16>(ntaps, sym)
+                    : dia_kernel_typed<float>(ntaps, sym);
 }
 
 // As many blocks of `kernel` as can be co-resident.
@@ -328,22 +346,24 @@ extern "C" int cgx_resident_cg(float* x, float* r, float* p, float* q,
 }
 
 extern "C" int cgx_resident_dia_cg_grid(int device, int ntaps, int sym,
-                                        int* grid) {
-  return cooperative_grid(device, dia_kernel_for(ntaps, sym), grid);
+                                        int plane_bf16, int* grid) {
+  return cooperative_grid(device, dia_kernel_for(ntaps, sym, plane_bf16),
+                          grid);
 }
 
 // Planes/weight mode.  `plane[t]` is tap t's plane index (−1: constant tap
-// coeffs[t]); `w` may be null (unweighted).  partials: 3 × grid floats.
+// coeffs[t]); `planes` holds bf16 when plane_bf16; `w` may be null
+// (unweighted).  partials: 3 × grid floats.
 extern "C" int cgx_resident_dia_cg(
     float* x, float* r, float* p, float* q, float* partials, int grid,
     int nx, int ny, int nz, int ntaps, const int* taps, const float* coeffs,
-    const int* plane, const float* planes, const float* w, int sym,
-    const float* tol_sq, int maxit, int resume, const float* rz_in,
-    int* k_out, float* rz_out, void* stream) {
+    const int* plane, const void* planes, const float* w, int sym,
+    int plane_bf16, const float* tol_sq, int maxit, int resume,
+    const float* rz_in, int* k_out, float* rz_out, void* stream) {
   if (ntaps < 1 || ntaps > cgx::kMaxTaps || grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   DiaArgs a{x, r, p, q, partials, planes, w, nx, ny, nz, tol_sq, maxit,
             resume, rz_in, k_out, rz_out,
             cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz)};
-  return launch(dia_kernel_for(ntaps, sym), grid, &a, stream);
+  return launch(dia_kernel_for(ntaps, sym, plane_bf16), grid, &a, stream);
 }

@@ -20,9 +20,21 @@
 // Each product and sum is rounded on its own, in tap order, as the plain
 // PyTorch versions (GeneralStencil3D.matvec, fused_engine.tap_matvec)
 // round them.
+//
+// Element types.  The vectors a row reader reads (V) and the coefficient
+// planes (P) are float or __nv_bfloat16, each on its own: the bf16 modes of
+// the two-pass engine, the whole-solve kernel and the multi-RHS engine.
+// Every value is widened to fp32 in registers as it is loaded (exact), the
+// row is summed in fp32, and a caller that stores a narrower type rounds
+// once (narrow<V>, round to nearest even, as torch's .to(bfloat16)).  A
+// bf16 value is read as its 16 bits with a 2-byte load: the shifted
+// neighbour reads are not 4-byte aligned.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace cgx {
 
@@ -69,23 +81,46 @@ inline PlaneTaps make_plane_taps(int n, const int* taps, const float* coeffs,
   return t;
 }
 
+// Widen a stored value to fp32 (exact) and round an fp32 value to the
+// stored type once.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T narrow(float v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
 // kReadOnly selects the non-coherent read-only path (__ldg).  It is only
 // valid for data no thread writes during the kernel (the SpMV's x, the
 // two-pass engine's p and planes).  The whole-solve kernel rewrites p
 // every iteration, so it reads with plain loads, which the grid-wide
-// barrier orders.
-template <bool kReadOnly>
-__device__ __forceinline__ float load(const float* p) {
-  if constexpr (kReadOnly) {
-    return __ldg(p);
+// barrier orders.  T is float or __nv_bfloat16; the value comes back
+// widened to fp32.
+template <bool kReadOnly, typename T>
+__device__ __forceinline__ float load(const T* p) {
+  if constexpr (std::is_same_v<T, float>) {
+    if constexpr (kReadOnly) {
+      return __ldg(p);
+    } else {
+      return *p;
+    }
   } else {
-    return *p;
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+    const unsigned short bits = kReadOnly ? __ldg(u) : *u;
+    return __uint_as_float(static_cast<unsigned int>(bits) << 16);
   }
 }
 
 // One constant tap at node (i, j, k): c·x[neighbour], 0 outside the grid.
-template <bool kReadOnly>
-__device__ __forceinline__ float const_tap(const float* x, int i, int j,
+template <bool kReadOnly, typename V>
+__device__ __forceinline__ float const_tap(const V* x, int i, int j,
                                            int k, int nx, int ny, int nz,
                                            const StencilTaps& t, int s) {
   const int ii = i + t.dx[s];
@@ -99,8 +134,8 @@ __device__ __forceinline__ float const_tap(const float* x, int i, int j,
 // kTaps bounds the unrolled tap loop (7 for the 7-point operator, kMaxTaps
 // otherwise): every tap field is then a static index into the parameter
 // struct, and a 7-point row runs 7 guarded taps instead of 27.
-template <bool kReadOnly, int kTaps>
-__device__ __forceinline__ float stencil_row(const float* x, int row, int nx,
+template <bool kReadOnly, int kTaps, typename V>
+__device__ __forceinline__ float stencil_row(const V* x, int row, int nx,
                                              int ny, int nz,
                                              const StencilTaps& t) {
   const int line = row / nz;
@@ -127,9 +162,9 @@ __device__ __forceinline__ float stencil_row(const float* x, int row, int nx,
 // Row of a mixed operator over n = nx·ny·nz rows.  Plane p is
 // planes[p·n .. p·n + n).  The range guards are written so that nothing
 // overflows int32 for any n < 2³¹.
-template <bool kReadOnly, int kTaps, bool kSym>
-__device__ __forceinline__ float plane_row(const float* x,
-                                           const float* planes, int row,
+template <bool kReadOnly, int kTaps, bool kSym, typename V, typename P>
+__device__ __forceinline__ float plane_row(const V* x, const P* planes,
+                                           int row,
                                            int n, int nx, int ny, int nz,
                                            const PlaneTaps& t) {
   float acc = 0.0f;
@@ -150,7 +185,7 @@ __device__ __forceinline__ float plane_row(const float* x,
         }
         continue;
       }
-      const float* w = planes + static_cast<size_t>(pl) * n;
+      const P* w = planes + static_cast<size_t>(pl) * n;
       const int off = t.off[s];
       float term = 0.0f;
       if (off >= -row && off < n - row)
@@ -168,9 +203,9 @@ __device__ __forceinline__ float plane_row(const float* x,
 }
 
 // -- k-column rows (the multi-RHS engine, fused_multi.cu) ---------------------
-// The rows of nc ≤ kCols columns at once: column c is x + c·ld.  A boundary
-// mask and a coefficient-plane value are read once per tap and applied to
-// every column from a register.  Each column adds its terms in tap order and
+// The rows of nc ≤ kCols columns at once: column c is x + c·ld (fp32).  A
+// boundary mask and a coefficient-plane value (fp32 or bf16, widened) are
+// read once per tap and applied to every column from a register.  Each column adds its terms in tap order and
 // rounds every product and sum on its own, exactly as stencil_row and
 // plane_row do, so acc[c] equals the one-column reader on column c bit for
 // bit.  Read-only loads: the two-pass engine never writes p during pass A.
@@ -206,9 +241,9 @@ __device__ __forceinline__ void stencil_row_multi(const float* x, size_t ld,
   }
 }
 
-template <int kTaps, bool kSym, int kCols>
+template <int kTaps, bool kSym, int kCols, typename P>
 __device__ __forceinline__ void plane_row_multi(
-    const float* x, size_t ld, int nc, const float* planes, int row, int n,
+    const float* x, size_t ld, int nc, const P* planes, int row, int n,
     int nx, int ny, int nz, const PlaneTaps& t, float (&acc)[kCols]) {
 #pragma unroll
   for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
@@ -238,13 +273,13 @@ __device__ __forceinline__ void plane_row_multi(
         }
         continue;
       }
-      const float* w = planes + static_cast<size_t>(pl) * n;
+      const P* w = planes + static_cast<size_t>(pl) * n;
       const int off = t.off[s];
       const bool fwd = off >= -row && off < n - row;
       const bool mir = kSym && off != 0 && off <= row && off > row - n;
       const int m = row - off;
-      const float wf = fwd ? __ldg(w + row) : 0.0f;
-      const float wm = mir ? __ldg(w + m) : 0.0f;
+      const float wf = fwd ? load<true>(w + row) : 0.0f;
+      const float wm = mir ? load<true>(w + m) : 0.0f;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         if (c < nc) {

@@ -35,18 +35,18 @@ _SIGNATURES = {
     "cgx_resident_cg_grid": [_I, _I, _P],
     "cgx_resident_cg": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                         _P, _I, _I, _P, _P, _P, _P],
-    "cgx_resident_dia_cg_grid": [_I, _I, _I, _P],
+    "cgx_resident_dia_cg_grid": [_I, _I, _I, _I, _P],
     "cgx_resident_dia_cg": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                            _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
-    "cgx_fused_a_grid": [_I, _I, _I, _I, _P],
-    "cgx_fused_b_grid": [_I, _I, _P],
+                            _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+    "cgx_fused_a_grid": [_I, _I, _I, _I, _I, _I, _P],
+    "cgx_fused_b_grid": [_I, _I, _I, _P],
     "cgx_fused_a": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                    _P, _P, _P, _I, _P],
-    "cgx_fused_b": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P],
-    "cgx_multi_a_grid": [_I, _I, _I, _I, _P],
+                    _P, _P, _P, _I, _I, _I, _P],
+    "cgx_fused_b": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P],
+    "cgx_multi_a_grid": [_I, _I, _I, _I, _I, _P],
     "cgx_multi_b_grid": [_I, _I, _P],
     "cgx_multi_a": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-                    _I, _P],
+                    _I, _I, _P],
     "cgx_multi_b": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
     "cgx_wbell_resident": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cgx_wbell_tiered": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -47,7 +47,8 @@ def supports(s) -> bool:
 
 
 def build_fused(s, dtype, *, one_pass: bool = False) -> FusedCG:
-    """The two-pass engine for a stencil operator."""
+    """The two-pass engine for a stencil operator, with ``dtype`` vectors
+    (float32, or bfloat16 for K3's bf16-vector mode)."""
     if one_pass:
         raise NotImplementedError(
             "build_fused: one_pass=True is the one-pass engine, kernel K6, "
@@ -65,8 +66,9 @@ def fused_stencil_cg(s, b, x0=None, *, tol: float = 1e-6, atol: float = 0.0,
                      maxiter: int = 1000, track_history: bool = False,
                      one_pass: bool = False) -> CGResult:
     """Plain CG on a constant-coefficient stencil through the two-pass
-    engine; semantics of ``cg_solve(s, b, x0, ..., track_history=...)``
-    (fp32 sums)."""
+    engine in ``b``'s dtype (a bfloat16 ``b`` runs the bf16-vector mode);
+    semantics of ``cg_solve(s, b, x0, ..., track_history=...)`` (exact
+    sums rounded to fp32)."""
     eng = build_fused(s, b.dtype, one_pass=one_pass)
     return eng.solve(b, x0, tol=tol, atol=atol, maxiter=maxiter,
                      track_history=track_history)

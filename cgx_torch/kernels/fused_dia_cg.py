@@ -17,8 +17,11 @@ The checks run with torch on the data's device and read back one boolean
 each (the JAX package copies the whole data to the host with numpy).
 Torch data is never traced, so the ``*_or_none`` checks never return
 None here; the names stay for callers of both packages.
-``bf16_plane_speedup`` and ``plane_dtype`` belong to mixed precision
-(ROADMAP queue A item 11) and are not ported.
+
+``plane_dtype=torch.bfloat16`` streams the coefficient planes in bf16 while
+the vectors keep ``b``'s dtype; the planes are rounded once, after the
+symmetric scaling.  :func:`bf16_plane_speedup` is the JAX package's
+footprint model that ``auto_solve(mixed_precision=True)`` routes by.
 """
 from __future__ import annotations
 
@@ -36,18 +39,11 @@ from cgx_torch.sparse.types import DIAMatrix
 __all__ = ["fused_dia_cg", "supports_dia", "dia_pattern_dims",
            "dia_engine_spec", "wrap_entries_zero",
            "wrap_entries_zero_or_none", "data_symmetric_or_none",
-           "dia_prep", "build_fused_dia"]
+           "dia_prep", "build_fused_dia", "bf16_plane_speedup"]
 
 # Offset order (-o3, -o2, -1, 0, 1, o2, o3) in engine tap convention.
 _DIA_TAPS = ((-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1),
              (0, 1, 0), (1, 0, 0))
-
-
-def _no_plane_dtype(plane_dtype) -> None:
-    if plane_dtype is not None:
-        raise NotImplementedError(
-            "plane_dtype is not ported yet (ROADMAP queue A item 11, "
-            "mixed precision)")
 
 
 def dia_pattern_dims(d) -> Optional[Tuple[int, int, int]]:
@@ -164,6 +160,46 @@ def data_symmetric_or_none(d):
     return bool(ok)
 
 
+# bf16_plane_speedup's constants are the TPU's (a v5e's ~100 MB of usable
+# VMEM, the 8 effective vector streams and the 2.8 residency flip, from the
+# JAX package's measurements); none is measured on the H100.  The card's
+# own bf16/fp32 plane ratio is measured by chip_smoke.py (phase X5).
+_TPU_VMEM_BYTES = 100 << 20
+_TPU_VECTOR_STREAMS = 8.0
+_TPU_RESIDENCY_FLIP = 2.8
+
+
+def bf16_plane_speedup(d, n: int, itemsize: int = 4) -> float:
+    """Predicted per-iteration speedup of bf16 coefficient planes over
+    fp32 planes for this DIA operator: the JAX package's footprint model
+    (:func:`cgx.kernels.fused_dia_cg.bf16_plane_speedup`), verbatim, with
+    its TPU constants.
+
+    * Residency flip: the fp32 planes and 5 carried vectors spill the
+      TPU's VMEM but the bf16 set fits: 2.8.
+    * Streaming ratio otherwise: halving the planes saves ``f/2`` of the
+      traffic, ``f = planes/(planes + 8)``.
+
+    Symmetric data halves the plane streams.
+    """
+    k = len(d.offsets)
+    n_planes = k - 1            # unit diagonal after symmetric scaling
+    if n_planes <= 0:
+        return 1.0
+    if data_symmetric_or_none(d) is True:
+        n_planes //= 2
+    f = n_planes / (n_planes + _TPU_VECTOR_STREAMS)
+    ratio = 1.0 / (1.0 - f / 2.0)
+    vectors = 5 * n * itemsize
+
+    def working_set(plane_isz):
+        return n_planes * n * plane_isz + vectors
+
+    if working_set(itemsize) > _TPU_VMEM_BYTES >= working_set(2):
+        return _TPU_RESIDENCY_FLIP
+    return ratio
+
+
 def _scaled_planes(d, e: torch.Tensor, dtype) -> torch.Tensor:
     """Symmetrically scaled coefficient planes: data'[t][i] =
     e[i]·data[t][i]·e[i+off] (row-aligned convention)."""
@@ -251,14 +287,17 @@ def build_fused_dia(d, dtype, *, jacobi: bool = True, inv_diag=None,
                     allow_sym: bool = True, plane_dtype=None,
                     assume_symmetric: Optional[bool] = None):
     """``(engine, e, planes)`` for a DIA operator (see :func:`dia_prep`).
-    The JAX package's ``n_shards``/``axis_name`` (distribution) and
-    ``interpret`` have no counterpart here."""
-    _no_plane_dtype(plane_dtype)
+    ``plane_dtype``: the engine holds the scaled planes in this dtype (they
+    are rounded after the scaling) while the vectors keep ``dtype``; the
+    returned ``planes`` are ``dtype``'s.  The JAX package's
+    ``n_shards``/``axis_name`` (distribution) and ``interpret`` have no
+    counterpart here."""
     nx, ny, nz, taps, coeffs, planes, e, weight, sym = dia_prep(
         d, dtype, jacobi=jacobi, inv_diag=inv_diag, allow_sym=allow_sym,
         assume_symmetric=assume_symmetric)
     eng = FusedCG(nx, ny, nz, taps, dtype=dtype, coeffs=coeffs,
-                  planes=planes, weight=weight, sym=sym)
+                  planes=planes, weight=weight, sym=sym,
+                  plane_dtype=plane_dtype)
     return eng, e, planes
 
 
@@ -272,8 +311,10 @@ def fused_dia_cg(d, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
     preconditioner=JacobiPrecond.from_matrix(d))`` to fp32 roundoff.
     ``inv_diag`` overrides the operator's ``1/diag(A)``, so a caller's
     :class:`~cgx_torch.solve.precond.JacobiPrecond` keeps its trajectory.
+    ``plane_dtype=torch.bfloat16`` streams bf16 planes: the recurrence
+    converges to the solution of the rounded operator, whose true residual
+    plateaus near the planes' rounding (``ir_cg_solve`` removes that).
     """
-    _no_plane_dtype(plane_dtype)
     if wrap_entries_zero_or_none(d) is False:
         raise ValueError(
             "fused_dia_cg: DIA data has nonzero entries at x-plane-"
@@ -281,6 +322,7 @@ def fused_dia_cg(d, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
             "j-boundary planes); the kernels would compute another "
             "operator — use cg_solve instead")
     eng, e, _ = build_fused_dia(d, b.dtype, jacobi=jacobi, inv_diag=inv_diag,
+                                plane_dtype=plane_dtype,
                                 assume_symmetric=assume_symmetric)
     if e is None:
         return eng.solve(b, x0, tol=tol, atol=atol, maxiter=maxiter,

@@ -16,18 +16,28 @@ mirror tap.  ``weight`` makes ``Σr²·w`` the exit test (the Jacobi-scaled
 DIA solve, ``w = diag A``) while β keeps the solve-space ``Σr²``.
 
 The four sums of an iteration (p·q, q·q, Σr², Σr²·w) are taken exactly,
-in the kernels and in the plain version alike: fp64 products of the fp32
-vectors summed in fp64 and rounded to fp32 once (the JAX package sums in
-fp32).  The CA identity makes the exit iteration sensitive to 1e-7 errors
-in those sums; see the note in ``fused_engine.cu``.
+in the kernels and in the plain version alike: fp64 products of the
+(widened) vectors summed in fp64 and rounded to fp32 once (the JAX package
+sums in fp32).  The CA identity makes the exit iteration sensitive to 1e-7
+errors in those sums; see the note in ``fused_engine.cu``.
+
+Mixed precision: the vectors are float32 or bfloat16 (``dtype``) and the
+coefficient planes float32 or bfloat16 (``plane_dtype``, default
+``dtype``).  The kernels take fp32/fp32, fp32 vectors with bf16 planes,
+and bf16 vectors with bf16 planes or none.  Every value is widened to
+fp32, kernel A sums a row in fp32 and rounds q once, kernel B rounds α and
+β to ``dtype`` and then each updated entry once; the plain versions round
+at the same places, so a bf16 mode equals its plain version bit for bit on
+the card.  The JAX package rounds every bf16 term instead, so the two
+packages agree to a bf16 tolerance.
 
 The port works on flat vectors, as the whole-solve kernel does.  The
 JAX package's TPU placement — ``Geometry``/``make_geometry`` (lane blocks,
 VMEM windows, ``double_buffer``, halo rows) and ``to_layout`` — is not
 ported: the CUDA kernels (``cgx_torch/csrc/fused_engine.cu``) run a flat
 grid-stride loop.  Neither are ``state_to_flat``/``state_from_flat`` (the
-checkpoint slice, ROADMAP queue A item 13), ``axis_name`` (distribution)
-or ``plane_dtype`` (mixed precision, ROADMAP queue A item 11).
+checkpoint slice, ROADMAP queue A item 11) or ``axis_name``
+(distribution).
 
 On a CUDA tensor :meth:`FusedCG.run` launches kernel A and kernel B once
 per iteration from a Python loop.  The exit decision, α, β and the history
@@ -35,7 +45,9 @@ slot stay on the device (see the source note); the host reads one flag per
 chunk of :data:`CHUNK` iterations, and the launches past the exit return at
 once.  On a CPU tensor it takes the plain version, :meth:`FusedCG.
 run_reference`, which a CUDA tensor can also be given explicitly.
-``fused_a_launches`` and ``fused_b_launches`` count the kernels' launches.
+``fused_a_launches`` and ``fused_b_launches`` count the kernels' launches,
+``fused_a_bf16_launches``, ``fused_b_bf16_launches`` and
+``fused_a_bf16_planes_launches`` those of the narrow modes among them.
 """
 from __future__ import annotations
 
@@ -52,11 +64,17 @@ from cgx_torch.sparse.stencil import _shift
 
 __all__ = ["FusedCG", "FusedState", "tap_matvec", "threshold",
            "plane_tap_arrays", "fused_a_launches", "fused_b_launches",
-           "CHUNK"]
+           "fused_a_bf16_launches", "fused_b_bf16_launches",
+           "fused_a_bf16_planes_launches", "CHUNK"]
 
-# Kernel launches so far (a run resets them to show which kernels it used).
+# Kernel launches so far, every mode (a run resets them to show which
+# kernels it used), and those of the narrow modes: bf16 vectors (kernels A
+# and B), and fp32 vectors with bf16 planes (kernel A; its B is fp32's).
 fused_a_launches = 0
 fused_b_launches = 0
+fused_a_bf16_launches = 0
+fused_b_bf16_launches = 0
+fused_a_bf16_planes_launches = 0
 
 # Iterations launched between two reads of the device's exit flag.
 CHUNK = 32
@@ -73,7 +91,8 @@ def tap_matvec(nx: int, ny: int, nz: int, taps, coeffs, planes, sym: bool,
     A constant tap is ``c·v[neighbour]`` inside the grid, 0 outside; a
     plane tap is ``plane[i]·v[i+off]`` with flat zero fill, plus the mirror
     ``plane[i−off]·v[i−off]`` when ``sym`` (``off`` = dx·ny·nz + dy·nz +
-    dk).  Terms are added in tap order.
+    dk).  Terms are added in tap order, in ``v``'s dtype; narrower planes
+    are widened to it first.
     """
     g = v.reshape(nx, ny, nz)
     y = None
@@ -83,7 +102,7 @@ def tap_matvec(nx: int, ny: int, nz: int, taps, coeffs, planes, sym: bool,
             term = c * _shift(_shift(_shift(g, 0, dx), 1, dy), 2,
                               dk).reshape(-1)
         else:
-            w = planes[pi]
+            w = planes[pi].to(v.dtype)
             pi += 1
             off = (dx * ny + dy) * nz + dk
             term = w * shifted(v, off)
@@ -158,14 +177,17 @@ class FusedCG:
     Args:
       nx, ny, nz: the grid (2-D operators use ``(nx, 1, ny)``).
       taps: ``(dx, dy, dk)`` per tap, ``|dx| ≤ 1``, at most 27.
-      dtype: vector dtype (the CUDA kernels take float32).
+      dtype: vector dtype, float32 or bfloat16.
       coeffs: per tap a float (constant) or None (plane); default all None.
       planes: ``(n_planes, n)``, the None slots' planes in tap order.
       weight: per-row weights ``(n,)``; the exit test then reads Σr²·w.
       sym: symmetric mode (``taps`` lists the diagonal and one tap per
         ±off pair; each plane is applied twice).  The caller checks that
         the data really is symmetric.
-      plane_dtype: not ported (mixed precision); must be None.
+      plane_dtype: the planes' dtype (default ``dtype``): bfloat16 with
+        float32 vectors halves the plane bytes.  Rounding the planes is a
+        fixed perturbation of the operator (about 4e-3 relative), made
+        once here; :func:`cgx_torch.solve.ir.ir_cg_solve` refines it away.
     """
 
     def __init__(self, nx: int, ny: int, nz: int,
@@ -174,10 +196,6 @@ class FusedCG:
                  planes: Optional[torch.Tensor] = None,
                  weight: Optional[torch.Tensor] = None, sym: bool = False,
                  plane_dtype=None):
-        if plane_dtype is not None:
-            raise NotImplementedError(
-                "FusedCG: plane_dtype is not ported yet (ROADMAP queue A "
-                "item 11, mixed precision)")
         taps = tuple(tuple(int(d) for d in t) for t in taps)
         for (dx, dy, dk) in taps:
             if abs(dx) > 1:
@@ -191,6 +209,7 @@ class FusedCG:
         self.nx, self.ny, self.nz = int(nx), int(ny), int(nz)
         self.n = self.nx * self.ny * self.nz
         self.taps, self.coeffs, self.dtype = taps, coeffs, dtype
+        self.plane_dtype = dtype if plane_dtype is None else plane_dtype
         self.sym = bool(sym and n_planes > 0)
         if n_planes:
             if planes is None or tuple(planes.shape) != (n_planes, self.n):
@@ -198,7 +217,7 @@ class FusedCG:
                     f"need {n_planes} coefficient planes of {self.n} rows "
                     f"for the None tap slots, got "
                     f"{None if planes is None else tuple(planes.shape)}")
-            self.planes = planes.to(dtype).contiguous()
+            self.planes = planes.to(self.plane_dtype).contiguous()
         else:
             self.planes = None
         self.weight = (None if weight is None
@@ -212,18 +231,24 @@ class FusedCG:
                           self.planes, self.sym, v)
 
     def kernel_a_reference(self, p: torch.Tensor):
-        """Plain kernel A: ``(q, Σ p·q, Σ q·q)``, sums exact to fp32."""
-        q = self.matvec(p)
+        """Plain kernel A: ``(q, Σ p·q, Σ q·q)``, sums exact to fp32; the
+        row in fp32, ``q`` rounded once to ``p``'s dtype."""
+        q = self.matvec(p.float()).to(p.dtype)
         return q, exact_dot(q, p), exact_dot(q, q)
 
     def kernel_b_reference(self, rz, pq, qq, x, r, p, q):
-        """Plain kernel B: ``(x', r', p', Σ r'², Σ r'²·w)``."""
+        """Plain kernel B: ``(x', r', p', Σ r'², Σ r'²·w)``.  α and β are
+        rounded to the vector dtype, each update is taken in fp32 and
+        rounded once."""
+        dt = x.dtype
         alpha32 = rz / pq
-        beta = ((alpha32 * alpha32 * qq - rz) / rz).to(p.dtype)
-        alpha = alpha32.to(x.dtype)
-        x = x + alpha * p
-        r_new = r - alpha * q
-        return (x, r_new, r_new + beta * p) + exact_sums(r_new, self.weight)
+        beta = ((alpha32 * alpha32 * qq - rz) / rz).to(dt).float()
+        alpha = alpha32.to(dt).float()
+        pf = p.float()
+        x = (x.float() + alpha * pf).to(dt)
+        r_new = (r.float() - alpha * q.float()).to(dt)
+        p_new = (r_new.float() + beta * pf).to(dt)
+        return (x, r_new, p_new) + exact_sums(r_new, self.weight)
 
     def kernel_a(self, p: torch.Tensor):
         """Kernel A once: ``(q, Σ p·q, Σ q·q)``.  A CPU tensor takes the
@@ -356,21 +381,33 @@ class FusedCG:
 
         if v.device.type != "cuda":
             raise ValueError(f"FusedCG: unsupported device {v.device}")
-        check_cuda_vector(v, self.n, "FusedCG")
-        for t, name in ((self.planes, "planes"), (self.weight, "weight")):
-            if t is not None and (t.device != v.device
-                                  or t.dtype != torch.float32):
-                raise ValueError(f"FusedCG: {name} must be float32 on "
+        check_cuda_vector(v, self.n, "FusedCG", self.dtype)
+        if self.planes is not None and self.plane_dtype not in (
+                torch.bfloat16, self.dtype):
+            raise ValueError(f"FusedCG: the CUDA kernels take {self.dtype} "
+                             f"vectors with {self.dtype} or bfloat16 planes, "
+                             f"not {self.plane_dtype} planes")
+        for t, name, dt in ((self.planes, "planes", self.plane_dtype),
+                            (self.weight, "weight", self.dtype)):
+            if t is not None and (t.device != v.device or t.dtype != dt):
+                raise ValueError(f"FusedCG: {name} must be {dt} on "
                                  f"{v.device}, got {t.dtype} on {t.device}")
         lib = _build.library()
         ga, gb = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(lib.cgx_fused_a_grid(
             v.device.index, len(self.taps), int(self.planes is not None),
-            int(self.sym), ctypes.byref(ga)), "fused kernel A occupancy")
+            int(self.sym), *self._bf16_flags(), ctypes.byref(ga)),
+            "fused kernel A occupancy")
         _build.check(lib.cgx_fused_b_grid(
-            v.device.index, int(self.weight is not None), ctypes.byref(gb)),
+            v.device.index, int(self.weight is not None),
+            self._bf16_flags()[0], ctypes.byref(gb)),
             "fused kernel B occupancy")
         return lib, ga.value, gb.value
+
+    def _bf16_flags(self):
+        """``(vec_bf16, plane_bf16)`` for the C entry points."""
+        return (int(self.dtype == torch.bfloat16),
+                int(self.plane_dtype == torch.bfloat16))
 
     def _a_args(self, p, q, part_a, ga, part_b, gb, ctl, hist, init=0):
         taps_c, coef_c, plane_c = plane_tap_arrays(self.taps, self.coeffs)
@@ -378,27 +415,33 @@ class FusedCG:
         return (p.data_ptr(), q.data_ptr(), ptr(self.planes),
                 part_a.data_ptr(), ga, ptr(part_b), gb, ptr(ctl), ptr(hist),
                 init, self.nx, self.ny, self.nz, len(self.taps), taps_c,
-                coef_c, plane_c, int(self.sym),
+                coef_c, plane_c, int(self.sym), *self._bf16_flags(),
                 torch.cuda.current_stream(p.device).cuda_stream)
 
     def _b_args(self, x, r, p, q, part_a, ga, part_b, gb, ctl):
         return (x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(),
                 None if self.weight is None else self.weight.data_ptr(),
                 part_a.data_ptr(), ga, part_b.data_ptr(), gb,
-                ctl.data_ptr(), self.n,
+                ctl.data_ptr(), self.n, self._bf16_flags()[0],
                 torch.cuda.current_stream(x.device).cuda_stream)
 
-    @staticmethod
-    def _launch_a(lib, args) -> None:
-        global fused_a_launches
+    def _launch_a(self, lib, args) -> None:
+        global fused_a_launches, fused_a_bf16_launches
+        global fused_a_bf16_planes_launches
         _build.check(lib.cgx_fused_a(*args), "fused kernel A launch")
         fused_a_launches += 1
+        vec_bf16, plane_bf16 = self._bf16_flags()
+        if vec_bf16:
+            fused_a_bf16_launches += 1
+        elif plane_bf16 and self.planes is not None:
+            fused_a_bf16_planes_launches += 1
 
-    @staticmethod
-    def _launch_b(lib, args) -> None:
-        global fused_b_launches
+    def _launch_b(self, lib, args) -> None:
+        global fused_b_launches, fused_b_bf16_launches
         _build.check(lib.cgx_fused_b(*args), "fused kernel B launch")
         fused_b_launches += 1
+        if self._bf16_flags()[0]:
+            fused_b_bf16_launches += 1
 
     def _run_cuda(self, state: FusedState, upto: int,
                   tol_sq) -> FusedState:
@@ -407,7 +450,7 @@ class FusedCG:
         lib, ga, gb = self._setup(state.x)
         dev = state.x.device
         for v, name in ((state.r, "r"), (state.p, "p")):
-            check_cuda_vector(v, self.n, f"FusedCG state {name}")
+            check_cuda_vector(v, self.n, f"FusedCG state {name}", self.dtype)
         x, r, p = state.x.clone(), state.r.clone(), state.p.clone()
         q = torch.empty_like(x)
         part_a = torch.empty(2 * ga, dtype=torch.float64, device=dev)

@@ -22,7 +22,10 @@ it, so the column that exits last follows its single-RHS solve.
 The port keeps the block as k flat columns, ``(k, n)`` contiguous (the JAX
 package's ``b.T``).  The band-stacked TPU layout (``_to_layout_multi``, the
 ``bps`` band tiling, VMEM limits) and ``_exchange_multi`` (distribution)
-are not ported; neither is ``plane_dtype`` (ROADMAP queue A item 11).
+are not ported.  ``plane_dtype=torch.bfloat16`` holds the shared planes in
+bf16 (the vectors stay float32); kernel A widens each plane value as it
+loads it, so that mode equals the float32 mode on the planes rounded
+through bf16, bit for bit.
 
 On a CUDA tensor :meth:`FusedCGMulti.run` launches kernel A and kernel B of
 ``cgx_torch/csrc/fused_multi.cu`` once per iteration from a Python loop,
@@ -42,7 +45,7 @@ import torch
 
 from cgx_torch.kernels import _build
 from cgx_torch.kernels.fused_cg import stencil_taps, supports
-from cgx_torch.kernels.fused_dia_cg import (_no_plane_dtype, dia_prep,
+from cgx_torch.kernels.fused_dia_cg import (dia_prep,
                                             wrap_entries_zero_or_none)
 from cgx_torch.kernels.fused_engine import (CHUNK, FusedCG, exact_sums,
                                             plane_tap_arrays, threshold)
@@ -51,11 +54,13 @@ from cgx_torch.solve.cg import CGResult
 
 __all__ = ["FusedCGMulti", "FusedMultiState", "thresholds",
            "fused_stencil_cg_multi", "fused_dia_cg_multi",
-           "multi_a_launches", "multi_b_launches"]
+           "multi_a_launches", "multi_b_launches", "multi_a_bf16_launches"]
 
-# Kernel launches so far (a run resets them to show which kernels it used).
+# Kernel launches so far (a run resets them to show which kernels it used);
+# multi_a_bf16_launches counts kernel A's bf16-plane mode among them.
 multi_a_launches = 0
 multi_b_launches = 0
+multi_a_bf16_launches = 0
 
 # The device control block (fused_multi.cu): header words, then five float
 # arrays of k columns in this order.
@@ -249,16 +254,19 @@ class FusedCGMulti(FusedCG):
         if self.n >= 2 ** 31:
             raise ValueError(f"FusedCGMulti: {self.n} rows do not fit int32 "
                              f"row indexing")
-        for t, name in ((self.planes, "planes"), (self.weight, "weight")):
-            if t is not None and (t.device != v.device
-                                  or t.dtype != torch.float32):
-                raise ValueError(f"FusedCGMulti: {name} must be float32 on "
+        for t, name, ok in ((self.planes, "planes",
+                             (torch.float32, torch.bfloat16)),
+                            (self.weight, "weight", (torch.float32,))):
+            if t is not None and (t.device != v.device or t.dtype not in ok):
+                raise ValueError(f"FusedCGMulti: {name} must be "
+                                 f"{' or '.join(map(str, ok))} on "
                                  f"{v.device}, got {t.dtype} on {t.device}")
         lib = _build.library()
         ga, gb = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(lib.cgx_multi_a_grid(
             v.device.index, len(self.taps), int(self.planes is not None),
-            int(self.sym), ctypes.byref(ga)), "multi kernel A occupancy")
+            int(self.sym), self._bf16_flags()[1], ctypes.byref(ga)),
+            "multi kernel A occupancy")
         _build.check(lib.cgx_multi_b_grid(
             v.device.index, int(self.weight is not None), ctypes.byref(gb)),
             "multi kernel B occupancy")
@@ -281,7 +289,8 @@ class FusedCGMulti(FusedCG):
                 None if self.planes is None else self.planes.data_ptr(),
                 part.data_ptr(), ga, ctl.data_ptr(), p.shape[0], self.nx,
                 self.ny, self.nz, len(self.taps), taps_c, coef_c, plane_c,
-                int(self.sym), torch.cuda.current_stream(p.device).cuda_stream)
+                int(self.sym), self._bf16_flags()[1],
+                torch.cuda.current_stream(p.device).cuda_stream)
 
     def _b_args(self, x, r, p, q, part, gb, ctl):
         return (x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(),
@@ -289,14 +298,14 @@ class FusedCGMulti(FusedCG):
                 part.data_ptr(), gb, ctl.data_ptr(), x.shape[0], self.n,
                 torch.cuda.current_stream(x.device).cuda_stream)
 
-    @staticmethod
-    def _launch_a(lib, args) -> None:
-        global multi_a_launches
+    def _launch_a(self, lib, args) -> None:
+        global multi_a_launches, multi_a_bf16_launches
         _build.check(lib.cgx_multi_a(*args), "multi kernel A launch")
         multi_a_launches += 1
+        if self.planes is not None and self._bf16_flags()[1]:
+            multi_a_bf16_launches += 1
 
-    @staticmethod
-    def _launch_b(lib, args) -> None:
+    def _launch_b(self, lib, args) -> None:
         global multi_b_launches
         _build.check(lib.cgx_multi_b(*args), "multi kernel B launch")
         multi_b_launches += 1
@@ -373,10 +382,10 @@ def fused_dia_cg_multi(d, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
                        jacobi: bool = True, inv_diag=None, plane_dtype=None,
                        assume_symmetric: Optional[bool] = None) -> CGResult:
     """Batched fused Jacobi-PCG (plain CG with ``jacobi=False``) on a banded
-    DIA operator; ``b``: (n, k).  The DIA preparation and ``inv_diag`` are
-    those of :func:`cgx_torch.kernels.fused_dia_cg.fused_dia_cg`; the
-    planes are shared by the columns."""
-    _no_plane_dtype(plane_dtype)
+    DIA operator; ``b``: (n, k).  The DIA preparation, ``inv_diag`` and
+    ``plane_dtype`` are those of
+    :func:`cgx_torch.kernels.fused_dia_cg.fused_dia_cg`; the planes are
+    shared by the columns."""
     if b.dim() != 2:
         raise ValueError(f"expected b of shape (n, k), got {tuple(b.shape)}")
     if wrap_entries_zero_or_none(d) is False:
@@ -385,7 +394,8 @@ def fused_dia_cg_multi(d, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
         d, b.dtype, jacobi=jacobi, inv_diag=inv_diag,
         assume_symmetric=assume_symmetric)
     eng = FusedCGMulti(nx, ny, nz, taps, dtype=b.dtype, coeffs=coeffs,
-                       planes=planes, weight=weight, sym=sym)
+                       planes=planes, weight=weight, sym=sym,
+                       plane_dtype=plane_dtype)
     b2 = b.T
     x0_2 = None if x0 is None else x0.T
     if e is not None:

@@ -11,13 +11,16 @@ the design.  It has the Pallas kernel's two modes:
 * constant taps (a stencil; ``resident_cg_launches`` counts them);
 * planes/weight (``planes`` for the ``None`` coefficient slots, optional
   ``weight`` and ``sym``): the Jacobi-scaled DIA operator of
-  :func:`resident_dia_cg` (``resident_dia_launches``).
+  :func:`resident_dia_cg` (``resident_dia_launches``).  The planes may be
+  float32 or bfloat16 (``plane_dtype``; the vectors stay float32): the
+  kernel widens each plane value as it loads it, so the bf16 mode equals
+  the float32 mode on the planes rounded through bf16, bit for bit, at one
+  grid (``grid=``; :func:`resident_grid` gives each instance's own).
 
 On the H100 the vectors live in device memory, so no VMEM budget applies:
 :func:`resident_supported` checks only the operator's form and that the
 row indices fit in int32.  The JAX package's ``VMEM_BUDGET`` and
-``resident_vmem_bytes`` are not ported, nor is ``plane_dtype`` (mixed
-precision, ROADMAP queue A item 11).
+``resident_vmem_bytes`` are not ported.
 
 The port works on flat vectors: there is no halo layout, so resume state
 is the flat ``(x, r, p, rz, rw)``.  :func:`resident_cg_call` launches the
@@ -39,12 +42,15 @@ from cgx_torch.solve.cg import CGResult
 
 __all__ = ["resident_cg_call", "resident_cg", "resident_cg_reference",
            "resident_supported", "resident_stencil_cg", "resident_dia_cg",
-           "resident_cg_launches", "resident_dia_launches"]
+           "resident_grid", "resident_cg_launches", "resident_dia_launches",
+           "resident_dia_bf16_launches"]
 
 # Kernel launches so far, by mode (a run resets them to show which kernels
-# it used).
+# it used); resident_dia_bf16_launches counts the bf16-plane launches among
+# the planes mode's.
 resident_cg_launches = 0
 resident_dia_launches = 0
+resident_dia_bf16_launches = 0
 
 
 def _sums(r: torch.Tensor, weight):
@@ -65,7 +71,8 @@ def resident_cg_reference(spec, b: torch.Tensor, x0=None, *, planes=None,
     """Plain PyTorch version of the kernel: the same textbook recurrence
     (α = rz/pq, β = rz'/rz, fp32 sums) and the same exit test
     (``k < maxiter`` and ``rw > tol_sq``, with ``rw = Σ r²·w`` when
-    ``weight`` is given), as a Python loop.
+    ``weight`` is given), as a Python loop.  bf16 ``planes`` are widened
+    to ``b``'s dtype.
 
     ``spec`` is ``(nx, ny, nz, taps, coeffs)`` (from
     :func:`~cgx_torch.kernels.fused_cg.stencil_taps`, or from
@@ -105,9 +112,33 @@ def resident_cg_reference(spec, b: torch.Tensor, x0=None, *, planes=None,
             torch.stack([rz, rw]), tol_sq)
 
 
+def resident_grid(spec, device, *, planes=None, weight=None,
+                  sym: bool = False) -> int:
+    """The cooperative grid (blocks) the kernel instance for this operator
+    and plane dtype launches with by default: as many as fit on the card
+    at once."""
+    from cgx_torch.kernels import _build
+
+    taps = spec[3]
+    lib = _build.library()
+    grid = ctypes.c_int(0)
+    dev = torch.device(device)
+    if planes is None and weight is None:
+        _build.check(lib.cgx_resident_cg_grid(dev.index, len(taps),
+                                              ctypes.byref(grid)),
+                     "resident_cg occupancy query")
+    else:
+        bf16 = int(planes is not None and planes.dtype == torch.bfloat16)
+        _build.check(lib.cgx_resident_dia_cg_grid(
+            dev.index, len(taps), int(sym), bf16, ctypes.byref(grid)),
+            "resident_cg planes-mode occupancy query")
+    return grid.value
+
+
 def _resident_cuda(spec, b, x0, *, planes, weight, sym, tol, atol, maxiter,
-                   resume):
+                   resume, grid):
     global resident_cg_launches, resident_dia_launches
+    global resident_dia_bf16_launches
     from cgx_torch.kernels import _build
     from cgx_torch.kernels.stencil import check_cuda_vector, tap_arrays
 
@@ -120,11 +151,20 @@ def _resident_cuda(spec, b, x0, *, planes, weight, sym, tol, atol, maxiter,
     n_planes = sum(1 for c in coeffs if c is None)
     if n_planes and (planes is None or tuple(planes.shape) != (n_planes, n)):
         raise ValueError(f"resident_cg: need {n_planes} planes of {n} rows")
-    for t, name in ((planes, "planes"), (weight, "weight")):
-        if t is not None and (t.device != b.device or t.dtype != b.dtype
+    for t, name, ok in ((planes, "planes", (torch.float32, torch.bfloat16)),
+                        (weight, "weight", (torch.float32,))):
+        if t is not None and (t.device != b.device or t.dtype not in ok
                               or not t.is_contiguous()):
             raise ValueError(f"resident_cg: {name} must be a contiguous "
-                             f"float32 tensor on {b.device}")
+                             f"{' or '.join(map(str, ok))} tensor on "
+                             f"{b.device}")
+    full = resident_grid(spec, b.device, planes=planes, weight=weight,
+                         sym=sym)
+    if grid is None:
+        grid = full
+    elif not 1 <= int(grid) <= full:
+        raise ValueError(f"resident_cg: grid {grid} outside 1..{full}, the "
+                         f"blocks that fit on the card at once")
     dev = b.device
     tol_sq = threshold(b, tol, atol, weight)
     if resume is None:
@@ -150,39 +190,34 @@ def _resident_cuda(spec, b, x0, *, planes, weight, sym, tol, atol, maxiter,
     lib = _build.library()
     maxit = min(int(maxiter), 2 ** 31 - 1)
     rz_ptr = None if rz_in is None else rz_in.data_ptr()
+    grid = int(grid)
     with torch.cuda.device(dev):
-        grid = ctypes.c_int(0)
         stream = torch.cuda.current_stream(dev).cuda_stream
         if not planes_mode:
-            _build.check(lib.cgx_resident_cg_grid(dev.index, len(taps),
-                                                  ctypes.byref(grid)),
-                         "resident_cg occupancy query")
-            partials = torch.empty(2 * grid.value, dtype=torch.float32,
-                                   device=dev)
+            partials = torch.empty(2 * grid, dtype=torch.float32, device=dev)
             tap_c, coef_c = tap_arrays(taps, coeffs)
             rc = lib.cgx_resident_cg(
                 x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(),
-                partials.data_ptr(), grid.value, nx, ny, nz, len(taps),
+                partials.data_ptr(), grid, nx, ny, nz, len(taps),
                 tap_c, coef_c, tol_sq.data_ptr(), maxit, flag, rz_ptr,
                 k_out.data_ptr(), rz_out.data_ptr(), stream)
         else:
-            _build.check(lib.cgx_resident_dia_cg_grid(
-                dev.index, len(taps), int(sym), ctypes.byref(grid)),
-                "resident_cg planes-mode occupancy query")
-            partials = torch.empty(3 * grid.value, dtype=torch.float32,
-                                   device=dev)
+            partials = torch.empty(3 * grid, dtype=torch.float32, device=dev)
             tap_c, coef_c, plane_c = plane_tap_arrays(taps, coeffs)
             rc = lib.cgx_resident_dia_cg(
                 x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(),
-                partials.data_ptr(), grid.value, nx, ny, nz, len(taps),
+                partials.data_ptr(), grid, nx, ny, nz, len(taps),
                 tap_c, coef_c, plane_c,
                 None if planes is None else planes.data_ptr(),
                 None if weight is None else weight.data_ptr(), int(sym),
+                int(planes is not None and planes.dtype == torch.bfloat16),
                 tol_sq.data_ptr(), maxit, flag, rz_ptr, k_out.data_ptr(),
                 rz_out.data_ptr(), stream)
     _build.check(rc, "resident_cg cooperative launch")
     if planes_mode:
         resident_dia_launches += 1
+        if planes is not None and planes.dtype == torch.bfloat16:
+            resident_dia_bf16_launches += 1
     else:
         resident_cg_launches += 1
     return x, r, p, k_out[0], rz_out, tol_sq
@@ -190,7 +225,8 @@ def _resident_cuda(spec, b, x0, *, planes, weight, sym, tol, atol, maxiter,
 
 def resident_cg_call(spec, b: torch.Tensor, x0=None, *, planes=None,
                      weight=None, sym: bool = False, tol: float = 1e-6,
-                     atol: float = 0.0, maxiter: int = 1000, resume=None):
+                     atol: float = 0.0, maxiter: int = 1000, resume=None,
+                     grid=None):
     """Low-level whole-solve call; returns the carried state
     ``(x, r, p, k, rz, tol_sq)`` with ``rz = (rz, rw)`` so chunked callers
     can feed it back via ``resume``.
@@ -201,7 +237,10 @@ def resident_cg_call(spec, b: torch.Tensor, x0=None, *, planes=None,
     tap.  ``resume``: ``(x, r, p, rz, rw)`` — skips the fresh init
     (r₀ = b − A·x₀, p₀ = r₀) and continues the exact recurrence.  ``b``
     still supplies the convergence threshold.  The caller's ``b``, ``x0``
-    and resume tensors are never written.
+    and resume tensors are never written.  ``grid``: the kernel's blocks
+    (default and most :func:`resident_grid`); the sums, and so the
+    trajectory, depend on it.  A CPU tensor takes the plain version and
+    ignores it.
     """
     if b.device.type == "cpu":
         return resident_cg_reference(spec, b, x0, planes=planes,
@@ -211,7 +250,8 @@ def resident_cg_call(spec, b: torch.Tensor, x0=None, *, planes=None,
     if b.device.type != "cuda":
         raise ValueError(f"resident_cg: unsupported device {b.device}")
     return _resident_cuda(spec, b, x0, planes=planes, weight=weight, sym=sym,
-                          tol=tol, atol=atol, maxiter=maxiter, resume=resume)
+                          tol=tol, atol=atol, maxiter=maxiter, resume=resume,
+                          grid=grid)
 
 
 def resident_cg(spec, b: torch.Tensor, x0=None, *, planes=None,
@@ -267,17 +307,20 @@ def resident_dia_cg(d, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
                     plane_dtype=None) -> CGResult:
     """Whole-solve Jacobi-PCG (plain CG with ``jacobi=False``) on a DIA
     operator; semantics of :func:`cgx_torch.kernels.fused_dia_cg.
-    fused_dia_cg` without history."""
-    from cgx_torch.kernels.fused_dia_cg import (_no_plane_dtype, dia_prep,
+    fused_dia_cg` without history.  ``plane_dtype=torch.bfloat16`` holds
+    the scaled planes in bf16 (rounded after the scaling); the vectors
+    keep ``b``'s dtype."""
+    from cgx_torch.kernels.fused_dia_cg import (dia_prep,
                                                 wrap_entries_zero_or_none)
 
-    _no_plane_dtype(plane_dtype)
     if wrap_entries_zero_or_none(d) is False:
         raise ValueError(
             "resident_dia_cg: DIA data has nonzero x-plane-crossing "
             "entries — use cg_solve instead")
     nx, ny, nz, taps, coeffs, planes, e, weight, sym = dia_prep(
         d, b.dtype, jacobi=jacobi, inv_diag=inv_diag)
+    if plane_dtype is not None:
+        planes = planes.to(plane_dtype)
     b_s, x0_s = b, x0
     if e is not None:
         b_s = e * b

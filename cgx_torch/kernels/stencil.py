@@ -46,11 +46,16 @@ def tap_arrays(taps, coeffs):
             (ctypes.c_float * len(coeffs))(*map(float, coeffs)))
 
 
-def check_cuda_vector(v: torch.Tensor, n: int, name: str) -> None:
-    """Raise unless ``v`` is a contiguous fp32 CUDA vector of ``n`` rows
-    with ``n < 2**31`` (the kernels index rows in int32)."""
-    if v.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got "
+def check_cuda_vector(v: torch.Tensor, n: int, name: str,
+                      dtype=torch.float32) -> None:
+    """Raise unless ``v`` is a contiguous CUDA vector of ``n`` rows of
+    ``dtype`` (float32, or bfloat16 for the kernels' bf16 modes) with
+    ``n < 2**31`` (the kernels index rows in int32)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the CUDA kernels take float32 or bfloat16 "
+                        f"vectors, not {dtype}")
+    if v.dtype != dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got "
                         f"{v.dtype}")
     if v.dim() != 1 or v.shape[0] != n:
         raise ValueError(f"{name}: expected shape ({n},), got "

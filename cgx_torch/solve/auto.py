@@ -29,9 +29,16 @@ K2 has no VMEM cap on the card, so the ``resident_*`` routes cover every
 size and :func:`select_backend` never returns ``"fused_*"`` (nor the
 semi-resident ``"sr_*"``).  The two-pass engine (kernel K3) is reached
 with ``track_history=True`` — the whole-solve kernel keeps no history, so
-a ``resident_*`` route with at least ``FUSED_MIN_ROWS`` rows goes to
-``"fused_stencil"``/``"fused_dia"`` (fewer rows: the loop), as in the JAX
-package — or by naming the backend.
+a ``resident_*`` or ``sr_*`` route with at least ``FUSED_MIN_ROWS`` rows
+goes to ``"fused_stencil"``/``"fused_dia"`` (fewer rows: the loop), as in
+the JAX package — or by naming the backend.
+
+``mixed_precision=True`` takes :func:`~cgx_torch.solve.ir.ir_cg_solve`
+where the JAX package does: no history, at least ``FUSED_MIN_ROWS`` rows
+and a fused, semi-resident or resident route.  A DIA operator whose
+:func:`~cgx_torch.kernels.fused_dia_cg.bf16_plane_speedup` is at least
+1.15 runs the inner solves with bf16 planes and fp32 vectors, anything
+else with bf16 vectors.  Otherwise the solve routes as without it.
 
 Backends not ported yet raise ``NotImplementedError``; nothing is
 re-routed quietly.
@@ -44,16 +51,19 @@ import torch
 
 from cgx_torch.kernels import fused_cg
 from cgx_torch.kernels.fused_cg import fused_stencil_cg
-from cgx_torch.kernels.fused_dia_cg import (fused_dia_cg, supports_dia,
+from cgx_torch.kernels.fused_dia_cg import (bf16_plane_speedup,
+                                            fused_dia_cg, supports_dia,
                                             wrap_entries_zero_or_none)
 from cgx_torch.kernels.fused_resident import (resident_dia_cg,
                                               resident_stencil_cg,
                                               resident_supported)
 from cgx_torch.solve.block import FUSED_MIN_ROWS, cg_solve_multi
 from cgx_torch.solve.cg import CGResult, cg_solve
+from cgx_torch.solve.ir import ir_cg_solve
 from cgx_torch.solve.precond import JacobiPrecond, PolynomialPrecond
 from cgx_torch.solve.wbell import (WBellBlockJacobiPrecond, wbell_cg_solve,
                                    wbell_cg_solve_multi)
+from cgx_torch.sparse.types import DIAMatrix
 from cgx_torch.sparse.wbell import WBELLMatrix
 
 __all__ = ["auto_solve", "select_backend", "RESIDENT_MIN_ROWS",
@@ -63,6 +73,13 @@ __all__ = ["auto_solve", "select_backend", "RESIDENT_MIN_ROWS",
 # not measured on the H100 yet.  FUSED_MIN_ROWS is defined in
 # cgx_torch.solve.block, whose multi-RHS routes read it too.
 RESIDENT_MIN_ROWS = 200_000
+# The mixed-precision mode cut on bf16_plane_speedup's prediction: the JAX
+# package's, from the TPU's footprint model; not measured on the H100.
+BF16_PLANE_MIN_SPEEDUP = 1.15
+
+# The routes on which mixed_precision=True takes ir_cg_solve.
+_IR_ROUTES = ("fused_stencil", "fused_dia", "sr_stencil", "sr_dia",
+              "resident_stencil", "resident_dia")
 
 # Backends of the JAX package that the port does not have yet, with the
 # ROADMAP item that brings each.
@@ -128,17 +145,12 @@ def auto_solve(
         if mixed_precision:
             raise ValueError("mixed_precision is single-RHS only; for "
                              "multi-RHS use fused_dia_cg_multi("
-                             "plane_dtype=bfloat16) directly (plane_dtype "
-                             "is not ported yet: ROADMAP queue A item 11)")
+                             "plane_dtype=bfloat16) directly")
         mb = "auto"
         if backend is not None:
             mb = "xla" if backend in ("xla", "padded") else "fused"
         return cg_solve_multi(a, b, x0, tol=tol, atol=atol, maxiter=maxiter,
                               preconditioner=preconditioner, backend=mb)
-    if mixed_precision:
-        raise NotImplementedError(
-            "auto_solve: mixed_precision is not ported yet "
-            "(ROADMAP queue A item 11, ir_cg_solve)")
     if backend is None:
         backend = select_backend(a, b, preconditioner)
     if backend == "wbell":
@@ -150,10 +162,25 @@ def auto_solve(
                                  track_history=track_history))
     n = b.shape[0]
     mi = int(maxiter) if maxiter is not None else n
-    if backend.startswith("resident") and track_history:
-        # The whole-solve kernel keeps no per-iteration history; fall back
+    if mixed_precision and not track_history and n >= FUSED_MIN_ROWS \
+            and backend in _IR_ROUTES:
+        # Mode routing by the footprint model: bf16 planes with fp32
+        # vectors where the model predicts at least the cut (no vector
+        # rounding, so no iteration inflation), bf16 vectors otherwise.
+        if isinstance(a, DIAMatrix) and bf16_plane_speedup(
+                a, n, b.element_size()) >= BF16_PLANE_MIN_SPEEDUP:
+            return ir_cg_solve(a, b, x0, tol=tol, atol=atol, maxiter=mi,
+                               inner_dtype=torch.float32,
+                               inner_plane_dtype=torch.bfloat16,
+                               inner_tol=5e-3,
+                               preconditioner=preconditioner)
+        return ir_cg_solve(a, b, x0, tol=tol, atol=atol, maxiter=mi,
+                           preconditioner=preconditioner)
+    if track_history and (backend.startswith("resident")
+                          or backend in ("sr_stencil", "sr_dia")):
+        # The whole-solve kernels keep no per-iteration history; fall back
         # to the two-pass engine (large n) or the loop, as the JAX package.
-        backend = ("fused" + backend[len("resident"):]
+        backend = ("fused_" + backend.split("_", 1)[1]
                    if n >= FUSED_MIN_ROWS else "xla")
     if backend in _NOT_PORTED:
         raise NotImplementedError(

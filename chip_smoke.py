@@ -87,10 +87,36 @@ Phases (any failed check exits nonzero, and no result line is printed):
     legacy 4-line file of ``poisson2d(256, 256)`` written, read back equal,
     and solved (``tol=0``, 50 updates, fp64) on the card against the CPU;
 24. B5, times: K11 in B1–B3 beside its plain version, its bound and
-    torch's BSR product (B3 also beside torch's CSR product).
+    torch's BSR product (B3 also beside torch's CSR product);
+25. X1, mixed precision as a user drives it: ``auto_solve(
+    poisson3d_stencil(224, 224, 224), b, mixed_precision=True)`` with b =
+    ones and a seeded b, routed to ``ir_cg_solve`` with K3 in bf16 vectors
+    (the outer residual from fp32 K3 A, no K2); each answer held against
+    the same ``ir_cg_solve`` through the plain versions and against an
+    fp64 solve (forward error ≤ 1e-4; the seeded b's fp64 true relres),
+    and K3 A and B in bf16 one step each against their plain versions, bit
+    for bit;
+26. X2, the same on DIA-27 160³ and DIA-7 192³ with ``JacobiPrecond``:
+    ``bf16_plane_speedup`` chooses the plane mode (bf16 planes, fp32
+    vectors), and K3 A in it equals its plain version and fp32 K3 A on the
+    planes rounded through bf16, bit for bit;
+27. X3, K2 with bf16 planes (``resident_dia_cg(plane_dtype=bf16)``) at
+    DIA-27 128³ (to tol) and DIA-7 192³ (100 iterations: its rounded
+    operator is indefinite and the solve breaks down): equal to fp32 K2 on
+    the pre-rounded planes bit for bit at one grid (the smaller of the two
+    instances'), and at DIA-27 to its plain version within K2's bounds;
+28. X4, ``fused_dia_cg_multi(DIA-27 160³, B (n, 4), plane_dtype=bf16)``:
+    each column equal to fp32 K5 on the pre-rounded planes bit for bit;
+29. X5, times: each narrow mode per iteration beside its fp32 mode, its
+    plain version and its bound (2 B per bf16 value), the profiler's
+    device time per launch, the PyTorch calls computing the same products
+    (bf16 conv3d, the CSR product of Ã with bf16-rounded values), IR per
+    inner iteration beside the fp32 K3 and K2 solves, and the measured
+    fp32/bf16-plane ratio beside ``bf16_plane_speedup``'s prediction (the
+    TPU model) at DIA-7 192³, DIA-27 128³ and DIA-27 160³.
 
 The launch counters are set to 0 just before each of the paths 4, 6, 7,
-W3–W4, M2–M5 and B1–B4 and read just after it.  The line before the last
+W3–W4, M2–M5, B1–B4 and X1–X4 and read just after it.  The line before the last
 is a JSON object describing each kernel, with its bound (the larger of
 its bytes, each input read once and each output written once, over 3.35
 TB/s, and its operations over 67 TFLOP/s fp32, or 989 TFLOP/s on the
@@ -600,6 +626,7 @@ def multi_phases(dev, card, dias):
     k = K_MULTI
     t0 = time.perf_counter()
     d160 = poisson3d_dia27(*N160, variable=True, seed=SEED, device=dev)
+    dias["DIA-27 160^3"] = d160          # the mixed-precision phases' too
     cells = {"DIA-27 160^3": (d160, cgx_torch.JacobiPrecond.from_matrix(
                  d160)),
              "stencil 224^3": (cgx_torch.poisson3d_stencil(*N224), None)}
@@ -1247,6 +1274,544 @@ def bsr_phases(dev, card):
              "library_ms": lib}]
 
 
+def seeded_rhs(n, dev):
+    """The seeded right-hand side of the DIA phases: standard normal from
+    SEED, fp32."""
+    return torch.from_numpy(np.random.default_rng(SEED).standard_normal(n)
+                            .astype(np.float32)).to(dev)
+
+
+def device_us(prof, pick):
+    """(µs of device time, launches) of the kernels whose profiler key
+    satisfies ``pick``."""
+    evs = [ev for ev in prof.key_averages()
+           if ev.self_device_time_total > 0 and pick(ev.key)]
+    return (sum(ev.self_device_time_total for ev in evs),
+            sum(ev.count for ev in evs))
+
+
+def mixed_phases(dev, card, dias, fp64_solution, relres_of):
+    """X1–X5: mixed precision.  ``auto_solve(..., mixed_precision=True)``
+    (``ir_cg_solve`` over K3's narrow modes), K2's and K5's bf16 planes,
+    and their times.  ``dias`` holds DIA-7 192³, DIA-27 128³ and DIA-27
+    160³; ``fp64_solution(label, rhs name, a, b)`` and ``relres_of(a, b,
+    x)`` are the main phases' fp64 yardsticks.  Returns the report line's
+    entries of the narrow modes."""
+    import cgx_torch
+    from cgx_torch.kernels import fused_dia_cg as fdia
+    from cgx_torch.kernels import fused_engine as k3
+    from cgx_torch.kernels import fused_multi as k5
+    from cgx_torch.kernels import fused_resident as k2
+    from cgx_torch.kernels.fused_cg import build_fused
+    from cgx_torch.solve.auto import BF16_PLANE_MIN_SPEEDUP
+    from cgx_torch.solve.ir import ir_cg_solve_reference
+    from torch.profiler import ProfilerActivity, profile
+
+    bf16 = torch.bfloat16
+
+    def zero():
+        k3.fused_a_launches = k3.fused_b_launches = 0
+        k3.fused_a_bf16_launches = k3.fused_b_bf16_launches = 0
+        k3.fused_a_bf16_planes_launches = 0
+        k2.resident_cg_launches = k2.resident_dia_launches = 0
+        k2.resident_dia_bf16_launches = 0
+        k5.multi_a_launches = k5.multi_b_launches = 0
+        k5.multi_a_bf16_launches = 0
+
+    def counts():
+        return {"k3_a": k3.fused_a_launches, "k3_b": k3.fused_b_launches,
+                "k3_a_bf16": k3.fused_a_bf16_launches,
+                "k3_b_bf16": k3.fused_b_bf16_launches,
+                "k3_a_planes": k3.fused_a_bf16_planes_launches,
+                "k2": k2.resident_cg_launches + k2.resident_dia_launches,
+                "k2_bf16": k2.resident_dia_bf16_launches,
+                "k5_a": k5.multi_a_launches, "k5_b": k5.multi_b_launches,
+                "k5_a_bf16": k5.multi_a_bf16_launches}
+
+    a224 = cgx_torch.poisson3d_stencil(*N224)
+    cells = {"stencil 224^3": (a224, None)}
+    for label in ("DIA-27 160^3", "DIA-7 192^3"):
+        cells[label] = (dias[label], cgx_torch.JacobiPrecond.from_matrix(
+            dias[label]))
+    launches = {"a_bf16": 0, "b_bf16": 0, "a_planes": 0, "k2_bf16": 0,
+                "k5_a_bf16": 0}
+    errs = {}
+    its_fixed = 100           # the fixed-count runs of X3 and X5
+
+    # -- X1, X2. auto_solve(mixed_precision=True), as a user drives it -----
+    ir_runs = {}
+    for label, (a, m) in cells.items():
+        n = a.shape[0]
+        tag = "X1" if m is None else "X2"
+        planes = m is not None
+        if planes:
+            sp = fdia.bf16_plane_speedup(a, n, 4)
+            print(f"{tag} {label}: bf16_plane_speedup (the TPU model) "
+                  f"{sp:.4f}, cut {BF16_PLANE_MIN_SPEEDUP}")
+            check(sp >= BF16_PLANE_MIN_SPEEDUP,
+                  f"{tag} {label}: the model does not choose the plane mode")
+        kw = (dict(inner_dtype=torch.float32, inner_plane_dtype=bf16,
+                   inner_tol=5e-3) if planes else {})
+        for nm, b in (("ones", torch.ones(n, dtype=torch.float32,
+                                          device=dev)),
+                      ("random", seeded_rhs(n, dev))):
+            zero()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = cgx_torch.auto_solve(a, b, tol=TOL, preconditioner=m,
+                                       mixed_precision=True)
+            end.record()
+            end.synchronize()
+            c = counts()
+            fp32_a = c["k3_a"] - c["k3_a_bf16"] - c["k3_a_planes"]
+            print(f"{tag} {label} b={nm} launches: K3 A bf16 vectors "
+                  f"{c['k3_a_bf16']}, K3 B bf16 vectors {c['k3_b_bf16']}, "
+                  f"K3 A bf16 planes {c['k3_a_planes']}, K3 A fp32 "
+                  f"{fp32_a}, K3 B fp32 {c['k3_b'] - c['k3_b_bf16']}, K2 "
+                  f"{c['k2']}, K5 A {c['k5_a']}")
+            if planes:
+                ok = (c["k3_a_planes"] > 0 and c["k3_a_bf16"] == 0
+                      and c["k3_b_bf16"] == 0 and c["k3_b"] > 0)
+                launches["a_planes"] += c["k3_a_planes"]
+            else:
+                ok = (c["k3_a_bf16"] > 0 and c["k3_b_bf16"] > 0
+                      and c["k3_a_planes"] == 0)
+                launches["a_bf16"] += c["k3_a_bf16"]
+                launches["b_bf16"] += c["k3_b_bf16"]
+            check(ok and fp32_a > 0 and c["k2"] == 0 and c["k5_a"] == 0,
+                  f"{tag} {label} b={nm}: not the IR route's kernels: {c}")
+            check(bool(res.converged), f"{tag} {label} b={nm}: not converged")
+            its = int(res.iterations)
+            ms = start.elapsed_time(end)
+            ref = ir_cg_solve_reference(a, b, tol=TOL, maxiter=n,
+                                        preconditioner=m, **kw)
+            its_ref = int(ref.iterations)
+            x64 = fp64_solution(label, nm, a, b)
+            relres, relres_ref = relres_of(a, b, res.x), relres_of(a, b,
+                                                                  ref.x)
+            fwd, fwd_ref = rel(res.x, x64), rel(ref.x, x64)
+            dx = rel(res.x, ref.x)
+            print(f"{tag} {label} b={nm}: {its} inner iterations in "
+                  f"{ms:.1f} ms (plain version {its_ref}), |x-x_plain|/"
+                  f"|x_plain| {dx:.3e} (bitwise {torch.equal(res.x, ref.x)}),"
+                  f" |x-x64|/|x64| {fwd:.3e} (plain {fwd_ref:.3e}), true "
+                  f"relres (fp64) {relres:.3e} (plain {relres_ref:.3e})")
+            # At b = ones the fp32 true residual has a floor above tol, so
+            # the two-strikes guard ends the refinement on fp32 noise and
+            # the fp32 finish follows: the count is held to 10 % there.
+            slack = 2 if nm == "random" else max(2, its_ref // 10)
+            check(abs(its - its_ref) <= slack,
+                  f"{tag} {label} b={nm}: {its} vs plain {its_ref}")
+            check(dx <= 1e-4, f"{tag} {label} b={nm}: x differs by {dx}")
+            check(fwd <= 1e-4, f"{tag} {label} b={nm}: forward error {fwd}")
+            if nm == "random":
+                # b = ones: the fp32 x cannot hold 1e-6 (PERF.md §6).
+                check(relres <= max(1.1e-6, 1.5 * relres_ref),
+                      f"{tag} {label} b={nm}: true relres {relres}")
+            ir_runs[label, nm] = (its, ms)
+
+    # K3's narrow modes one step each at the path's shapes, bitwise.
+    steps = {}
+    b224 = torch.ones(a224.shape[0], dtype=torch.float32, device=dev)
+    eng16 = build_fused(a224, bf16)
+    p16 = seeded_rhs(a224.shape[0], dev).to(bf16)
+    q, pq, qq = eng16.kernel_a(p16)
+    torch.cuda.synchronize()
+    q_ref, pq_ref, qq_ref = eng16.kernel_a_reference(p16)
+    rz16 = torch.sum(p16.double() ** 2).float()
+    x16 = (0.5 * p16.float()).to(bf16)
+    out = eng16.kernel_b(rz16, pq_ref, qq_ref, x16, p16, p16, q_ref)
+    torch.cuda.synchronize()
+    out_ref = eng16.kernel_b_reference(rz16, pq_ref, qq_ref, x16, p16, p16,
+                                       q_ref)
+    errs["a_bf16"] = float((q.float() - q_ref.float()).abs().max())
+    errs["b_bf16"] = max(float((g.float() - r.float()).abs().max())
+                         for g, r in zip(out[:3], out_ref[:3]))
+    sums = max(abs(float(g) - float(r)) / abs(float(r)) for g, r in
+               ((pq, pq_ref), (qq, qq_ref)) + tuple(zip(out[3:],
+                                                        out_ref[3:])))
+    print(f"X1 K3 bf16 vectors one step at 224^3: A bitwise "
+          f"{torch.equal(q, q_ref)}, B bitwise "
+          f"{all(torch.equal(g, r) for g, r in zip(out[:3], out_ref[:3]))},"
+          f" sums within {sums:.3e}")
+    check(errs["a_bf16"] == 0 and errs["b_bf16"] == 0 and sums <= 1e-6,
+          "X1: K3 in bf16 vectors differs from its plain version")
+    steps["stencil 224^3"] = (eng16, build_fused(a224, torch.float32),
+                              b224, p16, (rz16, pq_ref, qq_ref, x16, q_ref))
+    errs["a_planes"] = 0.0
+    for label in ("DIA-27 160^3", "DIA-7 192^3", "DIA-27 128^3"):
+        a = dias[label]
+        m = cgx_torch.JacobiPrecond.from_matrix(a)
+        engp, e, _ = fdia.build_fused_dia(a, torch.float32,
+                                          inv_diag=m.inv_diag,
+                                          plane_dtype=bf16)
+        eng32 = k3.FusedCG(engp.nx, engp.ny, engp.nz, engp.taps,
+                           coeffs=engp.coeffs, planes=engp.planes.float(),
+                           weight=engp.weight, sym=engp.sym)
+        p = seeded_rhs(a.shape[0], dev)
+        q, _, _ = engp.kernel_a(p)
+        q32, _, _ = eng32.kernel_a(p)
+        torch.cuda.synchronize()
+        q_ref = engp.kernel_a_reference(p)[0]
+        err = float((q - q_ref).abs().max())
+        print(f"X2 K3 A bf16 planes one step at {label}: bitwise against "
+              f"the plain version {torch.equal(q, q_ref)}, against fp32 on "
+              f"the pre-rounded planes {torch.equal(q, q32)}")
+        check(torch.equal(q, q_ref) and torch.equal(q, q32),
+              f"X2 {label}: K3 A in bf16 planes differs")
+        errs["a_planes"] = max(errs["a_planes"], err)
+        fp32_eng, _, _ = fdia.build_fused_dia(a, torch.float32,
+                                              inv_diag=m.inv_diag)
+        steps[label] = (engp, fp32_eng, e * torch.ones(
+            a.shape[0], dtype=torch.float32, device=dev), p, a)
+
+    # -- X3. K2 with bf16 planes ---------------------------------------------
+    # At DIA-7 the rounded operator is indefinite (cgx_torch/solve/ir.py's
+    # note): K2 in bf16 planes breaks down there, as the JAX package's
+    # would, so it is held over a fixed 100 iterations; DIA-27 converges.
+    k2_runs = {}
+    errs["k2_bf16"] = 0.0
+    for label in ("DIA-27 128^3", "DIA-7 192^3"):
+        a = dias[label]
+        n = a.shape[0]
+        m = cgx_torch.JacobiPrecond.from_matrix(a)
+        b = torch.ones(n, dtype=torch.float32, device=dev)
+        fixed = label.startswith("DIA-7")
+        run = (dict(tol=0.0, maxiter=its_fixed) if fixed
+               else dict(tol=TOL, maxiter=n))
+        zero()
+        res = k2.resident_dia_cg(a, b, inv_diag=m.inv_diag, plane_dtype=bf16,
+                                 **run)
+        torch.cuda.synchronize()
+        c = counts()
+        check(c["k2_bf16"] == 1 and c["k2"] == 1 and c["k3_a"] == 0,
+              f"X3 {label}: resident_dia_cg(plane_dtype=bf16) launches {c}")
+        check(bool(torch.isfinite(res.x).all())
+              and (fixed or bool(res.converged)),
+              f"X3 {label}: not converged")
+        launches["k2_bf16"] += c["k2_bf16"]
+        nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
+            a, torch.float32, inv_diag=m.inv_diag)
+        spec = (nx, ny, nz, taps, coeffs)
+        pl16 = planes.to(bf16)
+        g16 = k2.resident_grid(spec, dev, planes=pl16, weight=w, sym=sym)
+        g32 = k2.resident_grid(spec, dev, planes=planes, weight=w, sym=sym)
+        grid = min(g16, g32)
+        kw = dict(weight=w, sym=sym, **run)
+        b_s = e * b
+        x16, _, _, k16, rz16_, _ = k2.resident_cg_call(spec, b_s, planes=pl16,
+                                                       grid=grid, **kw)
+        x32, _, _, k32, rz32_, _ = k2.resident_cg_call(
+            spec, b_s, planes=pl16.float(), grid=grid, **kw)
+        xd = k2.resident_cg_call(spec, b_s, planes=pl16, **kw)[0]
+        torch.cuda.synchronize()
+        x_ref, _, _, k_ref, _, _ = k2.resident_cg_reference(
+            spec, b_s, planes=pl16, **kw)
+        same = (int(k16) == int(k32) and torch.equal(x16, x32)
+                and torch.equal(rz16_, rz32_))
+        dx = rel(x16, x_ref)
+        fwd = ("not held (fixed iterations)" if fixed else
+               f"{rel(e * x16, fp64_solution(label, 'ones', a, b)):.3e} "
+               f"(the rounded operator's solution)")
+        print(f"X3 K2 bf16 planes {label} b=ones: grids {g16} (bf16) and "
+              f"{g32} (fp32), run at {grid}: {int(k16)} iterations, equal "
+              f"to fp32 K2 on the pre-rounded planes bit for bit: {same}; "
+              f"plain version {int(k_ref)} iterations, |x-x_plain|/"
+              f"|x_plain| {dx:.3e}; the entry's solve at its own grid equal "
+              f"to the call at {g16}: {torch.equal(res.x, e * xd)}; "
+              f"|x-x64|/|x64| {fwd}")
+        check(same, f"X3 {label}: bf16 K2 differs from fp32 K2 on the "
+              f"pre-rounded planes")
+        # On DIA-7's indefinite operator p·q nears 0 and K2's block sums,
+        # in another order than the plain version's, set the trajectory:
+        # there only the bitwise check against fp32 K2 holds.
+        check(fixed or (abs(int(k16) - int(k_ref)) <= 2 and dx <= 1e-4),
+              f"X3 {label}: K2 bf16 against its plain version")
+        if not fixed:
+            errs["k2_bf16"] = float((x16 - x_ref).abs().max())
+        k2_runs[label] = (spec, b_s, pl16, planes, kw, int(k16), g16, g32)
+
+    # -- X4. K5 with bf16 planes ---------------------------------------------
+    d160 = dias["DIA-27 160^3"]
+    n = d160.shape[0]
+    m = cgx_torch.JacobiPrecond.from_matrix(d160)
+    B = seeded_block(n, K_MULTI, SEED + 4, dev)
+    zero()
+    res = k5.fused_dia_cg_multi(d160, B, tol=TOL, maxiter=n,
+                                inv_diag=m.inv_diag, plane_dtype=bf16)
+    torch.cuda.synchronize()
+    c = counts()
+    check(c["k5_a_bf16"] > 0 and c["k5_a_bf16"] == c["k5_a"]
+          and c["k5_b"] > 0 and c["k3_a"] == 0 and c["k2"] == 0,
+          f"X4: fused_dia_cg_multi(plane_dtype=bf16) launches {c}")
+    launches["k5_a_bf16"] = c["k5_a_bf16"]
+    nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
+        d160, torch.float32, inv_diag=m.inv_diag)
+    e160 = e
+    eng5 = k5.FusedCGMulti(nx, ny, nz, taps, coeffs=coeffs, planes=planes,
+                           weight=w, sym=sym, plane_dtype=bf16)
+    pre = k5.FusedCGMulti(nx, ny, nz, taps, coeffs=coeffs,
+                          planes=eng5.planes.float(), weight=w, sym=sym)
+    r_pre = pre.solve((B.T * e[None]).contiguous(), tol=TOL, maxiter=n)
+    x_pre = r_pre.x * e[:, None]
+    cols = [torch.equal(res.x[:, j], x_pre[:, j]) for j in range(K_MULTI)]
+    P = seeded_block(n, K_MULTI, SEED + 3, dev).T.contiguous()
+    q5, _, _ = eng5.kernel_a(P)
+    torch.cuda.synchronize()
+    q5_ref = eng5.kernel_a_reference(P)[0]
+    errs["k5_a_bf16"] = float((q5 - q5_ref).abs().max())
+    print(f"X4 K5 bf16 planes DIA-27 160^3, B ({n}, {K_MULTI}): "
+          f"{int(res.iterations[0])} iterations shared (fp32 on the "
+          f"pre-rounded planes {int(r_pre.iterations[0])}), each column "
+          f"equal to it bit for bit: {cols}; converged "
+          f"{res.converged.tolist()}; one step of K5 A against its plain "
+          f"version bitwise: {torch.equal(q5, q5_ref)}")
+    check(all(cols) and torch.equal(res.iterations, r_pre.iterations),
+          "X4: K5 bf16 differs from fp32 K5 on the pre-rounded planes")
+    check(torch.equal(q5, q5_ref), "X4: K5 A bf16 differs from its plain "
+          "version")
+
+    # -- X5. Times -------------------------------------------------------------
+    per_iter, dev_us = {}, {}
+    for label, (eng_n, eng_f, b_s, p, *_rest) in steps.items():
+        b_n = b_s.to(eng_n.dtype)
+        its_n = int(eng_n.solve(b_n, tol=0.0, maxiter=its_fixed).iterations)
+        its_f = int(eng_f.solve(b_s, tol=0.0, maxiter=its_fixed).iterations)
+        check(its_n == its_f == its_fixed,
+              f"X5 {label}: {its_n} and {its_f} of {its_fixed} iterations")
+        t_n, t_f = time_pair(
+            lambda: eng_n.solve(b_n, tol=0.0, maxiter=its_fixed),
+            lambda: eng_f.solve(b_s, tol=0.0, maxiter=its_fixed), reps=3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng_n.solve(b_n, tol=0.0, maxiter=its_fixed)
+            torch.cuda.synchronize()
+        ua, na = device_us(prof, lambda kk: "kernel_a<" in kk
+                           and "bfloat16" in kk)
+        ub, nb = device_us(prof, lambda kk: "kernel_b<" in kk)
+        dev_us[label] = (ua / max(na, 1), ub / max(nb, 1))
+        per_iter[label] = (t_n / its_fixed * 1e3, t_f / its_fixed * 1e3)
+        pred = ("" if label.startswith("stencil") else
+                f"; bf16_plane_speedup (TPU model) "
+                f"{fdia.bf16_plane_speedup(_rest[-1], eng_n.n, 4):.3f}")
+        mode = ("bf16 vectors" if eng_n.dtype == bf16 else
+                "bf16 planes, fp32 vectors")
+        print(f"[{card}] X5 K3 {label}, {its_fixed} iterations: {mode} "
+              f"{per_iter[label][0]:.2f} us/iter, fp32 "
+              f"{per_iter[label][1]:.2f} us/iter, measured fp32/narrow "
+              f"{t_f / t_n:.3f}{pred}; device time per launch (profiler, "
+              f"narrow): A {dev_us[label][0]:.2f} us, B "
+              f"{dev_us[label][1]:.2f} us")
+
+    # The probe ir_cg_solve takes before refining: the smoothest grid
+    # mode's Rayleigh quotient under the bf16-plane and the fp32 engine.
+    for label, (engp, eng32, *_rest) in steps.items():
+        if engp.dtype == bf16:
+            continue
+        axes = [torch.sin(torch.pi * torch.arange(
+            1, m_ + 1, dtype=torch.float64, device=dev) / (m_ + 1))
+            for m_ in (engp.nx, engp.ny, engp.nz)]
+        v = torch.einsum("i,j,k->ijk", *axes).reshape(-1).float()
+        rq16, rq32 = (float(v.double() @ e_.kernel_a(v)[0].double())
+                      / float(v.double() @ v.double())
+                      for e_ in (engp, eng32))
+        print(f"X5 smoothest-mode Rayleigh quotient at {label}: bf16 "
+              f"planes {rq16:.4e}, fp32 {rq32:.4e}, ratio "
+              f"{rq16 / rq32:.3f} (IR refines only at >= 0.5)")
+
+    # Fault C2: torch's index_add_ (the CSR product before the port's
+    # row-ordered sum) against row_sum, ten runs each, at poisson3d 128^3.
+    from cgx_torch.io.poisson import poisson3d
+    from cgx_torch.ops.spmv import row_sum
+
+    a3 = poisson3d(*N128, dtype=np.float32, device=dev)
+    prods = a3.values * seeded_rhs(a3.shape[0], dev)[a3.col_indices]
+
+    def by_index_add():
+        return torch.zeros(a3.shape[0], device=dev).index_add_(
+            0, a3.row_indices, prods)
+
+    def by_row_sum():
+        return row_sum(a3.row_indices, prods, a3.shape[0], True)
+
+    outs = {name: {fn().cpu().numpy().tobytes() for _ in range(10)}
+            for name, fn in (("index_add_", by_index_add),
+                             ("row_sum", by_row_sum))}
+    t_rs, t_ia = time_pair(by_row_sum, by_index_add, inner=5)
+    print(f"[{card}] X5 CSR product of poisson3d 128^3: index_add_ "
+          f"{len(outs['index_add_'])} distinct results in 10 runs, "
+          f"{t_ia * 1e3:.1f} us; row_sum {len(outs['row_sum'])}, "
+          f"{t_rs * 1e3:.1f} us")
+    check(len(outs["row_sum"]) == 1, "row_sum is not reproducible")
+    del a3, prods
+
+    # One call of each narrow kernel beside its plain version.
+    eng16, _, _, p16, (rz16, pq_ref, qq_ref, x16, q_ref) = steps[
+        "stencil 224^3"]
+    t_a16, t_a16p = time_pair(lambda: eng16.kernel_a(p16),
+                              lambda: eng16.kernel_a_reference(p16), inner=10)
+    t_b16, t_b16p = time_pair(
+        lambda: eng16.kernel_b(rz16, pq_ref, qq_ref, x16, p16, p16, q_ref),
+        lambda: eng16.kernel_b_reference(rz16, pq_ref, qq_ref, x16, p16, p16,
+                                         q_ref), inner=10)
+    engp, _, _, pp, _ = steps["DIA-27 160^3"]
+    t_ap, t_app = time_pair(lambda: engp.kernel_a(pp),
+                            lambda: engp.kernel_a_reference(pp), inner=10)
+    t_5, t_5p = time_pair(lambda: eng5.kernel_a(P),
+                          lambda: eng5.kernel_a_reference(P), inner=5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            eng5.kernel_a(P)
+        torch.cuda.synchronize()
+    u5, c5 = device_us(prof, lambda kk: "multi_a<" in kk)
+    dev_k5 = u5 / max(c5, 1)
+    print(f"[{card}] X5 one call from Python: K3 A bf16 vectors 224^3 "
+          f"{t_a16 * 1e3:.2f} us (plain {t_a16p * 1e3:.2f}), K3 B bf16 "
+          f"vectors {t_b16 * 1e3:.2f} us (plain {t_b16p * 1e3:.2f}; the "
+          f"call copies x, r, p first), K3 A bf16 planes DIA-27 160^3 "
+          f"{t_ap * 1e3:.2f} us (plain {t_app * 1e3:.2f}), K5 A bf16 "
+          f"planes DIA-27 160^3 k={K_MULTI} {t_5 * 1e3:.2f} us (plain "
+          f"{t_5p * 1e3:.2f}; device {dev_k5:.2f} us per launch)")
+
+    # K2: 100 iterations (tol 0) in bf16 planes beside fp32, each at its
+    # own grid, and the plain version of the same run.
+    k2_ms = {}
+    for label, (spec, b_s, pl16, planes, kw, its16, g16, g32) in \
+            k2_runs.items():
+        kf = dict(kw, tol=0.0, maxiter=its_fixed)
+        t16, t32 = time_pair(
+            lambda: k2.resident_cg_call(spec, b_s, planes=pl16, **kf),
+            lambda: k2.resident_cg_call(spec, b_s, planes=planes, **kf),
+            reps=3)
+        tp = event_ms(lambda: k2.resident_cg_reference(spec, b_s,
+                                                       planes=pl16, **kf))
+        k2_ms[label] = (t16, tp)
+        print(f"[{card}] X5 K2 {label} b=ones, {its_fixed} iterations: bf16 "
+              f"planes {t16:.3f} ms, {t16 / its_fixed * 1e3:.2f} us/iter "
+              f"(grid {g16}); fp32 {t32:.3f} ms, "
+              f"{t32 / its_fixed * 1e3:.2f} us/iter (grid {g32}); fp32/bf16 "
+              f"{t32 / t16:.3f}; plain {tp:.1f} ms")
+
+    # IR per inner iteration beside the fp32 solves (K3 and K2), b = ones.
+    for label, (a, m) in cells.items():
+        n = a.shape[0]
+        b = torch.ones(n, dtype=torch.float32, device=dev)
+        its_ir = ir_runs[label, "ones"][0]
+        eng32 = steps[label][1]
+        e = (None if m is None else fdia.dia_prep(
+            a, torch.float32, inv_diag=m.inv_diag)[6])
+        b_s = b if e is None else e * b
+        its32 = int(eng32.solve(b_s, tol=TOL, maxiter=n).iterations)
+        its_k2 = int(cgx_torch.auto_solve(a, b, tol=TOL,
+                                          preconditioner=m).iterations)
+        t_ir, t_32 = time_pair(
+            lambda: cgx_torch.auto_solve(a, b, tol=TOL, preconditioner=m,
+                                         mixed_precision=True),
+            lambda: eng32.solve(b_s, tol=TOL, maxiter=n), reps=3)
+        t_k2 = statistics.median(event_ms(lambda: cgx_torch.auto_solve(
+            a, b, tol=TOL, preconditioner=m)) for _ in range(3))
+        print(f"[{card}] X5 IR {label} b=ones: {t_ir:.2f} ms, {its_ir} inner "
+              f"iterations, {t_ir / its_ir * 1e3:.2f} us per inner "
+              f"iteration; fp32 K3 {t_32:.2f} ms, {its32} iterations, "
+              f"{t_32 / its32 * 1e3:.2f} us/iter; fp32 K2 (auto_solve "
+              f"without mixed_precision) {t_k2:.2f} ms, {its_k2} iterations;"
+              f" IR / K3 {t_ir / t_32:.3f}, IR / K2 {t_ir / t_k2:.3f}")
+
+    # PyTorch calls computing the same functions: conv3d in bf16 (K3 A's
+    # stencil product) and the CSR product of Ã with its values rounded
+    # through bf16 (K3 A's and K5 A's plane-mode products).
+    wk = torch.zeros((1, 1, 3, 3, 3), device=dev, dtype=bf16)
+    wk[0, 0, 1, 1, 1] = 6.0
+    for tap in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                (1, 1, 2)):
+        wk[(0, 0) + tap] = -1.0
+    xv = p16.view(1, 1, *N224)
+
+    def conv():
+        return torch.nn.functional.conv3d(xv, wk, padding=1)
+
+    q16 = eng16.kernel_a_reference(p16)[0]
+    check(maxrel(conv().reshape(-1), q16) <= 2.0 ** -6,
+          "bf16 conv3d does not compute K3 A's bf16 product")
+    conv()
+    t_conv = statistics.median(event_ms(conv, inner=10) for _ in range(5))
+    csr = scaled_csr(d160, e160)
+    csr16 = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                    csr.values().to(bf16).float(),
+                                    size=csr.shape)
+    del csr
+    qp = engp.kernel_a_reference(pp)[0]
+    pc = pp[:, None]
+    # The CSR takes each value from its own triangle, the symmetric engine
+    # mirrors the upper one: fp32 values an ulp apart can round a bf16 ulp
+    # apart, so the same function is held to 2⁻⁸ here.
+    check(maxrel((csr16 @ pc)[:, 0], qp) <= 2.0 ** -8,
+          "the CSR product does not compute K3 A's bf16-plane product")
+    t_csr = statistics.median(event_ms(lambda: csr16 @ pc, inner=10)
+                              for _ in range(5))
+    pn = P.T.contiguous()
+    t_csr5 = statistics.median(event_ms(lambda: csr16 @ pn, inner=5)
+                               for _ in range(3))
+    del csr16
+    print(f"[{card}] X5 PyTorch calls: conv3d bf16 at 224^3 "
+          f"{t_conv * 1e3:.2f} us; CSR product of Ã (bf16-rounded values) "
+          f"at DIA-27 160^3, k=1 {t_csr * 1e3:.2f} us, k={K_MULTI} "
+          f"{t_csr5 * 1e3:.2f} us")
+
+    # Bounds: each input read once and each output written once, 2 B per
+    # bf16 value and 4 B per fp32 one, against the fp32 operations.
+    n224 = a224.shape[0]
+    n_pl = engp.planes.shape[0]
+    n160 = engp.n
+    terms = sum(2 if (c is None and engp.sym and tap != (0, 0, 0)) else 1
+                for tap, c in zip(engp.taps, engp.coeffs))
+    b_a16 = bound(4 * n224, n224 * (2 * 7 + 4))
+    b_b16 = bound(14 * n224, 12 * n224)
+    b_ap = bound((2 * n_pl + 8) * n160, n160 * (2 * terms + 4))
+    b_5 = bound((2 * n_pl + 8 * K_MULTI) * n160,
+                K_MULTI * n160 * (2 * terms + 4))
+    spec27, _, pl27, _, _, _, _, _ = k2_runs["DIA-27 128^3"]
+    n128 = N128[0] * N128[1] * N128[2]
+    b_k2 = bound((2 * pl27.shape[0] + 12) * n128,
+                 its_fixed * n128 * (2 * len(spec27[3]) + 12))
+    print(f"X5 bounds: K3 A bf16 {b_a16[0] * 1e3:.2f} us ({b_a16[1]}), K3 B "
+          f"bf16 {b_b16[0] * 1e3:.2f} us, K3 A bf16 planes DIA-27 160^3 "
+          f"{b_ap[0] * 1e3:.2f} us, K5 A bf16 planes {b_5[0] * 1e3:.2f} us,"
+          f" K2 bf16 planes DIA-27 128^3 {b_k2[0]:.3f} ms per "
+          f"{its_fixed} iterations ({b_k2[1]})")
+
+    def entry(name, source, replaces, nl, err, ms, plain_ms, b, lib):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": nl, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": lib}
+
+    eng_src = "cgx_torch/csrc/fused_engine.cu"
+    return [
+        entry("fused_kernel_a_bf16", eng_src,
+              "cgx/kernels/fused_engine.py:272", launches["a_bf16"],
+              errs["a_bf16"], dev_us["stencil 224^3"][0] / 1e3, t_a16p,
+              b_a16, t_conv),
+        entry("fused_kernel_b_bf16", eng_src,
+              "cgx/kernels/fused_engine.py:411", launches["b_bf16"],
+              errs["b_bf16"], dev_us["stencil 224^3"][1] / 1e3, t_b16p,
+              b_b16, None),
+        entry("fused_kernel_a_bf16_planes", eng_src,
+              "cgx/kernels/fused_engine.py:272", launches["a_planes"],
+              errs["a_planes"], dev_us["DIA-27 160^3"][0] / 1e3, t_app,
+              b_ap, t_csr),
+        entry("resident_cg_planes_bf16", "cgx_torch/csrc/resident_cg.cu",
+              "cgx/kernels/fused_resident.py:115", launches["k2_bf16"],
+              errs["k2_bf16"], k2_ms["DIA-27 128^3"][0],
+              k2_ms["DIA-27 128^3"][1], b_k2, None),
+        entry("fused_multi_a_bf16_planes", "cgx_torch/csrc/fused_multi.cu",
+              "cgx/kernels/fused_multi.py:64", launches["k5_a_bf16"],
+              errs["k5_a_bf16"], dev_k5 / 1e3, t_5p, b_5, t_csr5),
+    ]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1672,6 +2237,7 @@ def main() -> None:
     w_entries = wbell_phases(dev, card)
     m_entries = multi_phases(dev, card, dias)
     b_entries = bsr_phases(dev, card)
+    x_entries = mixed_phases(dev, card, dias, fp64_solution, relres_of)
 
     # Bounds: each input read once, each output written once (4 B words),
     # against the operations at the fp32 rate.  K1: x in, y out, 2 flops
@@ -1714,7 +2280,7 @@ def main() -> None:
         entry("fused_kernel_b", "cgx_torch/csrc/fused_engine.cu",
               "cgx/kernels/fused_engine.py:411", launches["k3_b"],
               k3_err["b"], t_b, t_bp, k3b_b),
-    ] + w_entries + m_entries + b_entries}
+    ] + w_entries + m_entries + b_entries + x_entries}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

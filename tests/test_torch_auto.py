@@ -221,15 +221,19 @@ def test_slice_end_to_end_matches_cgx():
 
 def test_unported_options_raise():
     a = cgx_torch.poisson3d_stencil(4, 4, 4)
-    # A 2-D b is ported (cg_solve_multi); its bf16 planes are not.
+    # A 2-D b is ported (cg_solve_multi), and so are its bf16 planes.
     assert bool(cgx_torch.auto_solve(a, torch.ones(64, 2)).converged.all())
     from cgx_torch.kernels.fused_multi import fused_dia_cg_multi
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_dia_cg_multi(poisson3d_dia(4, 4, 4, dtype=np.float32,
-                                         device="cpu"), torch.ones(64, 2),
-                           plane_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cgx_torch.auto_solve(a, torch.ones(64), mixed_precision=True)
+    res = fused_dia_cg_multi(poisson3d_dia(4, 4, 4, dtype=np.float32,
+                                           device="cpu"), torch.ones(64, 2),
+                             plane_dtype=torch.bfloat16)
+    assert bool(res.converged.all())
+    # mixed_precision is ported: the 64-row stencil is below
+    # FUSED_MIN_ROWS and on the CPU, so it routes normally and is solved,
+    # as tests/test_ir.py:89-95 checks in the reference.
+    res = cgx_torch.auto_solve(a, torch.ones(64), tol=1e-6,
+                               mixed_precision=True)
+    assert bool(res.converged)
     with pytest.raises(ValueError):
         cgx_torch.auto_solve(a, torch.ones(64), backend="nope")
     # The whole-solve route keeps no history: small n falls back to the loop.

@@ -567,3 +567,239 @@ def test_k11_engines_and_refusals(cuda_device):
     with pytest.raises(ValueError):
         kb.bell_spmm(big, torch.zeros((129, 1), device=cuda_device))
     assert kb.bell_spmm_launches == before + 3
+
+
+# -- Mixed precision: the bf16 modes of K3, K2 and K5, IR, faults C1/C2 -------
+
+def _ragged(op, dev):
+    """A ragged 37×41×53 operator: the 7-point stencil, or the scaled
+    DIA-7 and the variable DIA-27 with grid metadata."""
+    if op == "p3d":
+        return cgx_torch.poisson3d_stencil(37, 41, 53)
+    if op == "dia7":
+        data, offs, shape = scaled_dia_data(37, 41, 53, seed=6)
+        return cgx_torch.DIAMatrix(data=t(data.astype(np.float32), dev),
+                                   offsets=offs, shape=shape)
+    return poisson3d_dia27(37, 41, 53, variable=True, seed=2, device=dev)
+
+
+def _narrow_engine(op, dev, dtype, plane_dtype=None):
+    a = _ragged(op, dev)
+    if op == "p3d":
+        return build_fused(a, dtype), None
+    eng, e, _ = fdia.build_fused_dia(a, dtype, plane_dtype=plane_dtype)
+    return eng, e
+
+
+def _same_sum(g, r):
+    # Exact fp64 sums in another order, rounded to fp32 once.
+    return abs(float(g) - float(r)) <= 1e-6 * abs(float(r))
+
+
+@pytest.mark.parametrize("op", ["p3d", "dia7", "dia27"])
+def test_k3_bf16_vectors_equal_plain(cuda_device, op):
+    """K3 A and B with bf16 vectors (and bf16 planes) equal their plain
+    versions bit for bit: widen, sum in fp32, round once."""
+    eng, _ = _narrow_engine(op, cuda_device, torch.bfloat16)
+    p = t(seeded(eng.n, seed=71, dtype=np.float32),
+          cuda_device).to(torch.bfloat16)
+    before = k3.fused_a_launches
+    q, pq, qq = eng.kernel_a(p)
+    torch.cuda.synchronize()
+    assert k3.fused_a_launches == before + 1 and q.dtype == torch.bfloat16
+    q_ref, pq_ref, qq_ref = eng.kernel_a_reference(p)
+    assert torch.equal(q, q_ref)
+    assert _same_sum(pq, pq_ref) and _same_sum(qq, qq_ref)
+    rz = torch.sum(p.double() ** 2).float()
+    x = 0.5 * p
+    got = eng.kernel_b(rz, pq_ref, qq_ref, x, p, p, q_ref)
+    ref = eng.kernel_b_reference(rz, pq_ref, qq_ref, x, p, p, q_ref)
+    for g, r in zip(got[:3], ref[:3]):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, r)
+    for g, r in zip(got[3:], ref[3:]):
+        assert _same_sum(g, r)
+
+
+@pytest.mark.parametrize("op", ["dia7", "dia27"])
+def test_k3_bf16_planes_equal_plain_and_prerounded(cuda_device, op):
+    """K3 A with bf16 planes and fp32 vectors equals its plain version and
+    the fp32 mode on the planes rounded through bf16, bit for bit."""
+    eng, e = _narrow_engine(op, cuda_device, torch.float32, torch.bfloat16)
+    assert eng.planes.dtype == torch.bfloat16
+    eng32 = k3.FusedCG(eng.nx, eng.ny, eng.nz, eng.taps, coeffs=eng.coeffs,
+                       planes=eng.planes.float(), weight=eng.weight,
+                       sym=eng.sym)
+    p = t(seeded(eng.n, seed=72, dtype=np.float32), cuda_device)
+    q, pq, qq = eng.kernel_a(p)
+    q_ref, _, _ = eng.kernel_a_reference(p)
+    q32, pq32, qq32 = eng32.kernel_a(p)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_ref) and torch.equal(q, q32)
+    assert float(pq) == float(pq32) and float(qq) == float(qq32)
+    b = t(seeded(eng.n, seed=73, dtype=np.float32), cuda_device) * e
+    res = eng.solve(b, tol=1e-6, maxiter=3000)
+    res32 = eng32.solve(b, tol=1e-6, maxiter=3000)
+    assert bool(res.converged)
+    assert int(res.iterations) == int(res32.iterations)
+    assert torch.equal(res.x, res32.x)
+
+
+@pytest.mark.parametrize("op", ["dia7", "dia27"])
+def test_k2_bf16_planes_equal_prerounded_at_one_grid(cuda_device, op):
+    """K2 with bf16 planes equals K2 fp32 on the planes rounded through
+    bf16 bit for bit when both run at one grid (the sums depend on it),
+    and its plain version to K2's usual bounds."""
+    a = _ragged(op, cuda_device)
+    nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
+        a, torch.float32)
+    spec = (nx, ny, nz, taps, coeffs)
+    pl16 = planes.to(torch.bfloat16)
+    g16 = k2.resident_grid(spec, cuda_device, planes=pl16, weight=w, sym=sym)
+    g32 = k2.resident_grid(spec, cuda_device, planes=planes, weight=w,
+                           sym=sym)
+    grid = min(g16, g32)
+    b = t(seeded(a.shape[0], seed=74, dtype=np.float32), cuda_device)
+    b_s = e * b
+    kw = dict(weight=w, sym=sym, tol=1e-6, maxiter=4000, grid=grid)
+    before = k2.resident_dia_launches
+    x, _, _, k, rz, _ = k2.resident_cg_call(spec, b_s, planes=pl16, **kw)
+    x32, _, _, k32, rz32, _ = k2.resident_cg_call(spec, b_s,
+                                                  planes=pl16.float(), **kw)
+    torch.cuda.synchronize()
+    assert k2.resident_dia_launches == before + 2
+    assert int(k) == int(k32) and torch.equal(x, x32)
+    assert torch.equal(rz, rz32)
+    kw.pop("grid")
+    x_ref, _, _, k_ref, _, _ = k2.resident_cg_reference(spec, b_s,
+                                                        planes=pl16, **kw)
+    assert abs(int(k) - int(k_ref)) <= 2
+    assert float((x - x_ref).norm() / x_ref.norm()) <= 1e-4
+    res = k2.resident_dia_cg(a, b, tol=1e-6, maxiter=4000,
+                             plane_dtype=torch.bfloat16)
+    assert bool(res.converged)
+
+
+@pytest.mark.parametrize("op,k", [("dia7", 4), ("dia27", 3),
+                                  ("dia27_full", 5)])
+def test_k5_bf16_planes_equal_plain_and_prerounded(cuda_device, op, k):
+    """K5 A with bf16 planes equals its plain version and the fp32 mode
+    on the planes rounded through bf16, bit for bit; so does the solve."""
+    from cgx_torch.kernels.fused_multi import FusedCGMulti
+
+    eng32, e = _multi(op, cuda_device)
+    pl16 = eng32.planes.to(torch.bfloat16)
+    eng = FusedCGMulti(eng32.nx, eng32.ny, eng32.nz, eng32.taps,
+                       coeffs=eng32.coeffs, planes=pl16, weight=eng32.weight,
+                       sym=eng32.sym)
+    pre = FusedCGMulti(eng32.nx, eng32.ny, eng32.nz, eng32.taps,
+                       coeffs=eng32.coeffs, planes=pl16.float(),
+                       weight=eng32.weight, sym=eng32.sym)
+    p = _multi_block(eng.n, k, 75, cuda_device)
+    q, pq, qq = eng.kernel_a(p)
+    q_ref, _, _ = eng.kernel_a_reference(p)
+    q_pre, pq_pre, qq_pre = pre.kernel_a(p)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_ref) and torch.equal(q, q_pre)
+    assert torch.equal(pq, pq_pre) and torch.equal(qq, qq_pre)
+    b = (_multi_block(eng.n, k, 76, cuda_device) * e[None]).contiguous()
+    res = eng.solve(b, tol=1e-6, maxiter=3000)
+    res_pre = pre.solve(b, tol=1e-6, maxiter=3000)
+    assert torch.equal(res.iterations, res_pre.iterations)
+    assert torch.equal(res.x, res_pre.x)
+
+
+@pytest.mark.parametrize("mode", ["stencil_bf16", "dia_planes", "dia_none"])
+def test_ir_on_card_matches_plain(cuda_device, mode):
+    """ir_cg_solve on the card (K3 in its narrow mode, fp32 K3 A for the
+    outer residual) against the same loop through the plain versions."""
+    from cgx_torch.solve.ir import ir_cg_solve_reference
+
+    if mode == "stencil_bf16":
+        a, m, kw = _ragged("p3d", cuda_device), None, {}
+    else:
+        a = _ragged("dia7", cuda_device)
+        m = (cgx_torch.JacobiPrecond.from_matrix(a)
+             if mode == "dia_planes" else None)
+        kw = (dict(inner_dtype=torch.float32,
+                   inner_plane_dtype=torch.bfloat16, inner_tol=5e-3)
+              if mode == "dia_planes" else {})
+    b = t(seeded(a.shape[0], seed=77, dtype=np.float32), cuda_device)
+    before = (k3.fused_a_launches, k3.fused_b_launches)
+    res = cgx_torch.ir_cg_solve(a, b, tol=1e-6, maxiter=6000,
+                                preconditioner=m, **kw)
+    torch.cuda.synchronize()
+    assert k3.fused_a_launches > before[0] and k3.fused_b_launches > before[1]
+    ref = ir_cg_solve_reference(a, b, tol=1e-6, maxiter=6000,
+                                preconditioner=m, **kw)
+    assert bool(res.converged) and bool(ref.converged)
+    assert abs(int(res.iterations) - int(ref.iterations)) <= 2
+    assert float((res.x - ref.x).norm() / ref.x.norm()) <= 1e-4
+    # The fp32 true residual it reports meets tol; in fp64 the kernel's
+    # answer is as good as the plain version's (the DIA-7's fp32 operator
+    # rounding leaves ~1.6e-6 there on both).
+    assert float(res.residual_norm_sq) <= 1.001e-12 * float(b.norm()) ** 2
+    a64 = a if mode == "stencil_bf16" else a.astype(torch.float64)
+
+    def relres(x):
+        r = b.double() - cgx_torch.spmv(a64, x.double())
+        return float(r.norm() / b.double().norm())
+
+    assert relres(res.x) <= 1.5 * relres(ref.x) + 1e-7
+
+
+def test_auto_solve_mixed_precision_on_card(cuda_device, monkeypatch):
+    """With FUSED_MIN_ROWS lowered, auto_solve(mixed_precision=True) runs
+    K3 in its bf16-vector mode on a stencil and in its plane mode on a
+    DIA-27 operator, and never K2."""
+    import cgx_torch.solve.auto as auto
+
+    monkeypatch.setattr(auto, "FUSED_MIN_ROWS", 1000)
+    monkeypatch.setattr(auto, "RESIDENT_MIN_ROWS", 1000)
+    for op in ("p3d", "dia27"):
+        a = _ragged(op, cuda_device)
+        m = None if op == "p3d" else cgx_torch.JacobiPrecond.from_matrix(a)
+        b = t(seeded(a.shape[0], seed=78, dtype=np.float32), cuda_device)
+        before = (k3.fused_a_launches, k2.resident_cg_launches
+                  + k2.resident_dia_launches)
+        res = cgx_torch.auto_solve(a, b, tol=1e-6, preconditioner=m,
+                                   mixed_precision=True)
+        torch.cuda.synchronize()
+        assert bool(res.converged)
+        assert k3.fused_a_launches > before[0]
+        assert k2.resident_cg_launches + k2.resident_dia_launches \
+            == before[1]
+
+
+def test_c1_fp64_stencil_solve_on_card_equals_cpu(cuda_device):
+    """Fault C1: an fp64 Stencil3D solve on the card takes the plain
+    matvec (K1 is fp32 only) and equals the CPU solve."""
+    a = cgx_torch.poisson3d_stencil(12, 10, 11)
+    b = seeded(a.shape[0], seed=79)
+    before = k1.stencil3d_spmv_launches
+    res = cgx_torch.auto_solve(a, t(b, cuda_device), tol=1e-10)
+    assert k1.stencil3d_spmv_launches == before
+    cpu = cgx_torch.auto_solve(a, t(b), tol=1e-10)
+    assert bool(res.converged) and res.x.dtype == torch.float64
+    assert abs(int(res.iterations) - int(cpu.iterations)) <= 1
+    np.testing.assert_allclose(res.x.cpu().numpy(), cpu.x.numpy(),
+                               rtol=1e-9, atol=1e-12)
+
+
+def test_c2_csr_products_are_bitwise_reproducible(cuda_device):
+    """Fault C2: the CSR/COO/BSR products sum each row in storage order
+    without atomics, so two runs on the card, and the CPU, agree bit for
+    bit."""
+    from cgx_torch.io.poisson import poisson3d
+
+    a = poisson3d(40, 40, 40, dtype=np.float32, device=cuda_device)
+    x = t(seeded(a.shape[0], seed=80, dtype=np.float32), cuda_device)
+    y1 = cgx_torch.spmv(a, x)
+    y2 = cgx_torch.spmv(a, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    cpu = poisson3d(40, 40, 40, dtype=np.float32, device="cpu")
+    assert torch.equal(y1.cpu(), cgx_torch.spmv(cpu, x.cpu()))
+    X = torch.stack([x, 2 * x, -x], dim=1)
+    assert torch.equal(cgx_torch.spmm(a, X), cgx_torch.spmm(a, X))
+    bsr = cgx_torch.bsr_from_csr(a, 8)
+    assert torch.equal(cgx_torch.spmv(bsr, x), cgx_torch.spmv(bsr, x))

@@ -156,9 +156,14 @@ def test_unported_engine_options_raise():
     a = cgx_torch.poisson3d_stencil(4, 4, 4)
     with pytest.raises(NotImplementedError, match="K6"):
         build_fused(a, torch.float32, one_pass=True)
+    # bf16 planes are ported: the solve converges, in bf16 planes and fp32
+    # vectors, to the rounded operator's solution.
     _, at = _dia("scaled7")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfd.fused_dia_cg(at, torch.ones(at.shape[0]),
-                         plane_dtype=torch.bfloat16)
+    res = tfd.fused_dia_cg(at, torch.ones(at.shape[0]), tol=1e-6,
+                           maxiter=500, plane_dtype=torch.bfloat16)
+    assert bool(res.converged) and res.x.dtype == torch.float32
+    eng, _, _ = tfd.build_fused_dia(at, torch.float32,
+                                    plane_dtype=torch.bfloat16)
+    assert eng.planes.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="planes"):
         k3.FusedCG(4, 4, 4, ((0, 0, 0),), coeffs=(None,))

@@ -371,12 +371,14 @@ def test_auto_solve_2d_refuses_what_it_cannot_honour():
     b = torch.ones((64, 2))
     with pytest.raises(ValueError, match="track_history"):
         cgx_torch.auto_solve(a, b, track_history=True)
-    with pytest.raises(ValueError, match="mixed_precision.*item 11"):
+    # The reference's ValueError (cgx/solve/auto.py:188-191).
+    with pytest.raises(ValueError, match="mixed_precision is single-RHS"):
         cgx_torch.auto_solve(a, b, mixed_precision=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        k5.fused_dia_cg_multi(poisson3d_dia(4, 4, 4, dtype=np.float32,
-                                            device="cpu"), b,
-                              plane_dtype=torch.bfloat16)
+    # The direct route it names is ported.
+    res = k5.fused_dia_cg_multi(poisson3d_dia(4, 4, 4, dtype=np.float32,
+                                              device="cpu"), b,
+                                plane_dtype=torch.bfloat16)
+    assert bool(res.converged.all())
 
 
 def test_result_to_numpy_of_a_batched_result():
