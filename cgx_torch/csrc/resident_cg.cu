@@ -299,35 +299,12 @@ const void* dia_kernel_for(int ntaps, int sym, int plane_bf16) {
                     : dia_kernel_typed<float>(ntaps, sym);
 }
 
-// As many blocks of `kernel` as can be co-resident.
-int cooperative_grid(int device, const void* kernel, int* grid) {
-  int sms = 0;
-  int per_sm = 0;
-  cudaError_t e =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                    0);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  *grid = per_sm * sms;
-  return *grid > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
-}
-
-int launch(const void* kernel, int grid, void* args, void* stream) {
-  void* params[] = {args};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel, dim3(grid), dim3(kThreads), params, 0,
-      static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // The cooperative grid for `ntaps` taps: as many blocks as can be
 // co-resident.
 extern "C" int cgx_resident_cg_grid(int device, int ntaps, int* grid) {
-  return cooperative_grid(device, kernel_for(ntaps), grid);
+  return cgx::full_grid<kThreads>(device, kernel_for(ntaps), grid);
 }
 
 // Launches on `stream`; returns the launch's error (a grid larger than the
@@ -342,13 +319,14 @@ extern "C" int cgx_resident_cg(float* x, float* r, float* p, float* q,
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{x, r, p, q, partials, nx, ny, nz, tol_sq, maxit, resume, rz_in,
          k_out, rz_out, cgx::make_taps(ntaps, taps, coeffs)};
-  return launch(kernel_for(ntaps), grid, &a, stream);
+  return cgx::launch_cooperative<kThreads>(kernel_for(ntaps), grid, &a,
+                                           stream);
 }
 
 extern "C" int cgx_resident_dia_cg_grid(int device, int ntaps, int sym,
                                         int plane_bf16, int* grid) {
-  return cooperative_grid(device, dia_kernel_for(ntaps, sym, plane_bf16),
-                          grid);
+  return cgx::full_grid<kThreads>(device,
+                                  dia_kernel_for(ntaps, sym, plane_bf16), grid);
 }
 
 // Planes/weight mode.  `plane[t]` is tap t's plane index (−1: constant tap
@@ -365,5 +343,6 @@ extern "C" int cgx_resident_dia_cg(
   DiaArgs a{x, r, p, q, partials, planes, w, nx, ny, nz, tol_sq, maxit,
             resume, rz_in, k_out, rz_out,
             cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz)};
-  return launch(dia_kernel_for(ntaps, sym, plane_bf16), grid, &a, stream);
+  return cgx::launch_cooperative<kThreads>(
+      dia_kernel_for(ntaps, sym, plane_bf16), grid, &a, stream);
 }

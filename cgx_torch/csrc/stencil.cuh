@@ -1,7 +1,8 @@
 // Operator rows, reductions and launch helpers shared by the kernels: the
-// stencil SpMV (stencil.cu), the whole-solve CG (resident_cg.cu) and the
+// stencil SpMV (stencil.cu), the whole-solve CG (resident_cg.cu), the
 // two-pass engines for one and for k right-hand sides (fused_engine.cu,
-// fused_multi.cu).
+// fused_multi.cu), the semi-resident whole-solve CG (semiresident.cu) and
+// the one-pass iteration (onepass.cu).
 //
 // stencil_row: y[row] = sum_t c[t] * x[(i+dx[t], j+dy[t], k+dz[t])] over
 // the taps whose neighbour lies inside the nx × ny × nz grid (zero
@@ -333,7 +334,7 @@ __device__ __forceinline__ T grid_sum(const T* part, int count, T* smem) {
   return block_sum<kThreads>(v, smem);
 }
 
-// -- Launch helpers (the two-pass engines) --------------------------------------
+// -- Launch helpers -----------------------------------------------------------
 
 // A grid of as many blocks as fit on the card at once: every block then
 // runs in one wave and the number of partials is fixed for the card.
@@ -359,6 +360,41 @@ inline int launch(const void* kernel, int grid, void* args, void* stream) {
                                    0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same as a cooperative launch (grid-wide barriers): a grid larger than
+// the blocks that fit on the card at once (full_grid) is refused.
+template <int kThreads>
+inline int launch_cooperative(const void* kernel, int grid, void* args,
+                              void* stream) {
+  void* params[] = {args};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      kernel, dim3(grid), dim3(kThreads), params, 0,
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- Sums over another kernel's partition (the semi-resident and one-pass
+// kernels, semiresident.cu and onepass.cu) -------------------------------------
+// The two-pass engine sums a vector over its own grid: thread t of block b
+// adds rows b·256 + t, + g·256, … in order (fp64), then a block tree.  A
+// kernel that must take the same sums bit for bit walks the same "virtual"
+// blocks of a grid of g blocks, whatever its own grid: block B takes the
+// virtual blocks B, B + gridDim.x, … in turn, each with the thread layout
+// and tree of the engine's block.  Every sum then equals the engine's to
+// the last bit, and the kernel's own grid does not change the trajectory.
+// Row(row, acc) adds row `row`'s terms to the thread's accumulators; Store
+// (vb, acc) reduces them over the block and writes the partials.
+template <int kThreads, typename Row, typename Store>
+__device__ __forceinline__ void virtual_sweep(int g, int n, Row row_fn,
+                                              Store store_fn) {
+  for (int vb = blockIdx.x; vb < g; vb += gridDim.x) {
+    double acc[2] = {0.0, 0.0};
+    for (int row = vb * kThreads + threadIdx.x; row < n; row += g * kThreads)
+      row_fn(row, acc);
+    store_fn(vb, acc);
+  }
 }
 
 }  // namespace cgx

@@ -392,17 +392,24 @@ class FusedCG:
             if t is not None and (t.device != v.device or t.dtype != dt):
                 raise ValueError(f"FusedCG: {name} must be {dt} on "
                                  f"{v.device}, got {t.dtype} on {t.device}")
+        return (_build.library(),) + self.grids(v.device)
+
+    def grids(self, device: torch.device) -> Tuple[int, int]:
+        """The grids of kernels A and B on ``device`` (as many blocks as
+        fit at once): the partition of the iteration's sums, which the
+        semi-resident and one-pass kernels (K4, K6) take over to equal
+        this engine bit for bit."""
         lib = _build.library()
         ga, gb = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(lib.cgx_fused_a_grid(
-            v.device.index, len(self.taps), int(self.planes is not None),
+            device.index, len(self.taps), int(self.planes is not None),
             int(self.sym), *self._bf16_flags(), ctypes.byref(ga)),
             "fused kernel A occupancy")
         _build.check(lib.cgx_fused_b_grid(
-            v.device.index, int(self.weight is not None),
+            device.index, int(self.weight is not None),
             self._bf16_flags()[0], ctypes.byref(gb)),
             "fused kernel B occupancy")
-        return lib, ga.value, gb.value
+        return ga.value, gb.value
 
     def _bf16_flags(self):
         """``(vec_bf16, plane_bf16)`` for the C entry points."""

@@ -28,10 +28,12 @@ K3 per column, or the batched loop), except over a ``WBELLMatrix``.
 K2 has no VMEM cap on the card, so the ``resident_*`` routes cover every
 size and :func:`select_backend` never returns ``"fused_*"`` (nor the
 semi-resident ``"sr_*"``).  The two-pass engine (kernel K3) is reached
-with ``track_history=True`` — the whole-solve kernel keeps no history, so
+with ``track_history=True`` — the whole-solve kernels keep no history, so
 a ``resident_*`` or ``sr_*`` route with at least ``FUSED_MIN_ROWS`` rows
 goes to ``"fused_stencil"``/``"fused_dia"`` (fewer rows: the loop), as in
-the JAX package — or by naming the backend.
+the JAX package — or by naming the backend.  The semi-resident kernel
+(K4, :mod:`cgx_torch.kernels.fused_semiresident`) is reached by naming
+``"sr_stencil"`` or ``"sr_dia"``; it raises where no tier is planned.
 
 ``mixed_precision=True`` takes :func:`~cgx_torch.solve.ir.ir_cg_solve`
 where the JAX package does: no history, at least ``FUSED_MIN_ROWS`` rows
@@ -40,8 +42,7 @@ and a fused, semi-resident or resident route.  A DIA operator whose
 1.15 runs the inner solves with bf16 planes and fp32 vectors, anything
 else with bf16 vectors.  Otherwise the solve routes as without it.
 
-Backends not ported yet raise ``NotImplementedError``; nothing is
-re-routed quietly.
+Nothing is re-routed quietly.
 """
 from __future__ import annotations
 
@@ -57,6 +58,7 @@ from cgx_torch.kernels.fused_dia_cg import (bf16_plane_speedup,
 from cgx_torch.kernels.fused_resident import (resident_dia_cg,
                                               resident_stencil_cg,
                                               resident_supported)
+from cgx_torch.kernels.fused_semiresident import sr_dia_cg, sr_stencil_cg
 from cgx_torch.solve.block import FUSED_MIN_ROWS, cg_solve_multi
 from cgx_torch.solve.cg import CGResult, cg_solve
 from cgx_torch.solve.ir import ir_cg_solve
@@ -80,13 +82,6 @@ BF16_PLANE_MIN_SPEEDUP = 1.15
 # The routes on which mixed_precision=True takes ir_cg_solve.
 _IR_ROUTES = ("fused_stencil", "fused_dia", "sr_stencil", "sr_dia",
               "resident_stencil", "resident_dia")
-
-# Backends of the JAX package that the port does not have yet, with the
-# ROADMAP item that brings each.
-_NOT_PORTED = {
-    "sr_stencil": "ROADMAP kernel K4",
-    "sr_dia": "ROADMAP kernel K4",
-}
 
 
 def select_backend(a, b: torch.Tensor, preconditioner=None) -> str:
@@ -182,19 +177,20 @@ def auto_solve(
         # to the two-pass engine (large n) or the loop, as the JAX package.
         backend = ("fused_" + backend.split("_", 1)[1]
                    if n >= FUSED_MIN_ROWS else "xla")
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"auto_solve: backend {backend!r} is not ported yet "
-            f"({_NOT_PORTED[backend]})")
     jac = isinstance(preconditioner, JacobiPrecond)
     inv_diag = preconditioner.inv_diag if jac else None
-    if backend in ("resident_stencil", "fused_stencil") \
+    if backend in ("resident_stencil", "fused_stencil", "sr_stencil") \
             and preconditioner is not None:
         raise ValueError(f"{backend}: preconditioner must be None")
-    if backend in ("resident_dia", "fused_dia") \
+    if backend in ("resident_dia", "fused_dia", "sr_dia") \
             and preconditioner is not None and not jac:
         raise ValueError(f"{backend}: preconditioner must be None or a "
                          f"JacobiPrecond")
+    if backend == "sr_stencil":
+        return sr_stencil_cg(a, b, x0, tol=tol, atol=atol, maxiter=mi)
+    if backend == "sr_dia":
+        return sr_dia_cg(a, b, x0, tol=tol, atol=atol, maxiter=mi,
+                         jacobi=jac, inv_diag=inv_diag)
     if backend == "resident_stencil":
         return resident_stencil_cg(a, b, x0, tol=tol, atol=atol, maxiter=mi)
     if backend == "resident_dia":

@@ -113,10 +113,33 @@ Phases (any failed check exits nonzero, and no result line is printed):
     (bf16 conv3d, the CSR product of Ã with bf16-rounded values), IR per
     inner iteration beside the fp32 K3 and K2 solves, and the measured
     fp32/bf16-plane ratio beside ``bf16_plane_speedup``'s prediction (the
-    TPU model) at DIA-7 192³, DIA-27 128³ and DIA-27 160³.
+    TPU model) at DIA-7 192³, DIA-27 128³ and DIA-27 160³;
+30. S1, the semi-resident whole solve K4 as a user drives it:
+    ``auto_solve(poisson3d_stencil(160, 160, 160), b,
+    backend="sr_stencil")`` (the card's tier plan gives rpq) and
+    ``sr_stencil_cg(..., mode=m)`` with rpq at 160³, rp at 216³ and p at
+    288³, b = ones and a seeded b; each solve equal to K3's
+    (``fused_stencil_cg``) bit for bit, held against K4's plain version
+    and an fp64 solve (forward error ≤ 1e-4), and run twice;
+31. S2, ``auto_solve(a, b, preconditioner=JacobiPrecond.from_matrix(a),
+    backend="sr_dia")`` on the 7-point D·A·D at 160³ and on DIA-27 128³
+    (b = ones and seeded), the rp and p tiers forced at DIA-7 160³, and
+    bf16 planes at DIA-27 128³ (equal to fp32 K4 on the planes rounded
+    through bf16 at one partition); each equal to ``fused_dia_cg`` (K3)
+    bit for bit;
+32. S3, resume: ``sr_cg_call`` at 160³ stopped after 100 (rpq) or 101
+    (rp) iterations and resumed equals one call bit for bit;
+33. S4, the one-pass engine K6: ``fused_stencil_cg(poisson3d_stencil(224,
+    224, 224), b, one_pass=True)`` with b = ones and seeded, with and
+    without ``track_history``; each equal to K3's solve (x, iterations,
+    history) bit for bit, held against its plain version and fp64;
+34. S5, times: K4 per iteration in each tier beside K3 and K2 on the same
+    system and b, on DIA-7 160³ and DIA-27 128³ too, K6 beside K3 at 224³
+    and K6's device time per launch (profiler), each beside its plain
+    version and its byte floor.
 
 The launch counters are set to 0 just before each of the paths 4, 6, 7,
-W3–W4, M2–M5, B1–B4 and X1–X4 and read just after it.  The line before the last
+W3–W4, M2–M5, B1–B4, X1–X4, S1, S2 and S4 and read just after it.  The line before the last
 is a JSON object describing each kernel, with its bound (the larger of
 its bytes, each input read once and each output written once, over 3.35
 TB/s, and its operations over 67 TFLOP/s fp32, or 989 TFLOP/s on the
@@ -144,6 +167,8 @@ N128 = (128, 128, 128)
 N224 = (224, 224, 224)
 N192 = (192, 192, 192)
 N160 = (160, 160, 160)
+N216 = (216, 216, 216)
+N288 = (288, 288, 288)
 K_MULTI = 4               # right-hand sides of the multi-RHS phases
 TOL = 1e-6
 JAX_ITERS_ONES_128 = 300  # the JAX package's count (BENCH_r05.json)
@@ -1812,6 +1837,386 @@ def mixed_phases(dev, card, dias, fp64_solution, relres_of):
     ]
 
 
+def sr_phases(dev, card, dias, fp64_solution, relres_of):
+    """S1–S5: the semi-resident whole solve K4 (``auto_solve(...,
+    backend="sr_stencil" | "sr_dia")``, ``sr_stencil_cg`` and
+    ``sr_dia_cg`` in each tier, resume) and the one-pass engine K6
+    (``fused_stencil_cg(..., one_pass=True)``), each held against K3's
+    solve bit for bit, against its plain version and an fp64 solve, and
+    against a second run; then their times beside K3 and K2.  ``dias``
+    holds DIA-27 128³; ``fp64_solution`` and ``relres_of`` are the main
+    phases' yardsticks.  Returns the report line's entries of K4 and K6."""
+    import cgx_torch
+    from cgx_torch.kernels import fused_dia_cg as fdia
+    from cgx_torch.kernels import fused_engine as k3
+    from cgx_torch.kernels import fused_onepass as k6
+    from cgx_torch.kernels import fused_resident as k2
+    from cgx_torch.kernels import fused_semiresident as k4
+    from cgx_torch.kernels.fused_cg import (build_fused, fused_stencil_cg,
+                                            stencil_taps)
+    from torch.profiler import ProfilerActivity, profile
+
+    bf16 = torch.bfloat16
+
+    def zero():
+        k4.sr_cg_launches = k4.sr_cg_planes_launches = 0
+        k4.sr_cg_bf16_launches = 0
+        k2.resident_cg_launches = k2.resident_dia_launches = 0
+        k3.fused_a_launches = k3.fused_b_launches = 0
+        k6.onepass_launches = 0
+
+    def counts():
+        return {"k4": k4.sr_cg_launches, "k4_planes": k4.sr_cg_planes_launches,
+                "k4_bf16": k4.sr_cg_bf16_launches,
+                "k2": k2.resident_cg_launches + k2.resident_dia_launches,
+                "k3_a": k3.fused_a_launches, "k3_b": k3.fused_b_launches,
+                "k6": k6.onepass_launches}
+
+    def same(label, res, ref, history=False):
+        ok = (int(res.iterations) == int(ref.iterations)
+              and torch.equal(res.x, ref.x)
+              and (not history or torch.equal(res.history, ref.history)))
+        print(f"{label}: {int(res.iterations)} iterations, bit for bit "
+              f"equal to K3: {ok}")
+        check(ok, f"{label}: differs from K3 ({int(res.iterations)} vs "
+              f"{int(ref.iterations)} iterations)")
+
+    def rhs(n, nm):
+        return (torch.ones(n, dtype=torch.float32, device=dev)
+                if nm == "ones" else seeded_rhs(n, dev))
+
+    # -- S1: sr_stencil as a user drives it --------------------------------
+    stencils = {dims[0]: cgx_torch.poisson3d_stencil(*dims)
+                for dims in (N160, N216, N288)}
+    N1, N2, N3 = N160[0], N216[0], N288[0]
+    s1_cases = [("auto", N1, None), ("rpq", N1, "rpq"), ("rp", N2, "rp"),
+                ("p", N3, "p")]
+    plan = [k4.sr_mode(*dims, stencil_taps(stencils[dims[0]])[3])
+            for dims in (N160, N216, N288)]
+    print(f"S1 the card's tier plan: 160^3 {plan[0]}, 216^3 {plan[1]}, "
+          f"288^3 {plan[2]}")
+    check(plan == ["rpq", "p", None], "the card's tier plan moved")
+    zero()
+    s1 = []
+    for kind, N, mode in s1_cases:
+        a = stencils[N]
+        for nm in ("ones", "random"):
+            b = rhs(a.shape[0], nm)
+            if kind == "auto":
+                res = cgx_torch.auto_solve(a, b, tol=TOL,
+                                           backend="sr_stencil")
+            else:
+                res = k4.sr_stencil_cg(a, b, tol=TOL, maxiter=a.shape[0],
+                                       mode=mode)
+            torch.cuda.synchronize()
+            check(bool(res.converged), f"S1 {kind} {N}^3 b={nm} did not "
+                  f"converge")
+            s1.append((kind, N, mode, nm, b, res))
+    c = counts()
+    print(f"S1 launches: K4 {c['k4']}, K2 {c['k2']}, K3 A {c['k3_a']}, "
+          f"K6 {c['k6']}")
+    check(c["k4"] == len(s1) and c["k2"] == 0 and c["k3_a"] == 0
+          and c["k6"] == 0, f"S1 did not run through K4 alone: {c}")
+    launches = {"sr_cg": c["k4"]}
+
+    err_k4 = 0.0
+    plain_ms = {}
+    for kind, N, mode, nm, b, res in s1:
+        a = stencils[N]
+        n = a.shape[0]
+        label = f"S1 {kind} {N}^3 b={nm}"
+        same(label, res, fused_stencil_cg(a, b, tol=TOL, maxiter=n))
+        nx, ny, nz, taps, coeffs = stencil_taps(a)
+        g = k4.make_sr_geometry(nx, ny, nz, taps, mode=mode)
+        t0 = time.perf_counter()
+        x_ref, _, _, k_ref, _, _ = k4.sr_cg_reference(
+            g, b, coeffs=coeffs, tol=TOL, maxiter=n)
+        torch.cuda.synchronize()
+        plain_ms[N, nm] = (time.perf_counter() - t0) * 1e3
+        x64 = fp64_solution(f"stencil {N}^3", nm, a, b)
+        hold(f"K4 {label} ({g.mode})", res.x, int(res.iterations), x_ref,
+             int(k_ref), relres_of(a, b, res.x), relres_of(a, b, x_ref),
+             rel(res.x, x64), rel(x_ref, x64))
+        err_k4 = max(err_k4, float((res.x - x_ref).abs().max()))
+        again = (cgx_torch.auto_solve(a, b, tol=TOL, backend="sr_stencil")
+                 if kind == "auto" else
+                 k4.sr_stencil_cg(a, b, tol=TOL, maxiter=n, mode=mode))
+        check(torch.equal(again.x, res.x)
+              and int(again.iterations) == int(res.iterations),
+              f"{label}: two K4 runs differ")
+
+    # -- S2: sr_dia ----------------------------------------------------------
+    t0 = time.perf_counter()
+    d7 = scaled_dia7(N160, dev)
+    print(f"DIA-7 160^3 built in {time.perf_counter() - t0:.1f} s")
+    s2_ops = {"DIA-7 160^3": d7, "DIA-27 128^3": dias["DIA-27 128^3"]}
+    jac = {lb: cgx_torch.JacobiPrecond.from_matrix(a)
+           for lb, a in s2_ops.items()}
+    zero()
+    s2 = []
+    for label, a in s2_ops.items():
+        for nm in ("ones", "random"):
+            b = rhs(a.shape[0], nm)
+            check(k4.sr_dia_supported(a), f"{label}: no tier planned")
+            res = cgx_torch.auto_solve(a, b, tol=TOL, preconditioner=jac[label],
+                                       backend="sr_dia")
+            s2.append((label, "rpq", None, nm, b, res))
+    b7 = rhs(d7.shape[0], "ones")
+    for mode in ("rp", "p"):
+        s2.append(("DIA-7 160^3", mode, None, "ones", b7, k4.sr_dia_cg(
+            d7, b7, tol=TOL, maxiter=d7.shape[0],
+            inv_diag=jac["DIA-7 160^3"].inv_diag, mode=mode)))
+    d27 = s2_ops["DIA-27 128^3"]
+    b27 = rhs(d27.shape[0], "ones")
+    s2.append(("DIA-27 128^3", "rpq", bf16, "ones", b27, k4.sr_dia_cg(
+        d27, b27, tol=TOL, maxiter=d27.shape[0],
+        inv_diag=jac["DIA-27 128^3"].inv_diag, plane_dtype=bf16)))
+    torch.cuda.synchronize()
+    c = counts()
+    print(f"S2 launches: K4 planes {c['k4_planes']} (bf16 {c['k4_bf16']}), "
+          f"K4 const {c['k4']}, K2 {c['k2']}, K3 A {c['k3_a']}")
+    check(c["k4_planes"] == len(s2) and c["k4_bf16"] == 1 and c["k4"] == 0
+          and c["k2"] == 0 and c["k3_a"] == 0,
+          f"S2 did not run through K4's planes mode alone: {c}")
+    launches["sr_cg_planes"] = c["k4_planes"]
+
+    err_k4p = 0.0
+    for label, mode, pdt, nm, b, res in s2:
+        a, m = s2_ops[label], jac[label]
+        n = a.shape[0]
+        tag = (f"S2 {label} {mode} b={nm}"
+               + (" bf16 planes" if pdt is not None else ""))
+        check(bool(res.converged), f"{tag} did not converge")
+        same(tag, res, fdia.fused_dia_cg(a, b, tol=TOL, maxiter=n,
+                                         inv_diag=m.inv_diag,
+                                         plane_dtype=pdt))
+        nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
+            a, torch.float32, inv_diag=m.inv_diag)
+        g = k4.make_sr_geometry(nx, ny, nz, taps, mode=mode,
+                                n_planes=planes.shape[0], weighted=True,
+                                sym=sym)
+        kw = dict(coeffs=coeffs, w=w, tol=TOL, maxiter=n,
+                  b_norm_sq=torch.sum(b * b))
+        t0 = time.perf_counter()
+        xs, _, _, k_ref, _, _ = k4.sr_cg_reference(
+            g, e * b, planes=planes, plane_dtype=pdt, **kw)
+        torch.cuda.synchronize()
+        if pdt is None and mode == "rpq":
+            plain_ms[label, nm] = (time.perf_counter() - t0) * 1e3
+        x_ref = e * xs
+        err_k4p = max(err_k4p, float((res.x - x_ref).abs().max()))
+        if pdt is None:
+            x64 = fp64_solution(label, nm, a, b)
+            hold(f"K4 {tag}", res.x, int(res.iterations), x_ref, int(k_ref),
+                 relres_of(a, b, res.x), relres_of(a, b, x_ref),
+                 rel(res.x, x64), rel(x_ref, x64))
+        else:
+            # bf16 planes solve the rounded operator: held to the plain
+            # version, and to fp32 K4 on the planes rounded through bf16 at
+            # one partition, bit for bit.
+            dx = rel(res.x, x_ref)
+            print(f"K4 {tag}: {int(res.iterations)} iterations (plain "
+                  f"{int(k_ref)}), |x-x_plain|/|x_plain| {dx:.3e}")
+            check(abs(int(res.iterations) - int(k_ref)) <= 2 and dx <= 1e-4,
+                  f"{tag}: differs from the plain version")
+            grids = k3.FusedCG(nx, ny, nz, taps, coeffs=coeffs,
+                               planes=planes, weight=w,
+                               sym=sym).grids(dev)
+            narrow = k4.sr_cg(g, e * b, planes=planes, plane_dtype=bf16,
+                              grids=grids, **kw)
+            pre = k4.sr_cg(g, e * b, planes=planes.to(bf16).float(),
+                           grids=grids, **kw)
+            ok = (int(narrow.iterations) == int(pre.iterations)
+                  and torch.equal(narrow.x, pre.x))
+            print(f"K4 {tag}: equal to fp32 K4 on the pre-rounded planes at "
+                  f"grids {grids}: {ok}")
+            check(ok, f"{tag}: differs from fp32 K4 on pre-rounded planes")
+        again = k4.sr_dia_cg(a, b, tol=TOL, maxiter=n, inv_diag=m.inv_diag,
+                             mode=mode, plane_dtype=pdt)
+        check(torch.equal(again.x, res.x), f"{tag}: two K4 runs differ")
+
+    # -- S3: resume ----------------------------------------------------------
+    a = stencils[N1]
+    nx, ny, nz, taps, coeffs = stencil_taps(a)
+    b = rhs(a.shape[0], "random")
+    for mode, split in (("rpq", 100), ("rp", 101)):
+        g = k4.make_sr_geometry(nx, ny, nz, taps, mode=mode)
+        full = k4.sr_cg_call(g, b, coeffs=coeffs, tol=TOL, maxiter=5000)
+        x, r, p, k, rz, _ = k4.sr_cg_call(g, b, coeffs=coeffs, tol=TOL,
+                                          maxiter=split)
+        rest = k4.sr_cg_call(g, b, coeffs=coeffs, tol=TOL,
+                             maxiter=5000 - split,
+                             resume=(x, r, p, rz[0], rz[1]))
+        ok = (int(k) == split and int(k) + int(rest[3]) == int(full[3])
+              and all(torch.equal(u, v) for u, v in
+                      zip(rest[:3] + rest[4:5], full[:3] + full[4:5])))
+        print(f"S3 {mode} {N1}^3: {split} + {int(rest[3])} iterations resumed "
+              f"equal one call of {int(full[3])}, bit for bit: {ok}")
+        check(ok, f"S3 {mode}: the resumed solve differs from one call")
+
+    # -- S4: the one-pass engine K6 --------------------------------------------
+    a224 = cgx_torch.poisson3d_stencil(*N224)
+    n224 = a224.shape[0]
+    zero()
+    s4 = []
+    for nm in ("ones", "random"):
+        b = rhs(n224, nm)
+        for hist in (False, True):
+            res = fused_stencil_cg(a224, b, tol=TOL, maxiter=MAXIT_HIST,
+                                   track_history=hist, one_pass=True)
+            torch.cuda.synchronize()
+            check(bool(res.converged), f"S4 b={nm} did not converge")
+            s4.append((nm, hist, b, res))
+    c = counts()
+    its_all = sum(int(r.iterations) for *_, r in s4)
+    print(f"S4 launches: K6 {c['k6']} for {its_all} iterations, K3 A "
+          f"{c['k3_a']} (init), K3 B {c['k3_b']}, K4 {c['k4']}, K2 {c['k2']}")
+    check(c["k6"] >= its_all + len(s4) and c["k3_a"] == len(s4)
+          and c["k3_b"] == 0 and c["k4"] == 0 and c["k2"] == 0,
+          f"S4 did not run through K6: {c}")
+    launches["onepass"] = c["k6"]
+    eng6 = build_fused(a224, torch.float32, one_pass=True)
+    err_k6 = 0.0
+    for nm, hist, b, res in s4:
+        label = f"S4 224^3 b={nm}" + (" history" if hist else "")
+        kw = dict(tol=TOL, maxiter=MAXIT_HIST, track_history=hist)
+        same(label, res, fused_stencil_cg(a224, b, **kw), history=hist)
+        ref = eng6.solve_reference(b, **kw)
+        x64 = fp64_solution("stencil 224^3", nm, a224, b)
+        hold(f"K6 {label}", res.x, int(res.iterations), ref.x,
+             int(ref.iterations), relres_of(a224, b, res.x),
+             relres_of(a224, b, ref.x), rel(res.x, x64), rel(ref.x, x64))
+        err_k6 = max(err_k6, float((res.x - ref.x).abs().max()))
+        if hist:
+            k = min(int(res.iterations), int(ref.iterations))
+            h, h_ref = res.history[:k + 1], ref.history[:k + 1]
+            hdev = float(((h - h_ref).abs() / h_ref.abs()).max())
+            print(f"K6 {label}: history within {hdev:.3e} of the plain "
+                  f"version's (bound 2e-2)")
+            check(hdev <= 2e-2, f"K6 {label}: history differs by {hdev}")
+        again = fused_stencil_cg(a224, b, one_pass=True, **kw)
+        check(torch.equal(again.x, res.x)
+              and torch.equal(again.history, res.history),
+              f"{label}: two K6 runs differ")
+
+    # -- S5: times -----------------------------------------------------------
+    # Per iteration, b = ones, medians of interleaved runs; the plain
+    # versions' solves were timed once above (host clock, synchronised).
+    def floor_us(streams, n):
+        return streams * 4 * n / HBM_BYTES_PER_S * 1e6
+
+    sr_us = {}
+    for kind, N, mode, nm, b, res in s1:
+        if kind == "auto" or nm != "ones":
+            continue
+        a = stencils[N]
+        n = a.shape[0]
+        its = int(res.iterations)
+        t4, t3 = time_pair(
+            lambda: k4.sr_stencil_cg(a, b, tol=TOL, maxiter=n, mode=mode),
+            lambda: fused_stencil_cg(a, b, tol=TOL, maxiter=n), reps=3)
+        r2 = cgx_torch.auto_solve(a, b, tol=TOL, backend="resident_stencil")
+        its2 = int(r2.iterations)
+        t2 = statistics.median(event_ms(lambda: cgx_torch.auto_solve(
+            a, b, tol=TOL, backend="resident_stencil")) for _ in range(3))
+        streams = 9 if mode == "rpq" else 7
+        sr_us[N] = (t4, its)
+        print(f"[{card}] S5 {N}^3 b=ones: K4 {mode} {t4:.3f} ms, "
+              f"{t4 / its * 1e3:.2f} us/iter ({its} it); K3 {t3:.3f} ms, "
+              f"{t3 / its * 1e3:.2f} us/iter; K2 {t2:.3f} ms, "
+              f"{t2 / its2 * 1e3:.2f} us/iter ({its2} it); K4/K3 "
+              f"{t4 / t3:.3f}, K2/K4 {t2 / its2 / (t4 / its):.3f}; plain K4 "
+              f"{plain_ms[N, 'ones']:.1f} ms, "
+              f"{plain_ms[N, 'ones'] / its * 1e3:.2f} us/iter; floor "
+              f"{floor_us(streams, n):.1f} us/iter ({streams} streams)")
+    dia_us = {}
+    for label, a in s2_ops.items():
+        m = jac[label]
+        n = a.shape[0]
+        b = rhs(n, "ones")
+        its = int(next(r.iterations for lb, mo, pdt, nm, _, r in s2
+                       if lb == label and nm == "ones" and pdt is None))
+        t4, t3 = time_pair(
+            lambda: cgx_torch.auto_solve(a, b, tol=TOL, preconditioner=m,
+                                         backend="sr_dia"),
+            lambda: fdia.fused_dia_cg(a, b, tol=TOL, maxiter=n,
+                                      inv_diag=m.inv_diag), reps=3)
+        its2 = int(cgx_torch.auto_solve(a, b, tol=TOL, preconditioner=m,
+                                        backend="resident_dia").iterations)
+        t2 = statistics.median(event_ms(lambda: cgx_torch.auto_solve(
+            a, b, tol=TOL, preconditioner=m, backend="resident_dia"))
+            for _ in range(3))
+        n_pl = fdia.dia_prep(a, torch.float32, inv_diag=m.inv_diag)[5].shape[0]
+        dia_us[label] = (t4, its, n_pl)
+        print(f"[{card}] S5 {label} b=ones: K4 rpq {t4:.3f} ms, "
+              f"{t4 / its * 1e3:.2f} us/iter ({its} it); K3 {t3:.3f} ms, "
+              f"{t3 / its * 1e3:.2f} us/iter; K2 {t2:.3f} ms, "
+              f"{t2 / its2 * 1e3:.2f} us/iter ({its2} it); K4/K3 "
+              f"{t4 / t3:.3f}; plain K4 {plain_ms[label, 'ones']:.1f} ms; "
+              f"floor {floor_us(10 + n_pl, n):.1f} us/iter "
+              f"({10 + n_pl} streams)")
+    b = rhs(n224, "ones")
+    its6 = int(next(r.iterations for nm, hist, _, r in s4
+                    if nm == "ones" and not hist))
+    t6, t3 = time_pair(
+        lambda: fused_stencil_cg(a224, b, tol=TOL, maxiter=MAXIT_HIST,
+                                 one_pass=True),
+        lambda: fused_stencil_cg(a224, b, tol=TOL, maxiter=MAXIT_HIST),
+        reps=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_stencil_cg(a224, b, tol=TOL, maxiter=MAXIT_HIST, one_pass=True)
+        torch.cuda.synchronize()
+    u6, c6 = device_us(prof, lambda kk: "onepass_kernel" in kk)
+    # Per iteration: the launches past the exit return at once.
+    dev6 = u6 / its6
+    st6 = eng6.init(b)
+    t6p = statistics.median(event_ms(lambda: eng6.kernel_c_reference(
+        st6.rz, st6.x, st6.r, st6.p)) for _ in range(3))
+    print(f"[{card}] S5 224^3 b=ones: K6 {t6:.3f} ms, "
+          f"{t6 / its6 * 1e3:.2f} us/iter ({its6} it); K3 {t3:.3f} ms, "
+          f"{t3 / its6 * 1e3:.2f} us/iter; K6/K3 {t6 / t3:.3f}; K6 device "
+          f"time {dev6:.2f} us per iteration, {u6 / max(c6, 1):.2f} us per "
+          f"launch over {c6} launches (profiler; device busy "
+          f"{u6 / (t6 * 1e3):.3f} of the solve); "
+          f"plain iteration {t6p * 1e3:.2f} us; floor "
+          f"{floor_us(6, n224):.1f} us (6 streams)")
+
+    # Bounds: each input read once, each output written once (4 B words);
+    # the operations at the fp32 rate.  K4 per solve: b in, x out (planes
+    # and w in), per iteration the operator's 2 flops per entry and 12 per
+    # row; K6 per launch: x, r, p in and out, two applies.
+    n160 = N1 ** 3
+    nnz160 = 7 * n160 - 6 * N1 * N1
+    t4, its4 = sr_us[N1]
+    b_k4 = bound(8 * n160, its4 * (2 * nnz160 + 12 * n160))
+    t4p, its4p, n_pl = dia_us["DIA-7 160^3"]
+    b_k4p = bound((n_pl + 3) * 4 * n160, its4p * n160 * (2 * 7 + 12))
+    nnz224 = 7 * n224 - 6 * N224[0] * N224[1]
+    b_k6 = bound(6 * 4 * n224, 2 * 2 * nnz224 + 12 * n224)
+    print(f"S5 bounds: K4 160^3 {b_k4[0]:.3f} ms ({b_k4[1]}), K4 planes "
+          f"DIA-7 160^3 {b_k4p[0]:.3f} ms ({b_k4p[1]}), K6 per launch "
+          f"{b_k6[0] * 1e3:.2f} us ({b_k6[1]})")
+
+    def entry(name, source, replaces, nl, err, ms, p_ms, b):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": nl, "max_abs_err": err,
+                "ms": ms, "plain_ms": p_ms, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": None}
+
+    src = "cgx_torch/csrc/semiresident.cu"
+    return [
+        entry("sr_cg", src, "cgx/kernels/fused_semiresident.py:223",
+              launches["sr_cg"], err_k4, t4, plain_ms[N1, "ones"], b_k4),
+        entry("sr_cg_planes", src, "cgx/kernels/fused_semiresident.py:223",
+              launches["sr_cg_planes"], err_k4p, t4p,
+              plain_ms["DIA-7 160^3", "ones"], b_k4p),
+        entry("onepass_kernel_c", "cgx_torch/csrc/onepass.cu",
+              "cgx/kernels/fused_onepass.py:53", launches["onepass"], err_k6,
+              dev6 / 1e3, t6p, b_k6),
+    ]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -2238,6 +2643,7 @@ def main() -> None:
     m_entries = multi_phases(dev, card, dias)
     b_entries = bsr_phases(dev, card)
     x_entries = mixed_phases(dev, card, dias, fp64_solution, relres_of)
+    s_entries = sr_phases(dev, card, dias, fp64_solution, relres_of)
 
     # Bounds: each input read once, each output written once (4 B words),
     # against the operations at the fp32 rate.  K1: x in, y out, 2 flops
@@ -2280,7 +2686,7 @@ def main() -> None:
         entry("fused_kernel_b", "cgx_torch/csrc/fused_engine.cu",
               "cgx/kernels/fused_engine.py:411", launches["k3_b"],
               k3_err["b"], t_b, t_bp, k3b_b),
-    ] + w_entries + m_entries + b_entries + x_entries}
+    ] + w_entries + m_entries + b_entries + x_entries + s_entries}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -88,14 +88,34 @@ def test_routing_sizes_straddle_the_threshold():
 
 @pytest.mark.parametrize("backend", ["sr_stencil", "sr_dia", "wbell"])
 def test_unported_backends_raise(backend):
+    """Every backend of the JAX package is ported now: the semi-resident
+    routes (K4's plain version on the CPU) solve and match cgx's, and the
+    WBELL route refuses an operator that is not a WBELLMatrix."""
     a = cgx_torch.poisson3d_stencil(4, 4, 4)
     if backend == "wbell":
-        # Ported since: the route needs a WBELLMatrix and refuses others.
         with pytest.raises(ValueError, match="WBELLMatrix"):
             cgx_torch.auto_solve(a, torch.ones(64), backend=backend)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cgx_torch.auto_solve(a, torch.ones(64), backend=backend)
+    if backend == "sr_stencil":
+        aj = jst.poisson3d_stencil(6, 8, 7)
+        at, mj, mt = operator_from_cgx(aj, device="cpu"), None, None
+    else:
+        data, offs, shape = scaled_dia_data(6, 8, 7, seed=37)
+        aj = cgx.DIAMatrix(data=jnp.asarray(data.astype(np.float32)),
+                           offsets=offs, shape=shape)
+        at = operator_from_cgx(aj, device="cpu")
+        mj = cgx.JacobiPrecond.from_matrix(aj)
+        mt = cgx_torch.JacobiPrecond.from_matrix(at)
+    b = seeded(aj.shape[0], seed=38, dtype=np.float32)
+    ref = cgx.auto_solve(aj, jnp.asarray(b), tol=1e-6, maxiter=800,
+                         preconditioner=mj, backend=backend)
+    res = cgx_torch.auto_solve(at, t(b), tol=1e-6, maxiter=800,
+                               preconditioner=mt, backend=backend)
+    # cgx's kernel-test bounds: ±2 iterations, x to rtol 5e-3 / atol 5e-4.
+    assert bool(res.converged) and bool(ref.converged)
+    assert abs(int(res.iterations) - int(ref.iterations)) <= 2
+    np.testing.assert_allclose(n_(res.x), np.asarray(ref.x), rtol=5e-3,
+                               atol=5e-4)
 
 
 def _scaled_dia(nx, ny, nz, seed, dtype=np.float32):
@@ -320,13 +340,33 @@ def test_port_imports_no_jax():
             "cgx_torch.io.suitesparse, cgx_torch.io.matrix_market, "
             "cgx_torch.kernels.fused_multi, cgx_torch.solve.block, "
             "cgx_torch.kernels, cgx_torch.kernels.bsr, cgx_torch.io.legacy, "
-            "cgx_torch.ops.spmv, sys; "
+            "cgx_torch.ops.spmv, cgx_torch.kernels.fused_semiresident, "
+            "cgx_torch.kernels.fused_onepass, sys; "
+            "from cgx_torch.kernels import *; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'cgx' not in sys.modules, 'cgx imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
+
+
+def test_kernels_package_exports_the_surface():
+    """cgx_torch.kernels names what cgx.kernels exports (cgx/kernels/
+    __init__.py): the solvers on first use, without an import cycle.
+    ``fused_dia_cg`` is the port's module there, holding the function."""
+    import cgx.kernels as jk
+    import cgx_torch.kernels as tk
+
+    assert set(jk.__all__) - {"stencil3d_spmv_pallas"} \
+        | {"stencil3d_spmv"} == set(tk.__all__)
+    for name in tk.__all__:
+        obj = getattr(tk, name)
+        assert callable(obj.fused_dia_cg if name == "fused_dia_cg" else obj)
+    assert tk.sr_stencil_cg is cgx_torch.kernels.fused_semiresident \
+        .sr_stencil_cg
+    with pytest.raises(AttributeError):
+        tk.no_such_kernel
 
 
 def test_chip_smoke_imports_no_jax_and_needs_a_card():

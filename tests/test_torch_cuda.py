@@ -24,10 +24,13 @@ from cgx_torch.io.poisson import poisson2d_dia, poisson3d_dia27  # noqa: E402
 from cgx_torch.kernels import bsr as kb  # noqa: E402
 from cgx_torch.kernels import fused_dia_cg as fdia  # noqa: E402
 from cgx_torch.kernels import fused_engine as k3  # noqa: E402
+from cgx_torch.kernels import fused_onepass as k6  # noqa: E402
 from cgx_torch.kernels import fused_resident as k2  # noqa: E402
+from cgx_torch.kernels import fused_semiresident as k4  # noqa: E402
 from cgx_torch.kernels import stencil as k1  # noqa: E402
 from cgx_torch.kernels import wbell as kw  # noqa: E402
-from cgx_torch.kernels.fused_cg import build_fused, stencil_taps  # noqa: E402
+from cgx_torch.kernels.fused_cg import (  # noqa: E402
+    build_fused, fused_stencil_cg, stencil_taps)
 from torch_parity import (  # noqa: E402,F401
     cuda_device, scaled_dia_data, seeded, t)
 
@@ -803,3 +806,177 @@ def test_c2_csr_products_are_bitwise_reproducible(cuda_device):
     assert torch.equal(cgx_torch.spmm(a, X), cgx_torch.spmm(a, X))
     bsr = cgx_torch.bsr_from_csr(a, 8)
     assert torch.equal(cgx_torch.spmv(bsr, x), cgx_torch.spmv(bsr, x))
+
+
+# -- The semi-resident whole-solve kernel K4 and the one-pass engine K6 ------
+# Both take K3's sums over K3's partition, so on the card they equal K3's
+# solve bit for bit; against their plain versions (the same algebra, fp64
+# sums in torch's order) they are held to K3's bounds: ±2 iterations and
+# x to 1e-4 relative.
+
+def _stencil(op):
+    return {"p3d": lambda: cgx_torch.poisson3d_stencil(37, 41, 53),
+            "27point": lambda: cgx_torch.poisson3d_27point(17, 19, 15),
+            "2d": lambda: cgx_torch.poisson2d_stencil(61, 67)}[op]()
+
+
+def _near(res, ref):
+    assert abs(int(res.iterations) - int(ref.iterations)) <= 2
+    assert float((res.x.cpu() - ref.x.cpu()).norm()
+                 / ref.x.cpu().norm()) <= 1e-4
+
+
+def _same(res, ref):
+    assert int(res.iterations) == int(ref.iterations)
+    assert torch.equal(res.x, ref.x)
+    assert torch.equal(res.residual_norm_sq, ref.residual_norm_sq)
+
+
+@pytest.mark.parametrize("op,mode", [("p3d", "rpq"), ("p3d", "rp"),
+                                     ("p3d", "p"), ("27point", "rpq"),
+                                     ("27point", "p"), ("2d", "rp")])
+def test_k4_stencil_equals_k3_and_plain(cuda_device, op, mode):
+    a = _stencil(op)
+    b = t(seeded(a.shape[0], seed=40, dtype=np.float32), cuda_device)
+    before = (k4.sr_cg_launches, k2.resident_cg_launches,
+              k3.fused_a_launches)
+    res = k4.sr_stencil_cg(a, b, tol=1e-6, maxiter=4000, mode=mode)
+    torch.cuda.synchronize()
+    assert (k4.sr_cg_launches, k2.resident_cg_launches,
+            k3.fused_a_launches) == (before[0] + 1,) + before[1:]
+    assert bool(res.converged)
+    _same(res, fused_stencil_cg(a, b, tol=1e-6, maxiter=4000))
+    _near(res, k4.sr_stencil_cg(a, b.cpu(), tol=1e-6, maxiter=4000,
+                                mode=mode))
+    _same(k4.sr_stencil_cg(a, b, tol=1e-6, maxiter=4000, mode=mode), res)
+
+
+def _dia_pair(op, dev):
+    a = _ragged(op, dev)
+    cpu = cgx_torch.DIAMatrix(data=a.data.cpu(), offsets=a.offsets,
+                              shape=a.shape, grid=a.grid)
+    return a, cpu
+
+
+@pytest.mark.parametrize("op,mode,jacobi", [
+    ("dia7", "rpq", True), ("dia7", "rp", True), ("dia7", "p", True),
+    ("dia7", "rpq", False), ("dia27", "rpq", True), ("dia27", "rp", True)])
+def test_k4_dia_equals_k3_and_plain(cuda_device, op, mode, jacobi):
+    a, a_cpu = _dia_pair(op, cuda_device)
+    b = t(seeded(a.shape[0], seed=41, dtype=np.float32), cuda_device)
+    kw = dict(tol=1e-6, maxiter=4000, jacobi=jacobi)
+    before = k4.sr_cg_planes_launches
+    res = k4.sr_dia_cg(a, b, mode=mode, **kw)
+    torch.cuda.synchronize()
+    assert k4.sr_cg_planes_launches == before + 1
+    assert bool(res.converged)
+    _same(res, fdia.fused_dia_cg(a, b, **kw))
+    _near(res, k4.sr_dia_cg(a_cpu, b.cpu(), mode=mode, **kw))
+
+
+@pytest.mark.parametrize("op", ["dia7", "dia27"])
+def test_k4_bf16_planes_equal_prerounded(cuda_device, op):
+    """bf16 planes are widened as they are loaded: the bf16 mode equals
+    fp32 K4 on the planes rounded through bf16 at one partition, and K3's
+    bf16 plane mode bit for bit."""
+    a, _ = _dia_pair(op, cuda_device)
+    b = t(seeded(a.shape[0], seed=42, dtype=np.float32), cuda_device)
+    bf16 = torch.bfloat16
+    nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
+        a, torch.float32)
+    g = k4.make_sr_geometry(nx, ny, nz, taps, mode="rpq",
+                            n_planes=planes.shape[0], weighted=True, sym=sym)
+    grids = k3.FusedCG(nx, ny, nz, taps, coeffs=coeffs, planes=planes,
+                       weight=w, sym=sym).grids(cuda_device)
+    kw = dict(coeffs=coeffs, w=w, tol=1e-6, maxiter=300, grids=grids,
+              b_norm_sq=torch.sum(b * b))
+    before = k4.sr_cg_bf16_launches
+    narrow = k4.sr_cg(g, e * b, planes=planes, plane_dtype=bf16, **kw)
+    assert k4.sr_cg_bf16_launches == before + 1
+    _same(narrow, k4.sr_cg(g, e * b, planes=planes.to(bf16).float(), **kw))
+    _same(k4.sr_dia_cg(a, b, tol=1e-6, maxiter=300, plane_dtype=bf16),
+          fdia.fused_dia_cg(a, b, tol=1e-6, maxiter=300, plane_dtype=bf16))
+
+
+@pytest.mark.parametrize("mode", ["rpq", "rp"])
+def test_k4_resume_equals_one_call(cuda_device, mode):
+    a = _stencil("p3d")
+    nx, ny, nz, taps, coeffs = stencil_taps(a)
+    g = k4.make_sr_geometry(nx, ny, nz, taps, mode=mode)
+    b = t(seeded(a.shape[0], seed=43, dtype=np.float32), cuda_device)
+    full = k4.sr_cg_call(g, b, coeffs=coeffs, tol=1e-6, maxiter=4000)
+    # An odd split leaves the newest p in the second buffer of rp.
+    x, r, p, k, rz, _ = k4.sr_cg_call(g, b, coeffs=coeffs, tol=1e-6,
+                                      maxiter=7)
+    rest = k4.sr_cg_call(g, b, coeffs=coeffs, tol=1e-6, maxiter=4000 - 7,
+                         resume=(x, r, p, rz[0], rz[1]))
+    assert int(k) == 7 and int(k) + int(rest[3]) == int(full[3])
+    for got, want in zip(rest[:3], full[:3]):
+        assert torch.equal(got, want)
+    assert torch.equal(rest[4], full[4])
+
+
+def test_k4_x0_and_auto_solve_on_card(cuda_device):
+    a = _stencil("p3d")
+    b = t(seeded(a.shape[0], seed=44, dtype=np.float32), cuda_device)
+    x0 = 0.1 * t(seeded(a.shape[0], seed=45, dtype=np.float32), cuda_device)
+    res = k4.sr_stencil_cg(a, b, x0, tol=1e-6, maxiter=4000, mode="p")
+    _near(res, k4.sr_stencil_cg(a, b.cpu(), x0.cpu(), tol=1e-6,
+                                maxiter=4000, mode="p"))
+    d, _ = _dia_pair("dia7", cuda_device)
+    m = cgx_torch.JacobiPrecond.from_matrix(d)
+    before = (k4.sr_cg_launches, k4.sr_cg_planes_launches,
+              k2.resident_cg_launches, k2.resident_dia_launches,
+              k3.fused_a_launches)
+    s = cgx_torch.auto_solve(a, b, tol=1e-6, backend="sr_stencil")
+    r = cgx_torch.auto_solve(d, b, tol=1e-6, preconditioner=m,
+                             backend="sr_dia")
+    torch.cuda.synchronize()
+    assert (k4.sr_cg_launches, k4.sr_cg_planes_launches,
+            k2.resident_cg_launches, k2.resident_dia_launches,
+            k3.fused_a_launches) == (before[0] + 1, before[1] + 1) + before[2:]
+    assert bool(s.converged) and bool(r.converged)
+    _same(r, fdia.fused_dia_cg(d, b, tol=1e-6, maxiter=d.shape[0],
+                               inv_diag=m.inv_diag))
+
+
+@pytest.mark.parametrize("op", ["p3d", "27point", "2d"])
+def test_k6_equals_k3_and_plain(cuda_device, op):
+    a = _stencil(op)
+    b = t(seeded(a.shape[0], seed=46, dtype=np.float32), cuda_device)
+    kw = dict(tol=1e-6, maxiter=4000, track_history=True)
+    before = (k6.onepass_launches, k3.fused_a_launches, k3.fused_b_launches)
+    one = fused_stencil_cg(a, b, one_pass=True, **kw)
+    torch.cuda.synchronize()
+    its = int(one.iterations)
+    assert k6.onepass_launches - before[0] >= its + 1
+    # One K3 kernel-A launch at init, no kernel B.
+    assert (k3.fused_a_launches, k3.fused_b_launches) == (before[1] + 1,
+                                                          before[2])
+    two = fused_stencil_cg(a, b, **kw)
+    _same(one, two)
+    assert torch.equal(one.history, two.history)
+    plain = build_fused(a, torch.float32, one_pass=True).solve_reference(
+        b, **kw)
+    _near(one, plain)
+    m = min(its, int(plain.iterations))
+    np.testing.assert_allclose(one.history[:m + 1].cpu().numpy(),
+                               plain.history[:m + 1].cpu().numpy(),
+                               rtol=2e-2)
+    x0 = 0.1 * t(seeded(a.shape[0], seed=47, dtype=np.float32), cuda_device)
+    _same(fused_stencil_cg(a, b, x0, tol=1e-6, maxiter=4000, one_pass=True),
+          fused_stencil_cg(a, b, x0, tol=1e-6, maxiter=4000))
+
+
+def test_k6_single_step_matches_plain(cuda_device):
+    eng = build_fused(_stencil("p3d"), torch.float32, one_pass=True)
+    b = t(seeded(eng.n, seed=48, dtype=np.float32), cuda_device)
+    st = eng.init(b)
+    got = eng.kernel_c(st.rz, st.x, st.r, st.p)
+    ref = eng.kernel_c_reference(st.rz, st.x, st.r, st.p)
+    for g, r in zip(got[:3], ref[:3]):
+        assert float((g - r).abs().max()) <= 1e-6 * float(r.abs().max())
+    for g, r in zip(got[3], ref[3]):
+        assert _same_sum(g, r)
+    with pytest.raises(ValueError, match="constant-coefficient"):
+        k6.OnePassCG(4, 4, 4, ((0, 0, 0),), coeffs=(None,))

@@ -153,9 +153,18 @@ def test_warm_start_at_solution_and_fixed_count():
 
 
 def test_unported_engine_options_raise():
-    a = cgx_torch.poisson3d_stencil(4, 4, 4)
-    with pytest.raises(NotImplementedError, match="K6"):
-        build_fused(a, torch.float32, one_pass=True)
+    # The one-pass engine (K6) is ported: build_fused(one_pass=True) gives
+    # it, and its plain solve matches cgx's one-pass engine in interpret
+    # mode within cgx's kernel-test bounds.
+    sj = jst.poisson3d_stencil(6, 8, 7)
+    eng = build_fused(operator_from_cgx(sj), torch.float32, one_pass=True)
+    assert type(eng).__name__ == "OnePassCG"
+    b = seeded(sj.shape[0], seed=68, dtype=np.float32)
+    ref = jfc.fused_stencil_cg(sj, jnp.asarray(b), tol=1e-5, maxiter=500,
+                               track_history=True, interpret=True,
+                               one_pass=True)
+    _close(eng.solve(t(b), tol=1e-5, maxiter=500, track_history=True), ref,
+           history=True)
     # bf16 planes are ported: the solve converges, in bf16 planes and fp32
     # vectors, to the rounded operator's solution.
     _, at = _dia("scaled7")

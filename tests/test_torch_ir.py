@@ -447,7 +447,8 @@ def test_sr_routes_with_history_fall_back(monkeypatch, backend):
     """C3: with track_history=True the semi-resident routes fall back as
     the reference does (cgx/solve/auto.py:267-271): to the loop below
     FUSED_MIN_ROWS, to the two-pass engine at or above it.  Without
-    history they still raise and name K4."""
+    history they run the semi-resident solve (K4's plain version on the
+    CPU) and match cgx's."""
     if backend == "sr_stencil":
         aj = jst.poisson3d_stencil(6, 7, 5)
         at, mj, mt = operator_from_cgx(aj, device="cpu"), None, None
@@ -468,8 +469,13 @@ def test_sr_routes_with_history_fall_back(monkeypatch, backend):
     assert (k3.fused_a_launches, k3.fused_b_launches) == before   # CPU
     assert abs(int(fused.iterations) - int(ref.iterations)) <= 2
     assert fused.history.shape == (401,)
-    with pytest.raises(NotImplementedError, match="K4"):
-        cgx_torch.auto_solve(at, t(b), preconditioner=mt, backend=backend)
+    kw.pop("track_history")
+    ref_sr = cgx.auto_solve(aj, jnp.asarray(b), preconditioner=mj, **kw)
+    res_sr = cgx_torch.auto_solve(at, t(b), preconditioner=mt, **kw)
+    assert res_sr.history.shape == (0,)
+    assert abs(int(res_sr.iterations) - int(ref_sr.iterations)) <= 2
+    np.testing.assert_allclose(n_(res_sr.x), np.asarray(ref_sr.x),
+                               rtol=5e-3, atol=5e-4)
 
 
 def test_ir_drops_a_non_finite_correction_and_finishes_in_fp32(monkeypatch):
