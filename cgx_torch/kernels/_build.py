@@ -58,7 +58,10 @@ _SIGNATURES = {
     "cgx_wbell_tiered": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cgx_wbell_windowed": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _I, _P],
+    "cgx_wbell_stacked": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "cgx_wbell_half": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cgx_bell_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cgx_bell_spmm_paired": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,4 +1,4 @@
-"""K11: the block-ELL SpMM — the CUDA kernel and its plain version.
+"""K11 and K12: the block-ELL SpMM — the CUDA kernel and its plain versions.
 
 Counterpart of :mod:`cgx.kernels.bsr`.  :class:`BlockELL` stores every
 block row as exactly ``wb`` dense ``(bs, bs)`` blocks (padding blocks are
@@ -9,9 +9,18 @@ TPU functions, ``_bell_spmm_dma`` and ``_bell_spmm_resident``: they
 compute the same ``Y`` and differ only in where ``X`` sits in VMEM.  So
 the engines ``"auto"``, ``"resident"`` and ``"dma"`` all launch K11, and
 the VMEM and SMEM caps that chose between them on the TPU
-(``_BELL_RESIDENT_VMEM_CAP``, ``_BELL_RESIDENT_MAX_IDS``,
-``_MAX_PREFETCH_ROWS``) are not ported.  ``"prefetch"``, the chunked
-scalar-prefetch kernel K12, is not ported yet and raises.
+(``_BELL_RESIDENT_VMEM_CAP``, ``_BELL_RESIDENT_MAX_IDS``) are not ported.
+
+``engine="prefetch"`` is K12 (``_bell_spmm_prefetch``): the JAX package
+runs it per chunk of :data:`PREFETCH_ROWS` block rows, because the TPU's
+SMEM holds the scalar-prefetched id table of at most that many rows.  K12
+computes K11's ``Y`` and differs from it only in those two TPU matters
+(where ``X`` sits in VMEM, and the chunks), so it has no device code of its
+own: the port keeps the chunk loop and launches K11's kernel once per
+chunk, at pointer offsets into ``values``, ``block_cols`` and one
+preallocated ``Y``.  Its ``Y`` equals K11's bit for bit;
+``bell_prefetch_launches`` counts its launches (one per chunk) and
+:func:`bell_prefetch_reference` is its plain version, chunked the same way.
 
 The wrapper launches K11 for a CUDA tensor and takes the plain version
 :func:`bell_spmm_reference` only for a CPU tensor.  K11 takes float32
@@ -31,14 +40,19 @@ import numpy as np
 import torch
 
 __all__ = ["BlockELL", "bell_from_bsr", "bell_spmm", "bell_spmv",
-           "bell_spmm_reference", "bell_spmm_launches", "MAX_BLOCKSIZE"]
+           "bell_spmm_reference", "bell_prefetch_reference",
+           "bell_spmm_launches", "bell_prefetch_launches", "MAX_BLOCKSIZE",
+           "PREFETCH_ROWS"]
 
-# Kernel launches so far (a run resets it to show that it used the kernel).
+# Kernel launches so far (a run resets them to show that it used the kernel).
 bell_spmm_launches = 0
+bell_prefetch_launches = 0
 # The largest block K11 takes: its shared memory holds one (bs, bs) block
 # and one (bs, 64) tile of X.
 MAX_BLOCKSIZE = 128
-_ENGINES = ("auto", "resident", "dma")
+# K12's chunk of block rows (the JAX package's _MAX_PREFETCH_ROWS).
+PREFETCH_ROWS = 256
+_ENGINES = ("auto", "resident", "dma", "prefetch")
 
 
 @dataclass(frozen=True, eq=False)
@@ -108,62 +122,104 @@ def bell_spmm_reference(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(nbr * bs, k)
 
 
-def _launch(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
-    """Check the operands, launch K11 and return ``Y`` (float32)."""
-    from cgx_torch.kernels import _build
+def bell_prefetch_reference(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
+    """K12's plain version on any device: :func:`bell_spmm_reference` per
+    chunk of :data:`PREFETCH_ROWS` block rows, each written into its rows of
+    one ``Y``."""
+    nbr, _, bs, _ = a.values.shape
+    y = torch.empty((nbr * bs, x.shape[1]), dtype=_out_dtype(x),
+                    device=x.device)
+    for r0 in range(0, nbr, PREFETCH_ROWS):
+        r1 = min(r0 + PREFETCH_ROWS, nbr)
+        part = dataclasses.replace(a, values=a.values[r0:r1],
+                                   block_cols=a.block_cols[r0:r1])
+        y[r0 * bs:r1 * bs] = bell_spmm_reference(part, x)
+    return y
 
-    pair = (a.values.dtype, x.dtype)
+
+def checked_operands(what: str, values: torch.Tensor, cols: torch.Tensor,
+                     x: torch.Tensor):
+    """The contiguous ``(values, cols, x)`` of a block-ELL kernel call, after
+    the checks of what K11's CUDA kernel takes."""
+    pair = (values.dtype, x.dtype)
     if pair not in ((torch.float32, torch.float32),
                     (torch.bfloat16, torch.bfloat16)):
-        raise TypeError("bell_spmm: the CUDA kernel takes float32 values "
+        raise TypeError(f"{what}: the CUDA kernel takes float32 values "
                         "with float32 x or bfloat16 with bfloat16, got "
                         f"{pair[0]} and {pair[1]}")
-    nbr, wb, bs, _ = a.values.shape
+    bs = values.shape[-1]
     if bs > MAX_BLOCKSIZE:
-        raise ValueError(f"bell_spmm: the CUDA kernel takes blocks up to "
+        raise ValueError(f"{what}: the CUDA kernel takes blocks up to "
                          f"{MAX_BLOCKSIZE}, got {bs}")
-    if a.block_cols.dtype != torch.int32:
-        raise ValueError("bell_spmm: block_cols must be int32")
-    values = a.values.contiguous()
-    cols = a.block_cols.contiguous()
-    x = x.contiguous()
+    if cols.dtype != torch.int32:
+        raise ValueError(f"{what}: block_cols must be int32")
     if values.device != x.device or cols.device != x.device:
-        raise ValueError(f"bell_spmm: the operands must lie on {x.device}")
+        raise ValueError(f"{what}: the operands must lie on {x.device}")
+    return values.contiguous(), cols.contiguous(), x.contiguous()
+
+
+def launch_rows(fn: str, what: str, values, cols, x, y, r0: int,
+                r1: int) -> int:
+    """Launch C entry ``fn`` (K11's kernel or P2's) on block rows ``r0 ..
+    r1`` of checked operands: pointer offsets into ``values``, ``cols``
+    and ``y`` (float32, ``(nbr·bs, k)``), no copies.  Returns the number
+    of launches (0 for an empty ``y``)."""
+    from cgx_torch.kernels import _build
+
+    _, wb, bs, _ = values.shape
     k = x.shape[1]
-    y = torch.empty((nbr * bs, k), dtype=torch.float32, device=x.device)
-    if y.numel() == 0:
-        return y
+    if r1 <= r0 or k == 0:
+        return 0
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.cgx_bell_spmm(values.data_ptr(), cols.data_ptr(),
-                               x.data_ptr(), y.data_ptr(), nbr, wb, bs, k,
-                               int(x.dtype == torch.bfloat16), stream)
-    _build.check(rc, "bell_spmm launch")
-    return y
+        rc = getattr(lib, fn)(
+            values.data_ptr() + r0 * wb * bs * bs * values.element_size(),
+            cols.data_ptr() + r0 * wb * cols.element_size(), x.data_ptr(),
+            y.data_ptr() + r0 * bs * k * y.element_size(), r1 - r0, wb, bs,
+            k, int(x.dtype == torch.bfloat16), stream)
+    _build.check(rc, f"{what} launch")
+    return 1
+
+
+def _launch(a: BlockELL, x: torch.Tensor, chunk: int):
+    """Launch K11 over ``a`` in chunks of ``chunk`` block rows; return ``Y``
+    (float32) and the number of launches."""
+    values, cols, x = checked_operands("bell_spmm", a.values, a.block_cols,
+                                       x)
+    nbr, _, bs, _ = values.shape
+    y = torch.empty((nbr * bs, x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    launches = sum(launch_rows("cgx_bell_spmm", "bell_spmm", values, cols, x,
+                               y, r0, min(r0 + chunk, nbr))
+                   for r0 in range(0, nbr, chunk))
+    return y, launches
 
 
 def bell_spmm(a: BlockELL, x: torch.Tensor, *,
               engine: str = "auto") -> torch.Tensor:
     """``Y = A @ X`` for block-ELL ``A`` and dense ``X: (m, k)``, ``m`` =
     ``a.shape[1]``.  ``engine``: ``"auto"``, ``"resident"`` or ``"dma"``
-    (all K11 on the card); ``"prefetch"`` (K12) is not ported."""
-    global bell_spmm_launches
-    if engine == "prefetch":
-        raise NotImplementedError(
-            "bell_spmm: engine 'prefetch' (the chunked scalar-prefetch "
-            "kernel) is not ported yet (ROADMAP kernel K12)")
+    (K11, one launch), or ``"prefetch"`` (K12: K11's kernel once per chunk
+    of :data:`PREFETCH_ROWS` block rows); all give the same ``Y``."""
+    global bell_spmm_launches, bell_prefetch_launches
     if engine not in _ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if x.dim() != 2 or x.shape[0] != a.shape[1]:
         raise ValueError(f"bell_spmm: x must be ({a.shape[1]}, k), got "
                          f"{tuple(x.shape)}")
+    prefetch = engine == "prefetch"
     if x.device.type == "cpu":
-        return bell_spmm_reference(a, x)
+        return (bell_prefetch_reference if prefetch
+                else bell_spmm_reference)(a, x)
     if x.device.type != "cuda":
         raise ValueError(f"bell_spmm: unsupported device {x.device}")
-    y = _launch(a, x)
-    bell_spmm_launches += 1
+    nbr = a.values.shape[0]
+    y, launches = _launch(a, x, PREFETCH_ROWS if prefetch else max(nbr, 1))
+    if prefetch:
+        bell_prefetch_launches += launches
+    else:
+        bell_spmm_launches += launches
     return y
 
 

@@ -1,4 +1,4 @@
-"""K7, K8, K9: the WBELL SpMV/SpMM — CUDA kernels and their plain versions.
+"""K7–K10: the WBELL SpMV/SpMM — CUDA kernels and their plain versions.
 
 Counterpart of :mod:`cgx.kernels.wbell`.  All three compute ``Y = A·X`` on
 the internal layout ``(nrhs, nt, 8, 128)`` over the slot planes of a
@@ -18,17 +18,22 @@ the internal layout ``(nrhs, nt, 8, 128)`` over the slot planes of a
   single-RHS solve of that column bit for bit.
 * **K9** (``wbell_spmv(..., backend="windowed")``, replaces ``_kernel``):
   the planes walked by virtual tile.
+* **K10** (``wbell_spmm_stacked``, replaces ``_kernel_resident_stacked``):
+  K7's walk with ``X`` and ``Y`` in the stacked layout ``(nt, k·8, 128)``
+  (:func:`to_stacked`, :func:`from_stacked`), read and written in place by
+  the kernel; it equals K7 bit for bit.  The TPU measured it slower than K7
+  (docs/PERF_NOTES.md 5a); nothing routes to it.
 
 The CUDA source is ``cgx_torch/csrc/wbell.cu``.  Each wrapper launches its
 kernel for a CUDA tensor and takes the plain PyTorch version only for a
 CPU tensor.  The plain versions walk the same per-group plane lists in the
 same order and round every product and sum on its own, as the kernels do
 (:func:`walk_product`).  ``wbell_resident_launches``,
-``wbell_tiered_launches`` and ``wbell_windowed_launches`` count launches.
+``wbell_tiered_launches``, ``wbell_windowed_launches`` and
+``wbell_stacked_launches`` count launches.
 
 Not ported, because they encode TPU VMEM: ``_resident_fits``,
-``_RESIDENT_VMEM_CAP``, ``_SPLANE``.  Nor is the column-stacked K10
-(``wbell_spmm_stacked``; ROADMAP queue B).
+``_RESIDENT_VMEM_CAP``, ``_SPLANE``.
 """
 from __future__ import annotations
 
@@ -45,14 +50,16 @@ __all__ = ["wbell_spmv", "wbell_spmm", "wbell_matvec", "wbell_resident_raw",
            "wbell_windowed", "wbell_tiered_raw", "WBellTierPlan",
            "build_tier_plan", "wbell_spmm_tiered", "walk_product",
            "wbell_resident_reference", "wbell_tiered_reference",
-           "wbell_windowed_reference",
+           "wbell_windowed_reference", "wbell_spmm_stacked",
+           "wbell_stacked_reference", "to_stacked", "from_stacked",
            "wbell_resident_launches", "wbell_tiered_launches",
-           "wbell_windowed_launches"]
+           "wbell_windowed_launches", "wbell_stacked_launches"]
 
 # Kernel launches so far (a run resets them to show which kernels it used).
 wbell_resident_launches = 0
 wbell_tiered_launches = 0
 wbell_windowed_launches = 0
+wbell_stacked_launches = 0
 
 
 # -- plain versions ---------------------------------------------------------
@@ -134,8 +141,10 @@ def _check_x(x: torch.Tensor, nt: int, what: str) -> None:
                          f"(nrhs, {nt}, 8, 128), got {tuple(x.shape)}")
 
 
-def _launch(fn: str, what: str, values, lc, x, *ints32):
-    """Check the operands, launch C entry ``fn`` and return ``y``."""
+def _launch(fn: str, what: str, values, lc, x, *ints32, nt=None,
+            nrhs=None):
+    """Check the operands, launch C entry ``fn`` and return ``y`` (shaped
+    as ``x``; ``nt`` and ``nrhs`` default to the batched layout's)."""
     from cgx_torch.kernels import _build
 
     if values.dtype not in (torch.float32, torch.bfloat16):
@@ -158,7 +167,9 @@ def _launch(fn: str, what: str, values, lc, x, *ints32):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, fn)(values.data_ptr(), bf16, lc.data_ptr(),
                               *(v.data_ptr() for v in ints32), x.data_ptr(),
-                              y.data_ptr(), x.shape[1], x.shape[0], stream)
+                              y.data_ptr(),
+                              x.shape[1] if nt is None else nt,
+                              x.shape[0] if nrhs is None else nrhs, stream)
     _build.check(rc, f"{what} launch")
     return y
 
@@ -233,6 +244,49 @@ def wbell_spmm(a: WBELLMatrix, x: torch.Tensor, *,
     """``Y = A @ X`` on a batch of internal-layout columns ``(nrhs, nt, 8,
     128)``; the slot-plane stream is shared by the columns."""
     return _dispatch(a, x, backend)
+
+
+# -- the column-stacked layout (K10) ------------------------------------------
+
+def to_stacked(xb: torch.Tensor) -> torch.Tensor:
+    """Batched internal ``(k, nt, 8, 128)`` → stacked ``(nt, k·8, 128)``."""
+    k, nt = xb.shape[0], xb.shape[1]
+    return xb.movedim(0, 1).reshape(nt, k * 8, 128)
+
+
+def from_stacked(xs: torch.Tensor) -> torch.Tensor:
+    """Stacked ``(nt, k·8, 128)`` → batched internal ``(k, nt, 8, 128)``."""
+    nt, k8 = xs.shape[0], xs.shape[1]
+    return xs.reshape(nt, k8 // 8, 8, 128).movedim(1, 0)
+
+
+def wbell_stacked_reference(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    """K10's plain version on any device: K7's through the batched layout
+    (the same sums in the same order)."""
+    return to_stacked(wbell_resident_reference(a, from_stacked(x)))
+
+
+def wbell_spmm_stacked(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    """K10: ``Y = A @ X`` on the stacked layout ``(nt, k·8, 128)`` (column
+    c of a group in rows ``c·8 .. c·8+7``); equal to :func:`wbell_spmm` on
+    the batched layout bit for bit.  Raises for ``nt >= 65536``, as the JAX
+    package does."""
+    global wbell_stacked_launches
+    nt = a.nt
+    if nt >= 1 << 16:
+        raise ValueError(f"wbell_spmm_stacked: nt={nt} must be < 65536")
+    if x.dim() != 3 or x.shape[0] != nt or x.shape[1] % 8 \
+            or x.shape[1] == 0 or x.shape[2] != 128:
+        raise ValueError(f"stacked layout is (nt={nt}, k*8, 128); got "
+                         f"{tuple(x.shape)}")
+    x = x.to(a.vector_dtype).contiguous()
+    if not _on_device(x, "wbell_spmm_stacked"):
+        return wbell_stacked_reference(a, x)
+    order, ptr = a.resident_walk
+    y = _launch("cgx_wbell_stacked", "wbell_spmm_stacked", a.values, a.lc, x,
+                order, ptr, a.p_ga, nt=nt, nrhs=x.shape[1] // 8)
+    wbell_stacked_launches += 1
+    return y
 
 
 def wbell_matvec(a: WBELLMatrix, v: torch.Tensor) -> torch.Tensor:

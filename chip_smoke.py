@@ -136,10 +136,31 @@ Phases (any failed check exits nonzero, and no result line is printed):
 34. S5, times: K4 per iteration in each tier beside K3 and K2 on the same
     system and b, on DIA-7 160³ and DIA-27 128³ too, K6 beside K3 at 224³
     and K6's device time per launch (profiler), each beside its plain
-    version and its byte floor.
+    version and its byte floor;
+35. E1, the column-stacked WBELL SpMM K10 (``wbell_spmm_stacked``) on W1's
+    thermal2 operator, k = 4 seeded columns: ``from_stacked`` of its Y
+    equal to K7's batched Y and to its plain version bit for bit, twice;
+36. E2, the tiered single call P1 (``cgx_torch.experiments.tier_proto``):
+    ``build_tiers`` on thermal2 (host seconds printed), ``tier_spmm`` at
+    k = 1 and 4 equal to its plain version bit for bit and within 1e-5 of
+    K7's Y (of the peak);
+37. E3, the 4×8 half-blocks P3 (``halfblock_proto``): ``build_halfblock``
+    on thermal2 (fill and planes beside the 8×8 build's), ``half_spmv``
+    equal to its plain version bit for bit and within 1e-5 of the fp64 CSR
+    product through the permutation;
+38. E4, K12 (``bell_spmm(engine="prefetch")``, K11's kernel per chunk of
+    256 block rows) on B1 (2 chunks), B2 (bf16, 4) and 300 seeded block
+    rows (256 + 44): each equal to K11 bit for bit and within 1e-5 of the
+    fp64 product;
+39. E5, the paired slots P2 (``bell_pair_proto``) on B1 and B2: equal to
+    K11 bit for bit; an odd wb raises;
+40. E6, times (CUDA events, interleaved medians): K10 and P1 beside K7 and
+    K8 at k = 4, P1 and P3 beside K7 at k = 1, K12 and P2 beside K11 at B1
+    and B2, each beside its plain version, its bound and torch's CSR or
+    BSR product of the same matrix.
 
 The launch counters are set to 0 just before each of the paths 4, 6, 7,
-W3–W4, M2–M5, B1–B4, X1–X4, S1, S2 and S4 and read just after it.  The line before the last
+W3–W4, M2–M5, B1–B4, X1–X4, S1, S2, S4 and E1–E5 and read just after it.  The line before the last
 is a JSON object describing each kernel, with its bound (the larger of
 its bytes, each input read once and each output written once, over 3.35
 TB/s, and its operations over 67 TFLOP/s fp32, or 989 TFLOP/s on the
@@ -332,7 +353,8 @@ def maxrel(y, ref) -> float:
 
 def wbell_phases(dev, card):
     """W1–W5: the unstructured path at the thermal2 stand-in's full size.
-    Returns the kernels' entries of the report line."""
+    Returns the kernels' entries of the report line and ``(a, op, plan)``:
+    the CSR matrix, its WBELL operator and tier plan, for E1–E3."""
     import cgx_torch
     from cgx_torch.io.suitesparse import standin
     from cgx_torch.kernels import wbell as kw
@@ -596,7 +618,7 @@ def wbell_phases(dev, card):
             "launches": launches[key], "max_abs_err": errs[label],
             "ms": ms[label][0], "plain_ms": ms[label][1], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": csr})
-    return entries
+    return entries, (a, op, plan)
 
 
 def seeded_block(n, k, seed, dev):
@@ -1051,7 +1073,9 @@ def other_launches() -> dict:
 
 def bsr_phases(dev, card):
     """B1–B5: the block-sparse path (K11, BSR/COO, the CSR builders, the
-    legacy format).  Returns K11's entry of the report line."""
+    legacy format).  Returns K11's entry of the report line and B1's and
+    B2's operands ``{"B1": (a, x, bsr arrays), "B2": ...}`` (k = 256; B2 in
+    bf16) for E4–E6."""
     import cgx_torch
     from cgx_torch.io.legacy import read_legacy, write_legacy
     from cgx_torch.io.poisson import poisson2d, poisson3d
@@ -1290,13 +1314,288 @@ def bsr_phases(dev, card):
               + extra)
 
     t_k, t_p, b_ms, b_by, lib = times["B1 fp32 k=256"]
+    bells = {"B1": timed["B1 fp32 k=256"][:3],
+             "B2": timed["B2 bf16 k=256"][:3]}
     return [{"name": "bell_spmm", "route": "cuda",
              "source": "cgx_torch/csrc/bsr.cu",
              "replaces": "cgx/kernels/bsr.py:93,151",
              "launches": k11_launches,
              "max_abs_err": errs["B1", 256, "auto"], "ms": t_k,
              "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": lib}]
+             "library_ms": lib}], bells
+
+
+def proto_phases(dev, card, thermal, bells):
+    """E1–E6: K10, P1 and P3 on W1's thermal2 stand-in; K12 and P2 on B1's
+    and B2's block-ELL operators.  Returns their entries of the report
+    line."""
+    from cgx_torch.experiments import bell_pair_proto as p2
+    from cgx_torch.experiments import halfblock_proto as p3
+    from cgx_torch.experiments import interleaved_ms
+    from cgx_torch.experiments import tier_proto as p1
+    from cgx_torch.kernels import bsr as kb
+    from cgx_torch.kernels import wbell as kw
+
+    a, op, plan = thermal
+    n, nt = a.shape[0], op.nt
+    rng = np.random.default_rng(SEED + 20)
+    xs4 = torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32)
+                           ).to(dev)
+    xb = torch.stack([op.to_internal(xs4[:, c]) for c in range(4)])
+    xst = kw.to_stacked(xb)
+    a64 = torch.sparse_csr_tensor(a.indptr, a.col_indices, a.values.double(),
+                                  size=a.shape, check_invariants=False)
+
+    # The prototypes' host builds (set-up, before the path).
+    t0 = time.perf_counter()
+    tv, tl, tpg, steps = p1.build_tiers(op, 8)
+    twalk = p1.tier_walk(tpg, tv, nt)
+    torch.cuda.synchronize()
+    t_tiers = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hv, hlc, hog, hga, hfill, hreal = p3.build_halfblock(a, 16, device=dev)
+    hpk = (hog << 16) | hga
+    hwalk = p3.half_walk(hpk, hlc, hv, nt, 16)
+    torch.cuda.synchronize()
+    t_half = time.perf_counter() - t0
+    kept7 = int(op.resident_walk[0].numel())
+    kept1, kept3 = int(twalk[0].numel()), int(hwalk[0].numel())
+    print(f"E2 build_tiers on thermal2: {t_tiers:.2f} s (host), steps "
+          f"{steps} x 8, {kept1} non-zero planes (K8's plan {plan.steps})")
+    print(f"E3 build_halfblock on thermal2 (span 16): {t_half:.2f} s (host), "
+          f"fill {hfill:.2f}x, {hreal} planes ({kept3} non-zero); the 8x8 "
+          f"build: fill {op.nnz_stored / a.nnz:.2f}x, {kept7} non-zero "
+          f"planes")
+    a1, x1, _ = bells["B1"]
+    a2, x2, _ = bells["B2"]
+    a3, _ = random_bell(300, SEED + 3, dev)
+    x3 = torch.from_numpy(np.random.default_rng(SEED + 21).standard_normal(
+        (a3.shape[1], 256), dtype=np.float32)).to(dev)
+
+    def tier(x):
+        return p1.tier_spmm(tpg, tl, tv, x, steps=steps, splane=8,
+                            walk=twalk)
+
+    def tier_plain(x):
+        return p1.tier_spmm_reference(tpg, tl, tv, x, steps=steps, splane=8,
+                                      walk=twalk)
+
+    def half(x):
+        return p3.half_spmv(hpk, hlc, hv, x, span=16, splane=64, walk=hwalk)
+
+    def half_plain(x):
+        return p3.half_reference(hpk, hlc, hv, x, span=16, splane=64,
+                                 walk=hwalk)
+
+    def paired(a_, x_):
+        return p2.bell_spmm_paired(a_.block_cols, a_.values,
+                                   x_.reshape(-1, BELL_BS, x_.shape[1]),
+                                   k=x_.shape[1]).reshape(-1, x_.shape[1])
+
+    def paired_plain(a_, x_):
+        return p2.bell_pair_reference(a_.block_cols, a_.values,
+                                      x_.reshape(-1, BELL_BS, x_.shape[1]),
+                                      k=x_.shape[1]).reshape(-1, x_.shape[1])
+
+    counters = ((kw, "wbell_stacked_launches"), (p1, "tier_spmm_launches"),
+                (p3, "half_spmv_launches"), (kb, "bell_prefetch_launches"),
+                (p2, "bell_pair_launches"))
+    for m, nm in counters:
+        setattr(m, nm, 0)
+    errs = {}
+
+    # -- E1. K10: the stacked layout, k = 4 -----------------------------------
+    y10 = kw.wbell_spmm_stacked(op, xst)
+    again = kw.wbell_spmm_stacked(op, xst)
+    y7 = kw.wbell_spmm(op, xb)
+    torch.cuda.synchronize()
+    y10_ref = kw.wbell_stacked_reference(op, xst)
+    errs["K10"] = float((y10 - y10_ref).abs().max())
+    same7 = torch.equal(kw.from_stacked(y10), y7)
+    print(f"E1 K10 thermal2 k=4: from_stacked(K10) equal to K7 bit for bit: "
+          f"{same7}; equal to its plain version: "
+          f"{torch.equal(y10, y10_ref)}; two runs equal: "
+          f"{torch.equal(y10, again)}")
+    check(same7, "E1: K10 differs from K7")
+    check(torch.equal(y10, y10_ref), "E1: K10 differs from its plain version")
+    check(torch.equal(y10, again), "E1: two K10 runs differ")
+
+    # -- E2. P1: the tiered single call, k = 1 and 4 --------------------------
+    errs["P1"] = 0.0
+    for k in (1, 4):
+        y = tier(xb[:k])
+        torch.cuda.synchronize()
+        y_ref = tier_plain(xb[:k])
+        e7 = maxrel(y, y7[:k])
+        errs["P1"] = max(errs["P1"], float((y - y_ref).abs().max()))
+        print(f"E2 P1 thermal2 k={k}: equal to its plain version: "
+              f"{torch.equal(y, y_ref)}; max|y - K7| / max|K7| {e7:.3e} "
+              f"(bound 1e-5)")
+        check(torch.equal(y, y_ref), f"E2 k={k}: P1 differs from its plain "
+              "version")
+        check(e7 <= 1e-5, f"E2 k={k}: P1 is {e7} from K7")
+
+    # -- E3. P3: the 4x8 half-blocks, k = 1 -----------------------------------
+    y = half(xb[:1])
+    torch.cuda.synchronize()
+    y_ref = half_plain(xb[:1])
+    errs["P3"] = float((y - y_ref).abs().max())
+    y64 = (a64 @ xs4[:, :1].double())[:, 0]
+    e64 = maxrel(op.from_internal(y[0]), y64)
+    print(f"E3 P3 thermal2: equal to its plain version: "
+          f"{torch.equal(y, y_ref)}; vs the fp64 CSR product through the "
+          f"permutation, max rel-to-peak {e64:.3e} (bound 1e-5)")
+    check(torch.equal(y, y_ref), "E3: P3 differs from its plain version")
+    check(e64 <= 1e-5, f"E3: P3 is {e64} from the fp64 product")
+
+    # -- E4. K12: the chunked engine; E5. P2: paired slots --------------------
+    k12 = {}
+    for label, a_, x_ in (("B1 fp32", a1, x1), ("B2 bf16", a2, x2),
+                          ("300 block rows fp32", a3, x3)):
+        before = kb.bell_prefetch_launches
+        y = kb.bell_spmm(a_, x_, engine="prefetch")
+        torch.cuda.synchronize()
+        chunks = kb.bell_prefetch_launches - before
+        y11 = kb.bell_spmm(a_, x_)
+        y_ref = kb.bell_prefetch_reference(a_, x_)
+        y64 = product64(a_, x_)
+        e64 = float(np.abs(y.double().cpu().numpy() - y64).max())
+        k12[label] = float((y - y_ref).abs().max())
+        want = -(-a_.values.shape[0] // kb.PREFETCH_ROWS)
+        print(f"E4 K12 {label} k={x_.shape[1]}: {chunks} chunk launches; "
+              f"equal to K11 bit for bit: {torch.equal(y, y11)}; max|y - "
+              f"plain| {k12[label]:.3e}; max|y - fp64| {e64:.3e} (bound "
+              f"1e-5 * {np.abs(y64).max():.3e})")
+        check(chunks == want, f"E4 {label}: {chunks} launches for {want} "
+              "chunks")
+        check(torch.equal(y, y11), f"E4 {label}: K12 differs from K11")
+        check(e64 <= 1e-5 * float(np.abs(y64).max()),
+              f"E4 {label}: K12 is {e64} from the fp64 product")
+        if label == "300 block rows fp32":
+            continue
+        y2 = paired(a_, x_)
+        torch.cuda.synchronize()
+        y2_ref = paired_plain(a_, x_)
+        errs["P2", label] = float((y2 - y2_ref).abs().max())
+        print(f"E5 P2 {label}: equal to K11 bit for bit: "
+              f"{torch.equal(y2, y11)}; max|y - plain| "
+              f"{errs['P2', label]:.3e} (bound 1e-5 * "
+              f"{float(y2_ref.abs().max()):.3e})")
+        check(torch.equal(y2, y11), f"E5 {label}: P2 differs from K11")
+        check(errs["P2", label] <= 1e-5 * float(y2_ref.abs().max()),
+              f"E5 {label}: P2 disagrees with its plain version")
+    errs["K12"] = k12["B1 fp32"]
+    try:
+        p2.bell_spmm_paired(a1.block_cols[:, :7], a1.values[:, :7],
+                            x1.reshape(-1, BELL_BS, 256), k=256)
+        odd = False
+    except ValueError:
+        odd = True
+    print(f"E5 P2 with wb 7 raises ValueError: {odd}")
+    check(odd, "E5: an odd wb did not raise")
+    launches = {nm: getattr(m, nm) for m, nm in counters}
+    print(f"E1-E5 launches: {launches}")
+    check(launches == {"wbell_stacked_launches": 2, "tier_spmm_launches": 2,
+                       "half_spmv_launches": 1, "bell_prefetch_launches": 8,
+                       "bell_pair_launches": 2},
+          f"E1-E5 did not launch each kernel as driven: {launches}")
+
+    # -- E6. times ------------------------------------------------------------
+    a32 = torch.sparse_csr_tensor(a.indptr, a.col_indices, a.values.float(),
+                                  size=a.shape, check_invariants=False)
+    x1c = xs4[:, :1].contiguous()
+    w4 = interleaved_ms({
+        "K7": lambda: kw.wbell_spmm(op, xb),
+        "K8": lambda: kw.wbell_spmm_tiered(plan, xb),
+        "K10": lambda: kw.wbell_spmm_stacked(op, xst),
+        "P1": lambda: tier(xb),
+        "CSR": lambda: a32 @ xs4})
+    w1 = interleaved_ms({
+        "K7": lambda: kw.wbell_spmm(op, xb[:1]),
+        "P1": lambda: tier(xb[:1]),
+        "P3": lambda: half(xb[:1]),
+        "CSR": lambda: a32 @ x1c})
+    wp = interleaved_ms({
+        "K10": lambda: kw.wbell_stacked_reference(op, xst),
+        "P1 k=4": lambda: tier_plain(xb),
+        "P1 k=1": lambda: tier_plain(xb[:1]),
+        "P3": lambda: half_plain(xb[:1])}, reps=3, inner=1)
+    for k, ms in ((4, w4), (1, w1)):
+        print(f"[{card}] E6 thermal2 k={k} (us/call): "
+              + ", ".join(f"{nm} {t * 1e3:.1f}" for nm, t in ms.items())
+              + f"; per RHS K7 {ms['K7'] * 1e3 / k:.1f}"
+              + (f", K10 {ms['K10'] * 1e3 / k:.1f}" if k == 4 else ""))
+    print(f"[{card}] E6 plain versions (us/call): "
+          + ", ".join(f"{nm} {t * 1e3:.1f}" for nm, t in wp.items()))
+
+    def bsr_ms(arrays, size, x):
+        """ms of torch's BSR product of the same matrix, or None where it
+        raises for the dtype (as in B5)."""
+        crow, col, vals = arrays
+        m = torch.sparse_bsr_tensor(crow, col, vals.to(x.dtype), size=size,
+                                    check_invariants=False)
+        try:
+            return interleaved_ms({"BSR": lambda: m @ x}, inner=5)["BSR"]
+        except (RuntimeError, NotImplementedError) as exc:
+            print(f"E6: torch's BSR product raised {type(exc).__name__}")
+            return None
+
+    bt = {}
+    for label in ("B1", "B2"):
+        a_, x_, arrays = bells[label]
+        bt[label] = interleaved_ms({
+            "K11": lambda: kb.bell_spmm(a_, x_),
+            "K12": lambda: kb.bell_spmm(a_, x_, engine="prefetch"),
+            "P2": lambda: paired(a_, x_)}, inner=5)
+        bt[label].update(interleaved_ms({
+            "K12 plain": lambda: kb.bell_prefetch_reference(a_, x_),
+            "P2 plain": lambda: paired_plain(a_, x_)}, reps=3, inner=2))
+        bt[label]["BSR"] = bsr_ms(arrays, a_.shape, x_)
+        print(f"[{card}] E6 {label} k=256 (us/call): "
+              + ", ".join(f"{nm} {t * 1e3:.1f}" if t is not None
+                          else f"{nm} n/a" for nm, t in bt[label].items()))
+
+    def wbell_bound(kept, plane_words, k):
+        # Kept planes (values + lc) and their two indices, x in and y out;
+        # 2 flops per stored value and column.
+        return bound(kept * ((plane_words + 128) * 4 + 8)
+                     + 2 * k * nt * 1024 * 4,
+                     kept * plane_words * 2 * k)
+
+    nbr1 = a1.values.shape[0]
+    b1 = bound(nbr1 * BELL_WB * (BELL_BS * BELL_BS * 4 + 4)
+               + a1.shape[1] * 256 * 4 + nbr1 * BELL_BS * 256 * 4,
+               2.0 * nbr1 * BELL_WB * BELL_BS * BELL_BS * 256)
+    b10, b1t = wbell_bound(kept7, 8192, 4), wbell_bound(kept1, 8192, 4)
+    b3 = wbell_bound(kept3, 4096, 1)
+    for label, b in (("K10 k=4", b10), ("P1 k=4", b1t), ("P3 k=1", b3),
+                     ("K12/P2 B1", b1)):
+        print(f"E6 bound {label}: {b[0] * 1e3:.1f} us ({b[1]})")
+
+    def entry(name, source, replaces, key, err, ms, plain_ms, b, lib):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": lib}
+
+    wsrc, bsrc = "cgx_torch/csrc/wbell.cu", "cgx_torch/csrc/bsr.cu"
+    return [
+        entry("wbell_spmm_stacked", wsrc, "cgx/kernels/wbell.py:384",
+              "wbell_stacked_launches", errs["K10"], w4["K10"], wp["K10"],
+              b10, w4["CSR"]),
+        entry("bell_spmm_prefetch", bsrc, "cgx/kernels/bsr.py:215",
+              "bell_prefetch_launches", errs["K12"], bt["B1"]["K12"],
+              bt["B1"]["K12 plain"], b1, bt["B1"]["BSR"]),
+        entry("tier_spmm", wsrc, "experiments/tier_proto.py:53",
+              "tier_spmm_launches", errs["P1"], w4["P1"], wp["P1 k=4"], b1t,
+              w4["CSR"]),
+        entry("bell_spmm_paired", bsrc, "experiments/bell_pair_proto.py:16",
+              "bell_pair_launches", errs["P2", "B1 fp32"], bt["B1"]["P2"],
+              bt["B1"]["P2 plain"], b1, bt["B1"]["BSR"]),
+        entry("half_spmv", wsrc, "experiments/halfblock_proto.py:93",
+              "half_spmv_launches", errs["P3"], w1["P3"], wp["P3"], b3,
+              w1["CSR"]),
+    ]
 
 
 def seeded_rhs(n, dev):
@@ -2229,8 +2528,8 @@ def main() -> None:
     from cgx_torch.kernels import stencil as k1
     from cgx_torch.kernels.fused_cg import stencil_taps
 
-    check("jax" not in sys.modules and "cgx" not in sys.modules,
-          "the port imported JAX or the JAX package")
+    check(not {"jax", "cgx", "experiments"} & set(sys.modules),
+          "the port imported JAX, the JAX package or its experiments")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     name = torch.cuda.get_device_name(0)
@@ -2639,9 +2938,11 @@ def main() -> None:
           f"product of Ã alone {t_csr7 * 1e3:.2f} us), B "
           f"{t_b * 1e3:.2f} us (plain {t_bp * 1e3:.2f} us)")
 
-    w_entries = wbell_phases(dev, card)
+    w_entries, thermal = wbell_phases(dev, card)
     m_entries = multi_phases(dev, card, dias)
-    b_entries = bsr_phases(dev, card)
+    b_entries, bells = bsr_phases(dev, card)
+    e_entries = proto_phases(dev, card, thermal, bells)
+    del thermal, bells
     x_entries = mixed_phases(dev, card, dias, fp64_solution, relres_of)
     s_entries = sr_phases(dev, card, dias, fp64_solution, relres_of)
 
@@ -2686,7 +2987,8 @@ def main() -> None:
         entry("fused_kernel_b", "cgx_torch/csrc/fused_engine.cu",
               "cgx/kernels/fused_engine.py:411", launches["k3_b"],
               k3_err["b"], t_b, t_bp, k3b_b),
-    ] + w_entries + m_entries + b_entries + x_entries + s_entries}
+    ] + w_entries + m_entries + b_entries + x_entries + s_entries
+        + e_entries}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -341,10 +341,14 @@ def test_port_imports_no_jax():
             "cgx_torch.kernels.fused_multi, cgx_torch.solve.block, "
             "cgx_torch.kernels, cgx_torch.kernels.bsr, cgx_torch.io.legacy, "
             "cgx_torch.ops.spmv, cgx_torch.kernels.fused_semiresident, "
-            "cgx_torch.kernels.fused_onepass, sys; "
+            "cgx_torch.kernels.fused_onepass, cgx_torch.experiments, "
+            "cgx_torch.experiments.tier_proto, "
+            "cgx_torch.experiments.bell_pair_proto, "
+            "cgx_torch.experiments.halfblock_proto, sys; "
             "from cgx_torch.kernels import *; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert 'cgx' not in sys.modules, 'cgx imported'")
+            "assert 'cgx' not in sys.modules, 'cgx imported'; "
+            "assert 'experiments' not in sys.modules, 'experiments imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -380,7 +384,8 @@ def test_chip_smoke_imports_no_jax_and_needs_a_card():
              for a in node.names]
     names += [node.module for node in ast.walk(tree)
               if isinstance(node, ast.ImportFrom) and node.module]
-    assert not [m for m in names if m.split(".")[0] in ("jax", "cgx")]
+    assert not [m for m in names
+                if m.split(".")[0] in ("jax", "cgx", "experiments")]
     if torch.cuda.is_available():
         return
     proc = subprocess.run([sys.executable, path], cwd=ROOT,

@@ -309,10 +309,14 @@ def test_bell_plain_bf16_operands_fp32_out():
 
 
 def test_bell_engine_and_shape_errors():
-    _, p = _both_bell(_poisson(), 8)
+    j, p = _both_bell(_poisson(), 8)
     x = t(np.ones((p.shape[1], 2), np.float32))
-    with pytest.raises(NotImplementedError, match="K12"):
-        tbsr.bell_spmm(p, x, engine="prefetch")
+    # "prefetch" (K12) computes K11's Y, in chunks of 256 block rows.
+    y = tbsr.bell_spmm(p, x, engine="prefetch")
+    assert torch.equal(y, tbsr.bell_spmm(p, x, engine="resident"))
+    want = np.asarray(jbsr.bell_spmm(j, jnp.asarray(n_(x)), interpret=True,
+                                     engine="prefetch"))
+    assert _maxrel(n_(y), want) <= 1e-5
     with pytest.raises(ValueError, match="unknown engine"):
         tbsr.bell_spmm(p, x, engine="mxu")
     with pytest.raises(ValueError, match="x must be"):

@@ -980,3 +980,133 @@ def test_k6_single_step_matches_plain(cuda_device):
         assert _same_sum(g, r)
     with pytest.raises(ValueError, match="constant-coefficient"):
         k6.OnePassCG(4, 4, 4, ((0, 0, 0),), coeffs=(None,))
+
+
+# -- K10, K12 and the prototypes P1–P3 -----------------------------------------
+
+@pytest.mark.parametrize("case,k,bf16", [
+    ("one_group", 3, False), ("five_groups", 9, False), ("thermal", 4, False),
+    ("five_groups", 4, True)])
+def test_k10_equals_k7_and_plain(cuda_device, case, k, bf16):
+    """K10 reads and writes the stacked layout and sums as K7: equal to
+    K7's Y (restacked) and to its plain version bit for bit, one launch,
+    two runs equal.  k = 9 runs two column chunks."""
+    a = _wbell(case, cuda_device, torch.bfloat16 if bf16 else None)
+    xb = t(np.random.default_rng(k).standard_normal(
+        (k, a.nt, 8, 128)).astype(np.float32), cuda_device)
+    xs = kw.to_stacked(xb)
+    before = kw.wbell_stacked_launches
+    y = kw.wbell_spmm_stacked(a, xs)
+    torch.cuda.synchronize()
+    assert kw.wbell_stacked_launches == before + 1
+    assert torch.equal(y, kw.to_stacked(kw.wbell_spmm(a, xb)))
+    assert torch.equal(y, kw.wbell_stacked_reference(a, xs))
+    assert torch.equal(kw.wbell_spmm_stacked(a, xs), y)
+    with pytest.raises(TypeError, match="float32 vectors"):
+        kw._launch("cgx_wbell_stacked", "K10", a.values, a.lc, xs.double(),
+                   *a.resident_walk, a.p_ga, nt=a.nt, nrhs=k)
+
+
+@pytest.mark.parametrize("nbr,bs,k,dtype", [
+    (300, 8, 7, torch.float32), (513, 16, 64, torch.float32),
+    (260, 64, 33, torch.bfloat16)])
+def test_k12_equals_k11_in_chunks(cuda_device, nbr, bs, k, dtype):
+    """"prefetch" launches K11's kernel once per chunk of 256 block rows
+    (the last one ragged) into one Y: equal to K11 bit for bit."""
+    a = _bell(nbr, 2, bs, 70 + nbr, cuda_device, dtype=dtype)
+    x = t(np.random.default_rng(nbr).standard_normal(
+        (a.shape[1], k)).astype(np.float32), cuda_device).to(dtype)
+    before = (kb.bell_spmm_launches, kb.bell_prefetch_launches)
+    y = kb.bell_spmm(a, x, engine="prefetch")
+    torch.cuda.synchronize()
+    chunks = -(-nbr // kb.PREFETCH_ROWS)
+    assert (kb.bell_spmm_launches, kb.bell_prefetch_launches) == (
+        before[0], before[1] + chunks)
+    assert torch.equal(y, kb.bell_spmm(a, x))
+    ref = kb.bell_prefetch_reference(a, x)
+    assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("wb,bs,k,dtype", [
+    (2, 8, 1, torch.float32), (4, 16, 70, torch.float32),
+    (8, 64, 256, torch.float32), (2, 128, 64, torch.float32),
+    (4, 64, 33, torch.bfloat16), (2, 37, 5, torch.float32)])
+def test_p2_equals_k11(cuda_device, wb, bs, k, dtype):
+    """Two slots per shared-memory round, the same FMAs in the same order:
+    equal to K11 bit for bit (bs 128 uses 197 KB of shared memory)."""
+    from cgx_torch.experiments import bell_pair_proto as p2
+
+    a = _bell(24, wb, bs, 50 + bs + k, cuda_device, dtype=dtype)
+    x = t(np.random.default_rng(k).standard_normal(
+        (a.shape[1], k)).astype(np.float32), cuda_device).to(dtype)
+    before = p2.bell_pair_launches
+    y = p2.bell_spmm_paired(a.block_cols, a.values, x.reshape(-1, bs, k),
+                            k=k)
+    torch.cuda.synchronize()
+    assert p2.bell_pair_launches == before + 1
+    assert torch.equal(y.reshape(-1, k), kb.bell_spmm(a, x))
+    ref = p2.bell_pair_reference(a.block_cols, a.values,
+                                 x.reshape(-1, bs, k), k=k)
+    assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    odd = _bell(4, 3, 8, 1, cuda_device)
+    with pytest.raises(ValueError, match="even"):
+        p2.bell_spmm_paired(odd.block_cols, odd.values,
+                            torch.zeros((4, 8, 2), device=cuda_device), k=2)
+
+
+@pytest.mark.parametrize("case,k", [("thermal", 1), ("thermal", 4),
+                                    ("five_groups", 3)])
+def test_p1_equals_plain_and_k7(cuda_device, case, k):
+    """P1 runs K8's kernel over build_tiers' arrays in class-major order:
+    equal to its plain version bit for bit, to K7 within fp32 summation
+    order."""
+    from cgx_torch.experiments import tier_proto as p1
+
+    a = _wbell(case, cuda_device)
+    v, lc, pg, steps = p1.build_tiers(a, 8)
+    x = t(np.random.default_rng(k).standard_normal(
+        (k, a.nt, 8, 128)).astype(np.float32), cuda_device)
+    before = (p1.tier_spmm_launches, kw.wbell_tiered_launches)
+    y = p1.tier_spmm(pg, lc, v, x, steps=steps, splane=8)
+    torch.cuda.synchronize()
+    assert (p1.tier_spmm_launches, kw.wbell_tiered_launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(y, p1.tier_spmm_reference(pg, lc, v, x, steps=steps,
+                                                 splane=8))
+    y7 = kw.wbell_spmm(a, x)
+    assert float((y - y7).abs().max()) <= 1e-5 * float(y7.abs().max())
+
+
+@pytest.mark.parametrize("case", ["thermal", "five_groups"])
+def test_p3_equals_plain_and_fp64(cuda_device, case):
+    """P3 over half-block planes built on the host: equal to its plain
+    version bit for bit, within 1e-5 of the fp64 product (of the peak)."""
+    import scipy.sparse as sp
+    from cgx_torch.experiments import halfblock_proto as p3
+    from cgx_torch.io.suitesparse import standin
+
+    if case == "thermal":
+        s = standin("thermal2", scale=0.004, device="cpu")
+        s = sp.csr_matrix((s.values.numpy().astype(np.float64),
+                           s.col_indices.numpy(), s.indptr.numpy()),
+                          shape=s.shape)
+    else:
+        r = sp.random(5000, 5000, density=0.002, random_state=5000,
+                      format="csr")
+        s = sp.csr_matrix((r + r.T) + sp.eye(5000) * 12.0)
+    a = cgx_torch.wbell_from_csr(s, device=cuda_device)
+    v, lc, og, ga, _, _ = p3.build_halfblock(s, 16, device=cuda_device)
+    packed = (og << 16) | ga
+    xv = np.random.default_rng(3).standard_normal(s.shape[0]).astype(
+        np.float32)
+    xi = a.to_internal(t(xv, cuda_device))[None]
+    before = p3.half_spmv_launches
+    y = p3.half_spmv(packed, lc, v, xi, span=16, splane=64)
+    torch.cuda.synchronize()
+    assert p3.half_spmv_launches == before + 1
+    assert torch.equal(y, p3.half_reference(packed, lc, v, xi, span=16,
+                                            splane=64))
+    assert torch.equal(p3.half_spmv(packed, lc, v, xi, span=16, splane=64), y)
+    truth = s @ xv.astype(np.float64)
+    got = a.from_internal(y[0]).double().cpu().numpy()
+    assert np.abs(got - truth).max() <= 1e-5 * np.abs(truth).max()
