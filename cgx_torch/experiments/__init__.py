@@ -11,6 +11,10 @@ was measured against:
 * :mod:`~cgx_torch.experiments.halfblock_proto` (P3): the 4×8 half-block
   WBELL SpMV (``csrc/wbell.cu``).
 
+:mod:`~cgx_torch.experiments.bell_sweep` is no prototype: it times K11's
+tiled path against its general path over fp32 block sizes and ``k``, the
+measurement behind ``bell_plan``'s rule for small blocks.
+
 Run one on the card from the repository root, for example
 ``python3 -m cgx_torch.experiments.tier_proto thermal2 1.0 1,4``.  A
 ``main()`` exits non-zero without a card: the timings have no CPU mode.

@@ -2,10 +2,11 @@
 
 The prototype fuses two slots of a block row into one (bs, 2bs)·(2bs, k)
 contraction per step, against K11's one (bs, bs)·(bs, k) per slot.  Its
-CUDA kernel (``cgx_bell_spmm_paired`` in ``cgx_torch/csrc/bsr.cu``) is
-K11's with two slots staged per shared-memory round: half the barriers and
-loop trips per block row, the same fused multiply-add per term in the same
-order, so its ``Y`` equals K11's bit for bit.  ``wb`` must be even (the
+CUDA entry (``cgx_bell_spmm_paired`` in ``cgx_torch/csrc/bsr.cu``) is
+K11's with two slots staged per shared-memory round, on the path
+``bell_plan(..., slots=2)`` gives (K11's path for the shape): half the
+barriers and loop trips per block row, the same terms in the same order, so
+its ``Y`` equals K11's bit for bit.  ``wb`` must be even (the
 reference asserts it; here it raises ``ValueError``).  The plain version
 :func:`bell_pair_reference` does one matmul per pair of slots.
 ``bell_pair_launches`` counts launches.
@@ -74,9 +75,9 @@ def bell_spmm_paired(block_cols: torch.Tensor, values: torch.Tensor,
     values, cols, x = kb.checked_operands("bell_spmm_paired", values,
                                           block_cols, xb.reshape(-1, k))
     y = torch.empty((nbr * bs, k), dtype=torch.float32, device=x.device)
-    bell_pair_launches += kb.launch_rows(
-        "cgx_bell_spmm_paired", "bell_spmm_paired", values, cols, x, y, 0,
-        nbr)
+    if kb.launch_rows("cgx_bell_spmm_paired", "bell_spmm_paired", values,
+                      cols, x, y, 0, nbr, slots=2) is not None:
+        bell_pair_launches += 1
     return y.reshape(nbr, bs, k)
 
 

@@ -134,10 +134,11 @@ def _numpy(v) -> np.ndarray:
     return np.asarray(v)
 
 
-def tensor_from_numpy(v, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(v, device="cuda") -> torch.Tensor:
     """A copy of an array (numpy, a tensor, or anything ``np.asarray``
-    takes, such as a JAX array) as a tensor on ``device``.  bfloat16
-    (a tensor, or numpy's ``ml_dtypes`` type) stays bfloat16."""
+    takes, such as a JAX array) as a tensor on ``device`` (the card unless
+    the caller asks for the CPU; without a card the default raises).
+    bfloat16 (a tensor, or numpy's ``ml_dtypes`` type) stays bfloat16."""
     dev = resolve_device(device)
     if isinstance(v, torch.Tensor):
         return v.detach().to(dev, copy=True)

@@ -27,8 +27,20 @@ The wrapper launches K11 for a CUDA tensor and takes the plain version
 values with float32 ``X`` or bfloat16 with bfloat16, ``bs`` up to 128, and
 returns float32; the plain version takes any dtype.  As in the JAX
 package the output is float32 when ``X``'s item size is below 4 bytes
-(a wide accumulator), else ``X``'s dtype.  ``bell_spmm_launches`` counts
-launches.
+(a wide accumulator), else ``X``'s dtype.
+
+K11 has four paths, all hand-written CUDA, and :func:`bell_plan` chooses
+one from ``(bs, k, dtype)`` and whether the operands' pointers are 16-byte
+aligned, never from the number of block rows or slots: ``"tiled"``
+(float32 register tiles, bs a multiple of 8, k >= 16), ``"mma"`` (bfloat16
+on the tensor cores, bs a multiple of 16), ``"rows"`` (float32, bs <= 16
+and k <= 8) and ``"general"`` (every other shape, and any unaligned
+pointer).  The tiled path's blocks of 2 to 4 threads (bs 8 with k <= 32,
+bs 16 with k 16) lose to the general path and are left to it;
+:mod:`cgx_torch.experiments.bell_sweep` times the two paths over bs and
+k.  ``bell_tiled_launches``, ``bell_mma_launches``,
+``bell_rows_launches`` and ``bell_general_launches`` count K11's launches
+by path; ``bell_spmm_launches`` is their sum.
 """
 from __future__ import annotations
 
@@ -39,20 +51,41 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["BlockELL", "bell_from_bsr", "bell_spmm", "bell_spmv",
-           "bell_spmm_reference", "bell_prefetch_reference",
-           "bell_spmm_launches", "bell_prefetch_launches", "MAX_BLOCKSIZE",
-           "PREFETCH_ROWS"]
+__all__ = ["BlockELL", "BellPlan", "bell_from_bsr", "bell_plan",
+           "bell_spmm", "bell_spmv", "bell_spmm_reference",
+           "bell_prefetch_reference", "bell_spmm_launches",
+           "bell_tiled_launches", "bell_mma_launches", "bell_rows_launches",
+           "bell_general_launches", "bell_path_launches",
+           "bell_prefetch_launches",
+           "MAX_BLOCKSIZE", "PATHS", "PREFETCH_ROWS", "SMEM_MAX"]
 
 # Kernel launches so far (a run resets them to show that it used the kernel).
+# K11's by path; bell_spmm_launches is their sum.  K12's chunks and P2 count
+# on their own counters.
 bell_spmm_launches = 0
+bell_tiled_launches = 0
+bell_mma_launches = 0
+bell_rows_launches = 0
+bell_general_launches = 0
 bell_prefetch_launches = 0
-# The largest block K11 takes: its shared memory holds one (bs, bs) block
-# and one (bs, 64) tile of X.
+# The largest block K11 takes: the general path's shared memory holds one
+# (bs, bs) block and one (bs, 64) tile of X.
 MAX_BLOCKSIZE = 128
 # K12's chunk of block rows (the JAX package's _MAX_PREFETCH_ROWS).
 PREFETCH_ROWS = 256
 _ENGINES = ("auto", "resident", "dma", "prefetch")
+# K11's paths, in the C entry's numbering.
+PATHS = ("general", "tiled", "mma", "rows")
+# Shared memory a block may use on the H100 (227 KB).
+SMEM_MAX = 232448
+_MAX_THREADS = 256        # the general, tiled and mma paths' blocks
+_ROWS_THREADS = 256       # the rows path's block, at most
+_TILED_PAD = 4            # fp32 words of padding per staged value row
+# The fewest threads of a tiled block that the plan chooses: at 2-4 the
+# general path was 1.2-2.4x faster (bell_sweep on the H100).
+_TILED_MIN_THREADS = 5
+_MMA_PAD = 8              # bf16 elements of padding per staged row
+_MMA_STAGES = 2           # the mma path's cp.async ring
 
 
 @dataclass(frozen=True, eq=False)
@@ -137,6 +170,110 @@ def bell_prefetch_reference(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+@dataclass(frozen=True)
+class BellPlan:
+    """How K11's CUDA entry runs one call: the path, the column tile (the
+    rows path: ``k``), the threads per block, the dynamic shared memory in
+    bytes, the block rows per CUDA block and the column tiles across
+    ``k``."""
+
+    path: str
+    tile: int
+    threads: int
+    smem: int
+    row_block: int
+    col_tiles: int
+
+    def grid(self, nbr: int) -> Tuple[int, int]:
+        """The launch grid over ``nbr`` block rows: ``(nbr, col_tiles)``
+        on the general path; one dimension on the others (the column tile
+        fastest, so a block row's tiles run side by side).  The C entry
+        launches this grid after checking it against its own."""
+        if self.path == "general":
+            return nbr, self.col_tiles
+        return -(-nbr // self.row_block) * self.col_tiles, 1
+
+
+def _pow2_at_least(v: int) -> int:
+    p = 1
+    while p < v:
+        p *= 2
+    return p
+
+
+def _mma_ni(bs: int) -> int:
+    """n-tiles of 8 columns per warp on the mma path (at most 64 fp32
+    accumulators a thread)."""
+    mi = bs // 16
+    return 8 if mi <= 2 else (4 if mi <= 4 else 2)
+
+
+def _tiled_tile(k: int) -> int:
+    """The tiled path's widest column tile for ``k`` columns."""
+    return 128 if k > 64 else 64 if k > 32 else 32 if k > 16 else 16
+
+
+def _takes(path: str, bs: int, k: int, bf16: bool, aligned: bool) -> bool:
+    """Whether ``path``'s kernel runs the shape."""
+    if path == "general":
+        return True
+    if not aligned:
+        return False
+    if path == "mma":
+        return bf16 and bs % 16 == 0 and k % 8 == 0
+    if path == "rows":
+        return not bf16 and bs <= 16 and k <= 8
+    return not bf16 and bs % 8 == 0 and k >= 16 and k % 4 == 0
+
+
+def bell_plan(bs: int, k: int, dtype, aligned: bool, *, slots: int = 1,
+              path: str | None = None) -> BellPlan:
+    """The plan of a K11 call over ``(bs, bs)`` blocks of ``dtype`` and
+    ``k`` columns, with ``slots`` slots staged per round (1 for K11 and
+    K12, 2 for P2).  ``aligned``: whether values, x and y start at 16-byte
+    boundaries; where they do not, the general path.  ``path`` forces a
+    path whose kernel runs the shape (the tests', the smoke's and the
+    sweep's yardstick); it raises ``ValueError`` for one that does not.  A
+    pure function: the C entry recomputes the threads, the shared memory
+    and the grid and refuses a plan that disagrees."""
+    bf16 = dtype == torch.bfloat16
+    if path is None:
+        path = next(p for p in ("mma", "rows", "tiled", "general")
+                    if _takes(p, bs, k, bf16, aligned) and not (
+                        p == "tiled" and (bs // 8) * (_tiled_tile(k) // 8)
+                        < _TILED_MIN_THREADS))
+    elif path not in PATHS or not _takes(path, bs, k, bf16, aligned):
+        raise ValueError(f"bell_plan: the {path!r} path does not take bs "
+                         f"{bs}, k {k}, {dtype}, aligned {aligned}")
+    if path == "general":
+        kt = _pow2_at_least(min(k, 64))
+        threads = min(max(_pow2_at_least(bs * kt), 32), _MAX_THREADS)
+        smem = (bs * (slots * bs + 1) + slots * bs * kt) * 4
+        return BellPlan(path, kt, threads, smem, 1, -(-k // kt))
+    if path == "rows":
+        rpc = _ROWS_THREADS // bs
+        return BellPlan(path, k, rpc * bs, 0, rpc, 1)
+    if path == "tiled":
+        # The widest column tile whose one cp.async stage fits.
+        kt = _tiled_tile(k)
+        while slots * (bs * (bs + _TILED_PAD) + bs * kt) * 4 > SMEM_MAX:
+            kt //= 2     # bs 128 with two slots a round: kt 64
+        smem = slots * (bs * (bs + _TILED_PAD) + bs * kt) * 4
+        return BellPlan(path, kt, (bs // 8) * (kt // 8), smem, 1,
+                        -(-k // kt))
+    wn = 8 * _mma_ni(bs)
+    nw = 1
+    while nw < 8 and nw * wn < k:
+        nw *= 2
+    while True:
+        kt = nw * wn
+        smem = _MMA_STAGES * slots * (bs * (bs + _MMA_PAD)
+                                      + bs * (kt + _MMA_PAD)) * 2
+        if smem <= SMEM_MAX or nw == 1:
+            return BellPlan(path, kt, 32 * nw, smem, 1, -(-k // kt))
+        nw //= 2
+
+
 def checked_operands(what: str, values: torch.Tensor, cols: torch.Tensor,
                      x: torch.Tensor):
     """The contiguous ``(values, cols, x)`` of a block-ELL kernel call, after
@@ -158,42 +295,75 @@ def checked_operands(what: str, values: torch.Tensor, cols: torch.Tensor,
     return values.contiguous(), cols.contiguous(), x.contiguous()
 
 
-def launch_rows(fn: str, what: str, values, cols, x, y, r0: int,
-                r1: int) -> int:
-    """Launch C entry ``fn`` (K11's kernel or P2's) on block rows ``r0 ..
-    r1`` of checked operands: pointer offsets into ``values``, ``cols``
-    and ``y`` (float32, ``(nbr·bs, k)``), no copies.  Returns the number
-    of launches (0 for an empty ``y``)."""
+def operands_aligned(*ptrs: int) -> bool:
+    """Whether every pointer sits on a 16-byte boundary (the tiled, mma
+    and rows paths' 16-byte copies and float4 reads need it)."""
+    return all(p % 16 == 0 for p in ptrs)
+
+
+def launch_rows(fn: str, what: str, values, cols, x, y, r0: int, r1: int,
+                *, slots: int = 1, plan: BellPlan | None = None):
+    """Launch C entry ``fn`` (K11's kernel, ``slots`` 1, or P2's, 2) on
+    block rows ``r0 .. r1`` of checked operands: pointer offsets into
+    ``values``, ``cols`` and ``y`` (float32, ``(nbr·bs, k)``), no copies.
+    ``plan`` defaults to :func:`bell_plan`'s for the shape and the
+    pointers' alignment.  Returns the plan launched, or None for an empty
+    ``y`` (no launch)."""
     from cgx_torch.kernels import _build
 
     _, wb, bs, _ = values.shape
     k = x.shape[1]
     if r1 <= r0 or k == 0:
-        return 0
+        return None
+    vp = values.data_ptr() + r0 * wb * bs * bs * values.element_size()
+    yp = y.data_ptr() + r0 * bs * k * y.element_size()
+    if plan is None:
+        plan = bell_plan(bs, k, values.dtype,
+                         operands_aligned(vp, x.data_ptr(), yp), slots=slots)
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, fn)(
-            values.data_ptr() + r0 * wb * bs * bs * values.element_size(),
-            cols.data_ptr() + r0 * wb * cols.element_size(), x.data_ptr(),
-            y.data_ptr() + r0 * bs * k * y.element_size(), r1 - r0, wb, bs,
-            k, int(x.dtype == torch.bfloat16), stream)
-    _build.check(rc, f"{what} launch")
-    return 1
+            vp, cols.data_ptr() + r0 * wb * cols.element_size(),
+            x.data_ptr(), yp, r1 - r0, wb, bs, k,
+            int(x.dtype == torch.bfloat16), PATHS.index(plan.path),
+            plan.tile, plan.threads, plan.smem, *plan.grid(r1 - r0), stream)
+    _build.check(rc, f"{what} launch ({plan.path} path)")
+    return plan
 
 
-def _launch(a: BlockELL, x: torch.Tensor, chunk: int):
-    """Launch K11 over ``a`` in chunks of ``chunk`` block rows; return ``Y``
-    (float32) and the number of launches."""
+def _launch(a: BlockELL, x: torch.Tensor, chunk: int,
+            plan: BellPlan | None = None):
+    """Launch K11's entry over ``a`` in chunks of ``chunk`` block rows;
+    return ``Y`` (float32) and the plans launched."""
     values, cols, x = checked_operands("bell_spmm", a.values, a.block_cols,
                                        x)
     nbr, _, bs, _ = values.shape
     y = torch.empty((nbr * bs, x.shape[1]), dtype=torch.float32,
                     device=x.device)
-    launches = sum(launch_rows("cgx_bell_spmm", "bell_spmm", values, cols, x,
-                               y, r0, min(r0 + chunk, nbr))
-                   for r0 in range(0, nbr, chunk))
-    return y, launches
+    plans = [launch_rows("cgx_bell_spmm", "bell_spmm", values, cols, x, y,
+                         r0, min(r0 + chunk, nbr), plan=plan)
+             for r0 in range(0, nbr, chunk)]
+    return y, [p for p in plans if p is not None]
+
+
+def bell_path_launches() -> dict:
+    """K11's launches so far by path: ``{"tiled": n, "mma": n, "rows": n,
+    "general": n}``."""
+    return {p: globals()[f"bell_{p}_launches"] for p in PATHS}
+
+
+def _k11(a: BlockELL, x: torch.Tensor,
+         plan: BellPlan | None = None) -> torch.Tensor:
+    """K11 on the card, one launch, counted on its path; ``plan`` forces a
+    path (the tests' and the smoke's yardstick: not a :func:`bell_spmm`
+    option)."""
+    global bell_spmm_launches
+    y, plans = _launch(a, x, max(a.values.shape[0], 1), plan)
+    for p in plans:
+        bell_spmm_launches += 1
+        globals()[f"bell_{p.path}_launches"] += 1
+    return y
 
 
 def bell_spmm(a: BlockELL, x: torch.Tensor, *,
@@ -202,7 +372,7 @@ def bell_spmm(a: BlockELL, x: torch.Tensor, *,
     ``a.shape[1]``.  ``engine``: ``"auto"``, ``"resident"`` or ``"dma"``
     (K11, one launch), or ``"prefetch"`` (K12: K11's kernel once per chunk
     of :data:`PREFETCH_ROWS` block rows); all give the same ``Y``."""
-    global bell_spmm_launches, bell_prefetch_launches
+    global bell_prefetch_launches
     if engine not in _ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if x.dim() != 2 or x.shape[0] != a.shape[1]:
@@ -214,12 +384,10 @@ def bell_spmm(a: BlockELL, x: torch.Tensor, *,
                 else bell_spmm_reference)(a, x)
     if x.device.type != "cuda":
         raise ValueError(f"bell_spmm: unsupported device {x.device}")
-    nbr = a.values.shape[0]
-    y, launches = _launch(a, x, PREFETCH_ROWS if prefetch else max(nbr, 1))
-    if prefetch:
-        bell_prefetch_launches += launches
-    else:
-        bell_spmm_launches += launches
+    if not prefetch:
+        return _k11(a, x)
+    y, plans = _launch(a, x, PREFETCH_ROWS)
+    bell_prefetch_launches += len(plans)
     return y
 
 

@@ -74,20 +74,29 @@ Phases (any failed check exits nonzero, and no result line is printed):
     JAX package's block-dense record (512 block rows of 8 distinct seeded
     64×64 fp32 blocks, X (32768, k)) at k = 256 and 512, engines
     ``"auto"`` and ``"dma"``: against its plain version and a numpy fp64
-    product (1e-5 · max|y|), twice for reproducibility;
+    product (1e-5 · max|y|), twice for reproducibility; every launch on
+    the ``tiled`` path (K11's path counters);
 21. B2, bf16 operands at 1024 block rows, k = 256 (float32 out): against
     its plain version and, within 3e-2 in the 2-norm, the fp32 product;
+    on the ``mma`` path;
 22. B3, ``poisson3d(128, 128, 128)`` in fp32 through ``bsr_from_csr(·,
     8)`` and ``bell_from_bsr``: ``bell_spmv`` (k = 1) and ``bell_spmm``
-    (k = 4) against the CSR ``spmv``/``spmm``;
+    (k = 4) against the CSR ``spmv``/``spmm``; on the ``rows`` path;
 23. B4, the path as a user drives it (no kernel): ``auto_solve`` over the
     BSR and COO forms of ``poisson3d(64, 64, 64)`` (route ``"xla"``)
     against an fp64 solve and the CSR solve's count, ``cg_solve_multi``
     over the BSR with B (n, 4) against each column's solve, and the
     legacy 4-line file of ``poisson2d(256, 256)`` written, read back equal,
     and solved (``tol=0``, 50 updates, fp64) on the card against the CPU;
-24. B5, times: K11 in B1–B3 beside its plain version, its bound and
-    torch's BSR product (B3 also beside torch's CSR product);
+24. after the counts, B1 (k = 256, 512) and B3 (k = 1, 4) each equal to
+    K11's general path (its first kernel, forced through its plan) bit for
+    bit; then B5, times: K11 in B1–B3 on its path, interleaved with its
+    general path, its plain version and torch's BSR product (B3 also
+    torch's CSR product), each with its bound and share of the bound; each
+    path must beat the general path, and K11 torch's BSR product in B1 and
+    B2; then B3's operator at k = 32 (the general path: a tiled block would
+    have 4 threads) and k = 64 (tiled), each faster than the other path and
+    equal to it bit for bit;
 25. X1, mixed precision as a user drives it: ``auto_solve(
     poisson3d_stencil(224, 224, 224), b, mixed_precision=True)`` with b =
     ones and a seeded b, routed to ``ir_cg_solve`` with K3 in bf16 vectors
@@ -148,12 +157,13 @@ Phases (any failed check exits nonzero, and no result line is printed):
     on thermal2 (fill and planes beside the 8×8 build's), ``half_spmv``
     equal to its plain version bit for bit and within 1e-5 of the fp64 CSR
     product through the permutation;
-38. E4, K12 (``bell_spmm(engine="prefetch")``, K11's kernel per chunk of
-    256 block rows) on B1 (2 chunks), B2 (bf16, 4) and 300 seeded block
-    rows (256 + 44): each equal to K11 bit for bit and within 1e-5 of the
-    fp64 product;
-39. E5, the paired slots P2 (``bell_pair_proto``) on B1 and B2: equal to
-    K11 bit for bit; an odd wb raises;
+38. E4, K12 (``bell_spmm(engine="prefetch")``, K11's entry per chunk of
+    256 block rows, on K11's path) on B1 (2 chunks, tiled), B2 (bf16, 4,
+    mma) and 300 seeded block rows (256 + 44): each equal to K11 bit for
+    bit and within 1e-5 of the fp64 product;
+39. E5, the paired slots P2 (``bell_pair_proto``, K11's path with two
+    slots per round) on B1 and B2: equal to K11 bit for bit; an odd wb
+    raises;
 40. E6, times (CUDA events, interleaved medians): K10 and P1 beside K7 and
     K8 at k = 4, P1 and P3 beside K7 at k = 1, K12 and P2 beside K11 at B1
     and B2, each beside its plain version, its bound and torch's CSR or
@@ -166,7 +176,8 @@ its bytes, each input read once and each output written once, over 3.35
 TB/s, and its operations over 67 TFLOP/s fp32, or 989 TFLOP/s on the
 tensor cores for bf16 operands) and the time of one PyTorch call that
 computes the same function where there is one; the last line is
-``{"ok": true, "device": {...}}``.  Needs one CUDA card; it imports
+``{"ok": true, "device": {...}}``; K11's entry there also names its path
+at B1 and its launches by path.  Needs one CUDA card; it imports
 neither JAX nor the JAX package.
 """
 from __future__ import annotations
@@ -1088,8 +1099,20 @@ def bsr_phases(dev, card):
           "TF32 is on for fp32 matmuls")
     for (m, nm) in other_launches():
         setattr(m, nm, 0)
+    for p in kb.PATHS:
+        setattr(kb, f"bell_{p}_launches", 0)
     kb.bell_spmm_launches = 0
     phase_launches = {}
+
+    def took(label, want, before):
+        """Assert that K11's launches since ``before`` all took path
+        ``want`` (by the path counters); return them by path."""
+        now = kb.bell_path_launches()
+        moved = {p: now[p] - before[p] for p in now if now[p] != before[p]}
+        print(f"{label}: K11's launches by path {moved}")
+        check(set(moved) == {want}, f"{label} took the paths {moved}, not "
+              f"{want} alone")
+        return moved
 
     def held(label, run, plain, y64=None):
         """Run K11 once (one launch), hold it to its plain version (and to
@@ -1128,23 +1151,27 @@ def bsr_phases(dev, card):
           f"{BELL_WB}: "
           f"{a1.values.numel()} stored values, built in "
           f"{time.perf_counter() - t0:.1f} s")
-    errs = {}
+    errs, ys = {}, {}
+    counts = kb.bell_path_launches()
     for k, x in xs1.items():
         y64 = product64(a1, x)
         for engine in ("auto", "dma"):
-            _, errs["B1", k, engine] = held(
+            ys["B1", k], errs["B1", k, engine] = held(
                 f"B1 fp32 k={k} engine={engine}",
                 lambda: kb.bell_spmm(a1, x, engine=engine),
                 lambda: kb.bell_spmm_reference(a1, x), y64)
     phase_launches["B1"] = kb.bell_spmm_launches
+    paths = {"B1": took("B1", "tiled", counts)}
 
     # -- B2. bf16 operands, 1024 block rows, k = 256 -------------------------
     a2, bsr2 = random_bell(BELL_ROWS["B2"], SEED + 1, dev)
     x2 = torch.from_numpy(np.random.default_rng(SEED + 11).standard_normal(
         (a2.shape[1], 256), dtype=np.float32)).to(dev)
     a2h, x2h = a2.astype(torch.bfloat16), x2.to(torch.bfloat16)
+    counts = kb.bell_path_launches()
     y2, errs["B2"] = held("B2 bf16 k=256", lambda: kb.bell_spmm(a2h, x2h),
                           lambda: kb.bell_spmm_reference(a2h, x2h))
+    paths["B2"] = took("B2", "mma", counts)
     y2_32 = kb.bell_spmm_reference(a2, x2)
     rel2 = float(torch.linalg.vector_norm(y2 - y2_32)
                  / torch.linalg.vector_norm(y2_32))
@@ -1170,13 +1197,16 @@ def bsr_phases(dev, card):
     x3 = torch.from_numpy(np.random.default_rng(SEED + 12).standard_normal(
         (a3c.shape[0], 4), dtype=np.float32)).to(dev)
     x31 = x3[:, 0].contiguous()
-    held("B3 bell_spmv k=1", lambda: kb.bell_spmv(a3, x31),
-         lambda: cgx_torch.spmv(a3c, x31))
-    held("B3 bell_spmm k=4", lambda: kb.bell_spmm(a3, x3),
-         lambda: cgx_torch.spmm(a3c, x3))
+    counts = kb.bell_path_launches()
+    ys["B3", 1], _ = held("B3 bell_spmv k=1", lambda: kb.bell_spmv(a3, x31),
+                          lambda: cgx_torch.spmv(a3c, x31))
+    ys["B3", 4], _ = held("B3 bell_spmm k=4", lambda: kb.bell_spmm(a3, x3),
+                          lambda: cgx_torch.spmm(a3c, x3))
+    paths["B3"] = took("B3", "rows", counts)
     phase_launches["B3"] = (kb.bell_spmm_launches - phase_launches["B1"]
                             - phase_launches["B2"])
     k11_launches = kb.bell_spmm_launches
+    k11_paths = kb.bell_path_launches()
 
     # -- B4. the path as a user drives it: BSR/COO solves, the legacy file ---
     a4c = poisson3d(*N64, dtype=np.float32, device=dev)
@@ -1245,10 +1275,26 @@ def bsr_phases(dev, card):
     check(kb.bell_spmm_launches == k11_launches and not others,
           "B4 launched a kernel")
 
+    # -- B1 and B3 against the general path (the first kernel), bit for bit -
+    # (after the counts: these launches are the yardstick's, not the path's)
+    for (phase, k), a, x in ((("B1", 256), a1, xs1[256]),
+                             (("B1", 512), a1, xs1[512]),
+                             (("B3", 1), a3, x31[:, None]),
+                             (("B3", 4), a3, x3)):
+        gp = kb.bell_plan(a.blocksize, k, x.dtype, True, path="general")
+        yg = kb._k11(a, x, gp)
+        same = torch.equal(yg.reshape(ys[phase, k].shape), ys[phase, k])
+        path = kb.bell_plan(a.blocksize, k, x.dtype, True).path
+        print(f"{phase} k={k}: the {path} "
+              f"path equal to the general path bit for bit: {same}")
+        check(same, f"{phase} k={k} differs from the general path")
+
     # -- B5. times -------------------------------------------------------------
+    from cgx_torch.experiments import interleaved_ms
+
     def library(label, bsr_arrays, size, x, ref):
-        """ms of torch's BSR product of the same matrix, or None where it
-        raises for the dtype."""
+        """torch's BSR tensor of the same matrix, checked to compute K11's
+        function, or None where its product raises for the dtype."""
         crow, col, vals = bsr_arrays
         try:
             m = torch.sparse_bsr_tensor(crow, col, vals, size=size,
@@ -1265,8 +1311,7 @@ def bsr_phases(dev, card):
         check(dev_ <= (1e-5 if x.dtype == torch.float32 else 2e-2),
               f"B5 {label}: torch's BSR product does not compute K11's "
               f"function")
-        return statistics.median(event_ms(lambda: m @ x, inner=5)
-                                 for _ in range(5))
+        return m
 
     def work(nblocks, bs, k, elem, nbc, nbr, peak):
         """Each input read once (the real blocks, their column ids, X), Y
@@ -1290,28 +1335,64 @@ def bsr_phases(dev, card):
                                    size=a3c.shape, check_invariants=False)
     times = {}
     for label, (a, x, arrays, peak) in timed.items():
-        t_k, t_p = time_pair(lambda: kb.bell_spmm(a, x),
-                             lambda: kb.bell_spmm_reference(a, x), reps=5,
-                             inner=5)
         nbr, _, bs, _ = a.values.shape
-        nblocks = b3.nnzb if label.startswith("B3") else nbr * a.wb
-        b_ms, b_by = work(nblocks, bs, x.shape[1], x.element_size(),
-                          a.shape[1] // bs, nbr, peak)
-        lib = library(label, arrays, a.shape, x,
-                      kb.bell_spmm_reference(a, x))
-        extra = ""
+        k = x.shape[1]
+        plan = kb.bell_plan(bs, k, x.dtype, True)
+        general = kb.bell_plan(bs, k, x.dtype, True, path="general")
+        m = library(label, arrays, a.shape, x, kb.bell_spmm_reference(a, x))
+        # Interleaved: the path, the general path (the first design: the
+        # same-run "before"), the plain version, torch's product(s).
+        fns = {"K11": lambda: kb.bell_spmm(a, x),
+               "general": lambda: kb._k11(a, x, general),
+               "plain": lambda: kb.bell_spmm_reference(a, x)}
+        if m is not None:
+            fns["BSR"] = lambda: m @ x
         if label.startswith("B3"):
-            t_csr3 = statistics.median(event_ms(lambda: csr3 @ x, inner=5)
-                                       for _ in range(5))
-            extra = f"; torch CSR product {t_csr3 * 1e3:.1f} us"
-        flops = 2.0 * nblocks * bs * bs * x.shape[1]
-        times[label] = (t_k, t_p, b_ms, b_by, lib)
-        print(f"[{card}] B5 {label}: K11 {t_k * 1e3:.1f} us "
-              f"({flops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s), plain "
-              f"{t_p * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}), "
-              f"share of bound {b_ms / t_k:.1%}; torch BSR product "
+            fns["CSR"] = lambda: csr3 @ x
+        ms = interleaved_ms(fns, reps=5, inner=5)
+        nblocks = b3.nnzb if label.startswith("B3") else nbr * a.wb
+        b_ms, b_by = work(nblocks, bs, k, x.element_size(),
+                          a.shape[1] // bs, nbr, peak)
+        flops = 2.0 * nblocks * bs * bs * k
+        t_k, lib = ms["K11"], ms.get("BSR")
+        times[label] = (t_k, ms["plain"], b_ms, b_by, lib)
+        print(f"[{card}] B5 {label}: K11 ({plan.path} path) "
+              f"{t_k * 1e3:.1f} us ({flops / (t_k * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s, {b_ms / t_k:.1%} of the bound); general path "
+              f"{ms['general'] * 1e3:.1f} us ({b_ms / ms['general']:.1%}); "
+              f"bound {b_ms * 1e3:.1f} us ({b_by}); plain "
+              f"{ms['plain'] * 1e3:.1f} us; torch BSR product "
               + (f"{lib * 1e3:.1f} us" if lib is not None else "n/a")
-              + extra)
+              + "".join(f"; {nm} {ms[nm] * 1e3:.1f} us"
+                        for nm in ("CSR",) if nm in ms))
+        check(t_k < ms["general"], f"B5 {label}: the {plan.path} path is "
+              f"not faster than the general path")
+        if lib is not None and not label.startswith("B3"):
+            check(t_k < lib, f"B5 {label}: K11 is not faster than torch's "
+                  f"BSR product")
+
+    # The plan's edge for small blocks, on B3's operator with a block of
+    # right-hand sides: at k = 32 a tiled block would have 4 threads and the
+    # plan takes the general path, at k = 64 it has 8 and the plan tiles.
+    for k in (32, 64):
+        x = torch.from_numpy(np.random.default_rng(SEED + 16 + k)
+                             .standard_normal((a3.shape[1], k),
+                                              dtype=np.float32)).to(dev)
+        plan = kb.bell_plan(8, k, x.dtype, True)
+        other = kb.bell_plan(8, k, x.dtype, True, path="tiled"
+                             if plan.path == "general" else "general")
+        ms = interleaved_ms({"plan": lambda: kb._k11(a3, x, plan),
+                             "other": lambda: kb._k11(a3, x, other)},
+                            reps=5, inner=5)
+        same = torch.equal(kb._k11(a3, x, plan), kb._k11(a3, x, other))
+        print(f"[{card}] B5 B3 poisson3d 128^3 k={k}: the plan's "
+              f"{plan.path} path {ms['plan'] * 1e3:.1f} us, the "
+              f"{other.path} path {ms['other'] * 1e3:.1f} us "
+              f"({other.threads} threads a block); equal bit for bit: "
+              f"{same}")
+        check(same and ms["plan"] < ms["other"], f"B5 B3 k={k}: the plan's "
+              f"{plan.path} path is not the faster, or differs")
+        del x
 
     t_k, t_p, b_ms, b_by, lib = times["B1 fp32 k=256"]
     bells = {"B1": timed["B1 fp32 k=256"][:3],
@@ -1319,6 +1400,8 @@ def bsr_phases(dev, card):
     return [{"name": "bell_spmm", "route": "cuda",
              "source": "cgx_torch/csrc/bsr.cu",
              "replaces": "cgx/kernels/bsr.py:93,151",
+             "path": kb.bell_plan(BELL_BS, 256, torch.float32, True).path,
+             "paths": k11_paths,
              "launches": k11_launches,
              "max_abs_err": errs["B1", 256, "auto"], "ms": t_k,
              "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
@@ -1462,7 +1545,9 @@ def proto_phases(dev, card, thermal, bells):
         e64 = float(np.abs(y.double().cpu().numpy() - y64).max())
         k12[label] = float((y - y_ref).abs().max())
         want = -(-a_.values.shape[0] // kb.PREFETCH_ROWS)
-        print(f"E4 K12 {label} k={x_.shape[1]}: {chunks} chunk launches; "
+        path = kb.bell_plan(a_.blocksize, x_.shape[1], x_.dtype, True).path
+        print(f"E4 K12 {label} k={x_.shape[1]} ({path} path): {chunks} "
+              f"chunk launches; "
               f"equal to K11 bit for bit: {torch.equal(y, y11)}; max|y - "
               f"plain| {k12[label]:.3e}; max|y - fp64| {e64:.3e} (bound "
               f"1e-5 * {np.abs(y64).max():.3e})")
@@ -1477,7 +1562,7 @@ def proto_phases(dev, card, thermal, bells):
         torch.cuda.synchronize()
         y2_ref = paired_plain(a_, x_)
         errs["P2", label] = float((y2 - y2_ref).abs().max())
-        print(f"E5 P2 {label}: equal to K11 bit for bit: "
+        print(f"E5 P2 {label} ({path} path): equal to K11 bit for bit: "
               f"{torch.equal(y2, y11)}; max|y - plain| "
               f"{errs['P2', label]:.3e} (bound 1e-5 * "
               f"{float(y2_ref.abs().max()):.3e})")

@@ -284,7 +284,7 @@ def test_operator_from_cgx_round_trip(kind):
         assert getattr(a_t, f) == getattr(a_j, f)
     assert operator_from_cgx(a_t) == a_t
     x = seeded(a_j.shape[0], seed=34)
-    y = tensor_from_numpy(x)
+    y = tensor_from_numpy(x, device="cpu")
     assert y.dtype == torch.float64 and np.array_equal(n_(y), x)
     res = result_to_numpy(cgx_torch.cg_solve(a_t, t(x), tol=1e-8))
     assert res["converged"] and res["x"].shape == x.shape

@@ -7,6 +7,7 @@ cgx, so they also run where JAX is missing; from the repository root:
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX.)
 """
+import dataclasses
 import os
 import sys
 
@@ -570,6 +571,83 @@ def test_k11_engines_and_refusals(cuda_device):
     with pytest.raises(ValueError):
         kb.bell_spmm(big, torch.zeros((129, 1), device=cuda_device))
     assert kb.bell_spmm_launches == before + 3
+
+
+# -- K11's paths: tiled, mma, rows and general ---------------------------------
+
+def _bell_case(nbr, wb, bs, k, dtype, device, seed):
+    a = _bell(nbr, wb, bs, seed, device, dtype=dtype)
+    x = t(np.random.default_rng(seed + 1).standard_normal(
+        (a.shape[1], k)).astype(np.float32), device).to(dtype)
+    return a, x
+
+
+@pytest.mark.parametrize("path,nbr,bs,k,dtype", [
+    ("tiled", 24, 64, 256, torch.float32),
+    ("tiled", 13, 8, 132, torch.float32),     # ragged k: 128 + 4 columns
+    ("tiled", 5, 128, 64, torch.float32),     # bs 128: a smaller tile
+    ("tiled", 260, 16, 32, torch.float32),    # K12 in two chunks, 8 threads
+    ("general", 260, 16, 16, torch.float32),  # a tiled block of 4 threads
+    ("mma", 24, 64, 256, torch.bfloat16),
+    ("mma", 9, 32, 136, torch.bfloat16),      # ragged k
+    ("mma", 5, 128, 64, torch.bfloat16),
+    ("mma", 270, 16, 8, torch.bfloat16),
+    ("rows", 37, 8, 4, torch.float32),        # 37 block rows, 32 per block
+    ("rows", 300, 8, 1, torch.float32),
+    ("rows", 11, 16, 8, torch.float32),
+    ("rows", 9, 3, 3, torch.float32),         # scalar reads
+    ("rows", 10, 12, 2, torch.float32),
+    ("general", 10, 37, 5, torch.float32),
+    ("general", 10, 16, 33, torch.bfloat16),
+    ("general", 10, 64, 3, torch.bfloat16)])
+def test_k11_path_counts_and_equals(cuda_device, path, nbr, bs, k, dtype):
+    """Each shape takes its path (its counter moves, no other does); tiled
+    and rows equal the general path bit for bit, mma is within 1e-5 of the
+    plain version's peak; two runs, K12 and P2 equal K11 bit for bit."""
+    from cgx_torch.experiments import bell_pair_proto as p2
+
+    a, x = _bell_case(nbr, 4, bs, k, dtype, cuda_device, 40 + bs + k)
+    assert kb.bell_plan(bs, k, dtype, True).path == path
+    before, total = kb.bell_path_launches(), kb.bell_spmm_launches
+    y = kb.bell_spmm(a, x)
+    torch.cuda.synchronize()
+    moved = {p: v - before[p] for p, v in kb.bell_path_launches().items()}
+    assert moved == {p: int(p == path) for p in kb.PATHS}
+    assert kb.bell_spmm_launches == total + 1
+    y_ref = kb.bell_spmm_reference(a, x)
+    assert y.dtype == torch.float32 and y.shape == y_ref.shape
+    assert float((y - y_ref).abs().max()) <= 1e-5 * float(y_ref.abs().max())
+    assert torch.equal(kb.bell_spmm(a, x), y)
+    general = kb._k11(a, x, kb.bell_plan(bs, k, dtype, True, path="general"))
+    if path in ("tiled", "rows"):
+        assert torch.equal(general, y)
+    assert torch.equal(kb.bell_spmm(a, x, engine="prefetch"), y)
+    y2 = p2.bell_spmm_paired(a.block_cols, a.values, x.reshape(-1, bs, k),
+                             k=k)
+    assert torch.equal(y2.reshape(-1, k), y)
+
+
+def test_k11_unaligned_pointer_takes_general(cuda_device):
+    """x one float past a 16-byte boundary: the general path, equal to the
+    tiled path's Y bit for bit; the C entry refuses a tiled plan there and
+    a plan whose threads disagree with its own."""
+    a, x = _bell_case(12, 4, 64, 64, torch.float32, cuda_device, 5)
+    buf = torch.empty(x.numel() + 1, device=cuda_device)
+    xu = buf[1:].view_as(x)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0
+    before = kb.bell_path_launches()
+    y = kb.bell_spmm(a, xu)
+    torch.cuda.synchronize()
+    assert kb.bell_path_launches()["general"] == before["general"] + 1
+    assert torch.equal(y, kb.bell_spmm(a, x))
+    tiled = kb.bell_plan(64, 64, torch.float32, True)
+    assert tiled.path == "tiled"
+    with pytest.raises(RuntimeError, match="tiled path"):
+        kb._k11(a, xu, tiled)
+    wrong = dataclasses.replace(tiled, threads=tiled.threads * 2)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        kb._k11(a, x, wrong)
 
 
 # -- Mixed precision: the bf16 modes of K3, K2 and K5, IR, faults C1/C2 -------
