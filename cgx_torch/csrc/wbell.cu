@@ -1,18 +1,69 @@
 // K7, K8, K9, K10 and P3: the WBELL (windowed block-ELL) product Y = A·X
-// over slot planes, for nrhs right-hand sides in the internal layout (nrhs,
-// nt, 8, 128) or, for K10, the stacked layout (nt, nrhs·8, 128).
+// for nrhs right-hand sides in the internal layout (nrhs, nt, 8, 128) or,
+// for K10, the stacked layout (nt, nrhs·8, 128).
 //
 // Replaces four Pallas kernels of cgx/kernels/wbell.py and one of
-// experiments/halfblock_proto.py, which compute the same Y and differ in how
-// a plane finds its output group og and its window start ga, and in layout:
-//   K7  _kernel_resident          og = p_og[p], ga = p_ga[p]        (plane order)
-//   K8  _kernel_resident_tiers    og, ga unpacked from packed[p]     (class-major)
-//   K9  _kernel                   og = outg[t], ga = g0[t] + pgo[p]  (virtual tiles)
-//   K10 _kernel_resident_stacked  K7's walk; x and y stacked: column c, row j
-//                                 of group g at x[(g·nrhs + c)·8 + j][m]
-//   P3  _kernel_half              K7's walk over (P, 4, 8, 128) half-block
-//                                 planes; lc bits 0-13 the offset, bit 14
-//                                 the half of the 8 rows the block fills
+// experiments/halfblock_proto.py, which compute the same Y:
+//   K7  _kernel_resident          over the row layout, x from the L2
+//   K9  _kernel                   over the windowed row layout, x staged
+//   K8  _kernel_resident_tiers    over slot planes, class-major
+//   K10 _kernel_resident_stacked  over slot planes, stacked x and y
+//   P3  _kernel_half              over half-block planes
+//
+// -- The row layout (K7, K9) ------------------------------------------------
+// The TPU kernels stream slot planes of 8×8 blocks, one block per lane of a
+// (8, 128) vreg.  At thermal2 scale a block holds 5.6 nonzeros of its 64
+// entries and 66 % of the lane slots hold one: the planes are 17.5× the
+// nonzeros, 620 MB a product, a byte bound (185 µs) twice torch's whole CSR
+// product.  The card has no vreg shape to fill, so K7 and K9 read the
+// nonzeros alone, as sliced ELL over the internal rows
+// (cgx_torch/sparse/wbell.py: WBellRows, built from the planes once per
+// matrix): within each group of 1024 rows the rows are sorted by length
+// (a row map puts each sum back), 32 consecutive rows form a slice, stored
+// slot-major, so a warp's loads of values and columns are coalesced.  A
+// column is a 16-bit offset from its group's (K9: its stage's) window
+// start.  At thermal2 scale that is 2 % padding and 58 MB a product.
+//
+// Each row keeps its nonzeros in walk order (plane order, then j), and each
+// product and sum is rounded on its own (__fmul_rn, __fadd_rn) from 0, as
+// the plane walk sums them: the left-out zeros add exact ±0 products, which
+// leave a sum that started at +0 unchanged.  So K7 and K9 equal the plane
+// walk, and through it the TPU kernels, bit for bit on finite x.  No two
+// threads write one output, there are no atomics, every output (pad groups
+// included) is written once, and two runs are bitwise equal.
+//
+// K7: one thread per row, one warp per slice, half a group (16 slices) a
+// block, so that the L1 serves the gathers of neighbouring warps; kUnroll
+// slots' loads in flight; up to NR columns of x per value read.  What
+// bounds it on the card is the x gathers, not the layout's bytes: a warp's
+// 32 rows read 32 unrelated columns, about a 32-byte sector each, and at
+// k = 4 K7 takes 3.6× its k = 1 time for 1.45× the bytes (chip_smoke.py
+// W5).  Half-group blocks let the L1 serve neighbouring warps' gathers, and
+// the layout is loaded evict-first so that the caches keep x.
+//
+// K9: the card's form of the TPU kernel's windowed DMA.  One block of 1024
+// threads per output group; the group's entries are split into stages, one
+// per run of planes with one window start (a bucket of `span` groups), and
+// each stage's window of x (at most 16 groups, 64 KB, a column at the
+// default span; a wider run is cut into parts of 28 groups) is copied into
+// shared memory by one cp.async.bulk on an mbarrier, two buffers deep,
+// while the block sums the stage before it; the gathers then read shared
+// memory.  Columns are staged one after another.  At span 16 the two
+// buffers take 128 KB, one block an SM, and the copies move each stage's
+// whole window through the L2: about 28 times the bytes of x a product at
+// thermal2 scale.
+//
+// -- The slot planes (K8, K10, P3, and the plane walk behind K7 and K9) -----
+// These differ in how a plane finds its output group og and its window
+// start ga, and in layout:
+//   plane walk (K7's walk)    og = p_og[p], ga = p_ga[p]        (plane order)
+//   K8                        og, ga unpacked from packed[p]     (class-major)
+//   plane walk (K9's walk)    og = outg[t], ga = g0[t] + pgo[p]  (virtual tiles)
+//   K10                       K7's walk; x and y stacked: column c, row j
+//                             of group g at x[(g·nrhs + c)·8 + j][m]
+//   P3                        K7's walk over (P, 4, 8, 128) half-block
+//                             planes; lc bits 0-13 the offset, bit 14
+//                             the half of the 8 rows the block fills
 // For each plane p, lane l, row i and column c:
 //   lc = lc[p, 0, l];  g = ga + lc / 128;  m = lc % 128
 //   Y[c, og, i, l] += sum_j values[p, i, j, l] * X[c, g, j, m]
@@ -21,24 +72,21 @@
 // step to step.  Here one block owns one output group (128 lanes × 8 rows ×
 // up to NR columns) and walks that group's planes in the order the TPU grid
 // visits them, from per-group ranges built once on the host side
-// (cgx_torch/sparse/wbell.py: group_walk).  No two blocks write one output,
-// there are no atomics, every output (pad groups included) is written once,
-// and two runs are bitwise equal.  Each product and each sum is rounded on
-// its own (__fmul_rn, __fadd_rn, j in order), as the plain PyTorch version
-// rounds it, so the two agree bit for bit.
+// (cgx_torch/sparse/wbell.py: group_walk), rounding as the row kernels do.
+// The plane walks of K7's and K9's order stay as the row kernels' same-run
+// "before" (chip_smoke.py W5); no user-facing path launches them.
 //
-// The floor is bytes: the slot planes (65 words per lane per plane, fill
-// included) stream once; x (5 MB at thermal2 scale) stays in the L2.  A
-// warp reads one (i, j) row of a plane as 32 consecutive floats; the 8
-// operands of a block sit 128 floats apart and neighbouring lanes read
-// unrelated columns, so the x reads are gathers that hit the L2.  This first
-// version keeps everything in registers: no shared memory, no TMA.
+// The planes' floor is bytes: they stream once (65 words per lane per
+// plane, fill included); x stays in the L2.  A warp reads one (i, j) row of
+// a plane as 32 consecutive floats; the 8 operands of a block sit 128
+// floats apart and neighbouring lanes read unrelated columns, so the x
+// reads are gathers that hit the L2.
 //
-// K10 is K7 with the column index moved inside the group index: the k
-// columns of a group sit in one contiguous k·4 KB window, and one lc load
-// per plane and lane serves every column of the block's chunk.  Whether the
-// contiguous window helps the gathers is what the smoke's E6 measures (on
-// the TPU it lost: each column still needed its own vreg gather).
+// K10 is the plane walk with the column index moved inside the group index:
+// the k columns of a group sit in one contiguous k·4 KB window, and one lc
+// load per plane and lane serves every column of the block's chunk.  Whether
+// the contiguous window helps the gathers is what the smoke's E6 measures
+// (on the TPU it lost: each column still needed its own vreg gather).
 //
 // P3 stores 4×8 half-blocks: plane p holds, per lane, the top or the bottom
 // four rows of the lane's 8-row block row (bit 14 of lc).  The thread of
@@ -50,6 +98,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -246,6 +295,217 @@ __global__ void __launch_bounds__(kThreads)
   store_group<NR, Batched>(y, g, nt, nrhs, c0, lane, half * kRows, acc);
 }
 
+// -- K7 and K9 over the row layout ------------------------------------------
+
+constexpr int kSlice = 32;        // rows of a slice: one warp
+constexpr int kRowThreads = 512;  // K7: 16 slices (half a group) a block
+constexpr int kGroupRows = 1024;  // K9: one block per group, a row a thread
+constexpr int kUnroll = 4;        // slots whose loads are in flight at once
+constexpr int kBarBytes = 128;    // K9: two mbarriers, padded to 128 bytes
+
+// The row layout streams once per product: loaded evict-first (__ldcs), so
+// that the L1 and the L2 keep x for the gathers.
+__device__ __forceinline__ float stream_value(const float* p) {
+  return __ldcs(p);
+}
+__device__ __forceinline__ float stream_value(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldcs(p));
+}
+__device__ __forceinline__ int stream_col(const int* p) { return __ldcs(p); }
+__device__ __forceinline__ int stream_col(const unsigned short* p) {
+  return __ldcs(p);
+}
+
+// Adds slots [t0, min(t0 + kUnroll, w)) of this lane's row, in order, to
+// acc; x operands from xv (global or shared) at xv[col].  The loads of the
+// kUnroll slots are issued before the first sum.
+template <typename V, typename C, int NR, bool kGlobal>
+__device__ __forceinline__ void add_slots(const V* __restrict__ vp,
+                                          const C* __restrict__ cp, int t0,
+                                          int w, const float* __restrict__ xv,
+                                          long long cstride, int ncol,
+                                          float (&acc)[NR]) {
+  float v[kUnroll];
+  int c[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    if (t0 + u < w) {
+      v[u] = stream_value(vp + (t0 + u) * kSlice);
+      c[u] = stream_col(cp + (t0 + u) * kSlice);
+    }
+  }
+  float xs[kUnroll][NR];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+    for (int k = 0; k < NR; ++k) {
+      xs[u][k] = 0.0f;
+      if (t0 + u < w && k < ncol) {
+        if constexpr (kGlobal) {
+          xs[u][k] = __ldg(xv + k * cstride + c[u]);
+        } else {
+          xs[u][k] = xv[c[u]];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    if (t0 + u < w) {
+#pragma unroll
+      for (int k = 0; k < NR; ++k)
+        acc[k] = __fadd_rn(acc[k], __fmul_rn(v[u], xs[u][k]));
+    }
+  }
+}
+
+// K7: slice k = 16·blockIdx.x + warp holds slots sbase[k] .. sbase[k+1]
+// (width w = that / 32) of group k / 32, whose columns count from x0[k /
+// 32]; lane e's row is rowmap[32·k + e]; columns c0 .. c0+NR-1 of x (those
+// < nrhs).  C is unsigned short (16-bit offsets) or int (x0 = 0).
+template <typename V, typename C, int NR>
+__global__ void __launch_bounds__(kRowThreads)
+    wbell_rows_kernel(const V* __restrict__ values,
+                      const C* __restrict__ cols,
+                      const long long* __restrict__ sbase,
+                      const int* __restrict__ rowmap,
+                      const int* __restrict__ x0,
+                      const float* __restrict__ x, float* __restrict__ y,
+                      int nslices, long long nrows, int nrhs) {
+  const int k = blockIdx.x * (kRowThreads / kSlice) + (threadIdx.x >> 5);
+  if (k >= nslices) return;
+  const int lane = threadIdx.x & 31;
+  const int c0 = blockIdx.y * NR;
+  const int ncol = min(NR, nrhs - c0);
+  const long long b = sbase[k];
+  const int w = static_cast<int>((sbase[k + 1] - b) / kSlice);
+  const V* vp = values + b + lane;
+  const C* cp = cols + b + lane;
+  const float* xc = x + c0 * nrows + x0[k / kSlice];
+  float acc[NR] = {};
+  for (int t = 0; t < w; t += kUnroll)
+    add_slots<V, C, NR, true>(vp, cp, t, w, xc, nrows, ncol, acc);
+  const long long row = rowmap[static_cast<long long>(k) * kSlice + lane];
+#pragma unroll
+  for (int c = 0; c < NR; ++c)
+    if (c < ncol) y[(c0 + c) * nrows + row] = acc[c];
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// One thread: expect `bytes` on `bar` and copy them from global src to
+// shared dst (both 16-byte aligned, bytes a multiple of 16).
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// K9: group g = blockIdx.x has stages sptr[g] .. sptr[g+1]; stage st's
+// window is x[x0[st] .. x0[st] + xlen[st]) of each column, and its slice
+// for warp w is 32·st + w.  Step q = (stage s, column c), stage-major, uses
+// buffer q & 1 for the (q >> 1)-th time.
+template <typename V, int NR>
+__global__ void __launch_bounds__(kGroupRows)
+    wbell_rows_windowed_kernel(const V* __restrict__ values,
+                               const unsigned short* __restrict__ offs,
+                               const long long* __restrict__ sbase,
+                               const int* __restrict__ rowmap,
+                               const int* __restrict__ sptr,
+                               const int* __restrict__ x0,
+                               const int* __restrict__ xlen,
+                               const float* __restrict__ x,
+                               float* __restrict__ y, long long nrows,
+                               int nrhs, int window) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* buf = reinterpret_cast<float*>(smem + kBarBytes);
+  const int g = blockIdx.x;
+  const int c0 = blockIdx.y * NR;
+  const int ncol = min(NR, nrhs - c0);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int st0 = sptr[g];
+  const int nst = sptr[g + 1] - st0;
+  const int nq = nst * ncol;
+  const float* xc = x + c0 * nrows;
+  auto issue = [&](int q) {
+    const int st = st0 + q / ncol;
+    const int c = q - (q / ncol) * ncol;
+    bulk_load(buf + (q & 1) * window, xc + c * nrows + x0[st],
+              static_cast<unsigned>(xlen[st]) * 4u, bar + (q & 1));
+  };
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (nq > 0) issue(0);
+    if (nq > 1) issue(1);
+  }
+  __syncthreads();
+  float acc[NR] = {};
+  for (int s = 0; s < nst; ++s) {
+    const long long k = static_cast<long long>(st0 + s) * kSlice + warp;
+    const long long b = sbase[k];
+    const int w = static_cast<int>((sbase[k + 1] - b) / kSlice);
+    const V* vp = values + b + lane;
+    const unsigned short* op = offs + b + lane;
+#pragma unroll
+    for (int c = 0; c < NR; ++c) {
+      if (c < ncol) {
+        const int q = s * ncol + c;
+        while (!mbar_try_wait(bar + (q & 1), (q >> 1) & 1)) {
+        }
+        const float* xs = buf + (q & 1) * window;
+        float one[1] = {acc[c]};
+        for (int t = 0; t < w; t += kUnroll)
+          add_slots<V, unsigned short, 1, false>(vp, op, t, w, xs, 0, 1,
+                                                 one);
+        acc[c] = one[0];
+        __syncthreads();  // every warp is done with buffer q & 1
+        if (tid == 0 && q + 2 < nq) {
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          issue(q + 2);
+        }
+      }
+    }
+  }
+  const long long row = rowmap[static_cast<long long>(g) * kGroupRows + tid];
+#pragma unroll
+  for (int c = 0; c < NR; ++c)
+    if (c < ncol) y[(c0 + c) * nrows + row] = acc[c];
+}
+
 template <typename T>
 struct Tag {
   using type = T;
@@ -373,6 +633,73 @@ extern "C" int cgx_wbell_half(const void* values, int bf16, const int* lc,
         <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const V*>(values), lc, order, ptr, packed, x, y, nt,
             nrhs);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// K7: the row layout; slices 32·nt; columns 16-bit offsets from x0 of
+// their group, or int32 indices when `wide` is 1.
+extern "C" int cgx_wbell_rows(const void* values, int bf16, const void* cols,
+                              int wide, const long long* sbase,
+                              const int* rowmap, const int* x0,
+                              const float* x, float* y, int nt, int nrhs,
+                              void* stream) {
+  if (bad_shape(nt, nrhs)) return cudaErrorInvalidValue;
+  const int nslices = nt * kSlice;
+  const long long nrows = static_cast<long long>(nt) * kGroupRows;
+  return with_types(bf16, nrhs, [&](auto vt, auto nrt) {
+    using V = typename decltype(vt)::type;
+    constexpr int NR = decltype(nrt)::value;
+    const int per_block = kRowThreads / kSlice;
+    const dim3 grid((nslices + per_block - 1) / per_block,
+                    (nrhs + NR - 1) / NR);
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (wide) {
+      wbell_rows_kernel<V, int, NR><<<grid, kRowThreads, 0, st>>>(
+          static_cast<const V*>(values), static_cast<const int*>(cols),
+          sbase, rowmap, x0, x, y, nslices, nrows, nrhs);
+    } else {
+      wbell_rows_kernel<V, unsigned short, NR><<<grid, kRowThreads, 0, st>>>(
+          static_cast<const V*>(values),
+          static_cast<const unsigned short*>(cols), sbase, rowmap, x0, x, y,
+          nslices, nrows, nrhs);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// K9: the windowed row layout, 16-bit columns from each stage's window
+// start; `window` is the widest stage window (floats), which sets the two
+// shared-memory buffers.  The layout cuts its stages to 28 groups of x
+// (STAGE_WINDOW_GROUPS), which fit; a wider window is refused with
+// cudaFuncSetAttribute's error.  x must be 16-byte aligned.
+extern "C" int cgx_wbell_rows_windowed(const void* values, int bf16,
+                                       const unsigned short* offs,
+                                       const long long* sbase,
+                                       const int* rowmap, const int* sptr,
+                                       const int* x0, const int* xlen,
+                                       const float* x, float* y, int nt,
+                                       int nrhs, int window, void* stream) {
+  if (bad_shape(nt, nrhs) || window < 0) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16) return cudaErrorInvalidValue;
+  const int stride = (window + 31) / 32 * 32;  // 128-byte aligned buffers
+  const size_t smem = kBarBytes + 2 * static_cast<size_t>(stride) * 4;
+  const long long nrows = static_cast<long long>(nt) * kGroupRows;
+  return with_types(bf16, nrhs, [&](auto vt, auto nrt) {
+    using V = typename decltype(vt)::type;
+    constexpr int NR = decltype(nrt)::value;
+    auto kernel = wbell_rows_windowed_kernel<V, NR>;
+    cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) {
+      cudaGetLastError();  // not sticky: leave no error for the next launch
+      return static_cast<int>(rc);
+    }
+    const dim3 grid(nt, (nrhs + NR - 1) / NR);
+    kernel<<<grid, kGroupRows, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const V*>(values), offs, sbase, rowmap, sptr, x0, xlen, x,
+        y, nrows, nrhs, stride);
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -6,11 +6,12 @@ The prototype packs 4-row half-blocks instead of 8×8 blocks into
 holds the top or the bottom half of the lane's 8-row block row, named by
 bit 14 of ``lc`` (bits 0–13: the window offset, group·128 + lane).  Fewer
 stored zeros, more planes.  Its CUDA kernel (``cgx_wbell_half`` in
-``cgx_torch/csrc/wbell.cu``) is K7's walk over these planes: each thread of
-a half of the rows adds a plane at its lane only where the lane's half bit
-names that half, the plane's 4×8 product summed on its own first, as the
-prototype sums it.  So it equals its plain version :func:`half_reference`
-bit for bit.  ``half_spmv_launches`` counts launches.
+``cgx_torch/csrc/wbell.cu``) is the plane walk in K7's order over these
+planes: each thread of a half of the rows adds a plane at its lane only
+where the lane's half bit names that half, the plane's 4×8 product summed
+on its own first, as the prototype sums it.  So it equals its plain
+version :func:`half_reference` bit for bit.  ``half_spmv_launches``
+counts launches.
 
 The reference packs with ``span`` 16, checks with the matrix's own span and
 times with a literal 16; here the caller passes the span the build used,

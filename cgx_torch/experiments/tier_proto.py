@@ -10,7 +10,7 @@ how the segments are unrolled and in ``build_tiers``.  So
 ``cgx_torch/csrc/wbell.cu``) on those arrays, each group's planes walked
 in stored (class-major) order as the prototype's grid visits them.  It
 equals its plain version bit for bit and K7 up to fp32 summation order
-(K7 walks plane order).  ``tier_spmm_launches`` counts its launches.
+(K7 sums each row in plane order).  ``tier_spmm_launches`` counts its launches.
 
 Unlike the JAX package's :func:`build_tier_plan`, the prototype's
 ``build_tiers`` does not clamp a window to ``nt``; the card reads each

@@ -1,34 +1,41 @@
 """K7–K10: the WBELL SpMV/SpMM — CUDA kernels and their plain versions.
 
-Counterpart of :mod:`cgx.kernels.wbell`.  All three compute ``Y = A·X`` on
-the internal layout ``(nrhs, nt, 8, 128)`` over the slot planes of a
+Counterpart of :mod:`cgx.kernels.wbell`.  All of them compute ``Y = A·X``
+on the internal layout ``(nrhs, nt, 8, 128)`` of a
 :class:`~cgx_torch.sparse.wbell.WBELLMatrix`:
 
-* **K7** (``wbell_resident_raw``, replaces ``_kernel_resident``): planes
-  in plane order, ``og``/``ga`` from ``p_og``/``p_ga``.  ``wbell_spmv`` and
+* **K7** (``wbell_resident_raw``, replaces ``_kernel_resident``): reads
+  the compact row layout (:class:`~cgx_torch.sparse.wbell.WBellRows`,
+  :attr:`WBELLMatrix.rows`), one warp per slice of 32 internal rows, one
+  thread per row, x gathered from the L2.  ``wbell_spmv`` and
   ``wbell_spmm`` take it by default: the card has no VMEM cap, so
   ``_dispatch("auto")`` always picks it.
-* **K8** (``wbell_tiered_raw``, replaces ``_kernel_resident_tiers``): the
-  planes of a :class:`WBellTierPlan`, stored class-major {≤4, ≤8, ≤16}
-  with tight window starts packed as ``og << 16 | ga``.  It walks each
-  group's planes in their original plane order (the plan's ``origin``),
-  not class by class as the TPU grid does: the classes shorten a TPU
-  gather chain the card does not have, and in this order K8 and K7 sum
-  in the same order, so a column of the multi-RHS solve equals the
-  single-RHS solve of that column bit for bit.
 * **K9** (``wbell_spmv(..., backend="windowed")``, replaces ``_kernel``):
-  the planes walked by virtual tile.
+  reads the windowed row layout (:attr:`WBELLMatrix.windowed_rows`), one
+  block per output group, each stage's window of x copied into shared
+  memory with ``cp.async.bulk`` (the TPU kernel's windowed DMA).
+* **K8** (``wbell_tiered_raw``, replaces ``_kernel_resident_tiers``): the
+  slot planes of a :class:`WBellTierPlan`, stored class-major {≤4, ≤8,
+  ≤16} with tight window starts packed as ``og << 16 | ga``.  It walks
+  each group's planes in their original plane order (the plan's
+  ``origin``), not class by class as the TPU grid does: the classes
+  shorten a TPU gather chain the card does not have, and in this order K8
+  and K7 sum in the same order, so a column of the multi-RHS solve equals
+  the single-RHS solve of that column bit for bit.
 * **K10** (``wbell_spmm_stacked``, replaces ``_kernel_resident_stacked``):
-  K7's walk with ``X`` and ``Y`` in the stacked layout ``(nt, k·8, 128)``
-  (:func:`to_stacked`, :func:`from_stacked`), read and written in place by
-  the kernel; it equals K7 bit for bit.  The TPU measured it slower than K7
-  (docs/PERF_NOTES.md 5a); nothing routes to it.
+  the planes in K7's walk with ``X`` and ``Y`` in the stacked layout
+  ``(nt, k·8, 128)`` (:func:`to_stacked`, :func:`from_stacked`), read and
+  written in place by the kernel; it equals K7 bit for bit.  The TPU
+  measured it slower than K7 (docs/PERF_NOTES.md 5a); nothing routes to
+  it.
 
 The CUDA source is ``cgx_torch/csrc/wbell.cu``.  Each wrapper launches its
 kernel for a CUDA tensor and takes the plain PyTorch version only for a
-CPU tensor.  The plain versions walk the same per-group plane lists in the
-same order and round every product and sum on its own, as the kernels do
-(:func:`walk_product`).  ``wbell_resident_launches``,
+CPU tensor.  Every kernel and plain version rounds each product and sum
+on its own, in walk order (plane order, then j) from 0: the row layout's
+(:func:`rows_product`) over the nonzeros, the planes' (:func:`walk_product`)
+over every slot.  On finite x the two agree bit for bit, since adding an
+exact ±0 product leaves the sum as it was.  ``wbell_resident_launches``,
 ``wbell_tiered_launches``, ``wbell_windowed_launches`` and
 ``wbell_stacked_launches`` count launches.
 
@@ -44,11 +51,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from cgx_torch.sparse.wbell import WBELLMatrix, group_walk
+from cgx_torch.sparse.wbell import (ROW_SLICE, WBELLMatrix, WBellRows,
+                                    group_walk, row_layout)
 
 __all__ = ["wbell_spmv", "wbell_spmm", "wbell_matvec", "wbell_resident_raw",
            "wbell_windowed", "wbell_tiered_raw", "WBellTierPlan",
            "build_tier_plan", "wbell_spmm_tiered", "walk_product",
+           "rows_product",
            "wbell_resident_reference", "wbell_tiered_reference",
            "wbell_windowed_reference", "wbell_spmm_stacked",
            "wbell_stacked_reference", "to_stacked", "from_stacked",
@@ -93,6 +102,46 @@ def walk_product(x: torch.Tensor, values: torch.Tensor, lc: torch.Tensor,
     return y
 
 
+def rows_product(rows: WBellRows, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7 and K9 over a row layout: ``x`` ``(nrhs, nt, 8,
+    128)`` → the same shape.  Each group's stages in order, each slice's
+    slots in order, ``acc = acc + v·x`` from 0, every product and sum
+    rounded on its own, as the kernels sum.  Runs in rounds: round r takes
+    the r-th stage of every group, slot t of every slice at once."""
+    nrhs, nt = x.shape[0], rows.nt
+    dev = x.device
+    xf = x.reshape(nrhs, -1)
+    acc = torch.zeros((nrhs, nt * 1024), dtype=x.dtype, device=dev)
+    sptr = rows.sptr.long()
+    nst = int(sptr[-1])
+    if nst:
+        sgroup = torch.repeat_interleave(torch.arange(nt, device=dev),
+                                         sptr[1:] - sptr[:-1])
+        srank = torch.arange(nst, device=dev) - sptr[sgroup]
+        width = ((rows.sbase[1:] - rows.sbase[:-1]) // ROW_SLICE).reshape(
+            nst, ROW_SLICE)
+        e = torch.arange(ROW_SLICE, device=dev)
+        x0 = rows.x0.long()
+        for r in range(int(srank.max()) + 1):
+            st = torch.nonzero(srank == r)[:, 0]
+            w = width[st]
+            for t in range(int(w.max())):
+                si, wi = torch.nonzero(w > t).unbind(1)
+                sts = st[si]
+                addr = (rows.sbase[sts * ROW_SLICE + wi, None]
+                        + t * ROW_SLICE + e)
+                pos = (sgroup[sts] * 1024 + wi * ROW_SLICE)[:, None] + e
+                v = rows.values[addr].to(x.dtype)
+                c = rows.cols[addr].long()
+                if rows.cols.dtype == torch.int16:
+                    c = c & 0xFFFF
+                c = x0[sts, None] + c
+                acc[:, pos] = acc[:, pos] + v * xf[:, c]
+    y = torch.empty_like(acc)
+    y[:, rows.rowmap.long()] = acc
+    return y.reshape(x.shape)
+
+
 def _resident_plain(p_og, p_ga, lc, values, x, walk):
     order = walk[0].long()
     return walk_product(x, values, lc, order, p_og.long()[order],
@@ -107,7 +156,8 @@ def _tiered_plain(packed, lc, values, x, walk):
 
 
 def wbell_resident_reference(a: WBELLMatrix, x: torch.Tensor):
-    """K7's plain version on any device: ``x`` ``(nrhs, nt, 8, 128)``."""
+    """K7's plane walk, plain, on any device: ``x`` ``(nrhs, nt, 8,
+    128)``; equal to :func:`rows_product` of ``a.rows`` on finite x."""
     return _resident_plain(a.p_og, a.p_ga, a.lc, a.values,
                            x.to(a.vector_dtype), a.resident_walk)
 
@@ -119,18 +169,9 @@ def wbell_tiered_reference(plan: "WBellTierPlan", x: torch.Tensor):
 
 
 def wbell_windowed_reference(a: WBELLMatrix, x: torch.Tensor):
-    """K9's plain version on any device."""
+    """K9's plane walk, plain, on any device: the planes by virtual tile."""
     x = x.to(a.vector_dtype)
-    torder, _ = a.windowed_walk
-    t = torder.long()
-    cnt = a.wb.long()[t]
-    first = torch.cumsum(cnt, 0) - cnt
-    step = torch.arange(int(cnt.sum()), device=cnt.device)
-    plane = (torch.repeat_interleave(a.ps.long()[t], cnt) + step
-             - torch.repeat_interleave(first, cnt))
-    og = torch.repeat_interleave(a.outg.long()[t], cnt)
-    ga = torch.repeat_interleave(a.g0.long()[t], cnt) + a.pgo.long()[plane]
-    return walk_product(x, a.values, a.lc, plane, og, ga, x.shape[1])
+    return walk_product(x, a.values, a.lc, *a.windowed_steps(), x.shape[1])
 
 
 # -- launches ---------------------------------------------------------------
@@ -174,6 +215,45 @@ def _launch(fn: str, what: str, values, lc, x, *ints32, nt=None,
     return y
 
 
+def _launch_rows(rows: WBellRows, x: torch.Tensor, what: str):
+    """Check the operands, launch K7 (resident layout) or K9 (windowed)
+    over ``rows`` and return ``y`` (shaped as ``x``)."""
+    from cgx_torch.kernels import _build
+
+    if rows.values.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: the CUDA kernel takes float32 or bfloat16 "
+                        f"planes, got {rows.values.dtype}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what}: the CUDA kernel takes float32 vectors, got "
+                        f"{x.dtype}")
+    if x.device != rows.values.device or not x.is_contiguous():
+        raise ValueError(f"{what}: the CUDA kernel needs a contiguous x on "
+                         f"{rows.values.device}")
+    _check_x(x, rows.nt, what)
+    if x.data_ptr() % 16:
+        x = x.clone()                # cp.async.bulk reads 16-byte units
+    y = torch.empty_like(x)
+    lib = _build.library()
+    bf16 = int(rows.values.dtype == torch.bfloat16)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if rows.windowed:
+            rc = lib.cgx_wbell_rows_windowed(
+                rows.values.data_ptr(), bf16, rows.cols.data_ptr(),
+                rows.sbase.data_ptr(), rows.rowmap.data_ptr(),
+                rows.sptr.data_ptr(), rows.x0.data_ptr(),
+                rows.xlen.data_ptr(), x.data_ptr(), y.data_ptr(), rows.nt,
+                x.shape[0], rows.window, stream)
+        else:
+            rc = lib.cgx_wbell_rows(
+                rows.values.data_ptr(), bf16, rows.cols.data_ptr(),
+                int(rows.cols.dtype == torch.int32), rows.sbase.data_ptr(),
+                rows.rowmap.data_ptr(), rows.x0.data_ptr(), x.data_ptr(),
+                y.data_ptr(), rows.nt, x.shape[0], stream)
+    _build.check(rc, f"{what} launch")
+    return y
+
+
 def _on_device(x: torch.Tensor, what: str) -> bool:
     """True for a CUDA tensor (launch), False for a CPU one (plain)."""
     if x.device.type == "cpu":
@@ -185,42 +265,59 @@ def _on_device(x: torch.Tensor, what: str) -> bool:
 
 def wbell_resident_raw(p_og: torch.Tensor, p_ga: torch.Tensor,
                        lc: torch.Tensor, values: torch.Tensor,
-                       x: torch.Tensor, *, walk=None) -> torch.Tensor:
+                       x: torch.Tensor, *, walk=None,
+                       rows: Optional[WBellRows] = None) -> torch.Tensor:
     """K7 on raw plane arrays: ``x`` ``(nrhs, nt, 8, 128)`` → the same
-    shape.  ``walk`` is the per-group ``(order, ptr)``
-    (:attr:`WBELLMatrix.resident_walk`); built here when None."""
+    shape, through their row layout.  ``rows`` is the layout
+    (:attr:`WBELLMatrix.rows`) and ``walk`` the per-group ``(order, ptr)``
+    (:attr:`WBELLMatrix.resident_walk`); each is built here when None."""
     global wbell_resident_launches
-    nt = x.shape[1]
-    if walk is None:
-        keep = values.reshape(values.shape[0], -1).ne(0).any(1)
-        walk = group_walk(p_og, keep, nt)
+    if rows is None:
+        nt = x.shape[1]
+        if walk is None:
+            keep = values.reshape(values.shape[0], -1).ne(0).any(1)
+            walk = group_walk(p_og, keep, nt)
+        rows = row_layout(values, lc, walk, p_og, p_ga, nt)
     if not _on_device(x, "wbell_resident_raw"):
-        return _resident_plain(p_og, p_ga, lc, values, x, walk)
-    y = _launch("cgx_wbell_resident", "wbell_resident_raw", values, lc, x,
-                walk[0], walk[1], p_ga)
+        return rows_product(rows, x)
+    y = _launch_rows(rows, x, "wbell_resident_raw")
     wbell_resident_launches += 1
     return y
 
 
 def wbell_windowed(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
-    """K9: the same product walked by virtual tile."""
+    """K9: the same product over the windowed row layout, each stage's
+    window of x staged in shared memory."""
     global wbell_windowed_launches
     _check_x(x, a.nt, "wbell kernel")
     x = x.to(a.vector_dtype).contiguous()
     if not _on_device(x, "wbell_windowed"):
-        return wbell_windowed_reference(a, x)
-    torder, tptr = a.windowed_walk
-    y = _launch("cgx_wbell_windowed", "wbell_windowed", a.values, a.lc, x,
-                torder, tptr, a.ps, a.wb, a.g0, a.pgo)
+        return rows_product(a.windowed_rows, x)
+    y = _launch_rows(a.windowed_rows, x, "wbell_windowed")
     wbell_windowed_launches += 1
     return y
+
+
+def _planes_k7(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The plane-walking kernel behind K10, over K7's walk in the batched
+    layout: the row layout's same-run "before" in the smoke and tests.
+    CUDA only; counted nowhere."""
+    return _launch("cgx_wbell_resident", "plane walk", a.values, a.lc, x,
+                   *a.resident_walk, a.p_ga)
+
+
+def _planes_k9(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The plane walk by virtual tile (K9's "before"); CUDA only."""
+    torder, tptr = a.windowed_walk
+    return _launch("cgx_wbell_windowed", "plane walk", a.values, a.lc, x,
+                   torder, tptr, a.ps, a.wb, a.g0, a.pgo)
 
 
 def _wbell_call_resident(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
     _check_x(x, a.nt, "wbell kernel")
     return wbell_resident_raw(a.p_og, a.p_ga, a.lc, a.values,
                               x.to(a.vector_dtype).contiguous(),
-                              walk=a.resident_walk)
+                              rows=a.rows)
 
 
 def _dispatch(a: WBELLMatrix, x: torch.Tensor, backend: str):
@@ -242,7 +339,7 @@ def wbell_spmv(a: WBELLMatrix, x: torch.Tensor, *,
 def wbell_spmm(a: WBELLMatrix, x: torch.Tensor, *,
                backend: str = "auto") -> torch.Tensor:
     """``Y = A @ X`` on a batch of internal-layout columns ``(nrhs, nt, 8,
-    128)``; the slot-plane stream is shared by the columns."""
+    128)``; one read of the row layout serves up to 8 columns."""
     return _dispatch(a, x, backend)
 
 
@@ -261,8 +358,8 @@ def from_stacked(xs: torch.Tensor) -> torch.Tensor:
 
 
 def wbell_stacked_reference(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
-    """K10's plain version on any device: K7's through the batched layout
-    (the same sums in the same order)."""
+    """K10's plain version on any device: K7's plane walk through the
+    batched layout (the same sums in the same order)."""
     return to_stacked(wbell_resident_reference(a, from_stacked(x)))
 
 
@@ -302,7 +399,7 @@ class WBellTierPlan:
     """The planes of a :class:`WBELLMatrix` sorted into classes of actual
     window width {≤4, ≤8, ≤16} with tight per-plane window starts (built by
     :func:`build_tier_plan`).  On the TPU the classes shorten the per-plane
-    gather chain; on the card K8 walks them as K7 walks the planes."""
+    gather chain; on the card K8 walks them in K7's plane order."""
 
     values: torch.Tensor   # (Ptot, 8, 8, 128) class-major
     lc: torch.Tensor       # (Ptot, 1, 128) int32, tight window offsets

@@ -17,10 +17,15 @@ What differs from the JAX package:
   for torch indexing;
 * :func:`pick_format` takes ``device=`` where the JAX package takes
   ``backend=``: ``"wbell"`` on CUDA where the JAX package says TPU;
-* the CUDA kernels (:mod:`cgx_torch.kernels.wbell`) walk each output
-  group's planes; :attr:`WBELLMatrix.resident_walk` and
-  :attr:`WBELLMatrix.windowed_walk` build those per-group ranges once per
-  matrix, on its device.
+* the plane-walking CUDA kernels (:mod:`cgx_torch.kernels.wbell`: K8,
+  K10) walk each output group's planes; :attr:`WBELLMatrix.resident_walk`
+  and :attr:`WBELLMatrix.windowed_walk` build those per-group ranges once
+  per matrix, on its device;
+* K7 and K9 read a compact row layout (:class:`WBellRows`, sliced ELL over
+  the internal rows) that :func:`row_layout` builds from the planes once
+  per matrix (:attr:`WBELLMatrix.rows`, :attr:`WBELLMatrix.windowed_rows`):
+  the planes' 8×8 blocks hold 5.6 nonzeros of 64 at thermal2 scale, a fill
+  that the TPU's (8, 128) vregs wanted and the card does not.
 """
 from __future__ import annotations
 
@@ -35,12 +40,23 @@ import torch
 from cgx_torch.sparse.types import CSRMatrix, ell_from_csr, resolve_device
 
 __all__ = ["WBELLMatrix", "wbell_from_csr", "auto_format", "pick_format",
-           "WBELL_MIN_ROWS", "group_walk"]
+           "WBELL_MIN_ROWS", "group_walk", "WBellRows", "row_layout",
+           "rows_from_steps", "ROW_SLICE", "ROW_OFFSET_LIMIT",
+           "STAGE_WINDOW_GROUPS"]
 
 # The JAX package's routing threshold, measured on a TPU v5e (a 2.0 s
 # build at 49 k rows breaks even at ~370 iterations); not measured on the
 # card.  Every "auto" surface derives from it through pick_format.
 WBELL_MIN_ROWS = 30_000
+
+# Internal rows of one slice of the row layout: one warp, a row a thread.
+ROW_SLICE = 32
+# The widest window of x (floats) whose columns a stage stores as 16-bit
+# offsets.
+ROW_OFFSET_LIMIT = 1 << 16
+# K9's widest stage window, in groups of x (4 KB of fp32 each): two
+# buffers of it fit in the 227 KB of shared memory an H100 block may use.
+STAGE_WINDOW_GROUPS = 28
 
 
 def group_walk(og: torch.Tensor, keep: torch.Tensor, nt: int,
@@ -58,6 +74,180 @@ def group_walk(og: torch.Tensor, keep: torch.Tensor, nt: int,
     ptr = torch.zeros(nt + 1, dtype=torch.int64, device=og.device)
     ptr[1:] = torch.cumsum(torch.bincount(g, minlength=nt), 0)
     return order.to(torch.int32), ptr.to(torch.int32)
+
+
+@dataclass(frozen=True, eq=False)
+class WBellRows:
+    """The compact row layout of a WBELL operator: sliced ELL over the
+    internal rows, built from the slot planes by :func:`row_layout`.
+
+    Internal row ``1024·g + 128·i + l`` (group g, row i of lane l's block
+    row) holds its nonzeros in walk order (plane order, then j), each with
+    its value in the planes' dtype and the internal index ``1024·(ga +
+    lc>>7) + 128·j + (lc & 127)`` of its x operand; zero values are left
+    out.  Within each group the rows are sorted by their count of entries,
+    longest first, stably (``rowmap[q]`` is the internal row at position
+    q), and each 32 positions form a slice, stored slot-major: slot t of
+    the slice's lane e at ``sbase[k] + 32·t + e``, so a warp's loads of
+    values and columns are coalesced.  Padding slots hold value 0 and
+    column 0 of their window.
+
+    A group's entries are split into stages (``sptr``), each summed after
+    the one before it, so every row keeps its walk order.  The resident
+    layout (K7) has one stage per group; the windowed layout (K9) one stage
+    per run of planes with one window start, whose window of x K9 stages
+    in shared memory, cut by column into parts of at most
+    :data:`STAGE_WINDOW_GROUPS` groups of x where the run draws from a
+    wider window (a row's columns ascend within a run, so the cut keeps
+    its order).  Stage st's entries read x from ``x0[st] .. x0[st] +
+    xlen[st]`` (floats), and a column is stored as its offset from
+    ``x0[st]`` in 16 bits (int16 storage read as unsigned), or, where a
+    resident group spans more than 65,536 floats of x, as the absolute
+    index in int32 with ``x0 = 0``.  Slice ``32·st + w`` holds stage st's
+    entries of the positions ``32·w .. 32·w + 31`` of its group."""
+
+    values: torch.Tensor   # (slots,) the planes' dtype
+    cols: torch.Tensor     # (slots,) int16 offset from x0 (or int32 index)
+    sbase: torch.Tensor    # (32·stages + 1,) int64 first slot of each slice
+    rowmap: torch.Tensor   # (nt·1024,) int32 internal row at each position
+    sptr: torch.Tensor     # (nt + 1,) int32 stages of each group
+    x0: torch.Tensor       # (stages,) int32 window start (floats)
+    xlen: torch.Tensor     # (stages,) int32 window length (floats)
+    nt: int
+    nnz: int               # entries that are not padding
+    window: int            # widest xlen
+    windowed: bool         # K9's layout (one stage per window start)
+
+    @property
+    def slots(self) -> int:
+        return int(self.values.numel())
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the layout's arrays: what one product streams besides
+        x and y."""
+        return sum(int(f.numel()) * f.element_size()
+                   for f in (self.values, self.cols, self.sbase, self.rowmap,
+                             self.sptr, self.x0, self.xlen))
+
+    def call_bytes(self, nrhs: int) -> int:
+        """Bytes one product of ``nrhs`` fp32 columns must move: the
+        layout once, each column of x read once and of y written once."""
+        return self.nbytes + 2 * nrhs * self.nt * 1024 * 4
+
+
+def _row_order(cnt: torch.Tensor) -> torch.Tensor:
+    """σ: the internal rows of each group by count, longest first."""
+    nrows = cnt.numel()
+    cmax = int(cnt.max()) if nrows else 0
+    key = (torch.arange(nrows, device=cnt.device) >> 10) * (cmax + 1) \
+        + (cmax - cnt)
+    return torch.sort(key, stable=True).indices
+
+
+def row_layout(values: torch.Tensor, lc: torch.Tensor, walk, og: torch.Tensor,
+               ga: torch.Tensor, nt: int, *,
+               windowed: bool = False) -> WBellRows:
+    """The row layout (:class:`WBellRows`) of raw plane arrays: ``values``
+    (P, 8, 8, 128), ``lc`` (P, 1, 128), the walk ``(order, ptr)`` of
+    :func:`group_walk`, the per-plane output group ``og`` and window start
+    ``ga``.  Built with torch ops on ``values``' device."""
+    order = walk[0].long()
+    return rows_from_steps(values, lc, order, og.long()[order],
+                           ga.long()[order], nt, windowed=windowed)
+
+
+def rows_from_steps(values: torch.Tensor, lc: torch.Tensor,
+                    plane: torch.Tensor, og: torch.Tensor, ga: torch.Tensor,
+                    nt: int, *, windowed: bool = False) -> WBellRows:
+    """:func:`row_layout` of a walk given step by step: step s adds plane
+    ``plane[s]`` to group ``og[s]`` with window start ``ga[s]`` (sorted by
+    ``og``, as :func:`cgx_torch.kernels.wbell.walk_product` takes it).
+
+    Raises:
+      ValueError: windowed, a row's columns do not ascend within a run of
+        one window start, so the run cannot be cut into parts.
+    """
+    dev = values.device
+    nrows = nt * 1024
+    plane, og, ga = plane.long(), og.long(), ga.long()
+    # Entries in walk order: nonzero() is lexicographic in (step, i, j, l).
+    s, i, j, l = torch.nonzero(values.ne(0)[plane]).unbind(1)
+    p = plane[s]
+    val = values[p, i, j, l]
+    lcv = lc[p, 0, l].long()
+    col = ((ga[s] + (lcv >> 7)) << 10) + (j << 7) + (lcv & 127)
+    row = (og[s] << 10) + (i << 7) + l
+    if windowed:
+        # A stage: a run of non-empty steps with one group and window start.
+        steps, at = torch.unique_consecutive(s, return_inverse=True)
+        gs, gas = og[steps], ga[steps]
+        new = torch.ones(steps.numel(), dtype=torch.bool, device=dev)
+        new[1:] = (gs[1:] != gs[:-1]) | (gas[1:] != gas[:-1])
+        run = (torch.cumsum(new, 0) - 1)[at]
+        # Cut each run by column into parts of `cut` groups of x from its
+        # first group: K9's two window buffers fit in shared memory and the
+        # offsets in 16 bits whatever the build's span.
+        cut = max(1, min(STAGE_WINDOW_GROUPS, ROW_OFFSET_LIMIT >> 10))
+        xg = col >> 10
+        g_lo = torch.full((int(new.sum()),), nt, dtype=torch.int64,
+                          device=dev).scatter_reduce_(0, run, xg, "amin")
+        part = (xg - g_lo[run]) // cut
+        nparts = int(part.max()) + 1 if part.numel() else 1
+        keys, st = torch.unique(run * nparts + part, return_inverse=True)
+        stage_group = gs[new][keys // nparts]
+    else:
+        st = og[s]
+        stage_group = torch.arange(nt, device=dev)
+    nst = int(stage_group.numel())
+    # Each row's entries together, in walk order (a stable sort by row).
+    by_row = torch.sort(row, stable=True).indices
+    row, st, col, val = row[by_row], st[by_row], col[by_row], val[by_row]
+    if windowed and bool(((row[1:] == row[:-1]) & (st[1:] < st[:-1])).any()):
+        raise ValueError("windowed row layout: a row's columns do not ascend "
+                         "within a run of one window start")
+    rowmap = _row_order(torch.bincount(row, minlength=nrows))
+    pos_of = torch.empty_like(rowmap)
+    pos_of[rowmap] = torch.arange(nrows, device=dev)
+    q = pos_of[row] & 1023
+    # Rank of an entry within its row's part of its stage.
+    n_e = row.numel()
+    first = torch.ones(n_e, dtype=torch.bool, device=dev)
+    if n_e:
+        first[1:] = (row[1:] != row[:-1]) | (st[1:] != st[:-1])
+    starts = torch.nonzero(first)[:, 0]
+    rank = torch.arange(n_e, device=dev) - starts[torch.cumsum(first, 0) - 1]
+    slice_ = st * ROW_SLICE + (q >> 5)
+    width = torch.zeros(nst * ROW_SLICE, dtype=torch.int64, device=dev)
+    width.scatter_reduce_(0, slice_, rank + 1, "amax")
+    sbase = torch.zeros(nst * ROW_SLICE + 1, dtype=torch.int64, device=dev)
+    sbase[1:] = torch.cumsum(width * ROW_SLICE, 0)
+    addr = sbase[slice_] + rank * ROW_SLICE + (q & 31)
+    # Each stage's window of x: 128-byte aligned start, whole 16-byte units.
+    lo = torch.full((nst,), nrows, dtype=torch.int64, device=dev)
+    lo.scatter_reduce_(0, st, col, "amin")
+    hi = torch.zeros(nst, dtype=torch.int64, device=dev)
+    hi.scatter_reduce_(0, st, col, "amax")
+    x0 = torch.where(lo < nrows, lo & ~31, 0)
+    xlen = torch.where(lo < nrows, (hi + 1 - x0 + 3) & ~3, 0)
+    window = int(xlen.max()) if nst else 0
+    if window <= ROW_OFFSET_LIMIT:                     # windowed: always
+        cdata, cdtype = col - x0[st], torch.int16      # read as unsigned
+    else:
+        x0 = torch.zeros_like(x0)
+        cdata, cdtype = col, torch.int32
+    total = int(sbase[-1])
+    vals_out = torch.zeros(total, dtype=values.dtype, device=dev)
+    vals_out[addr] = val
+    cols_out = torch.zeros(total, dtype=cdtype, device=dev)
+    cols_out[addr] = cdata.to(torch.int32).to(cdtype)
+    sptr = torch.zeros(nt + 1, dtype=torch.int64, device=dev)
+    sptr[1:] = torch.cumsum(torch.bincount(stage_group, minlength=nt), 0)
+    return WBellRows(values=vals_out, cols=cols_out, sbase=sbase,
+                     rowmap=rowmap.to(torch.int32),
+                     sptr=sptr.to(torch.int32), x0=x0.to(torch.int32),
+                     xlen=xlen.to(torch.int32), nt=int(nt), nnz=int(n_e),
+                     window=window, windowed=bool(windowed))
 
 
 @dataclass(frozen=True, eq=False)
@@ -141,6 +331,35 @@ class WBELLMatrix:
         return group_walk(self.outg, torch.ones_like(self.outg,
                                                      dtype=torch.bool),
                           self.nt)
+
+    def windowed_steps(self):
+        """K9's walk step by step, ``(plane, og, ga)`` (int64): the planes
+        of each group's virtual tiles in tile order, window start ``g0[t]
+        + pgo[p]``."""
+        torder, _ = self.windowed_walk
+        t = torder.long()
+        cnt = self.wb.long()[t]
+        first = torch.cumsum(cnt, 0) - cnt
+        step = torch.arange(int(cnt.sum()), device=cnt.device)
+        plane = (torch.repeat_interleave(self.ps.long()[t], cnt) + step
+                 - torch.repeat_interleave(first, cnt))
+        og = torch.repeat_interleave(self.outg.long()[t], cnt)
+        ga = (torch.repeat_interleave(self.g0.long()[t], cnt)
+              + self.pgo.long()[plane])
+        return plane, og, ga
+
+    @functools.cached_property
+    def rows(self) -> WBellRows:
+        """K7's row layout: :func:`row_layout` of :attr:`resident_walk`,
+        built once, on the matrix's device."""
+        return row_layout(self.values, self.lc, self.resident_walk,
+                          self.p_og, self.p_ga, self.nt)
+
+    @functools.cached_property
+    def windowed_rows(self) -> WBellRows:
+        """K9's row layout: its tile walk, split into window stages."""
+        return rows_from_steps(self.values, self.lc, *self.windowed_steps(),
+                               self.nt, windowed=True)
 
     # -- solve-boundary layout transforms ----------------------------------
 

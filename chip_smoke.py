@@ -35,20 +35,26 @@ Phases (any failed check exits nonzero, and no result line is printed):
    constant mode beside K3 at 224³;
 10. W1, the unstructured path's build: the thermal2 stand-in at full size
     (``standin("thermal2")``, 1,228,045 rows, seed 0) through
-    ``auto_format``, which must choose WBELL, and its tier plan;
-11. W2, the WBELL kernels K7 (k = 1 and 4), K9 (k = 1) and K8 (k = 4) on
-    seeded operands, each held against its plain version, against an
-    fp64 CSR product through the permutation, and against a second run;
+    ``auto_format``, which must choose WBELL, its tier plan, and the row
+    layouts K7 and K9 read (build time, slots, padding, bytes);
+11. W2, the WBELL kernels K7 and K9 (k = 1 and 4) and K8 (k = 4) on
+    seeded operands, each held against its plain version (K7 and K9 bit
+    for bit), against an fp64 CSR product through the permutation, and
+    against a second run; K7 and K9 against the plane walk they replace
+    and K8 against K7, bit for bit;
 12. W3, the path as a user drives it: ``auto_solve(op, b, tol=1e-6,
     maxiter=8000, preconditioner=...)`` with Jacobi (b = ones and a seeded
     b), none, ``PolynomialPrecond`` and ``"block_jacobi"``, each answer
     checked through K9 (``wbell_spmv(..., backend="windowed")``) and in
     fp64 through the CSR; the Jacobi b = ones solve held against the same
-    solve over K7's plain version;
+    solve over K7's plain version, on a row layout built apart from the
+    kernel's, on the host from the planes;
 13. W4, multi-RHS: ``auto_solve(op, B)`` with B (n, 4) under Jacobi (K8),
     each column against a single-RHS solve of it;
-14. W5, times: K7, K8 and K9 beside their plain versions and beside
-    torch's CSR product of the same matrix, and µs per iteration of the
+14. W5, times: K7 and K9 (k = 1 and 4) beside their plain versions, the
+    plane walk they replace (the same-run "before") and torch's CSR
+    product of the same matrix, which K7 and K9 at k = 1 must beat; K8
+    beside its plain version and the CSR product; µs per iteration of the
     Jacobi solve;
 15. M1, the multi-RHS engine K5: kernels A and B one step each against
     their plain versions at DIA-27 160³ (``poisson3d_dia27(160, 160, 160,
@@ -182,6 +188,7 @@ neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -265,22 +272,36 @@ def event_ms(fn, inner: int = 1) -> float:
 
 def time_pair(kernel, plain, reps: int = 7, inner: int = 1):
     """Median ms per call of ``kernel`` and ``plain``, interleaved."""
-    def once(fn):
-        return event_ms(fn, inner)
+    return tuple(time_set([kernel, plain], reps, inner))
 
-    kernel()
-    plain()
+
+def time_set(fns, reps: int = 5, inner: int = 1):
+    """Median ms per call of each of ``fns``, interleaved: each repetition
+    runs them all, in reverse order every other time."""
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    tk, tp = [], []
+    times = [[] for _ in fns]
     for i in range(reps):
-        # plain, kernel, kernel, plain, ...
-        if i % 2 == 0:
-            tp.append(once(plain))
-            tk.append(once(kernel))
-        else:
-            tk.append(once(kernel))
-            tp.append(once(plain))
-    return statistics.median(tk), statistics.median(tp)
+        order = range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))
+        for j in order:
+            times[j].append(event_ms(fns[j], inner))
+    return [statistics.median(t) for t in times]
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """ms of device time per call of ``fn``: every kernel's time under
+    torch.profiler (CUDA activity only) over ``calls`` calls, the host's
+    gaps between them left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return device_us(prof, lambda key: True)[0] / calls / 1e3
 
 
 def rhs_set(dims, dev):
@@ -369,6 +390,7 @@ def wbell_phases(dev, card):
     import cgx_torch
     from cgx_torch.io.suitesparse import standin
     from cgx_torch.kernels import wbell as kw
+    from cgx_torch.sparse.wbell import group_walk, row_layout
 
     # -- W1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -395,6 +417,21 @@ def wbell_phases(dev, card):
           f"{op.nnz_stored / a.nnz:.2f}x, planes + lc "
           f"{n_planes * 65 * 128 * 4 / 1e6:.1f} MB; tier plan in "
           f"{t_plan:.1f} s, steps {plan.steps} x {plan.splane}")
+    layouts = {}
+    for name, attr in (("K7", "rows"), ("K9", "windowed_rows")):
+        t0 = time.perf_counter()
+        rows = getattr(op, attr)
+        torch.cuda.synchronize()
+        layouts[name] = rows
+        print(f"W1 row layout ({name}): built from the planes on the card in "
+              f"{time.perf_counter() - t0:.3f} s; {rows.slots} slots for "
+              f"{rows.nnz} nonzeros (padding {rows.slots / rows.nnz:.3f}x), "
+              f"{rows.nbytes / 1e6:.1f} MB, "
+              f"{16 if rows.cols.dtype == torch.int16 else 32}-bit columns, "
+              f"{int(rows.sptr[-1])} stages, widest window {rows.window} "
+              f"floats")
+        check(rows.nnz == a.nnz, f"{name}'s row layout holds {rows.nnz} of "
+              f"{a.nnz} nonzeros")
 
     # -- W2. the kernels against their plain versions ----------------------
     rng = np.random.default_rng(SEED)
@@ -404,23 +441,29 @@ def wbell_phases(dev, card):
     a64 = torch.sparse_csr_tensor(a.indptr, a.col_indices, a.values.double(),
                                   size=a.shape, check_invariants=False)
     y64 = a64 @ xs.double()
+    k7_rows, k9_rows = layouts["K7"], layouts["K9"]
     cases = {
         "K7 k=1": (lambda: kw.wbell_spmm(op, xi[:1]),
-                   lambda: kw.wbell_resident_reference(op, xi[:1]), 1),
+                   lambda: kw.rows_product(k7_rows, xi[:1]), 1),
         "K7 k=4": (lambda: kw.wbell_spmm(op, xi),
-                   lambda: kw.wbell_resident_reference(op, xi), 4),
+                   lambda: kw.rows_product(k7_rows, xi), 4),
         "K9 k=1": (lambda: kw.wbell_spmm(op, xi[:1], backend="windowed"),
-                   lambda: kw.wbell_windowed_reference(op, xi[:1]), 1),
+                   lambda: kw.rows_product(k9_rows, xi[:1]), 1),
+        "K9 k=4": (lambda: kw.wbell_spmm(op, xi, backend="windowed"),
+                   lambda: kw.rows_product(k9_rows, xi), 4),
         "K8 k=4": (lambda: kw.wbell_spmm_tiered(plan, xi),
                    lambda: kw.wbell_tiered_reference(plan, xi), 4),
     }
-    errs = {}
+    # The plane walks that K7 and K9 replace: their same-run "before".
+    planes = {"K7": kw._planes_k7, "K9": kw._planes_k9}
+    errs, ys = {}, {}
     for label, (run, plain, k) in cases.items():
         y = run()
         torch.cuda.synchronize()
         y_ref = plain()
         again = run()
         torch.cuda.synchronize()
+        ys[label] = y
         e_plain = maxrel(y, y_ref)
         y_std = torch.stack([op.from_internal(y[c]) for c in range(k)], 1)
         e64 = maxrel(y_std, y64[:, :k])
@@ -431,6 +474,18 @@ def wbell_phases(dev, card):
         check(e_plain <= 1e-5, f"{label} disagrees with its plain version")
         check(e64 <= 1e-5, f"{label} disagrees with the fp64 CSR product")
         check(torch.equal(y, again), f"{label}: two runs differ")
+        if label[:2] in planes:
+            before = planes[label[:2]](op, xi[:k].contiguous())
+            torch.cuda.synchronize()
+            print(f"W2 {label}: equal to the plane walk it replaces bit for "
+                  f"bit: {torch.equal(y, before)}")
+            check(torch.equal(y, y_ref), f"{label} is not bitwise equal to "
+                  "its plain version")
+            check(torch.equal(y, before), f"{label} differs from the plane "
+                  "walk")
+    print(f"W2 K8 k=4 equal to K7 k=4 bit for bit: "
+          f"{torch.equal(ys['K8 k=4'], ys['K7 k=4'])}")
+    check(torch.equal(ys["K8 k=4"], ys["K7 k=4"]), "K8 differs from K7")
 
     # -- W3. the path as a user drives it -----------------------------------
     b_ones = torch.ones(n, dtype=torch.float32, device=dev)
@@ -482,14 +537,28 @@ def wbell_phases(dev, card):
         check(bool(res.converged), f"thermal2 {name} b={bn} did not converge")
         check(spmvs == want, f"{name}: {spmvs} K7 launches for {want} SpMVs")
 
-    # The Jacobi b = ones solve over K7's plain version, on the card.
+    # The Jacobi b = ones solve over K7's plain version, on the card, over
+    # a row layout built on the host from the planes (walk included), apart
+    # from the cached one K7 reads.
     res, its, rr64, _ = results["jacobi", "ones"]
     idi = op.to_internal(jac.inv_diag)
+    t0 = time.perf_counter()
+    host = {f: getattr(op, f).cpu() for f in ("values", "lc", "p_og", "p_ga")}
+    keep = host["values"].reshape(len(host["values"]), -1).ne(0).any(1)
+    host_rows = row_layout(host["values"], host["lc"],
+                           group_walk(host["p_og"], keep, op.nt),
+                           host["p_og"], host["p_ga"], op.nt)
+    plain_rows = dataclasses.replace(host_rows, **{
+        f.name: getattr(host_rows, f.name).to(dev)
+        for f in dataclasses.fields(host_rows)
+        if isinstance(getattr(host_rows, f.name), torch.Tensor)})
+    print(f"W3 plain solve's row layout built on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     ref = cgx_torch.cg_solve(
-        lambda v: kw.wbell_resident_reference(op, v[None])[0],
+        lambda v: kw.rows_product(plain_rows, v[None])[0],
         op.to_internal(b_ones), tol=TOL, maxiter=MAXIT_WBELL,
         preconditioner=lambda r: r * idi)
     end.record()
@@ -565,15 +634,63 @@ def wbell_phases(dev, card):
                                   a.values.float(), size=a.shape,
                                   check_invariants=False)
     x1, x4 = xs[:, 0].contiguous(), xs
-    ms = {}
+    xk = {1: xi[:1].contiguous(), 4: xi.contiguous()}
+    csr = {1: lambda: a32 @ x1, 4: lambda: a32 @ x4}
+    ms, before_ms, csr_ms, dev_ms = {}, {}, {}, {}
     for label, (run, plain, k) in cases.items():
-        ms[label] = time_pair(run, plain, reps=5, inner=10)
-    csr1 = time_pair(lambda: a32 @ x1, lambda: a32 @ x1, reps=5, inner=10)[0]
-    csr4 = time_pair(lambda: a32 @ x4, lambda: a32 @ x4, reps=5, inner=10)[0]
+        fns = [run, plain, csr[k]]
+        if label[:2] in planes:
+            fns.append(lambda f=planes[label[:2]], x=xk[k]: f(op, x))
+        got = time_set(fns, reps=5, inner=10)
+        ms[label], csr_ms[label] = (got[0], got[1]), got[2]
+        before_ms[label] = got[3] if len(got) > 3 else None
+        if label[:2] in planes:
+            # Device time alone: one call from Python costs the card's
+            # host about as long as K7 runs.  Kernel, plain version, the
+            # plane walk, the CSR product.
+            dev_ms[label] = [device_ms(f) for f in (run, plain, fns[3],
+                                                    csr[k])]
+    def least_bytes(k):
+        # K7 and K9 compute one function: its bound is the fewest bytes
+        # that move it, the smaller row layout's or the nonzeros' alone
+        # (8 B each), with x read and y written once.
+        io = 2 * k * op.nt * 1024 * 4
+        return min(k7_rows.call_bytes(k), k9_rows.call_bytes(k),
+                   a.nnz * 8 + io)
+
+    def us(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e6
+
     for label, (t_k, t_p) in ms.items():
-        print(f"[{card}] W5 {label}: {t_k * 1e3:.1f} us (plain "
-              f"{t_p * 1e3:.1f} us); torch CSR product "
-              f"{(csr1 if label.endswith('1') else csr4) * 1e3:.1f} us")
+        k = cases[label][2]
+        io = 2 * k * op.nt * 1024 * 4
+        line = (f"[{card}] W5 {label}: {t_k * 1e3:.1f} us (plain "
+                f"{t_p * 1e3:.1f} us); torch CSR product "
+                f"{csr_ms[label] * 1e3:.1f} us")
+        if before_ms[label] is not None:
+            own = layouts[label[:2]].call_bytes(k)
+            line += (f"; the plane walk it replaces "
+                     f"{before_ms[label] * 1e3:.1f} us; bound "
+                     f"{us(least_bytes(k)):.1f} us "
+                     f"({least_bytes(k) / 1e6:.1f} MB, the least of the two "
+                     f"row layouts and the nonzeros alone); its own layout "
+                     f"{us(own):.1f} us ({own / 1e6:.1f} MB), the planes' "
+                     f"{us(kept7 * (65 * 128 * 4 + 8) + io):.1f} us, the "
+                     f"nonzeros' alone {us(a.nnz * 8 + io):.1f} us "
+                     f"({(a.nnz * 8 + io) / 1e6:.1f} MB)")
+            d_k, d_p, d_b, d_c = dev_ms[label]
+            line += (f"; device time per call (profiler): {d_k * 1e3:.1f} "
+                     f"us, plain {d_p * 1e3:.1f} us, the plane walk "
+                     f"{d_b * 1e3:.1f} us, the CSR product "
+                     f"{d_c * 1e3:.1f} us")
+        print(line)
+    for label in ("K7 k=1", "K9 k=1"):
+        check(ms[label][0] < csr_ms[label], f"W5 {label}: "
+              f"{ms[label][0] * 1e3:.1f} us is not faster than torch's CSR "
+              f"product ({csr_ms[label] * 1e3:.1f} us)")
+        check(dev_ms[label][0] < dev_ms[label][3], f"W5 {label}: device "
+              f"time {dev_ms[label][0] * 1e3:.1f} us is not below the CSR "
+              f"product's ({dev_ms[label][3] * 1e3:.1f} us)")
     its_j = results["jacobi", "ones"][1]
     t_solve = statistics.median(
         event_ms(lambda: cgx_torch.auto_solve(
@@ -611,24 +728,31 @@ def wbell_phases(dev, card):
               f"{k7_us / its_j:.1f} us/launch); other kernels (ms) "
               f"{others}")
 
-    def stream_bytes(kept, k):
+    def plane_bytes(kept, k):
         # Kept planes (values + lc) and their indices, x in and y out.
         return kept * (65 * 128 * 4 + 8) + 2 * k * op.nt * 1024 * 4
 
     entries = []
-    for name, label, key, src, kept, k, csr in (
-            ("wbell_resident", "K7 k=1", "k7", 105, kept7, 1, csr1),
-            ("wbell_tiered", "K8 k=4", "k8", 275, kept8, 4, csr4),
-            ("wbell_windowed", "K9 k=1", "k9", 46,
-             int(op.wb.sum()), 1, csr1)):
-        b_ms, b_by = bound(stream_bytes(kept, k), kept * 64 * 128 * 2 * k)
-        entries.append({
+    for name, label, key, src, nbytes, k in (
+            ("wbell_resident", "K7 k=1", "k7", 105, least_bytes(1), 1),
+            ("wbell_tiered", "K8 k=4", "k8", 275, plane_bytes(kept8, 4), 4),
+            ("wbell_windowed", "K9 k=1", "k9", 46, least_bytes(1), 1)):
+        b_ms, b_by = bound(nbytes, 2 * a.nnz * k if key != "k8"
+                           else kept8 * 64 * 128 * 2 * k)
+        entry = {
             "name": name, "route": "cuda",
             "source": "cgx_torch/csrc/wbell.cu",
             "replaces": f"cgx/kernels/wbell.py:{src}",
             "launches": launches[key], "max_abs_err": errs[label],
             "ms": ms[label][0], "plain_ms": ms[label][1], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": csr})
+            "bound_by": b_by, "library_ms": csr_ms[label]}
+        if label in dev_ms:
+            # The same three calls in device time (the profiler's): K7's
+            # event time holds the host's enqueue as well.
+            d_k, d_p, _, d_c = dev_ms[label]
+            entry.update(device_ms=d_k, device_plain_ms=d_p,
+                         device_library_ms=d_c)
+        entries.append(entry)
     return entries, (a, op, plan)
 
 

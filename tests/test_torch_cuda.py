@@ -298,6 +298,84 @@ def test_wbell_kernels_match_plain(cuda_device, case, k, bf16):
     assert torch.equal(runs["k7"][2], runs["k8"][2])
 
 
+@pytest.mark.parametrize("case,k,bf16", [
+    ("one_group", 1, False), ("five_groups", 3, False), ("thermal", 4, False),
+    ("thermal", 9, False), ("thermal", 1, True), ("five_groups", 4, True)])
+def test_wbell_row_kernels_match_plain(cuda_device, case, k, bf16):
+    """K7 and K9 over their row layouts against the layouts' plain version
+    (rows_product) and against the plane walk they replace: equal bit for
+    bit, one launch each, two runs equal, pad groups zero."""
+    a = _wbell(case, cuda_device, torch.bfloat16 if bf16 else None)
+    x = t(np.random.default_rng(k + 40).standard_normal(
+        (k, a.nt, 8, 128)).astype(np.float32), cuda_device)
+    for backend, rows, counter, planes in (
+            ("resident", a.rows, "wbell_resident_launches", kw._planes_k7),
+            ("windowed", a.windowed_rows, "wbell_windowed_launches",
+             kw._planes_k9)):
+        before = getattr(kw, counter)
+        y = kw.wbell_spmm(a, x, backend=backend)
+        torch.cuda.synchronize()
+        assert getattr(kw, counter) == before + 1, backend
+        assert torch.equal(y, kw.rows_product(rows, x)), backend
+        assert torch.equal(y, planes(a, x)), backend
+        assert torch.equal(kw.wbell_spmm(a, x, backend=backend), y), backend
+        assert float(y[:, a.ng_real:].abs().max()) == 0.0, backend
+
+
+def test_wbell_row_kernel_wide_columns(cuda_device, monkeypatch):
+    """K7 over a layout with absolute int32 columns (where a group spans
+    more than 16 bits of x) equals K7 over 16-bit offsets."""
+    from cgx_torch.sparse import wbell as sw
+
+    a = _wbell("thermal", cuda_device)
+    x = t(np.random.default_rng(3).standard_normal(
+        (2, a.nt, 8, 128)).astype(np.float32), cuda_device)
+    monkeypatch.setattr(sw, "ROW_OFFSET_LIMIT", 1024)
+    wide = sw.row_layout(a.values, a.lc, a.resident_walk, a.p_og, a.p_ga,
+                         a.nt)
+    assert wide.cols.dtype == torch.int32
+    y = kw.wbell_resident_raw(a.p_og, a.p_ga, a.lc, a.values, x, rows=wide)
+    torch.cuda.synchronize()
+    assert torch.equal(y, kw.wbell_spmm(a, x))
+    assert torch.equal(y, kw.rows_product(wide, x))
+
+
+def test_wbell_windowed_refuses_a_window_past_shared_memory(cuda_device):
+    """K9's C entry refuses a window whose two buffers pass a block's
+    shared memory, and the next launch runs."""
+    a = _wbell("five_groups", cuda_device)
+    x = torch.zeros((1, a.nt, 8, 128), device=cuda_device)
+    big = dataclasses.replace(a.windowed_rows, window=40000)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        kw._launch_rows(big, x, "K9")
+    y = kw.wbell_spmm(a, x, backend="windowed")
+    torch.cuda.synchronize()
+    assert float(y.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("span", [32, 64])
+def test_wbell_windowed_kernel_at_wide_spans(cuda_device, span):
+    """K9 at spans whose windows the layout cuts into parts of 28 groups:
+    equal to its plain version and to both plane walks bit for bit."""
+    import scipy.sparse as sp
+
+    n, m = 36_000, 78_000
+    rng = np.random.default_rng(8)
+    r = sp.csr_matrix((rng.random(m), (rng.integers(0, n, m),
+                                       rng.integers(0, n, m))), shape=(n, n))
+    a = cgx_torch.wbell_from_csr(
+        sp.csr_matrix((r + r.T) + sp.eye(n) * 4.0), span=span,
+        order="natural", balance_window=0, device=cuda_device)
+    x = t(np.random.default_rng(span).standard_normal(
+        (3, a.nt, 8, 128)).astype(np.float32), cuda_device)
+    y = kw.wbell_spmm(a, x, backend="windowed")
+    torch.cuda.synchronize()
+    assert a.windowed_rows.window == 28 * 1024
+    assert torch.equal(y, kw.rows_product(a.windowed_rows, x))
+    assert torch.equal(y, kw._planes_k9(a, x))
+    assert torch.equal(y, kw._planes_k7(a, x))
+
+
 def test_wbell_kernels_refuse_what_they_do_not_take(cuda_device):
     a = _wbell("one_group", cuda_device)
     x = torch.zeros((1, a.nt, 8, 128), device=cuda_device)
