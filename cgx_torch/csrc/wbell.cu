@@ -1,45 +1,65 @@
-// K7, K8, K9, K10 and P3: the WBELL (windowed block-ELL) product Y = A·X
-// for nrhs right-hand sides in the internal layout (nrhs, nt, 8, 128) or,
-// for K10, the stacked layout (nt, nrhs·8, 128).
+// K7, K8, K9, K10, P1 and P3: the WBELL (windowed block-ELL) product
+// Y = A·X for nrhs right-hand sides in the internal layout (nrhs, nt, 8,
+// 128) or, for K10, the stacked layout (nt, nrhs·8, 128).
 //
-// Replaces four Pallas kernels of cgx/kernels/wbell.py and one of
-// experiments/halfblock_proto.py, which compute the same Y:
+// Replaces four Pallas kernels of cgx/kernels/wbell.py and two of
+// experiments/, which compute the same Y:
 //   K7  _kernel_resident          over the row layout, x from the L2
 //   K9  _kernel                   over the windowed row layout, x staged
-//   K8  _kernel_resident_tiers    over slot planes, class-major
+//   K8  _kernel_resident_tiers    over its tier plan's row layout (K7's)
+//   P1  tier_proto _kernel_tiers  over its tiers' row layout
+//   P3  halfblock _kernel_half    over a segmented row layout
 //   K10 _kernel_resident_stacked  over slot planes, stacked x and y
-//   P3  _kernel_half              over half-block planes
 //
-// -- The row layout (K7, K9) ------------------------------------------------
+// -- The row layouts (K7, K8, K9, P1, P3) ------------------------------------
 // The TPU kernels stream slot planes of 8×8 blocks, one block per lane of a
 // (8, 128) vreg.  At thermal2 scale a block holds 5.6 nonzeros of its 64
 // entries and 66 % of the lane slots hold one: the planes are 17.5× the
 // nonzeros, 620 MB a product, a byte bound (185 µs) twice torch's whole CSR
-// product.  The card has no vreg shape to fill, so K7 and K9 read the
+// product.  The card has no vreg shape to fill, so these kernels read the
 // nonzeros alone, as sliced ELL over the internal rows
-// (cgx_torch/sparse/wbell.py: WBellRows, built from the planes once per
-// matrix): within each group of 1024 rows the rows are sorted by length
-// (a row map puts each sum back), 32 consecutive rows form a slice, stored
-// slot-major, so a warp's loads of values and columns are coalesced.  A
-// column is a 16-bit offset from its group's (K9: its stage's) window
-// start.  At thermal2 scale that is 2 % padding and 58 MB a product.
+// (cgx_torch/sparse/wbell.py: WBellRows, built once from the planes on
+// their device): within each group of 1024 rows the rows are sorted by
+// length (a row map puts each sum back), 32 consecutive rows form a slice,
+// stored slot-major, so a warp's loads of values and columns are
+// coalesced.  A column is a 16-bit offset from its group's (K9: its
+// stage's) window start.  At thermal2 scale that is 2 % padding and 58 MB
+// a product.  Each kernel's layout comes from its own planes and walk:
+// K7's from the matrix's planes in plane order, K8's from its tier plan's
+// class-major planes in the original plane order (the same entries in the
+// same order, so the same arrays: K8 is K7's kernel), P1's from its tiers
+// in their stored class-major order, P3's from its 4×8 half-block planes
+// (P, 4, 8, 128), row og·1024 + (4·half + i)·128 + l, half = lc bit 14.
 //
-// Each row keeps its nonzeros in walk order (plane order, then j), and each
-// product and sum is rounded on its own (__fmul_rn, __fadd_rn) from 0, as
-// the plane walk sums them: the left-out zeros add exact ±0 products, which
-// leave a sum that started at +0 unchanged.  So K7 and K9 equal the plane
-// walk, and through it the TPU kernels, bit for bit on finite x.  No two
-// threads write one output, there are no atomics, every output (pad groups
-// included) is written once, and two runs are bitwise equal.
+// Each row keeps its nonzeros in its walk's order (plane order, then j),
+// and each product and sum is rounded on its own (__fmul_rn, __fadd_rn)
+// from 0, as the plane walk sums them: the left-out zeros add exact ±0
+// products, which leave a sum that started at +0 unchanged.  So each
+// equals its plane walk, and through it the TPU kernels, bit for bit on
+// finite x.  No two threads write one output, there are no atomics, every
+// output (pad groups included) is written once, and two runs are bitwise
+// equal.
 //
-// K7: one thread per row, one warp per slice, half a group (16 slices) a
-// block, so that the L1 serves the gathers of neighbouring warps; kUnroll
-// slots' loads in flight; up to NR columns of x per value read.  What
-// bounds it on the card is the x gathers, not the layout's bytes: a warp's
-// 32 rows read 32 unrelated columns, about a 32-byte sector each, and at
-// k = 4 K7 takes 3.6× its k = 1 time for 1.45× the bytes (chip_smoke.py
-// W5).  Half-group blocks let the L1 serve neighbouring warps' gathers, and
-// the layout is loaded evict-first so that the caches keep x.
+// P3's layout is segmented: the prototype sums each plane's 4×8 product
+// from 0 on its own and then adds it to the row's sum.  Bit e of the word
+// flags[sbase[k] / 32 + t] marks slot t of slice k's lane e as continuing
+// the previous slot's (row, plane) segment.  kSeg keeps a segment sum
+// `part`: an unflagged slot adds part to acc and restarts it from 0, and
+// the row's end adds the last part.  A one-entry segment rounds as acc +
+// v·x does.  The flag word costs 1/32 of a word a slot (1.1 MB at thermal2
+// scale); a flag in the column word's top bit would leave 15 bits, fewer
+// than that matrix's widest group window (40,852 floats) needs.  A warp
+// reads 32 slots' flag words in one load and transposes them (lane_flags),
+// so a slot costs no load of its own (a load a slot measured slower).
+//
+// K7 (and K8, P1, P3): one thread per row, one warp per slice, half a group
+// (16 slices) a block, so that the L1 serves the gathers of neighbouring
+// warps; kUnroll slots' loads in flight; up to NR columns of x per value
+// read.  What bounds it on the card is the x gathers, not the layout's
+// bytes: a warp's 32 rows read 32 unrelated columns, about a 32-byte sector
+// each, and at k = 4 K7 takes 3.6× its k = 1 time for 1.45× the bytes
+// (chip_smoke.py W5).  The layout is loaded evict-first so that the caches
+// keep x.
 //
 // K9: the card's form of the TPU kernel's windowed DMA.  One block of 1024
 // threads per output group; the group's entries are split into stages, one
@@ -53,15 +73,15 @@
 // whole window through the L2: about 28 times the bytes of x a product at
 // thermal2 scale.
 //
-// -- The slot planes (K8, K10, P3, and the plane walk behind K7 and K9) -----
+// -- The slot planes (K10, and the plane walks the row layouts replace) -----
 // These differ in how a plane finds its output group og and its window
 // start ga, and in layout:
 //   plane walk (K7's walk)    og = p_og[p], ga = p_ga[p]        (plane order)
-//   K8                        og, ga unpacked from packed[p]     (class-major)
+//   plane walk (K8's, P1's)   og, ga unpacked from packed[p]     (class-major)
 //   plane walk (K9's walk)    og = outg[t], ga = g0[t] + pgo[p]  (virtual tiles)
 //   K10                       K7's walk; x and y stacked: column c, row j
 //                             of group g at x[(g·nrhs + c)·8 + j][m]
-//   P3                        K7's walk over (P, 4, 8, 128) half-block
+//   plane walk (P3's)         K7's walk over (P, 4, 8, 128) half-block
 //                             planes; lc bits 0-13 the offset, bit 14
 //                             the half of the 8 rows the block fills
 // For each plane p, lane l, row i and column c:
@@ -73,8 +93,9 @@
 // up to NR columns) and walks that group's planes in the order the TPU grid
 // visits them, from per-group ranges built once on the host side
 // (cgx_torch/sparse/wbell.py: group_walk), rounding as the row kernels do.
-// The plane walks of K7's and K9's order stay as the row kernels' same-run
-// "before" (chip_smoke.py W5); no user-facing path launches them.
+// The plane walks of K7's, K8's, K9's, P1's and P3's order stay as the row
+// kernels' same-run "before" (chip_smoke.py W5, E6); no user-facing path
+// launches them.
 //
 // The planes' floor is bytes: they stream once (65 words per lane per
 // plane, fill included); x stays in the L2.  A warp reads one (i, j) row of
@@ -88,13 +109,13 @@
 // the contiguous window helps the gathers is what the smoke's E6 measures
 // (on the TPU it lost: each column still needed its own vreg gather).
 //
-// P3 stores 4×8 half-blocks: plane p holds, per lane, the top or the bottom
-// four rows of the lane's 8-row block row (bit 14 of lc).  The thread of
-// each half of the rows adds a plane's block at its lane only where the
-// lane's half bit names its half: a plane's 4×8 product is summed on its own
-// (j in order, from 0) and then added to the accumulator, as the prototype
-// does, so the plain version rounds the same way.  Fewer stored zeros
-// (fill) buy more planes and half the threads idle per plane.
+// P3's plane walk stores 4×8 half-blocks: plane p holds, per lane, the top
+// or the bottom four rows of the lane's 8-row block row (bit 14 of lc).
+// The thread of each half of the rows adds a plane's block at its lane only
+// where the lane's half bit names its half: a plane's 4×8 product is summed
+// on its own (j in order, from 0) and then added to the accumulator, as the
+// prototype does.  Fewer stored zeros (fill) buy more planes and half the
+// threads idle per plane.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -181,9 +202,10 @@ __device__ __forceinline__ void store_group(float* __restrict__ y, int g,
   }
 }
 
-// K7 / K8 / K10: the planes of group g are order[ptr[g] .. ptr[g+1]); GaOf
-// reads a plane's window start (K7, K10 from p_ga, K8 from the low half of
-// packed); L is the layout of x and y (K10 stacked, else batched).
+// K10 and the plane walks of K7, K8 and P1: the planes of group g are
+// order[ptr[g] .. ptr[g+1]); GaOf reads a plane's window start (K7's walk,
+// K10 from p_ga, K8's and P1's from the low half of packed); L is the
+// layout of x and y (K10 stacked, else batched).
 struct GaFromArray {
   const int* ga;
   __device__ int operator()(int p) const { return __ldg(ga + p); }
@@ -249,10 +271,10 @@ __global__ void __launch_bounds__(kThreads)
   store_group<NR, Batched>(y, g, nt, nrhs, c0, lane, i0, acc);
 }
 
-// P3: the half-block planes (P, 4, 8, 128) of group g are order[ptr[g] ..
-// ptr[g+1]), window start the low half of packed[p] = og << 16 | ga.  Thread
-// half h (rows 4h .. 4h+3) adds a plane at its lane only where the lane's
-// half bit (lc bit 14) is h.
+// P3's plane walk: the half-block planes (P, 4, 8, 128) of group g are
+// order[ptr[g] .. ptr[g+1]), window start the low half of packed[p] = og <<
+// 16 | ga.  Thread half h (rows 4h .. 4h+3) adds a plane at its lane only
+// where the lane's half bit (lc bit 14) is h.
 template <typename V, int NR>
 __global__ void __launch_bounds__(kThreads)
     wbell_half_kernel(const V* __restrict__ values,
@@ -316,15 +338,42 @@ __device__ __forceinline__ int stream_col(const unsigned short* p) {
   return __ldcs(p);
 }
 
+// This lane's segment flags of slots t .. t+31 (bit s: slot t + s), from
+// the slot-major flag words fp[t + i] (bit e: lane e): one coalesced load
+// of 32 words and a 32×32 bit transpose across the warp, so that no slot
+// costs a load of its own.  Every lane of the warp must call it.
+__device__ __forceinline__ unsigned lane_flags(
+    const unsigned* __restrict__ fp, int t, int w, int lane) {
+  unsigned x = t + lane < w ? __ldcs(fp + t + lane) : 0u;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    // Columns c with (c & j) != 0: 0xFFFF0000, 0xFF00FF00, ... 0xAAAAAAAA.
+    const unsigned m = j == 16  ? 0xFFFF0000u
+                       : j == 8 ? 0xFF00FF00u
+                       : j == 4 ? 0xF0F0F0F0u
+                       : j == 2 ? 0xCCCCCCCCu
+                                : 0xAAAAAAAAu;
+    const unsigned other = __shfl_xor_sync(0xFFFFFFFFu, x, j);
+    x = (lane & j) ? (x & m) | ((other & m) >> j)
+                   : (x & ~m) | ((other & ~m) << j);
+  }
+  return x;
+}
+
 // Adds slots [t0, min(t0 + kUnroll, w)) of this lane's row, in order, to
 // acc; x operands from xv (global or shared) at xv[col].  The loads of the
-// kUnroll slots are issued before the first sum.
-template <typename V, typename C, int NR, bool kGlobal>
+// kUnroll slots are issued before the first sum.  kSeg (P3's segmented
+// layout): bit u of `cont` flags slot t0 + u as continuing its segment;
+// each product goes to the segment sum part, and an unflagged slot first
+// adds part to acc and restarts it from 0.
+template <typename V, typename C, int NR, bool kGlobal, bool kSeg = false>
 __device__ __forceinline__ void add_slots(const V* __restrict__ vp,
                                           const C* __restrict__ cp, int t0,
                                           int w, const float* __restrict__ xv,
                                           long long cstride, int ncol,
-                                          float (&acc)[NR]) {
+                                          float (&acc)[NR],
+                                          float (&part)[NR],
+                                          unsigned cont = 0) {
   float v[kUnroll];
   int c[kUnroll];
 #pragma unroll
@@ -352,21 +401,37 @@ __device__ __forceinline__ void add_slots(const V* __restrict__ vp,
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
     if (t0 + u < w) {
+      if constexpr (kSeg) {
+        if (!((cont >> u) & 1u)) {
 #pragma unroll
-      for (int k = 0; k < NR; ++k)
-        acc[k] = __fadd_rn(acc[k], __fmul_rn(v[u], xs[u][k]));
+          for (int k = 0; k < NR; ++k) {
+            acc[k] = __fadd_rn(acc[k], part[k]);
+            part[k] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < NR; ++k)
+          part[k] = __fadd_rn(part[k], __fmul_rn(v[u], xs[u][k]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < NR; ++k)
+          acc[k] = __fadd_rn(acc[k], __fmul_rn(v[u], xs[u][k]));
+      }
     }
   }
 }
 
-// K7: slice k = 16·blockIdx.x + warp holds slots sbase[k] .. sbase[k+1]
-// (width w = that / 32) of group k / 32, whose columns count from x0[k /
-// 32]; lane e's row is rowmap[32·k + e]; columns c0 .. c0+NR-1 of x (those
-// < nrhs).  C is unsigned short (16-bit offsets) or int (x0 = 0).
-template <typename V, typename C, int NR>
+// K7, K8, P1 and (kSeg) P3: slice k = 16·blockIdx.x + warp holds slots
+// sbase[k] .. sbase[k+1] (width w = that / 32) of group k / 32, whose
+// columns count from x0[k / 32]; lane e's row is rowmap[32·k + e]; columns
+// c0 .. c0+NR-1 of x (those < nrhs).  C is unsigned short (16-bit offsets)
+// or int (x0 = 0); with kSeg, flags[sbase[k] / 32 + t] holds slot t's
+// segment flags, one bit a lane (lane_flags reads 32 slots' at a time).
+template <typename V, typename C, int NR, bool kSeg>
 __global__ void __launch_bounds__(kRowThreads)
     wbell_rows_kernel(const V* __restrict__ values,
                       const C* __restrict__ cols,
+                      const unsigned* __restrict__ flags,
                       const long long* __restrict__ sbase,
                       const int* __restrict__ rowmap,
                       const int* __restrict__ x0,
@@ -383,8 +448,20 @@ __global__ void __launch_bounds__(kRowThreads)
   const C* cp = cols + b + lane;
   const float* xc = x + c0 * nrows + x0[k / kSlice];
   float acc[NR] = {};
-  for (int t = 0; t < w; t += kUnroll)
-    add_slots<V, C, NR, true>(vp, cp, t, w, xc, nrows, ncol, acc);
+  float part[NR] = {};
+  unsigned fl = 0;
+  for (int t = 0; t < w; t += kUnroll) {
+    if constexpr (kSeg) {
+      if ((t & (kSlice - 1)) == 0) fl = lane_flags(flags + b / kSlice, t, w,
+                                                   lane);
+    }
+    add_slots<V, C, NR, true, kSeg>(vp, cp, t, w, xc, nrows, ncol, acc,
+                                    part, fl >> (t & (kSlice - 1)));
+  }
+  if constexpr (kSeg) {
+#pragma unroll
+    for (int c = 0; c < NR; ++c) acc[c] = __fadd_rn(acc[c], part[c]);
+  }
   const long long row = rowmap[static_cast<long long>(k) * kSlice + lane];
 #pragma unroll
   for (int c = 0; c < NR; ++c)
@@ -488,9 +565,10 @@ __global__ void __launch_bounds__(kGroupRows)
         }
         const float* xs = buf + (q & 1) * window;
         float one[1] = {acc[c]};
+        float unused[1] = {};
         for (int t = 0; t < w; t += kUnroll)
           add_slots<V, unsigned short, 1, false>(vp, op, t, w, xs, 0, 1,
-                                                 one);
+                                                 one, unused);
         acc[c] = one[0];
         __syncthreads();  // every warp is done with buffer q & 1
         if (tid == 0 && q + 2 < nq) {
@@ -542,7 +620,8 @@ bool bad_shape(int nt, int nrhs) {
 // Each entry launches on `stream` and returns cudaGetLastError() after the
 // launch.  `values` is fp32, or bf16 when `bf16` is 1; x and y are fp32.
 
-// K7: planes of each group from (order, ptr), window starts from p_ga.
+// The plane walk in K7's order (K7's "before"): planes of each group from
+// (order, ptr), window starts from p_ga.
 extern "C" int cgx_wbell_resident(const void* values, int bf16,
                                   const int* lc, const int* order,
                                   const int* ptr, const int* p_ga,
@@ -579,8 +658,9 @@ extern "C" int cgx_wbell_stacked(const void* values, int bf16, const int* lc,
   });
 }
 
-// K8: a tier plan's planes of each group from (order, ptr), class-major;
-// window starts from packed = og << 16 | ga.
+// The plane walk of K8 and P1 (their "before"): a tier plan's planes of
+// each group from (order, ptr), class-major; window starts from packed =
+// og << 16 | ga.
 extern "C" int cgx_wbell_tiered(const void* values, int bf16, const int* lc,
                                 const int* order, const int* ptr,
                                 const int* packed, const float* x, float* y,
@@ -598,7 +678,8 @@ extern "C" int cgx_wbell_tiered(const void* values, int bf16, const int* lc,
   });
 }
 
-// K9: the virtual tiles of each group from (torder, tptr).
+// The plane walk in K9's order (K9's "before"): the virtual tiles of each
+// group from (torder, tptr).
 extern "C" int cgx_wbell_windowed(const void* values, int bf16,
                                   const int* lc, const int* torder,
                                   const int* tptr, const int* ps,
@@ -618,8 +699,9 @@ extern "C" int cgx_wbell_windowed(const void* values, int bf16,
   });
 }
 
-// P3: half-block planes (P, 4, 8, 128) of each group from (order, ptr),
-// window starts from packed = og << 16 | ga, the half in lc bit 14.
+// The plane walk of P3 (its "before"): half-block planes (P, 4, 8, 128) of
+// each group from (order, ptr), window starts from packed = og << 16 | ga,
+// the half in lc bit 14.
 extern "C" int cgx_wbell_half(const void* values, int bf16, const int* lc,
                               const int* order, const int* ptr,
                               const int* packed, const float* x, float* y,
@@ -637,13 +719,15 @@ extern "C" int cgx_wbell_half(const void* values, int bf16, const int* lc,
   });
 }
 
-// K7: the row layout; slices 32·nt; columns 16-bit offsets from x0 of
-// their group, or int32 indices when `wide` is 1.
+// K7, K8, P1 and P3: the row layout; slices 32·nt; columns 16-bit offsets
+// from x0 of their group, or int32 indices when `wide` is 1; `flags` is
+// P3's segment flags (one 32-bit word a slice and slot), null for the
+// other layouts.
 extern "C" int cgx_wbell_rows(const void* values, int bf16, const void* cols,
-                              int wide, const long long* sbase,
-                              const int* rowmap, const int* x0,
-                              const float* x, float* y, int nt, int nrhs,
-                              void* stream) {
+                              int wide, const unsigned* flags,
+                              const long long* sbase, const int* rowmap,
+                              const int* x0, const float* x, float* y, int nt,
+                              int nrhs, void* stream) {
   if (bad_shape(nt, nrhs)) return cudaErrorInvalidValue;
   const int nslices = nt * kSlice;
   const long long nrows = static_cast<long long>(nt) * kGroupRows;
@@ -654,15 +738,21 @@ extern "C" int cgx_wbell_rows(const void* values, int bf16, const void* cols,
     const dim3 grid((nslices + per_block - 1) / per_block,
                     (nrhs + NR - 1) / NR);
     const auto st = static_cast<cudaStream_t>(stream);
-    if (wide) {
-      wbell_rows_kernel<V, int, NR><<<grid, kRowThreads, 0, st>>>(
-          static_cast<const V*>(values), static_cast<const int*>(cols),
-          sbase, rowmap, x0, x, y, nslices, nrows, nrhs);
+    auto launch = [&](auto ct, auto seg) {
+      using C = typename decltype(ct)::type;
+      wbell_rows_kernel<V, C, NR, decltype(seg)::value>
+          <<<grid, kRowThreads, 0, st>>>(
+              static_cast<const V*>(values), static_cast<const C*>(cols),
+              flags, sbase, rowmap, x0, x, y, nslices, nrows, nrhs);
+    };
+    if (wide && flags) {
+      launch(Tag<int>{}, std::true_type{});
+    } else if (wide) {
+      launch(Tag<int>{}, std::false_type{});
+    } else if (flags) {
+      launch(Tag<unsigned short>{}, std::true_type{});
     } else {
-      wbell_rows_kernel<V, unsigned short, NR><<<grid, kRowThreads, 0, st>>>(
-          static_cast<const V*>(values),
-          static_cast<const unsigned short*>(cols), sbase, rowmap, x0, x, y,
-          nslices, nrows, nrhs);
+      launch(Tag<unsigned short>{}, std::false_type{});
     }
     return static_cast<int>(cudaGetLastError());
   });

@@ -5,20 +5,32 @@ The prototype packs 4-row half-blocks instead of 8×8 blocks into
 (:func:`build_halfblock`, host numpy as the reference): per lane, a plane
 holds the top or the bottom half of the lane's 8-row block row, named by
 bit 14 of ``lc`` (bits 0–13: the window offset, group·128 + lane).  Fewer
-stored zeros, more planes.  Its CUDA kernel (``cgx_wbell_half`` in
-``cgx_torch/csrc/wbell.cu``) is the plane walk in K7's order over these
-planes: each thread of a half of the rows adds a plane at its lane only
-where the lane's half bit names that half, the plane's 4×8 product summed
-on its own first, as the prototype sums it.  So it equals its plain
-version :func:`half_reference` bit for bit.  ``half_spmv_launches``
-counts launches.
+stored zeros, more planes.  The prototype sums each plane's 4×8 product
+from 0 on its own, then adds it to the row's sum.
+
+On the card the planes become a *segmented* row layout (:func:`half_rows`,
+built once from the planes on their device): sliced ELL over the internal
+rows (row ``og·1024 + (4·half + i)·128 + l``, column ``(ga + off >>
+7)·1024 + j·128 + (off & 127)``), each row's nonzeros in walk order, and
+each entry that continues the previous entry's (row, plane) segment
+flagged in a word of flags beside it.  :func:`half_spmv` launches K7's
+row kernel in its segmented form (``cgx_wbell_rows`` in
+``cgx_torch/csrc/wbell.cu``), which sums each segment from 0 and adds it to
+the row's sum at the next unflagged entry and at the row's end: the
+prototype's rounding, so it equals its plain version
+:func:`half_reference` (the plane walk) bit for bit on finite x.
+``half_spmv_launches`` counts launches.  The plane-walking kernel it
+replaces stays as ``_planes_p3`` (CUDA only, counted nowhere), the smoke's
+same-run "before".
 
 The reference packs with ``span`` 16, checks with the matrix's own span and
 times with a literal 16; here the caller passes the span the build used,
 and :func:`half_walk` checks every offset against it.
 
 Run on the card: ``python3 -m cgx_torch.experiments.halfblock_proto
-[name] [scale]`` (defaults ``thermal2 1.0``).
+[name] [scale]`` (defaults ``thermal2 1.0``).  Besides the product, it
+times the layout over 16-bit columns and flag words against the same
+layout over int32 columns.
 """
 from __future__ import annotations
 
@@ -31,10 +43,10 @@ import torch
 from cgx_torch.kernels import wbell as kw
 from cgx_torch.sparse.types import resolve_device
 from cgx_torch.sparse.wbell import (_balance_blocks, _rcm, _scipy_csr,
-                                    group_walk)
+                                    group_walk, rows_from_entries)
 
-__all__ = ["build_halfblock", "half_walk", "half_spmv", "half_reference",
-           "half_spmv_launches", "main"]
+__all__ = ["build_halfblock", "half_walk", "half_rows", "half_spmv",
+           "half_reference", "half_spmv_launches", "main"]
 
 half_spmv_launches = 0
 
@@ -118,6 +130,25 @@ def half_walk(packed: torch.Tensor, lc: torch.Tensor, values: torch.Tensor,
     return group_walk((packed.long() >> 16) & 0xFFFF, keep, nt)
 
 
+def half_rows(packed: torch.Tensor, lc: torch.Tensor, values: torch.Tensor,
+              nt: int, walk):
+    """P3's segmented row layout (:class:`~cgx_torch.sparse.wbell.WBellRows`)
+    of the half-block planes in ``walk`` (:func:`half_walk`'s), built with
+    torch ops on their device; a segment is one row's entries of one
+    plane, in j order."""
+    order = walk[0].long()
+    # Entries in walk order: nonzero() is lexicographic in (step, i, j, l).
+    s, i, j, l = torch.nonzero(values.ne(0)[order]).unbind(1)
+    p = order[s]
+    raw = lc[p, 0, l].long()
+    off = raw & 0x3FFF
+    pg = packed.long()[p]
+    row = (((pg >> 16) & 0xFFFF) << 10) + ((4 * ((raw >> 14) & 1) + i) << 7) \
+        + l
+    col = (((pg & 0xFFFF) + (off >> 7)) << 10) + (j << 7) + (off & 127)
+    return rows_from_entries(row, col, values[p, i, j, l], nt, step=s)
+
+
 def _half_plain(packed, lc, values, x, walk):
     """Plain ``Y[c, og] += (Σ_j v[p, :, j, l] · X[c, ga + off // 128, j,
     off % 128])`` on the rows of the lane's half, per plane in walk order,
@@ -152,7 +183,7 @@ def _half_plain(packed, lc, values, x, walk):
     return y
 
 
-def _checked(packed, lc, values, x, span, splane, walk):
+def _check(values, x, splane):
     if values.dim() != 4 or tuple(values.shape[1:]) != (4, 8, 128) \
             or values.shape[0] % splane:
         raise ValueError(f"half_spmv: values must be (P, 4, 8, 128) with P "
@@ -164,42 +195,50 @@ def _checked(packed, lc, values, x, span, splane, walk):
     if x.shape[1] >= 1 << 16:
         raise ValueError(f"half_spmv: og/ga are packed in 16 bits: nt="
                          f"{x.shape[1]} must be < 65536")
-    if walk is None:
-        walk = half_walk(packed, lc, values, x.shape[1], span)
-    return walk
 
 
 def half_reference(packed, lc, values, x, *, span: int, splane: int,
                    walk=None) -> torch.Tensor:
-    """P3's plain version on any device."""
-    walk = _checked(packed, lc, values, x, span, splane, walk)
+    """P3's plain version on any device: the plane walk."""
+    _check(values, x, splane)
+    if walk is None:
+        walk = half_walk(packed, lc, values, x.shape[1], span)
     return _half_plain(packed, lc, values, x, walk)
 
 
 def half_spmv(packed: torch.Tensor, lc: torch.Tensor, values: torch.Tensor,
               x: torch.Tensor, *, span: int, splane: int,
-              walk=None) -> torch.Tensor:
+              rows=None) -> torch.Tensor:
     """``y = A @ x`` over :func:`build_halfblock`'s planes, ``packed`` =
     ``p_og << 16 | p_ga``; ``x`` ``(nrhs, nt, 8, 128)`` float32 in the 8×8
     build's internal layout (the same permutation), ``nrhs`` 1 for the
-    prototype's SpMV.  ``walk`` is :func:`half_walk`'s (built here when
-    None).  A CUDA ``x`` launches the kernel; a CPU one takes the plain
-    version."""
+    prototype's SpMV.  ``rows`` is :func:`half_rows`' layout (built here
+    when None).  A CUDA ``x`` launches the row kernel; a CPU one takes the
+    layout's plain version."""
     global half_spmv_launches
-    walk = _checked(packed, lc, values, x, span, splane, walk)
+    _check(values, x, splane)
+    if rows is None:
+        rows = half_rows(packed, lc, values, x.shape[1],
+                         half_walk(packed, lc, values, x.shape[1], span))
     if not kw._on_device(x, "half_spmv"):
-        return _half_plain(packed, lc, values, x, walk)
-    y = kw._launch("cgx_wbell_half", "half_spmv", values, lc,
-                   x.contiguous(), walk[0], walk[1], packed)
+        return kw.rows_product(rows, x)
+    y = kw._launch_rows(rows, x.contiguous(), "half_spmv")
     half_spmv_launches += 1
     return y
 
 
+def _planes_p3(packed, lc, values, x, walk):
+    """The half-block plane walk :func:`half_spmv` replaces (its same-run
+    "before"); CUDA only, counted nowhere."""
+    return kw._launch("cgx_wbell_half", "plane walk", values, lc,
+                      x.contiguous(), walk[0], walk[1], packed)
+
+
 def main(name: str = "thermal2", scale: float = 1.0) -> None:
     """Build the half-block planes of ``name``'s stand-in (or the real
-    matrix), hold :func:`half_spmv` against its plain version (bit for
-    bit) and the fp64 CSR product (1e-5 of the peak), and time it beside
-    the 8×8 K7."""
+    matrix), hold :func:`half_spmv` against its plain version and the plane
+    walk (bit for bit) and the fp64 CSR product (1e-5 of the peak), and
+    time it beside the 8×8 K7 and the plane walk."""
     import scipy.sparse as sp
 
     from cgx_torch.experiments import interleaved_ms, require_card
@@ -225,30 +264,58 @@ def main(name: str = "thermal2", scale: float = 1.0) -> None:
     packed4 = (og4 << 16) | ga4
     splane = 64
     walk = half_walk(packed4, lc4, v4, wb.nt, span)
+    rows = half_rows(packed4, lc4, v4, wb.nt, walk)
     x = np.random.default_rng(0).standard_normal(n).astype(np.float32)
     xi = wb.to_internal(torch.from_numpy(x).to(dev))[None]
-    y4 = half_spmv(packed4, lc4, v4, xi, span=span, splane=splane, walk=walk)
+    y4 = half_spmv(packed4, lc4, v4, xi, span=span, splane=splane, rows=rows)
     y_plain = half_reference(packed4, lc4, v4, xi, span=span, splane=splane,
                              walk=walk)
     truth = a_sp @ x.astype(np.float64)
     y4s = wb.from_internal(y4[0]).double().cpu().numpy()
     err = float(np.abs(y4s - truth).max() / (np.abs(truth).max() + 1e-30))
     same = torch.equal(y4, y_plain)
+    same_planes = torch.equal(y4, _planes_p3(packed4, lc4, v4, xi, walk))
     print(f"[{card}] 4x8 correctness max rel-to-peak err {err:.2e}; bitwise "
-          f"equal to the plain version: {same}")
-    if not same or err > 1e-5:
+          f"equal to the plain version: {same}, to the plane walk: "
+          f"{same_planes}")
+    if not same or not same_planes or err > 1e-5:
         sys.exit(1)
     ms = interleaved_ms({
         "K7": lambda: kw.wbell_spmv(wb, xi[0]),
         "P3": lambda: half_spmv(packed4, lc4, v4, xi, span=span,
-                                splane=splane, walk=walk)})
+                                splane=splane, rows=rows),
+        "planes": lambda: _planes_p3(packed4, lc4, v4, xi, walk)})
     plain = interleaved_ms({"plain": lambda: half_reference(
         packed4, lc4, v4, xi, span=span, splane=splane, walk=walk)},
         reps=3, inner=1)["plain"]
     print(f"[{card}] 8x8 K7: {ms['K7']:.4f} ms/SpMV; 4x8 half-block: "
           f"{ms['P3']:.4f} ms/SpMV ({ms['K7'] / ms['P3']:.2f}x of K7's speed; "
-          f"bytes ratio {fill4 / (wb.nnz_stored / wb.nnz):.2f}); plain "
-          f"{plain:.4f} ms")
+          f"layout bytes {rows.nbytes / 1e6:.1f} MB, K7's "
+          f"{wb.rows.nbytes / 1e6:.1f}); the plane walk {ms['planes']:.4f} "
+          f"ms; plain {plain:.4f} ms")
+    # The flags' encoding: words of their own beside 16-bit columns, against
+    # int32 columns (where a flag in bit 31 would go), the same layout built
+    # with the 16-bit window limit at 0.
+    from cgx_torch.sparse import wbell as sparse_wbell
+    limit = sparse_wbell.ROW_OFFSET_LIMIT
+    sparse_wbell.ROW_OFFSET_LIMIT = 0
+    try:
+        rows32 = half_rows(packed4, lc4, v4, wb.nt, walk)
+    finally:
+        sparse_wbell.ROW_OFFSET_LIMIT = limit
+    y32 = half_spmv(packed4, lc4, v4, xi, span=span, splane=splane,
+                    rows=rows32)
+    if not torch.equal(y32, y4):
+        print("P3 over int32 columns differs", file=sys.stderr)
+        sys.exit(1)
+    enc = interleaved_ms({
+        name: (lambda r=r: half_spmv(packed4, lc4, v4, xi, span=span,
+                                     splane=splane, rows=r))
+        for name, r in (("16-bit", rows), ("int32", rows32))})
+    print(f"[{card}] 4x8 half-block over 16-bit columns and flag words: "
+          f"{enc['16-bit']:.4f} ms/SpMV, {rows.nbytes / 1e6:.1f} MB; over "
+          f"int32 columns: {enc['int32']:.4f} ms/SpMV, "
+          f"{rows32.nbytes / 1e6:.1f} MB (equal bit for bit)")
 
 
 if __name__ == "__main__":

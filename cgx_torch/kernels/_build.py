@@ -60,7 +60,7 @@ _SIGNATURES = {
                            _I, _P],
     "cgx_wbell_stacked": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cgx_wbell_half": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "cgx_wbell_rows": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+    "cgx_wbell_rows": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cgx_wbell_rows_windowed": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _P],
     "cgx_bell_spmm": [_P, _P, _P, _P] + [_I] * 11 + [_P],

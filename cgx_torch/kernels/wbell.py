@@ -14,14 +14,18 @@ on the internal layout ``(nrhs, nt, 8, 128)`` of a
   reads the windowed row layout (:attr:`WBELLMatrix.windowed_rows`), one
   block per output group, each stage's window of x copied into shared
   memory with ``cp.async.bulk`` (the TPU kernel's windowed DMA).
-* **K8** (``wbell_tiered_raw``, replaces ``_kernel_resident_tiers``): the
-  slot planes of a :class:`WBellTierPlan`, stored class-major {≤4, ≤8,
-  ≤16} with tight window starts packed as ``og << 16 | ga``.  It walks
-  each group's planes in their original plane order (the plan's
-  ``origin``), not class by class as the TPU grid does: the classes
-  shorten a TPU gather chain the card does not have, and in this order K8
-  and K7 sum in the same order, so a column of the multi-RHS solve equals
-  the single-RHS solve of that column bit for bit.
+* **K8** (``wbell_tiered_raw``, replaces ``_kernel_resident_tiers``):
+  K7's kernel over the row layout of a :class:`WBellTierPlan`, whose slot
+  planes are stored class-major {≤4, ≤8, ≤16} with tight window starts
+  packed as ``og << 16 | ga``.  The layout keeps each group's planes in
+  their original plane order (the plan's ``origin``), not class by class
+  as the TPU grid does: the classes shorten a TPU gather chain the card
+  does not have.  In that order, with the same absolute columns, the
+  layout (:func:`tiered_rows` of the plan's walk) has
+  :attr:`WBELLMatrix.rows`' arrays, so the plan holds the matrix's layout
+  itself (:attr:`WBellTierPlan.rows`) rather than a copy: K8 equals K7 bit
+  for bit and a column of the multi-RHS solve equals the single-RHS solve
+  of that column.
 * **K10** (``wbell_spmm_stacked``, replaces ``_kernel_resident_stacked``):
   the planes in K7's walk with ``X`` and ``Y`` in the stacked layout
   ``(nt, k·8, 128)`` (:func:`to_stacked`, :func:`from_stacked`), read and
@@ -35,9 +39,14 @@ CPU tensor.  Every kernel and plain version rounds each product and sum
 on its own, in walk order (plane order, then j) from 0: the row layout's
 (:func:`rows_product`) over the nonzeros, the planes' (:func:`walk_product`)
 over every slot.  On finite x the two agree bit for bit, since adding an
-exact ±0 product leaves the sum as it was.  ``wbell_resident_launches``,
+exact ±0 product leaves the sum as it was.  A segmented layout (the 4×8
+half-block prototype P3's) sums each (row, plane) segment from 0 first,
+as that prototype does.  ``wbell_resident_launches``,
 ``wbell_tiered_launches``, ``wbell_windowed_launches`` and
-``wbell_stacked_launches`` count launches.
+``wbell_stacked_launches`` count launches.  The plane walks that K7, K8
+and K9 replace stay as ``_planes_k7``, ``_planes_k8`` and ``_planes_k9``
+(CUDA only, counted nowhere): the same-run "before" of the tests and the
+smoke.
 
 Not ported, because they encode TPU VMEM: ``_resident_fits``,
 ``_RESIDENT_VMEM_CAP``, ``_SPLANE``.
@@ -52,12 +61,12 @@ import numpy as np
 import torch
 
 from cgx_torch.sparse.wbell import (ROW_SLICE, WBELLMatrix, WBellRows,
-                                    group_walk, row_layout)
+                                    group_walk, row_layout, rows_from_steps)
 
 __all__ = ["wbell_spmv", "wbell_spmm", "wbell_matvec", "wbell_resident_raw",
            "wbell_windowed", "wbell_tiered_raw", "WBellTierPlan",
            "build_tier_plan", "wbell_spmm_tiered", "walk_product",
-           "rows_product",
+           "rows_product", "tiered_rows",
            "wbell_resident_reference", "wbell_tiered_reference",
            "wbell_windowed_reference", "wbell_spmm_stacked",
            "wbell_stacked_reference", "to_stacked", "from_stacked",
@@ -103,15 +112,19 @@ def walk_product(x: torch.Tensor, values: torch.Tensor, lc: torch.Tensor,
 
 
 def rows_product(rows: WBellRows, x: torch.Tensor) -> torch.Tensor:
-    """Plain version of K7 and K9 over a row layout: ``x`` ``(nrhs, nt, 8,
-    128)`` → the same shape.  Each group's stages in order, each slice's
-    slots in order, ``acc = acc + v·x`` from 0, every product and sum
-    rounded on its own, as the kernels sum.  Runs in rounds: round r takes
-    the r-th stage of every group, slot t of every slice at once."""
+    """Plain version of the row kernels (K7, K8, K9, P1, P3) over a row
+    layout: ``x`` ``(nrhs, nt, 8, 128)`` → the same shape.  Each group's
+    stages in order, each slice's slots in order, ``acc = acc + v·x`` from
+    0, every product and sum rounded on its own, as the kernels sum; over a
+    segmented layout ``part = part + v·x`` from 0 per segment and ``acc =
+    acc + part`` at each unflagged entry and at the end.  Runs in rounds:
+    round r takes the r-th stage of every group, slot t of every slice at
+    once."""
     nrhs, nt = x.shape[0], rows.nt
     dev = x.device
     xf = x.reshape(nrhs, -1)
     acc = torch.zeros((nrhs, nt * 1024), dtype=x.dtype, device=dev)
+    part = torch.zeros_like(acc) if rows.segmented else None
     sptr = rows.sptr.long()
     nst = int(sptr[-1])
     if nst:
@@ -135,8 +148,19 @@ def rows_product(rows: WBellRows, x: torch.Tensor) -> torch.Tensor:
                 c = rows.cols[addr].long()
                 if rows.cols.dtype == torch.int16:
                     c = c & 0xFFFF
-                c = x0[sts, None] + c
-                acc[:, pos] = acc[:, pos] + v * xf[:, c]
+                prod = v * xf[:, x0[sts, None] + c]
+                if rows.segmented:
+                    word = rows.flags[addr // ROW_SLICE].long()
+                    new = ((word >> (addr % ROW_SLICE)) & 1) == 0
+                    p = part[:, pos]
+                    acc[:, pos] = torch.where(new, acc[:, pos] + p,
+                                              acc[:, pos])
+                    part[:, pos] = torch.where(new, torch.zeros_like(p),
+                                               p) + prod
+                else:
+                    acc[:, pos] = acc[:, pos] + prod
+    if rows.segmented:
+        acc = acc + part
     y = torch.empty_like(acc)
     y[:, rows.rowmap.long()] = acc
     return y.reshape(x.shape)
@@ -163,7 +187,8 @@ def wbell_resident_reference(a: WBELLMatrix, x: torch.Tensor):
 
 
 def wbell_tiered_reference(plan: "WBellTierPlan", x: torch.Tensor):
-    """K8's plain version on any device."""
+    """K8's plane walk, plain, on any device: equal to :func:`rows_product`
+    of ``plan.rows`` on finite x."""
     return _tiered_plain(plan.packed, plan.lc, plan.values,
                          x.to(plan.vector_dtype), plan.walk)
 
@@ -216,8 +241,9 @@ def _launch(fn: str, what: str, values, lc, x, *ints32, nt=None,
 
 
 def _launch_rows(rows: WBellRows, x: torch.Tensor, what: str):
-    """Check the operands, launch K7 (resident layout) or K9 (windowed)
-    over ``rows`` and return ``y`` (shaped as ``x``)."""
+    """Check the operands, launch the row kernel (resident layout: K7, K8,
+    P1, P3 segmented) or K9's (windowed) over ``rows`` and return ``y``
+    (shaped as ``x``)."""
     from cgx_torch.kernels import _build
 
     if rows.values.dtype not in (torch.float32, torch.bfloat16):
@@ -247,7 +273,9 @@ def _launch_rows(rows: WBellRows, x: torch.Tensor, what: str):
         else:
             rc = lib.cgx_wbell_rows(
                 rows.values.data_ptr(), bf16, rows.cols.data_ptr(),
-                int(rows.cols.dtype == torch.int32), rows.sbase.data_ptr(),
+                int(rows.cols.dtype == torch.int32),
+                rows.flags.data_ptr() if rows.segmented else None,
+                rows.sbase.data_ptr(),
                 rows.rowmap.data_ptr(), rows.x0.data_ptr(), x.data_ptr(),
                 y.data_ptr(), rows.nt, x.shape[0], stream)
     _build.check(rc, f"{what} launch")
@@ -304,6 +332,13 @@ def _planes_k7(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
     CUDA only; counted nowhere."""
     return _launch("cgx_wbell_resident", "plane walk", a.values, a.lc, x,
                    *a.resident_walk, a.p_ga)
+
+
+def _planes_k8(plan: "WBellTierPlan", x: torch.Tensor) -> torch.Tensor:
+    """The plane walk over a tier plan's class-major planes in
+    :attr:`WBellTierPlan.walk` (K8's and P1's "before"); CUDA only."""
+    return _launch("cgx_wbell_tiered", "plane walk", plan.values, plan.lc, x,
+                   *plan.walk, plan.packed)
 
 
 def _planes_k9(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -399,7 +434,8 @@ class WBellTierPlan:
     """The planes of a :class:`WBELLMatrix` sorted into classes of actual
     window width {≤4, ≤8, ≤16} with tight per-plane window starts (built by
     :func:`build_tier_plan`).  On the TPU the classes shorten the per-plane
-    gather chain; on the card K8 walks them in K7's plane order."""
+    gather chain; on the card K8 reads their row layout (:attr:`rows`),
+    which in K7's plane order is the matrix's own."""
 
     values: torch.Tensor   # (Ptot, 8, 8, 128) class-major
     lc: torch.Tensor       # (Ptot, 1, 128) int32, tight window offsets
@@ -408,6 +444,9 @@ class WBellTierPlan:
     steps: Tuple[int, ...]
     splane: int
     nt: int
+    # K8's row layout: the matrix's WBELLMatrix.rows, which equals
+    # tiered_rows of :attr:`walk` array for array.
+    rows: WBellRows
 
     @property
     def vector_dtype(self) -> torch.dtype:
@@ -421,6 +460,17 @@ class WBellTierPlan:
         keep = self.values.reshape(self.values.shape[0], -1).ne(0).any(1)
         return group_walk((self.packed.long() >> 16) & 0xFFFF, keep, self.nt,
                           within=self.origin)
+
+
+def tiered_rows(packed: torch.Tensor, lc: torch.Tensor,
+                values: torch.Tensor, walk, nt: int) -> WBellRows:
+    """The row layout of class-major planes (a tier plan's, or P1's
+    ``build_tiers``) in ``walk`` ``(order, ptr)``, output group and window
+    start unpacked from ``packed = og << 16 | ga``."""
+    order = walk[0].long()
+    pg = packed.long()[order]
+    return rows_from_steps(values, lc, order, (pg >> 16) & 0xFFFF,
+                           pg & 0xFFFF, nt)
 
 
 _TIER_SPANS = (4, 8, 16)
@@ -505,33 +555,35 @@ def build_tier_plan(a: WBELLMatrix,
         lc=torch.from_numpy(np.concatenate(lc_all)).to(a.device),
         packed=torch.from_numpy(np.concatenate(pg_all)).to(a.device),
         origin=idx.to(torch.int32), steps=tuple(steps), splane=splane,
-        nt=a.nt)
+        nt=a.nt, rows=a.rows)
 
 
 def wbell_tiered_raw(packed: torch.Tensor, lc: torch.Tensor,
                      values: torch.Tensor, x: torch.Tensor, *, steps,
-                     splane: int, walk=None) -> torch.Tensor:
+                     splane: int,
+                     rows: Optional[WBellRows] = None) -> torch.Tensor:
     """K8 on raw class-major plane arrays: ``x`` ``(nrhs, nt, 8, 128)`` →
-    the same shape.  ``walk`` is :attr:`WBellTierPlan.walk`; when None it
-    is built here in the stored (class-major) order."""
+    the same shape, through their row layout ``rows``
+    (:attr:`WBellTierPlan.rows`), built here when None from the planes in
+    their stored (class-major) order."""
     global wbell_tiered_launches
     if values.shape[0] != sum(steps) * splane:
         raise ValueError(f"tier plan: {values.shape[0]} planes for steps "
                          f"{tuple(steps)} of {splane}")
-    if walk is None:
+    if rows is None:
         keep = values.reshape(values.shape[0], -1).ne(0).any(1)
         walk = group_walk((packed.long() >> 16) & 0xFFFF, keep, x.shape[1])
+        rows = tiered_rows(packed, lc, values, walk, x.shape[1])
     if not _on_device(x, "wbell_tiered_raw"):
-        return _tiered_plain(packed, lc, values, x, walk)
-    y = _launch("cgx_wbell_tiered", "wbell_tiered_raw", values, lc, x,
-                walk[0], walk[1], packed)
+        return rows_product(rows, x)
+    y = _launch_rows(rows, x, "wbell_tiered_raw")
     wbell_tiered_launches += 1
     return y
 
 
 def wbell_spmm_tiered(plan: WBellTierPlan, x: torch.Tensor) -> torch.Tensor:
     """``Y = A @ X`` through K8; ``x`` batched internal ``(nrhs, nt, 8,
-    128)``.  Equal to :func:`wbell_spmm` up to fp32 summation order."""
+    128)``.  Equal to :func:`wbell_spmm` bit for bit."""
     if x.dim() != 4 or x.shape[1] != plan.nt \
             or tuple(x.shape[2:]) != (8, 128):
         raise ValueError(f"tier kernel: expected (nrhs, {plan.nt}, 8, 128), "
@@ -539,4 +591,4 @@ def wbell_spmm_tiered(plan: WBellTierPlan, x: torch.Tensor) -> torch.Tensor:
     return wbell_tiered_raw(plan.packed, plan.lc, plan.values,
                             x.to(plan.vector_dtype).contiguous(),
                             steps=plan.steps, splane=plan.splane,
-                            walk=plan.walk)
+                            rows=plan.rows)

@@ -10,9 +10,10 @@ loop with K7 as the matvec (one host read per iteration).  The batched
 :func:`wbell_cg_solve_multi` is the JAX package's ``lax.while_loop`` as a
 Python loop over the same ``cond``/``body``: per-column α and β, finished
 columns frozen, one shared SpMM per iteration (K8 by default, K7 with
-``tiered=False``), one host read per iteration.  K8 and K7 sum in the same
-order and the column dots are the single-RHS solve's, so each column
-follows the single-RHS trajectory of that column bit for bit.
+``tiered=False``), one host read per iteration.  On the card K8 is K7's
+row kernel over its tier plan's row layout, whose arrays are K7's, and the
+column dots are the single-RHS solve's, so each column follows the
+single-RHS trajectory of that column bit for bit.
 """
 from __future__ import annotations
 
@@ -178,7 +179,8 @@ def wbell_cg_solve_multi(
     (finished columns freeze).  Preconditioners as :func:`wbell_cg_solve`.
     The SpMM is K8 over a tier plan whenever ``span <= 16`` (the JAX
     package also asks that the resident kernel fit VMEM; the card has no
-    such cap) unless ``tiered=False``; ``tier_plan`` reuses a built plan.
+    such cap) unless ``tiered=False``; ``tier_plan`` reuses a built plan
+    and its row layout (built once per plan, on its device).
     """
     n, k = b.shape
     maxiter = n if maxiter is None else int(maxiter)

@@ -17,15 +17,18 @@ What differs from the JAX package:
   for torch indexing;
 * :func:`pick_format` takes ``device=`` where the JAX package takes
   ``backend=``: ``"wbell"`` on CUDA where the JAX package says TPU;
-* the plane-walking CUDA kernels (:mod:`cgx_torch.kernels.wbell`: K8,
-  K10) walk each output group's planes; :attr:`WBELLMatrix.resident_walk`
+* the plane-walking CUDA kernel K10 (:mod:`cgx_torch.kernels.wbell`)
+  walks each output group's planes; :attr:`WBELLMatrix.resident_walk`
   and :attr:`WBELLMatrix.windowed_walk` build those per-group ranges once
   per matrix, on its device;
-* K7 and K9 read a compact row layout (:class:`WBellRows`, sliced ELL over
-  the internal rows) that :func:`row_layout` builds from the planes once
-  per matrix (:attr:`WBELLMatrix.rows`, :attr:`WBELLMatrix.windowed_rows`):
+* K7, K8 and K9 read a compact row layout (:class:`WBellRows`, sliced ELL
+  over the internal rows) that :func:`row_layout` builds from the planes
+  once per matrix (:attr:`WBELLMatrix.rows`,
+  :attr:`WBELLMatrix.windowed_rows`; K8's from its tier plan's planes):
   the planes' 8×8 blocks hold 5.6 nonzeros of 64 at thermal2 scale, a fill
-  that the TPU's (8, 128) vregs wanted and the card does not.
+  that the TPU's (8, 128) vregs wanted and the card does not.  The
+  prototypes P1 and P3 build theirs from their own planes
+  (:func:`rows_from_steps`, :func:`rows_from_entries`).
 """
 from __future__ import annotations
 
@@ -41,8 +44,8 @@ from cgx_torch.sparse.types import CSRMatrix, ell_from_csr, resolve_device
 
 __all__ = ["WBELLMatrix", "wbell_from_csr", "auto_format", "pick_format",
            "WBELL_MIN_ROWS", "group_walk", "WBellRows", "row_layout",
-           "rows_from_steps", "ROW_SLICE", "ROW_OFFSET_LIMIT",
-           "STAGE_WINDOW_GROUPS"]
+           "rows_from_steps", "rows_from_entries", "ROW_SLICE",
+           "ROW_OFFSET_LIMIT", "STAGE_WINDOW_GROUPS"]
 
 # The JAX package's routing threshold, measured on a TPU v5e (a 2.0 s
 # build at 49 k rows breaks even at ~370 iterations); not measured on the
@@ -104,7 +107,15 @@ class WBellRows:
     ``x0[st]`` in 16 bits (int16 storage read as unsigned), or, where a
     resident group spans more than 65,536 floats of x, as the absolute
     index in int32 with ``x0 = 0``.  Slice ``32·st + w`` holds stage st's
-    entries of the positions ``32·w .. 32·w + 31`` of its group."""
+    entries of the positions ``32·w .. 32·w + 31`` of its group.
+
+    A *segmented* layout (:func:`rows_from_entries` with ``step``, the
+    4×8 half-block prototype P3's) flags each entry that continues the
+    previous entry's (row, plane) segment: bit e of ``flags[sbase[k] / 32
+    + t]`` for slot t of slice k's lane e, one 32-bit word a warp reads
+    whole per slot (1/32 of a word a slot; the columns keep their 16 bits).
+    Its product sums each segment from 0 and adds the segment's sum to the
+    row's at the next unflagged entry and at the row's end."""
 
     values: torch.Tensor   # (slots,) the planes' dtype
     cols: torch.Tensor     # (slots,) int16 offset from x0 (or int32 index)
@@ -117,6 +128,12 @@ class WBellRows:
     nnz: int               # entries that are not padding
     window: int            # widest xlen
     windowed: bool         # K9's layout (one stage per window start)
+    flags: Optional[torch.Tensor] = None  # (slots / 32,) int32, segmented
+
+    @property
+    def segmented(self) -> bool:
+        """P3's layout: each entry flags whether it continues a segment."""
+        return self.flags is not None
 
     @property
     def slots(self) -> int:
@@ -128,7 +145,8 @@ class WBellRows:
         x and y."""
         return sum(int(f.numel()) * f.element_size()
                    for f in (self.values, self.cols, self.sbase, self.rowmap,
-                             self.sptr, self.x0, self.xlen))
+                             self.sptr, self.x0, self.xlen, self.flags)
+                   if f is not None)
 
     def call_bytes(self, nrhs: int) -> int:
         """Bytes one product of ``nrhs`` fp32 columns must move: the
@@ -169,7 +187,6 @@ def rows_from_steps(values: torch.Tensor, lc: torch.Tensor,
         one window start, so the run cannot be cut into parts.
     """
     dev = values.device
-    nrows = nt * 1024
     plane, og, ga = plane.long(), og.long(), ga.long()
     # Entries in walk order: nonzero() is lexicographic in (step, i, j, l).
     s, i, j, l = torch.nonzero(values.ne(0)[plane]).unbind(1)
@@ -178,27 +195,52 @@ def rows_from_steps(values: torch.Tensor, lc: torch.Tensor,
     lcv = lc[p, 0, l].long()
     col = ((ga[s] + (lcv >> 7)) << 10) + (j << 7) + (lcv & 127)
     row = (og[s] << 10) + (i << 7) + l
-    if windowed:
-        # A stage: a run of non-empty steps with one group and window start.
-        steps, at = torch.unique_consecutive(s, return_inverse=True)
-        gs, gas = og[steps], ga[steps]
-        new = torch.ones(steps.numel(), dtype=torch.bool, device=dev)
-        new[1:] = (gs[1:] != gs[:-1]) | (gas[1:] != gas[:-1])
-        run = (torch.cumsum(new, 0) - 1)[at]
-        # Cut each run by column into parts of `cut` groups of x from its
-        # first group: K9's two window buffers fit in shared memory and the
-        # offsets in 16 bits whatever the build's span.
-        cut = max(1, min(STAGE_WINDOW_GROUPS, ROW_OFFSET_LIMIT >> 10))
-        xg = col >> 10
-        g_lo = torch.full((int(new.sum()),), nt, dtype=torch.int64,
-                          device=dev).scatter_reduce_(0, run, xg, "amin")
-        part = (xg - g_lo[run]) // cut
-        nparts = int(part.max()) + 1 if part.numel() else 1
-        keys, st = torch.unique(run * nparts + part, return_inverse=True)
-        stage_group = gs[new][keys // nparts]
-    else:
-        st = og[s]
-        stage_group = torch.arange(nt, device=dev)
+    if not windowed:
+        return rows_from_entries(row, col, val, nt)
+    # A stage: a run of non-empty steps with one group and window start.
+    steps, at = torch.unique_consecutive(s, return_inverse=True)
+    gs, gas = og[steps], ga[steps]
+    new = torch.ones(steps.numel(), dtype=torch.bool, device=dev)
+    new[1:] = (gs[1:] != gs[:-1]) | (gas[1:] != gas[:-1])
+    run = (torch.cumsum(new, 0) - 1)[at]
+    # Cut each run by column into parts of `cut` groups of x from its
+    # first group: K9's two window buffers fit in shared memory and the
+    # offsets in 16 bits whatever the build's span.
+    cut = max(1, min(STAGE_WINDOW_GROUPS, ROW_OFFSET_LIMIT >> 10))
+    xg = col >> 10
+    g_lo = torch.full((int(new.sum()),), nt, dtype=torch.int64,
+                      device=dev).scatter_reduce_(0, run, xg, "amin")
+    part = (xg - g_lo[run]) // cut
+    nparts = int(part.max()) + 1 if part.numel() else 1
+    keys, st = torch.unique(run * nparts + part, return_inverse=True)
+    return _pack_rows(row, col, val, st, gs[new][keys // nparts], nt,
+                      windowed=True)
+
+
+def rows_from_entries(row: torch.Tensor, col: torch.Tensor,
+                      val: torch.Tensor, nt: int, *,
+                      step: Optional[torch.Tensor] = None) -> WBellRows:
+    """The resident row layout (one stage per group) of entries given in
+    walk order: entry e adds ``val[e]·x[col[e]]`` to internal row
+    ``row[e]`` (both internal indices), and each row keeps its entries in
+    the order given.
+
+    With ``step``, the walk step (plane) that holds each entry, the layout
+    is *segmented*: each entry that continues the previous entry's (row,
+    step) segment is flagged in :attr:`WBellRows.flags`, and the products
+    sum each segment from 0 on its own, then add it to the row's sum (the
+    4×8 half-block prototype's rounding).
+    """
+    return _pack_rows(row, col, val, row >> 10,
+                      torch.arange(nt, device=row.device), nt, step=step)
+
+
+def _pack_rows(row, col, val, st, stage_group, nt, *, windowed=False,
+               step=None) -> WBellRows:
+    """Slice, pad and store the entries ``(row, col, val)``, given in walk
+    order, entry e in stage ``st[e]`` of group ``stage_group[st[e]]``."""
+    dev = row.device
+    nrows = nt * 1024
     nst = int(stage_group.numel())
     # Each row's entries together, in walk order (a stable sort by row).
     by_row = torch.sort(row, stable=True).indices
@@ -206,12 +248,19 @@ def rows_from_steps(values: torch.Tensor, lc: torch.Tensor,
     if windowed and bool(((row[1:] == row[:-1]) & (st[1:] < st[:-1])).any()):
         raise ValueError("windowed row layout: a row's columns do not ascend "
                          "within a run of one window start")
+    n_e = row.numel()
+    cont = None
+    if step is not None:
+        step = step.long()[by_row]
+        cont = torch.zeros(n_e, dtype=torch.int64, device=dev)
+        if n_e:
+            cont[1:] = ((row[1:] == row[:-1])
+                        & (step[1:] == step[:-1])).long()
     rowmap = _row_order(torch.bincount(row, minlength=nrows))
     pos_of = torch.empty_like(rowmap)
     pos_of[rowmap] = torch.arange(nrows, device=dev)
     q = pos_of[row] & 1023
     # Rank of an entry within its row's part of its stage.
-    n_e = row.numel()
     first = torch.ones(n_e, dtype=torch.bool, device=dev)
     if n_e:
         first[1:] = (row[1:] != row[:-1]) | (st[1:] != st[:-1])
@@ -237,7 +286,15 @@ def rows_from_steps(values: torch.Tensor, lc: torch.Tensor,
         x0 = torch.zeros_like(x0)
         cdata, cdtype = col, torch.int32
     total = int(sbase[-1])
-    vals_out = torch.zeros(total, dtype=values.dtype, device=dev)
+    flags = None
+    if cont is not None:
+        # Bit e of word sbase/32 + t: slots are sbase + 32·t + e.
+        words = torch.zeros(total // ROW_SLICE, dtype=torch.int64,
+                            device=dev)
+        words.index_add_(0, addr // ROW_SLICE, cont << (addr % ROW_SLICE))
+        flags = torch.where(words >= 1 << 31, words - (1 << 32),
+                            words).to(torch.int32)
+    vals_out = torch.zeros(total, dtype=val.dtype, device=dev)
     vals_out[addr] = val
     cols_out = torch.zeros(total, dtype=cdtype, device=dev)
     cols_out[addr] = cdata.to(torch.int32).to(cdtype)
@@ -247,7 +304,7 @@ def rows_from_steps(values: torch.Tensor, lc: torch.Tensor,
                      rowmap=rowmap.to(torch.int32),
                      sptr=sptr.to(torch.int32), x0=x0.to(torch.int32),
                      xlen=xlen.to(torch.int32), nt=int(nt), nnz=int(n_e),
-                     window=window, windowed=bool(windowed))
+                     window=window, windowed=bool(windowed), flags=flags)
 
 
 @dataclass(frozen=True, eq=False)

@@ -36,12 +36,13 @@ Phases (any failed check exits nonzero, and no result line is printed):
 10. W1, the unstructured path's build: the thermal2 stand-in at full size
     (``standin("thermal2")``, 1,228,045 rows, seed 0) through
     ``auto_format``, which must choose WBELL, its tier plan, and the row
-    layouts K7 and K9 read (build time, slots, padding, bytes);
+    layouts K7, K9 and K8 read (build time, slots, padding, bytes; K8's
+    equal to K7's array for array);
 11. W2, the WBELL kernels K7 and K9 (k = 1 and 4) and K8 (k = 4) on
-    seeded operands, each held against its plain version (K7 and K9 bit
-    for bit), against an fp64 CSR product through the permutation, and
-    against a second run; K7 and K9 against the plane walk they replace
-    and K8 against K7, bit for bit;
+    seeded operands, each held against its plain version bit for bit,
+    against an fp64 CSR product through the permutation, and against a
+    second run; each against the plane walk it replaces and K8 against
+    K7 and its plane walk's plain version, bit for bit;
 12. W3, the path as a user drives it: ``auto_solve(op, b, tol=1e-6,
     maxiter=8000, preconditioner=...)`` with Jacobi (b = ones and a seeded
     b), none, ``PolynomialPrecond`` and ``"block_jacobi"``, each answer
@@ -51,11 +52,12 @@ Phases (any failed check exits nonzero, and no result line is printed):
     kernel's, on the host from the planes;
 13. W4, multi-RHS: ``auto_solve(op, B)`` with B (n, 4) under Jacobi (K8),
     each column against a single-RHS solve of it;
-14. W5, times: K7 and K9 (k = 1 and 4) beside their plain versions, the
-    plane walk they replace (the same-run "before") and torch's CSR
-    product of the same matrix, which K7 and K9 at k = 1 must beat; K8
-    beside its plain version and the CSR product; µs per iteration of the
-    Jacobi solve;
+14. W5, times: K7 and K9 (k = 1 and 4) and K8 (k = 4), events and device
+    time, beside their plain versions, the plane walk they replace (the
+    same-run "before"; K8 must beat its own) and torch's CSR product of
+    the same matrix, which K7 and K9 at k = 1 must beat; each beside the
+    one bound of Y = A·X (the fewest bytes that move it), its own
+    layout's bytes and the planes'; µs per iteration of the Jacobi solve;
 15. M1, the multi-RHS engine K5: kernels A and B one step each against
     their plain versions at DIA-27 160³ (``poisson3d_dia27(160, 160, 160,
     variable=True, seed=0)`` under Jacobi, 13 symmetric planes) and at the
@@ -156,13 +158,14 @@ Phases (any failed check exits nonzero, and no result line is printed):
     thermal2 operator, k = 4 seeded columns: ``from_stacked`` of its Y
     equal to K7's batched Y and to its plain version bit for bit, twice;
 36. E2, the tiered single call P1 (``cgx_torch.experiments.tier_proto``):
-    ``build_tiers`` on thermal2 (host seconds printed), ``tier_spmm`` at
-    k = 1 and 4 equal to its plain version bit for bit and within 1e-5 of
-    K7's Y (of the peak);
+    ``build_tiers`` on thermal2 (host seconds printed) and its row layout,
+    ``tier_spmm`` at k = 1 and 4 equal bit for bit to its plain version,
+    to the plane walk's plain version, to the plane walk it replaces and
+    to a second run, and within 1e-5 of K7's Y (of the peak);
 37. E3, the 4×8 half-blocks P3 (``halfblock_proto``): ``build_halfblock``
-    on thermal2 (fill and planes beside the 8×8 build's), ``half_spmv``
-    equal to its plain version bit for bit and within 1e-5 of the fp64 CSR
-    product through the permutation;
+    on thermal2 (fill and planes beside the 8×8 build's) and its segmented
+    row layout, ``half_spmv`` held as P1 is, and within 1e-5 of the fp64
+    CSR product through the permutation;
 38. E4, K12 (``bell_spmm(engine="prefetch")``, K11's entry per chunk of
     256 block rows, on K11's path) on B1 (2 chunks, tiled), B2 (bf16, 4,
     mma) and 300 seeded block rows (256 + 44): each equal to K11 bit for
@@ -173,7 +176,9 @@ Phases (any failed check exits nonzero, and no result line is printed):
 40. E6, times (CUDA events, interleaved medians): K10 and P1 beside K7 and
     K8 at k = 4, P1 and P3 beside K7 at k = 1, K12 and P2 beside K11 at B1
     and B2, each beside its plain version, its bound and torch's CSR or
-    BSR product of the same matrix.
+    BSR product of the same matrix; P1 (k = 1 and 4) and P3 (k = 1) in
+    device time too, beside the plane walks they replace, and at k = 1
+    below the CSR product's device time.
 
 The launch counters are set to 0 just before each of the paths 4, 6, 7,
 W3–W4, M2–M5, B1–B4, X1–X4, S1, S2, S4 and E1–E5 and read just after it.  The line before the last
@@ -181,7 +186,9 @@ is a JSON object describing each kernel, with its bound (the larger of
 its bytes, each input read once and each output written once, over 3.35
 TB/s, and its operations over 67 TFLOP/s fp32, or 989 TFLOP/s on the
 tensor cores for bf16 operands) and the time of one PyTorch call that
-computes the same function where there is one; the last line is
+computes the same function where there is one (K7–K10, P1 and P3, which
+compute one function, Y = A·X, take one bound: the fewest bytes that move
+it, ``wbell_least_bytes``); the last line is
 ``{"ok": true, "device": {...}}``; K11's entry there also names its path
 at B1 and its launches by path.  Needs one CUDA card; it imports
 neither JAX nor the JAX package.
@@ -219,6 +226,9 @@ MAXIT_WBELL = 8000
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
 # the tensor cores, dense bf16 FLOP/s on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
+# Cycles of the spin kernel that holds the card while the host enqueues
+# the calls :func:`queued_ms` times (~10 ms at the H100's clock).
+SPIN_CYCLES = 20_000_000
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
 # The block-sparse phases: the JAX package's block-dense records
@@ -287,6 +297,37 @@ def time_set(fns, reps: int = 5, inner: int = 1):
         for j in order:
             times[j].append(event_ms(fns[j], inner))
     return [statistics.median(t) for t in times]
+
+
+def queued_ms(fn, calls: int = 20, reps: int = 3) -> float:
+    """ms of device time per call of ``fn``, for a function that does not
+    read the host mid-call: CUDA events around ``calls`` calls that wait
+    on the card behind a spin kernel (~10 ms), so the host has enqueued
+    them all before the first runs and the card runs them back to back.
+    A repetition counts only if the spin was still running when the last
+    call was enqueued; else it runs again with twice the spin, and fails
+    after three doublings.  Median of ``reps``.  Unlike :func:`device_ms`
+    it needs no profiler records."""
+    fn()
+    torch.cuda.synchronize()
+    times, spin = [], SPIN_CYCLES
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(calls):
+            fn()
+        queued = not start.query()
+        end.record()
+        end.synchronize()
+        if queued:
+            times.append(start.elapsed_time(end) / calls)
+        else:
+            check(spin < SPIN_CYCLES * 8, "queued_ms: the card ran out of "
+                  f"queued work behind a spin of {spin} cycles")
+            spin *= 2
+    return statistics.median(times)
 
 
 def device_ms(fn, calls: int = 20) -> float:
@@ -383,6 +424,30 @@ def maxrel(y, ref) -> float:
     return float((y - ref).abs().max() / ref.abs().max())
 
 
+def wbell_io_bytes(op, k) -> int:
+    """x read and y written once, k fp32 columns of the internal layout."""
+    return 2 * k * op.nt * 1024 * 4
+
+
+def wbell_least_bytes(a, op, k) -> int:
+    """The fewest bytes that move Y = A·X for k columns of the WBELL
+    operator ``op`` of ``a``: the smaller row layout's (K7's, K9's) or the
+    nonzeros' alone (8 B each), x read and y written once.  K7–K10, P1 and
+    P3 compute this one function, so all take this one bound."""
+    return min(op.rows.call_bytes(k), op.windowed_rows.call_bytes(k),
+               a.nnz * 8 + wbell_io_bytes(op, k))
+
+
+def wbell_bound(a, op, k):
+    """``bound()`` of Y = A·X: the fewest bytes, 2 flops a nonzero."""
+    return bound(wbell_least_bytes(a, op, k), 2 * a.nnz * k)
+
+
+def us_of(nbytes) -> float:
+    """µs to move ``nbytes`` at the card's memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e6
+
+
 def wbell_phases(dev, card):
     """W1–W5: the unstructured path at the thermal2 stand-in's full size.
     Returns the kernels' entries of the report line and ``(a, op, plan)``:
@@ -402,12 +467,7 @@ def wbell_phases(dev, card):
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     check(fmt == "wbell", f"auto_format chose {fmt!r} for thermal2")
-    t0 = time.perf_counter()
-    plan = kw.build_tier_plan(op)
-    torch.cuda.synchronize()
-    t_plan = time.perf_counter() - t0
     kept7 = int(op.resident_walk[0].numel())
-    kept8 = int(plan.walk[0].numel())
     n_planes = int(op.values.shape[0])
     print(f"W1 thermal2 stand-in: {n} rows, {a.nnz} nnz, built in "
           f"{t_standin:.1f} s; auto_format -> {fmt} in {t_build:.1f} s: "
@@ -415,8 +475,7 @@ def wbell_phases(dev, card):
           f"{op.ngw}, span {op.span}, wbcap {op.wbcap}, "
           f"{op.outg.shape[0]} virtual tiles, fill "
           f"{op.nnz_stored / a.nnz:.2f}x, planes + lc "
-          f"{n_planes * 65 * 128 * 4 / 1e6:.1f} MB; tier plan in "
-          f"{t_plan:.1f} s, steps {plan.steps} x {plan.splane}")
+          f"{n_planes * 65 * 128 * 4 / 1e6:.1f} MB")
     layouts = {}
     for name, attr in (("K7", "rows"), ("K9", "windowed_rows")):
         t0 = time.perf_counter()
@@ -432,6 +491,34 @@ def wbell_phases(dev, card):
               f"floats")
         check(rows.nnz == a.nnz, f"{name}'s row layout holds {rows.nnz} of "
               f"{a.nnz} nonzeros")
+    # The tier plan, as each multi-RHS solve builds it: its time and the
+    # card memory it adds (its class-major planes; the row layout it holds
+    # is the matrix's).
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = kw.build_tier_plan(op)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    kept8 = int(plan.walk[0].numel())
+    print(f"W1 tier plan (built per multi-RHS solve): {t_plan:.3f} s, holds "
+          f"{held / 1e6:.1f} MB on the card (peak {peak / 1e6:.1f} MB while "
+          f"built), steps {plan.steps} x {plan.splane}; its row layout is "
+          f"the matrix's: {plan.rows is op.rows}")
+    check(plan.rows is op.rows, "the tier plan does not hold K7's layout")
+    # Why it may: its planes in its own walk give K7's arrays.
+    own = kw.tiered_rows(plan.packed, plan.lc, plan.values, plan.walk,
+                         plan.nt)
+    same = all(torch.equal(getattr(own, f), getattr(layouts["K7"], f))
+               for f in ("values", "cols", "sbase", "rowmap", "sptr", "x0",
+                         "xlen"))
+    del own
+    print(f"W1 the row layout of K8's tier plan (its planes in its own walk) "
+          f"equals K7's array for array: {same}")
+    check(same, "K8's row layout differs from K7's")
+    layouts["K8"] = plan.rows
 
     # -- W2. the kernels against their plain versions ----------------------
     rng = np.random.default_rng(SEED)
@@ -441,7 +528,7 @@ def wbell_phases(dev, card):
     a64 = torch.sparse_csr_tensor(a.indptr, a.col_indices, a.values.double(),
                                   size=a.shape, check_invariants=False)
     y64 = a64 @ xs.double()
-    k7_rows, k9_rows = layouts["K7"], layouts["K9"]
+    k7_rows, k8_rows, k9_rows = layouts["K7"], layouts["K8"], layouts["K9"]
     cases = {
         "K7 k=1": (lambda: kw.wbell_spmm(op, xi[:1]),
                    lambda: kw.rows_product(k7_rows, xi[:1]), 1),
@@ -452,10 +539,11 @@ def wbell_phases(dev, card):
         "K9 k=4": (lambda: kw.wbell_spmm(op, xi, backend="windowed"),
                    lambda: kw.rows_product(k9_rows, xi), 4),
         "K8 k=4": (lambda: kw.wbell_spmm_tiered(plan, xi),
-                   lambda: kw.wbell_tiered_reference(plan, xi), 4),
+                   lambda: kw.rows_product(k8_rows, xi), 4),
     }
-    # The plane walks that K7 and K9 replace: their same-run "before".
-    planes = {"K7": kw._planes_k7, "K9": kw._planes_k9}
+    # The plane walks that K7, K8 and K9 replace: their same-run "before".
+    planes = {"K7": kw._planes_k7, "K9": kw._planes_k9,
+              "K8": lambda _, x: kw._planes_k8(plan, x)}
     errs, ys = {}, {}
     for label, (run, plain, k) in cases.items():
         y = run()
@@ -483,6 +571,11 @@ def wbell_phases(dev, card):
                   "its plain version")
             check(torch.equal(y, before), f"{label} differs from the plane "
                   "walk")
+    y8_walk = kw.wbell_tiered_reference(plan, xi)
+    print(f"W2 K8 k=4 equal to its plane walk's plain version bit for bit: "
+          f"{torch.equal(ys['K8 k=4'], y8_walk)}")
+    check(torch.equal(ys["K8 k=4"], y8_walk), "K8 differs from its plane "
+          "walk's plain version")
     print(f"W2 K8 k=4 equal to K7 k=4 bit for bit: "
           f"{torch.equal(ys['K8 k=4'], ys['K7 k=4'])}")
     check(torch.equal(ys["K8 k=4"], ys["K7 k=4"]), "K8 differs from K7")
@@ -638,52 +731,41 @@ def wbell_phases(dev, card):
     csr = {1: lambda: a32 @ x1, 4: lambda: a32 @ x4}
     ms, before_ms, csr_ms, dev_ms = {}, {}, {}, {}
     for label, (run, plain, k) in cases.items():
-        fns = [run, plain, csr[k]]
-        if label[:2] in planes:
-            fns.append(lambda f=planes[label[:2]], x=xk[k]: f(op, x))
-        got = time_set(fns, reps=5, inner=10)
+        walk = (lambda f=planes[label[:2]], x=xk[k]: f(op, x))
+        got = time_set([run, plain, csr[k], walk], reps=5, inner=10)
         ms[label], csr_ms[label] = (got[0], got[1]), got[2]
-        before_ms[label] = got[3] if len(got) > 3 else None
-        if label[:2] in planes:
-            # Device time alone: one call from Python costs the card's
-            # host about as long as K7 runs.  Kernel, plain version, the
-            # plane walk, the CSR product.
-            dev_ms[label] = [device_ms(f) for f in (run, plain, fns[3],
-                                                    csr[k])]
-    def least_bytes(k):
-        # K7 and K9 compute one function: its bound is the fewest bytes
-        # that move it, the smaller row layout's or the nonzeros' alone
-        # (8 B each), with x read and y written once.
-        io = 2 * k * op.nt * 1024 * 4
-        return min(k7_rows.call_bytes(k), k9_rows.call_bytes(k),
-                   a.nnz * 8 + io)
-
-    def us(nbytes):
-        return nbytes / HBM_BYTES_PER_S * 1e6
-
+        before_ms[label] = got[3]
+        # Device time alone: one call from Python costs the card's host
+        # about as long as K7 runs.  Kernel, plain version (the profiler's:
+        # it reads the host), the plane walk, the CSR product (queued
+        # behind a spin kernel), and the kernel under the profiler.
+        dev_ms[label] = [queued_ms(run), device_ms(plain), queued_ms(walk),
+                         queued_ms(csr[k]), device_ms(run)]
+    kept = {"K7": kept7, "K9": kept7, "K8": kept8}
     for label, (t_k, t_p) in ms.items():
         k = cases[label][2]
-        io = 2 * k * op.nt * 1024 * 4
-        line = (f"[{card}] W5 {label}: {t_k * 1e3:.1f} us (plain "
-                f"{t_p * 1e3:.1f} us); torch CSR product "
-                f"{csr_ms[label] * 1e3:.1f} us")
-        if before_ms[label] is not None:
-            own = layouts[label[:2]].call_bytes(k)
-            line += (f"; the plane walk it replaces "
-                     f"{before_ms[label] * 1e3:.1f} us; bound "
-                     f"{us(least_bytes(k)):.1f} us "
-                     f"({least_bytes(k) / 1e6:.1f} MB, the least of the two "
-                     f"row layouts and the nonzeros alone); its own layout "
-                     f"{us(own):.1f} us ({own / 1e6:.1f} MB), the planes' "
-                     f"{us(kept7 * (65 * 128 * 4 + 8) + io):.1f} us, the "
-                     f"nonzeros' alone {us(a.nnz * 8 + io):.1f} us "
-                     f"({(a.nnz * 8 + io) / 1e6:.1f} MB)")
-            d_k, d_p, d_b, d_c = dev_ms[label]
-            line += (f"; device time per call (profiler): {d_k * 1e3:.1f} "
-                     f"us, plain {d_p * 1e3:.1f} us, the plane walk "
-                     f"{d_b * 1e3:.1f} us, the CSR product "
-                     f"{d_c * 1e3:.1f} us")
-        print(line)
+        io = wbell_io_bytes(op, k)
+        least = wbell_least_bytes(a, op, k)
+        own = layouts[label[:2]].call_bytes(k)
+        walk_bytes = kept[label[:2]] * (65 * 128 * 4 + 8) + io
+        d_k, d_p, d_b, d_c, d_prof = dev_ms[label]
+        print(f"[{card}] W5 {label}: {t_k * 1e3:.1f} us (plain "
+              f"{t_p * 1e3:.1f} us); torch CSR product "
+              f"{csr_ms[label] * 1e3:.1f} us; the plane walk it replaces "
+              f"{before_ms[label] * 1e3:.1f} us; bound {us_of(least):.1f} us "
+              f"({least / 1e6:.1f} MB, the least of the two row layouts and "
+              f"the nonzeros alone); its own layout {us_of(own):.1f} us "
+              f"({own / 1e6:.1f} MB), the planes' {us_of(walk_bytes):.1f} "
+              f"us ({walk_bytes / 1e6:.1f} MB), the nonzeros' alone "
+              f"{us_of(a.nnz * 8 + io):.1f} us "
+              f"({(a.nnz * 8 + io) / 1e6:.1f} MB); device time per call "
+              f"(queued events): {d_k * 1e3:.1f} us (the profiler's "
+              f"{d_prof * 1e3:.1f}), plain {d_p * 1e3:.1f} us (profiler), "
+              f"the plane walk {d_b * 1e3:.1f} us, the CSR product "
+              f"{d_c * 1e3:.1f} us")
+    check(dev_ms["K8 k=4"][0] < dev_ms["K8 k=4"][2], f"W5 K8 k=4: device "
+          f"time {dev_ms['K8 k=4'][0] * 1e3:.1f} us is not below its plane "
+          f"walk's ({dev_ms['K8 k=4'][2] * 1e3:.1f} us)")
     for label in ("K7 k=1", "K9 k=1"):
         check(ms[label][0] < csr_ms[label], f"W5 {label}: "
               f"{ms[label][0] * 1e3:.1f} us is not faster than torch's CSR "
@@ -700,6 +782,29 @@ def wbell_phases(dev, card):
           f"{t_solve / its_j * 1e3:.1f} us/iter ({its_j} it); over the plain "
           f"version {plain_solve_ms:.1f} ms, "
           f"{plain_solve_ms / its_ref * 1e3:.1f} us/iter ({its_ref} it)")
+    # W4's solve beside the same solve with the plane walk K8 replaced as
+    # its SpMM (equal products, so the same trajectory): the same-run
+    # "before" of the multi-RHS solve.
+    from cgx_torch.solve import wbell as solve_wbell
+
+    def w4_solve():
+        return cgx_torch.auto_solve(op, B, tol=TOL, maxiter=MAXIT_WBELL,
+                                    preconditioner=jac)
+
+    def w4_planes():
+        keep = solve_wbell.wbell_spmm_tiered
+        solve_wbell.wbell_spmm_tiered = lambda p_, x: kw._planes_k8(
+            p_, x.to(p_.vector_dtype).contiguous())
+        try:
+            return w4_solve()
+        finally:
+            solve_wbell.wbell_spmm_tiered = keep
+
+    t_w4, t_w4p = time_pair(w4_solve, w4_planes, reps=2)
+    print(f"[{card}] W5 W4's multi-RHS solve (k=4, Jacobi, {max(its_m)} "
+          f"iterations): {t_w4:.1f} ms over K8's row layout, {t_w4p:.1f} ms "
+          f"over the plane walk it replaced; {t_w4 / max(its_m) * 1e3:.1f} "
+          f"vs {t_w4p / max(its_m) * 1e3:.1f} us/iter")
 
     # Where the solve's time goes: the kernels' own device time under
     # torch.profiler (CUDA activity only: recording the host's ops slows the
@@ -728,17 +833,12 @@ def wbell_phases(dev, card):
               f"{k7_us / its_j:.1f} us/launch); other kernels (ms) "
               f"{others}")
 
-    def plane_bytes(kept, k):
-        # Kept planes (values + lc) and their indices, x in and y out.
-        return kept * (65 * 128 * 4 + 8) + 2 * k * op.nt * 1024 * 4
-
     entries = []
-    for name, label, key, src, nbytes, k in (
-            ("wbell_resident", "K7 k=1", "k7", 105, least_bytes(1), 1),
-            ("wbell_tiered", "K8 k=4", "k8", 275, plane_bytes(kept8, 4), 4),
-            ("wbell_windowed", "K9 k=1", "k9", 46, least_bytes(1), 1)):
-        b_ms, b_by = bound(nbytes, 2 * a.nnz * k if key != "k8"
-                           else kept8 * 64 * 128 * 2 * k)
+    for name, label, key, src, k in (
+            ("wbell_resident", "K7 k=1", "k7", 105, 1),
+            ("wbell_tiered", "K8 k=4", "k8", 275, 4),
+            ("wbell_windowed", "K9 k=1", "k9", 46, 1)):
+        b_ms, b_by = wbell_bound(a, op, k)
         entry = {
             "name": name, "route": "cuda",
             "source": "cgx_torch/csrc/wbell.cu",
@@ -746,12 +846,11 @@ def wbell_phases(dev, card):
             "launches": launches[key], "max_abs_err": errs[label],
             "ms": ms[label][0], "plain_ms": ms[label][1], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": csr_ms[label]}
-        if label in dev_ms:
-            # The same three calls in device time (the profiler's): K7's
-            # event time holds the host's enqueue as well.
-            d_k, d_p, _, d_c = dev_ms[label]
-            entry.update(device_ms=d_k, device_plain_ms=d_p,
-                         device_library_ms=d_c)
+        # The same three calls in device time: the event time holds the
+        # host's enqueue as well.
+        d_k, d_p, _, d_c, _ = dev_ms[label]
+        entry.update(device_ms=d_k, device_plain_ms=d_p,
+                     device_library_ms=d_c)
         entries.append(entry)
     return entries, (a, op, plan)
 
@@ -1553,18 +1652,27 @@ def proto_phases(dev, card, thermal, bells):
     a64 = torch.sparse_csr_tensor(a.indptr, a.col_indices, a.values.double(),
                                   size=a.shape, check_invariants=False)
 
-    # The prototypes' host builds (set-up, before the path).
+    # The prototypes' host builds and their row layouts, built on the card
+    # (set-up, before the path).
     t0 = time.perf_counter()
     tv, tl, tpg, steps = p1.build_tiers(op, 8)
     twalk = p1.tier_walk(tpg, tv, nt)
     torch.cuda.synchronize()
     t_tiers = time.perf_counter() - t0
     t0 = time.perf_counter()
+    trows = p1.tier_rows(tpg, tl, tv, nt, twalk)
+    torch.cuda.synchronize()
+    t_trows = time.perf_counter() - t0
+    t0 = time.perf_counter()
     hv, hlc, hog, hga, hfill, hreal = p3.build_halfblock(a, 16, device=dev)
     hpk = (hog << 16) | hga
     hwalk = p3.half_walk(hpk, hlc, hv, nt, 16)
     torch.cuda.synchronize()
     t_half = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hrows = p3.half_rows(hpk, hlc, hv, nt, hwalk)
+    torch.cuda.synchronize()
+    t_hrows = time.perf_counter() - t0
     kept7 = int(op.resident_walk[0].numel())
     kept1, kept3 = int(twalk[0].numel()), int(hwalk[0].numel())
     print(f"E2 build_tiers on thermal2: {t_tiers:.2f} s (host), steps "
@@ -1573,6 +1681,17 @@ def proto_phases(dev, card, thermal, bells):
           f"fill {hfill:.2f}x, {hreal} planes ({kept3} non-zero); the 8x8 "
           f"build: fill {op.nnz_stored / a.nnz:.2f}x, {kept7} non-zero "
           f"planes")
+    for label, rows, t_rows in (("E2 P1", trows, t_trows),
+                                ("E3 P3", hrows, t_hrows)):
+        print(f"{label} row layout: built from the planes on the card in "
+              f"{t_rows:.3f} s; {rows.slots} slots for {rows.nnz} nonzeros "
+              f"(padding {rows.slots / rows.nnz:.3f}x), "
+              f"{rows.nbytes / 1e6:.1f} MB (K7's {op.rows.nbytes / 1e6:.1f}),"
+              f" {16 if rows.cols.dtype == torch.int16 else 32}-bit columns"
+              f"{', segmented' if rows.segmented else ''}, widest window "
+              f"{rows.window} floats")
+        check(rows.nnz == a.nnz, f"{label}'s row layout holds {rows.nnz} of "
+              f"{a.nnz} nonzeros")
     a1, x1, _ = bells["B1"]
     a2, x2, _ = bells["B2"]
     a3, _ = random_bell(300, SEED + 3, dev)
@@ -1581,18 +1700,48 @@ def proto_phases(dev, card, thermal, bells):
 
     def tier(x):
         return p1.tier_spmm(tpg, tl, tv, x, steps=steps, splane=8,
-                            walk=twalk)
+                            rows=trows)
 
-    def tier_plain(x):
+    def tier_walk_plain(x):
         return p1.tier_spmm_reference(tpg, tl, tv, x, steps=steps, splane=8,
                                       walk=twalk)
 
     def half(x):
-        return p3.half_spmv(hpk, hlc, hv, x, span=16, splane=64, walk=hwalk)
+        return p3.half_spmv(hpk, hlc, hv, x, span=16, splane=64, rows=hrows)
 
-    def half_plain(x):
+    def half_walk_plain(x):
         return p3.half_reference(hpk, hlc, hv, x, span=16, splane=64,
                                  walk=hwalk)
+
+    # P1's and P3's plain versions (their layouts'), and the plane-walking
+    # kernels they replace (the same-run "before", counted nowhere).
+    protos = {
+        "P1": (tier, lambda x: kw.rows_product(trows, x), tier_walk_plain,
+               lambda x: p1._planes_p1(tpg, tl, tv, x, twalk)),
+        "P3": (half, lambda x: kw.rows_product(hrows, x), half_walk_plain,
+               lambda x: p3._planes_p3(hpk, hlc, hv, x, hwalk))}
+
+    def hold_proto(name, label, x):
+        """Run prototype ``name`` twice on ``x`` and hold it bit for bit
+        against its plain version, its plane walk's plain version and the
+        plane-walking kernel; returns y and max|y - plain|."""
+        run, plain, walk_plain, planes = protos[name]
+        y = run(x)
+        again = run(x)
+        torch.cuda.synchronize()
+        y_ref, y_walk, y_planes = plain(x), walk_plain(x), planes(x)
+        torch.cuda.synchronize()
+        print(f"{label}: equal bit for bit to its plain version: "
+              f"{torch.equal(y, y_ref)}, to the plane walk's plain version: "
+              f"{torch.equal(y, y_walk)}, to the plane walk it replaces: "
+              f"{torch.equal(y, y_planes)}; two runs equal: "
+              f"{torch.equal(y, again)}")
+        check(torch.equal(y, y_ref), f"{label} differs from its plain version")
+        check(torch.equal(y, y_walk), f"{label} differs from its plane walk's "
+              "plain version")
+        check(torch.equal(y, y_planes), f"{label} differs from the plane walk")
+        check(torch.equal(y, again), f"{label}: two runs differ")
+        return y, float((y - y_ref).abs().max())
 
     def paired(a_, x_):
         return p2.bell_spmm_paired(a_.block_cols, a_.values,
@@ -1630,29 +1779,21 @@ def proto_phases(dev, card, thermal, bells):
     # -- E2. P1: the tiered single call, k = 1 and 4 --------------------------
     errs["P1"] = 0.0
     for k in (1, 4):
-        y = tier(xb[:k])
-        torch.cuda.synchronize()
-        y_ref = tier_plain(xb[:k])
+        y, err = hold_proto("P1", f"E2 P1 thermal2 k={k}",
+                            xb[:k].contiguous())
+        errs["P1"] = max(errs["P1"], err)
         e7 = maxrel(y, y7[:k])
-        errs["P1"] = max(errs["P1"], float((y - y_ref).abs().max()))
-        print(f"E2 P1 thermal2 k={k}: equal to its plain version: "
-              f"{torch.equal(y, y_ref)}; max|y - K7| / max|K7| {e7:.3e} "
-              f"(bound 1e-5)")
-        check(torch.equal(y, y_ref), f"E2 k={k}: P1 differs from its plain "
-              "version")
+        print(f"E2 P1 thermal2 k={k}: max|y - K7| / max|K7| {e7:.3e} (bound "
+              f"1e-5)")
         check(e7 <= 1e-5, f"E2 k={k}: P1 is {e7} from K7")
 
     # -- E3. P3: the 4x8 half-blocks, k = 1 -----------------------------------
-    y = half(xb[:1])
-    torch.cuda.synchronize()
-    y_ref = half_plain(xb[:1])
-    errs["P3"] = float((y - y_ref).abs().max())
+    y, errs["P3"] = hold_proto("P3", "E3 P3 thermal2 k=1",
+                               xb[:1].contiguous())
     y64 = (a64 @ xs4[:, :1].double())[:, 0]
     e64 = maxrel(op.from_internal(y[0]), y64)
-    print(f"E3 P3 thermal2: equal to its plain version: "
-          f"{torch.equal(y, y_ref)}; vs the fp64 CSR product through the "
+    print(f"E3 P3 thermal2: vs the fp64 CSR product through the "
           f"permutation, max rel-to-peak {e64:.3e} (bound 1e-5)")
-    check(torch.equal(y, y_ref), "E3: P3 differs from its plain version")
     check(e64 <= 1e-5, f"E3: P3 is {e64} from the fp64 product")
 
     # -- E4. K12: the chunked engine; E5. P2: paired slots --------------------
@@ -1704,8 +1845,8 @@ def proto_phases(dev, card, thermal, bells):
     check(odd, "E5: an odd wb did not raise")
     launches = {nm: getattr(m, nm) for m, nm in counters}
     print(f"E1-E5 launches: {launches}")
-    check(launches == {"wbell_stacked_launches": 2, "tier_spmm_launches": 2,
-                       "half_spmv_launches": 1, "bell_prefetch_launches": 8,
+    check(launches == {"wbell_stacked_launches": 2, "tier_spmm_launches": 4,
+                       "half_spmv_launches": 2, "bell_prefetch_launches": 8,
                        "bell_pair_launches": 2},
           f"E1-E5 did not launch each kernel as driven: {launches}")
 
@@ -1713,22 +1854,27 @@ def proto_phases(dev, card, thermal, bells):
     a32 = torch.sparse_csr_tensor(a.indptr, a.col_indices, a.values.float(),
                                   size=a.shape, check_invariants=False)
     x1c = xs4[:, :1].contiguous()
+    xk = {1: xb[:1].contiguous(), 4: xb}
+    csr = {1: lambda: a32 @ x1c, 4: lambda: a32 @ xs4}
     w4 = interleaved_ms({
         "K7": lambda: kw.wbell_spmm(op, xb),
         "K8": lambda: kw.wbell_spmm_tiered(plan, xb),
         "K10": lambda: kw.wbell_spmm_stacked(op, xst),
         "P1": lambda: tier(xb),
-        "CSR": lambda: a32 @ xs4})
+        "P1 planes": lambda: protos["P1"][3](xb),
+        "CSR": csr[4]})
     w1 = interleaved_ms({
-        "K7": lambda: kw.wbell_spmm(op, xb[:1]),
-        "P1": lambda: tier(xb[:1]),
-        "P3": lambda: half(xb[:1]),
-        "CSR": lambda: a32 @ x1c})
+        "K7": lambda: kw.wbell_spmm(op, xk[1]),
+        "P1": lambda: tier(xk[1]),
+        "P1 planes": lambda: protos["P1"][3](xk[1]),
+        "P3": lambda: half(xk[1]),
+        "P3 planes": lambda: protos["P3"][3](xk[1]),
+        "CSR": csr[1]})
     wp = interleaved_ms({
         "K10": lambda: kw.wbell_stacked_reference(op, xst),
-        "P1 k=4": lambda: tier_plain(xb),
-        "P1 k=1": lambda: tier_plain(xb[:1]),
-        "P3": lambda: half_plain(xb[:1])}, reps=3, inner=1)
+        "P1 k=4": lambda: protos["P1"][1](xb),
+        "P1 k=1": lambda: protos["P1"][1](xk[1]),
+        "P3": lambda: protos["P3"][1](xk[1])}, reps=3, inner=1)
     for k, ms in ((4, w4), (1, w1)):
         print(f"[{card}] E6 thermal2 k={k} (us/call): "
               + ", ".join(f"{nm} {t * 1e3:.1f}" for nm, t in ms.items())
@@ -1736,6 +1882,38 @@ def proto_phases(dev, card, thermal, bells):
               + (f", K10 {ms['K10'] * 1e3 / k:.1f}" if k == 4 else ""))
     print(f"[{card}] E6 plain versions (us/call): "
           + ", ".join(f"{nm} {t * 1e3:.1f}" for nm, t in wp.items()))
+    # Device time alone (queued events; the plain version's and a
+    # cross-check of the kernel's by the profiler): P1 and P3, the plane
+    # walks they replace, torch's CSR product, beside the one bound.
+    plane_words = {"P1": (8192 + 128, kept1), "P3": (4096 + 128, kept3)}
+    rows_of = {"P1": trows, "P3": hrows}
+    dms = {}
+    for label, k in (("P1", 1), ("P1", 4), ("P3", 1)):
+        run, plain, _, planes = protos[label]
+        x = xk[k]
+        d_k, d_b, d_c = (queued_ms(f) for f in (
+            lambda: run(x), lambda: planes(x), csr[k]))
+        d_p, d_prof = device_ms(lambda: plain(x)), device_ms(lambda: run(x))
+        dms[label, k] = (d_k, d_p, d_c)
+        ev = (w1 if k == 1 else w4)
+        io = wbell_io_bytes(op, k)
+        least = wbell_least_bytes(a, op, k)
+        own = rows_of[label].call_bytes(k)
+        words, kept = plane_words[label]
+        walk_bytes = kept * (words * 4 + 8) + io
+        print(f"[{card}] E6 {label} k={k}: {ev[label] * 1e3:.1f} us (events),"
+              f" device {d_k * 1e3:.1f} us (the profiler's "
+              f"{d_prof * 1e3:.1f}); the plane walk it replaces "
+              f"{ev[label + ' planes'] * 1e3:.1f} us, device "
+              f"{d_b * 1e3:.1f}; torch CSR product {ev['CSR'] * 1e3:.1f} us, "
+              f"device {d_c * 1e3:.1f}; plain device {d_p * 1e3:.1f} us; "
+              f"bound {us_of(least):.1f} us ({least / 1e6:.1f} MB, the "
+              f"fewest bytes that move Y = A·X); its own layout "
+              f"{us_of(own):.1f} us ({own / 1e6:.1f} MB), the planes' "
+              f"{us_of(walk_bytes):.1f} us ({walk_bytes / 1e6:.1f} MB)")
+        if k == 1:
+            check(d_k < d_c, f"E6 {label} k=1: device time {d_k * 1e3:.1f} "
+                  f"us is not below the CSR product's ({d_c * 1e3:.1f} us)")
 
     def bsr_ms(arrays, size, x):
         """ms of torch's BSR product of the same matrix, or None where it
@@ -1764,46 +1942,43 @@ def proto_phases(dev, card, thermal, bells):
               + ", ".join(f"{nm} {t * 1e3:.1f}" if t is not None
                           else f"{nm} n/a" for nm, t in bt[label].items()))
 
-    def wbell_bound(kept, plane_words, k):
-        # Kept planes (values + lc) and their two indices, x in and y out;
-        # 2 flops per stored value and column.
-        return bound(kept * ((plane_words + 128) * 4 + 8)
-                     + 2 * k * nt * 1024 * 4,
-                     kept * plane_words * 2 * k)
-
     nbr1 = a1.values.shape[0]
     b1 = bound(nbr1 * BELL_WB * (BELL_BS * BELL_BS * 4 + 4)
                + a1.shape[1] * 256 * 4 + nbr1 * BELL_BS * 256 * 4,
                2.0 * nbr1 * BELL_WB * BELL_BS * BELL_BS * 256)
-    b10, b1t = wbell_bound(kept7, 8192, 4), wbell_bound(kept1, 8192, 4)
-    b3 = wbell_bound(kept3, 4096, 1)
-    for label, b in (("K10 k=4", b10), ("P1 k=4", b1t), ("P3 k=1", b3),
+    b4, b3 = wbell_bound(a, op, 4), wbell_bound(a, op, 1)
+    for label, b in (("K10, P1 k=4", b4), ("P1, P3 k=1", b3),
                      ("K12/P2 B1", b1)):
-        print(f"E6 bound {label}: {b[0] * 1e3:.1f} us ({b[1]})")
+        print(f"[{card}] E6 bound {label}: {b[0] * 1e3:.1f} us ({b[1]})")
 
-    def entry(name, source, replaces, key, err, ms, plain_ms, b, lib):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[key],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b[0], "bound_by": b[1], "library_ms": lib}
+    def entry(name, source, replaces, key, err, ms, plain_ms, b, lib,
+              device=None):
+        e = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches[key],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b[0], "bound_by": b[1], "library_ms": lib}
+        if device is not None:
+            e.update(zip(("device_ms", "device_plain_ms",
+                          "device_library_ms"), device))
+        return e
 
     wsrc, bsrc = "cgx_torch/csrc/wbell.cu", "cgx_torch/csrc/bsr.cu"
     return [
         entry("wbell_spmm_stacked", wsrc, "cgx/kernels/wbell.py:384",
               "wbell_stacked_launches", errs["K10"], w4["K10"], wp["K10"],
-              b10, w4["CSR"]),
+              b4, w4["CSR"]),
         entry("bell_spmm_prefetch", bsrc, "cgx/kernels/bsr.py:215",
               "bell_prefetch_launches", errs["K12"], bt["B1"]["K12"],
               bt["B1"]["K12 plain"], b1, bt["B1"]["BSR"]),
         entry("tier_spmm", wsrc, "experiments/tier_proto.py:53",
-              "tier_spmm_launches", errs["P1"], w4["P1"], wp["P1 k=4"], b1t,
-              w4["CSR"]),
+              "tier_spmm_launches", errs["P1"], w4["P1"], wp["P1 k=4"], b4,
+              w4["CSR"], dms["P1", 4]),
         entry("bell_spmm_paired", bsrc, "experiments/bell_pair_proto.py:16",
               "bell_pair_launches", errs["P2", "B1 fp32"], bt["B1"]["P2"],
               bt["B1"]["P2 plain"], b1, bt["B1"]["BSR"]),
         entry("half_spmv", wsrc, "experiments/halfblock_proto.py:93",
               "half_spmv_launches", errs["P3"], w1["P3"], wp["P3"], b3,
-              w1["CSR"]),
+              w1["CSR"], dms["P3", 1]),
     ]
 
 

@@ -1213,30 +1213,65 @@ def test_p2_equals_k11(cuda_device, wb, bs, k, dtype):
 @pytest.mark.parametrize("case,k", [("thermal", 1), ("thermal", 4),
                                     ("five_groups", 3)])
 def test_p1_equals_plain_and_k7(cuda_device, case, k):
-    """P1 runs K8's kernel over build_tiers' arrays in class-major order:
-    equal to its plain version bit for bit, to K7 within fp32 summation
-    order."""
+    """P1 runs the row kernel over the row layout of build_tiers' planes in
+    class-major order: one launch on P1's counter alone, equal to the
+    layout's plain version, to its plane walk's and to the plane-walking
+    kernel it replaces bit for bit, to K7 within fp32 summation order."""
     from cgx_torch.experiments import tier_proto as p1
 
     a = _wbell(case, cuda_device)
     v, lc, pg, steps = p1.build_tiers(a, 8)
+    walk = p1.tier_walk(pg, v, a.nt)
+    rows = p1.tier_rows(pg, lc, v, a.nt, walk)
     x = t(np.random.default_rng(k).standard_normal(
         (k, a.nt, 8, 128)).astype(np.float32), cuda_device)
-    before = (p1.tier_spmm_launches, kw.wbell_tiered_launches)
-    y = p1.tier_spmm(pg, lc, v, x, steps=steps, splane=8)
+    before = (p1.tier_spmm_launches, kw.wbell_tiered_launches,
+              kw.wbell_resident_launches)
+    y = p1.tier_spmm(pg, lc, v, x, steps=steps, splane=8, rows=rows)
     torch.cuda.synchronize()
-    assert (p1.tier_spmm_launches, kw.wbell_tiered_launches) == (
-        before[0] + 1, before[1])
+    assert (p1.tier_spmm_launches, kw.wbell_tiered_launches,
+            kw.wbell_resident_launches) == (before[0] + 1,) + before[1:]
+    assert torch.equal(y, kw.rows_product(rows, x))
     assert torch.equal(y, p1.tier_spmm_reference(pg, lc, v, x, steps=steps,
                                                  splane=8))
+    assert torch.equal(y, p1._planes_p1(pg, lc, v, x, walk))
+    assert torch.equal(p1.tier_spmm(pg, lc, v, x, steps=steps, splane=8), y)
     y7 = kw.wbell_spmm(a, x)
     assert float((y - y7).abs().max()) <= 1e-5 * float(y7.abs().max())
 
 
+@pytest.mark.parametrize("case,k,bf16", [
+    ("thermal", 4, False), ("five_groups", 3, False), ("thermal", 4, True)])
+def test_k8_equals_k7_bitwise(cuda_device, case, k, bf16):
+    """K8 runs the row kernel over its tier plan's layout, the matrix's
+    (the plan's planes in its walk give the same arrays, built on the
+    card): one launch on K8's counter, equal to K7 and to the plane walk
+    it replaces bit for bit."""
+    a = _wbell(case, cuda_device, torch.bfloat16 if bf16 else None)
+    plan = kw.build_tier_plan(a)
+    assert plan.rows is a.rows
+    own = kw.tiered_rows(plan.packed, plan.lc, plan.values, plan.walk,
+                         plan.nt)
+    assert torch.equal(own.cols, a.rows.cols)
+    assert torch.equal(own.values, a.rows.values)
+    x = t(np.random.default_rng(k + 80).standard_normal(
+        (k, a.nt, 8, 128)).astype(np.float32), cuda_device)
+    before = (kw.wbell_tiered_launches, kw.wbell_resident_launches)
+    y = kw.wbell_spmm_tiered(plan, x)
+    torch.cuda.synchronize()
+    assert (kw.wbell_tiered_launches, kw.wbell_resident_launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(y, kw.wbell_spmm(a, x))
+    assert torch.equal(y, kw._planes_k8(plan, x))
+    assert torch.equal(y, kw.rows_product(plan.rows, x))
+
+
 @pytest.mark.parametrize("case", ["thermal", "five_groups"])
 def test_p3_equals_plain_and_fp64(cuda_device, case):
-    """P3 over half-block planes built on the host: equal to its plain
-    version bit for bit, within 1e-5 of the fp64 product (of the peak)."""
+    """P3, the segmented row kernel over the layout of half-block planes
+    built on the host: equal to the layout's plain version, to its plane
+    walk's and to the plane-walking kernel it replaces bit for bit, within
+    1e-5 of the fp64 product (of the peak)."""
     import scipy.sparse as sp
     from cgx_torch.experiments import halfblock_proto as p3
     from cgx_torch.io.suitesparse import standin
@@ -1253,16 +1288,55 @@ def test_p3_equals_plain_and_fp64(cuda_device, case):
     a = cgx_torch.wbell_from_csr(s, device=cuda_device)
     v, lc, og, ga, _, _ = p3.build_halfblock(s, 16, device=cuda_device)
     packed = (og << 16) | ga
+    walk = p3.half_walk(packed, lc, v, a.nt, 16)
+    rows = p3.half_rows(packed, lc, v, a.nt, walk)
+    assert rows.segmented
     xv = np.random.default_rng(3).standard_normal(s.shape[0]).astype(
         np.float32)
     xi = a.to_internal(t(xv, cuda_device))[None]
-    before = p3.half_spmv_launches
-    y = p3.half_spmv(packed, lc, v, xi, span=16, splane=64)
+    before = (p3.half_spmv_launches, kw.wbell_resident_launches)
+    y = p3.half_spmv(packed, lc, v, xi, span=16, splane=64, rows=rows)
     torch.cuda.synchronize()
-    assert p3.half_spmv_launches == before + 1
+    assert (p3.half_spmv_launches, kw.wbell_resident_launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(y, kw.rows_product(rows, xi))
     assert torch.equal(y, p3.half_reference(packed, lc, v, xi, span=16,
                                             splane=64))
+    assert torch.equal(y, p3._planes_p3(packed, lc, v, xi, walk))
     assert torch.equal(p3.half_spmv(packed, lc, v, xi, span=16, splane=64), y)
     truth = s @ xv.astype(np.float64)
     got = a.from_internal(y[0]).double().cpu().numpy()
     assert np.abs(got - truth).max() <= 1e-5 * np.abs(truth).max()
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_p3_segmented_kernel_on_dense_blocks(cuda_device, monkeypatch, wide):
+    """The segmented row kernel where segments hold 8 entries (dense 8×8
+    blocks), k = 2, beside 16-bit column offsets and int32 indices: equal
+    to the layout's plain version and to the plane walk bit for bit."""
+    import scipy.sparse as sp
+    from cgx_torch.experiments import halfblock_proto as p3
+    from cgx_torch.sparse import wbell as sw
+
+    rng = np.random.default_rng(60)
+    pattern = sp.random(300, 300, density=0.01, random_state=61,
+                        format="csr")
+    s = sp.kron(((pattern + pattern.T) + sp.eye(300)).tocsr(),
+                np.ones((8, 8)), format="csr")
+    s.data = rng.standard_normal(s.nnz)
+    a = cgx_torch.wbell_from_csr(s, device=cuda_device)
+    if wide:
+        monkeypatch.setattr(sw, "ROW_OFFSET_LIMIT", 1024)
+    v, lc, og, ga, _, _ = p3.build_halfblock(s, 16, device=cuda_device)
+    packed = (og << 16) | ga
+    walk = p3.half_walk(packed, lc, v, a.nt, 16)
+    rows = p3.half_rows(packed, lc, v, a.nt, walk)
+    assert rows.cols.dtype == (torch.int32 if wide else torch.int16)
+    x = t(rng.standard_normal((2, a.nt, 8, 128)).astype(np.float32),
+          cuda_device)
+    y = p3.half_spmv(packed, lc, v, x, span=16, splane=64, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(y, kw.rows_product(rows, x))
+    assert torch.equal(y, p3.half_reference(packed, lc, v, x, span=16,
+                                            splane=64, walk=walk))
+    assert torch.equal(y, p3._planes_p3(packed, lc, v, x, walk))
