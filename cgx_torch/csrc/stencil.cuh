@@ -203,6 +203,132 @@ __device__ __forceinline__ float plane_row(const V* x, const P* planes,
   return acc;
 }
 
+// -- Carried nodes (the two-phase whole-solve kernel, resident_cg.cu, and the
+// one-pass kernel, onepass.cu) -----------------------------------------------
+// A thread walks rows row₀, row₀ + step, row₀ + 2·step, …  Rather than two
+// integer divisions a row (stencil_row's), it carries its row's node (i, j,
+// k) and adds the step's own node (di, dj, dk), dk < nz and dj < ny, with
+// one compare-and-subtract an axis: k + dk < 2·nz and j + dj + 1 < 2·ny.
+// Two divisions a walk remain, in the constructor.  A row past n carries a
+// node with i ≥ nx; the walks stop at n.  kernels/stencil.py `carried_nodes`
+// is its plain mirror.
+struct Walk {
+  int i, j, k;
+  int di, dj, dk;
+  Walk() = default;
+  __device__ __forceinline__ Walk(int row, int step, int ny, int nz) {
+    int line = row / nz;
+    k = row - line * nz;
+    i = line / ny;
+    j = line - i * ny;
+    line = step / nz;
+    dk = step - line * nz;
+    di = line / ny;
+    dj = line - di * ny;
+  }
+  __device__ __forceinline__ void advance(int ny, int nz) {
+    k += dk;
+    const int ck = k >= nz ? 1 : 0;
+    k -= ck * nz;
+    j += dj + ck;
+    const int cj = j >= ny ? 1 : 0;
+    j -= cj * ny;
+    i += di + cj;
+  }
+};
+
+// stencil_row at a carried node, each value read through ld(index): the
+// same taps, guards, products and sums in the same order as stencil_row, so
+// the same bits.  ld lets a caller form the vector as it reads it (the
+// two-phase kernel's p = r + β·p_old at each neighbour).
+template <int kTaps, typename Load>
+__device__ __forceinline__ float stencil_row_at(Load ld, const Walk& w,
+                                                int nx, int ny, int nz,
+                                                const StencilTaps& t) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kTaps; ++s) {
+    if (s < t.n) {
+      const int ii = w.i + t.dx[s];
+      const int jj = w.j + t.dy[s];
+      const int kk = w.k + t.dz[s];
+      if (ii >= 0 && ii < nx && jj >= 0 && jj < ny && kk >= 0 && kk < nz)
+        acc = __fadd_rn(acc, __fmul_rn(t.c[s], ld((ii * ny + jj) * nz + kk)));
+    }
+  }
+  return acc;
+}
+
+// plane_row at a carried node, x read through ld(index), the planes through
+// the read-only path (no kernel writes them): plane_row's arithmetic, bit
+// for bit.
+template <int kTaps, bool kSym, typename P, typename Load>
+__device__ __forceinline__ float plane_row_at(Load ld, const P* planes,
+                                              int row, const Walk& w, int n,
+                                              int nx, int ny, int nz,
+                                              const PlaneTaps& t) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kTaps; ++s) {
+    if (s < t.s.n) {
+      const int pl = t.plane[s];
+      if (pl < 0) {
+        if (t.s.dx[s] == 0 && t.s.dy[s] == 0 && t.s.dz[s] == 0) {
+          acc = __fadd_rn(acc, __fmul_rn(t.s.c[s], ld(row)));
+        } else {
+          const int ii = w.i + t.s.dx[s];
+          const int jj = w.j + t.s.dy[s];
+          const int kk = w.k + t.s.dz[s];
+          float term = 0.0f;
+          if (ii >= 0 && ii < nx && jj >= 0 && jj < ny && kk >= 0 && kk < nz)
+            term = __fmul_rn(t.s.c[s], ld((ii * ny + jj) * nz + kk));
+          acc = __fadd_rn(acc, term);
+        }
+        continue;
+      }
+      const P* c = planes + static_cast<size_t>(pl) * n;
+      const int off = t.off[s];
+      float term = 0.0f;
+      if (off >= -row && off < n - row)
+        term = __fmul_rn(load<true>(c + row), ld(row + off));
+      if (kSym && off != 0 && off <= row && off > row - n) {
+        const int m = row - off;
+        term = __fadd_rn(term, __fmul_rn(load<true>(c + m), ld(m)));
+      }
+      acc = __fadd_rn(acc, term);
+    }
+  }
+  return acc;
+}
+
+// A grid-stride walk over rows first, first + stride, … < n with the node
+// carried, kRows rows in flight: value(row, walk) does a row's loads and
+// arithmetic, use(row, v) its stores and sums.  The values of kRows rows
+// are formed before any of them is used, so their loads overlap, and they
+// are used in row order, so every sum keeps the one-row walk's order.  The
+// caller must not read in value what use writes at another row.
+template <int kRows, typename Value, typename Use>
+__device__ __forceinline__ void walk_rows(int first, int stride, int n,
+                                          int ny, int nz, Value value,
+                                          Use use) {
+  Walk w(first, stride, ny, nz);
+  int row = first;
+  if constexpr (kRows == 2) {
+    for (; row + stride < n; row += 2 * stride) {
+      const auto v0 = value(row, w);
+      w.advance(ny, nz);
+      const auto v1 = value(row + stride, w);
+      w.advance(ny, nz);
+      use(row, v0);
+      use(row + stride, v1);
+    }
+  }
+  for (; row < n; row += stride) {
+    use(row, value(row, w));
+    w.advance(ny, nz);
+  }
+}
+
 // -- k-column rows (the multi-RHS engine, fused_multi.cu) ---------------------
 // The rows of nc ≤ kCols columns at once: column c is x + c·ld (fp32).  A
 // boundary mask and a coefficient-plane value (fp32 or bf16, widened) are
@@ -394,6 +520,28 @@ __device__ __forceinline__ void virtual_sweep(int g, int n, Row row_fn,
     for (int row = vb * kThreads + threadIdx.x; row < n; row += g * kThreads)
       row_fn(row, acc);
     store_fn(vb, acc);
+  }
+}
+
+// The same sums with carried nodes (the redesigned one-pass kernel): block
+// B takes the virtual blocks B, B + gridDim.x, … in turn, thread t walks
+// each one's rows vb·kThreads + t + m·g·kThreads with the node carried
+// (Walk) instead of two divisions a row.  value(row, walk) does a row's
+// loads and arithmetic, use(row, v, acc) its stores and sums, store(vb,
+// acc) the block tree (it syncs the block: every thread calls it).
+template <int kThreads, typename Value, typename Use, typename Store>
+__device__ __forceinline__ void virtual_sweep_walk(int g, int n, int ny,
+                                                   int nz, Value value,
+                                                   Use use, Store store) {
+  const int step = g * kThreads;
+  for (int vb = blockIdx.x; vb < g; vb += gridDim.x) {
+    double acc[2] = {0.0, 0.0};
+    int row = vb * kThreads + threadIdx.x;
+    for (Walk w(row < n ? row : 0, step, ny, nz); row < n; row += step) {
+      use(row, value(row, w), acc);
+      w.advance(ny, nz);
+    }
+    store(vb, acc);
   }
 }
 

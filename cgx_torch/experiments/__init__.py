@@ -13,7 +13,10 @@ was measured against:
 
 :mod:`~cgx_torch.experiments.bell_sweep` is no prototype: it times K11's
 tiled path against its general path over fp32 block sizes and ``k``, the
-measurement behind ``bell_plan``'s rule for small blocks.
+measurement behind ``bell_plan``'s rule for small blocks;
+:mod:`~cgx_torch.experiments.resident_grid_sweep` times K2's constant mode
+over grids and sizes beside the three-phase kernel, the measurement
+behind ``fused_resident.default_grid``.
 
 Run one on the card from the repository root, for example
 ``python3 -m cgx_torch.experiments.tier_proto thermal2 1.0 1,4``.  A

@@ -32,12 +32,13 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes (every pointer and the stream c_void_p).
 _SIGNATURES = {
     "cgx_stencil3d_spmv": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "cgx_resident_cg_grid": [_I, _I, _P],
-    "cgx_resident_cg": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                        _P, _I, _I, _P, _P, _P, _P],
-    "cgx_resident_dia_cg_grid": [_I, _I, _I, _I, _P],
-    "cgx_resident_dia_cg": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                            _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+    "cgx_resident_cg_grid": [_I, _I, _I, _P],
+    "cgx_resident_cg": [_P] * 6 + [_I] * 5 + [_P] * 3 + [_I, _I] + [_P] * 3
+    + [_I, _P],
+    "cgx_resident_dia_cg_grid": [_I] * 5 + [_P],
+    "cgx_resident_dia_cg": [_P] * 6 + [_I] * 5 + [_P] * 5 + [_I, _I, _P, _I,
+                                                             _I] + [_P] * 3
+    + [_I, _P],
     "cgx_fused_a_grid": [_I, _I, _I, _I, _I, _I, _P],
     "cgx_fused_b_grid": [_I, _I, _I, _P],
     "cgx_fused_a": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
@@ -46,9 +47,9 @@ _SIGNATURES = {
     "cgx_sr_grid": [_I, _I, _I, _I, _I, _I, _P],
     "cgx_sr_cg": [_P] * 8 + [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                              _I, _I, _P, _I, _P, _P, _P, _P],
-    "cgx_onepass_grid": [_I, _I, _P],
-    "cgx_onepass": [_P] * 6 + [_I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
-                               _P, _P],
+    "cgx_onepass_grid": [_I, _I, _I, _P],
+    "cgx_onepass": [_P] * 6 + [_I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+                               _P, _P, _P],
     "cgx_multi_a_grid": [_I, _I, _I, _I, _I, _P],
     "cgx_multi_b_grid": [_I, _I, _P],
     "cgx_multi_a": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,

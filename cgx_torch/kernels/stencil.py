@@ -21,7 +21,7 @@ import torch
 from cgx_torch.sparse.stencil import Stencil3D
 
 __all__ = ["stencil3d_spmv", "stencil3d_spmv_reference",
-           "stencil3d_spmv_launches"]
+           "stencil3d_spmv_launches", "carried_nodes"]
 
 # Kernel launches so far (a run resets it to show which kernels it used).
 stencil3d_spmv_launches = 0
@@ -29,6 +29,29 @@ stencil3d_spmv_launches = 0
 # Tap order of the 7-point operator, as in cgx.kernels.fused_cg.stencil_taps.
 _TAPS7 = ((0, 0, 0), (0, 0, 1), (0, 0, -1), (0, 1, 0), (0, -1, 0),
           (1, 0, 0), (-1, 0, 0))
+
+
+def carried_nodes(row0: int, step: int, count: int, ny: int, nz: int):
+    """The nodes ``(i, j, k)`` of rows ``row0, row0 + step, …`` (``count``
+    rows) as the whole-solve and one-pass kernels carry them
+    (``cgx::Walk`` in ``csrc/stencil.cuh``): two divisions, for the first
+    row and for the step, then one compare-and-subtract an axis per row.
+    The kernels' arithmetic in Python, for the tests."""
+    line, k = divmod(row0, nz)
+    i, j = divmod(line, ny)
+    line, dk = divmod(step, nz)
+    di, dj = divmod(line, ny)
+    nodes = []
+    for _ in range(count):
+        nodes.append((i, j, k))
+        k += dk
+        ck = int(k >= nz)
+        k -= ck * nz
+        j += dj + ck
+        cj = int(j >= ny)
+        j -= cj * ny
+        i += di + cj
+    return nodes
 
 
 def stencil3d_spmv_reference(x: torch.Tensor, nx: int, ny: int, nz: int,

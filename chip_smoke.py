@@ -16,7 +16,10 @@ Phases (any failed check exits nonzero, and no result line is printed):
    an fp64 solve of the same system, and K2 is run twice to show it is
    bit-reproducible;
 5. times (CUDA events, median of interleaved repetitions) of both kernels
-   and their plain versions;
+   and their plain versions; K2 at 128³ and 224³ (b = ones) equal to the
+   three-phase kernel it replaced (kept as the same-run "before", counted
+   nowhere) bit for bit at one grid, and timed in turns with it, beside
+   the stream floors (``k2_times``);
 6. the Jacobi-PCG path over variable-coefficient DIA operators: DIA-7, a
    7-point D·A·D at 192³ (D ~ U[0.5, 2) from seed 0), and DIA-27,
    ``poisson3d_dia27(128, 128, 128, variable=True, seed=0)``, each with
@@ -30,8 +33,10 @@ Phases (any failed check exits nonzero, and no result line is printed):
    against an fp64 Jacobi-PCG solve of the same system; K2's planes mode
    and K3 run twice to show they are bit-reproducible; K3's kernels A and
    B each held against their plain versions for one step;
-9. times of K2's planes mode, of K3 and of K3's two kernels, each beside
-   its plain version (and K3 A beside torch's CSR product of Ã), and K2's
+9. times of K2's planes mode in fp32 and bf16 planes, each equal to the
+   three-phase kernel bit for bit at one grid and timed in turns with it
+   (``k2_plane_times``), of K3 and of K3's two kernels, each beside its
+   plain version (and K3 A beside torch's CSR product of Ã), and K2's
    constant mode beside K3 at 224³;
 10. W1, the unstructured path's build: the thermal2 stand-in at full size
     (``standin("thermal2")``, 1,228,045 rows, seed 0) through
@@ -149,11 +154,14 @@ Phases (any failed check exits nonzero, and no result line is printed):
 33. S4, the one-pass engine K6: ``fused_stencil_cg(poisson3d_stencil(224,
     224, 224), b, one_pass=True)`` with b = ones and seeded, with and
     without ``track_history``; each equal to K3's solve (x, iterations,
-    history) bit for bit, held against its plain version and fp64;
+    history) bit for bit, and to the first K6 design (the same-run
+    "before"), held against its plain version and fp64; K6's grid beside
+    K3's;
 34. S5, times: K4 per iteration in each tier beside K3 and K2 on the same
-    system and b, on DIA-7 160³ and DIA-27 128³ too, K6 beside K3 at 224³
-    and K6's device time per launch (profiler), each beside its plain
-    version and its byte floor;
+    system and b, on DIA-7 160³ and DIA-27 128³ too, K6 beside K3 and the
+    first K6 design at 224³ in turns, and both K6s' device time per
+    iteration (profiler), each beside its plain version and its 6- and
+    7-stream floors;
 35. E1, the column-stacked WBELL SpMM K10 (``wbell_spmm_stacked``) on W1's
     thermal2 operator, k = 4 seeded columns: ``from_stacked`` of its Y
     equal to K7's batched Y and to its plain version bit for bit, twice;
@@ -441,6 +449,11 @@ def wbell_least_bytes(a, op, k) -> int:
 def wbell_bound(a, op, k):
     """``bound()`` of Y = A·X: the fewest bytes, 2 flops a nonzero."""
     return bound(wbell_least_bytes(a, op, k), 2 * a.nnz * k)
+
+
+def floor_us(streams, n) -> float:
+    """µs to move ``streams`` vectors of ``n`` floats at the HBM rate."""
+    return streams * 4 * n / HBM_BYTES_PER_S * 1e6
 
 
 def us_of(nbytes) -> float:
@@ -2530,6 +2543,7 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
     holds DIA-27 128³; ``fp64_solution`` and ``relres_of`` are the main
     phases' yardsticks.  Returns the report line's entries of K4 and K6."""
     import cgx_torch
+    from cgx_torch.kernels import _build
     from cgx_torch.kernels import fused_dia_cg as fdia
     from cgx_torch.kernels import fused_engine as k3
     from cgx_torch.kernels import fused_onepass as k6
@@ -2781,13 +2795,18 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
         check(torch.equal(again.x, res.x)
               and torch.equal(again.history, res.history),
               f"{label}: two K6 runs differ")
+        # The first design's kernel (the "before", counted nowhere).
+        first = k6._before_solve(eng6, b, **kw)
+        same(f"{label} first K6 design", first, res, history=hist)
+    grid6, ga6, gb6 = eng6.shape(dev)
+    print(f"S4 K6 grid {grid6} over K3's grids ga {ga6} and gb {gb6} (every "
+          f"block sweeps {ga6 / grid6:g} and {gb6 / grid6:g} virtual "
+          f"blocks); the first design's grid "
+          f"{eng6._occupancy(_build.library(), dev, k6._FIRST_DESIGN)}")
 
     # -- S5: times -----------------------------------------------------------
     # Per iteration, b = ones, medians of interleaved runs; the plain
     # versions' solves were timed once above (host clock, synchronised).
-    def floor_us(streams, n):
-        return streams * 4 * n / HBM_BYTES_PER_S * 1e6
-
     sr_us = {}
     for kind, N, mode, nm, b, res in s1:
         if kind == "auto" or nm != "ones":
@@ -2841,29 +2860,42 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
     b = rhs(n224, "ones")
     its6 = int(next(r.iterations for nm, hist, _, r in s4
                     if nm == "ones" and not hist))
-    t6, t3 = time_pair(
-        lambda: fused_stencil_cg(a224, b, tol=TOL, maxiter=MAXIT_HIST,
-                                 one_pass=True),
-        lambda: fused_stencil_cg(a224, b, tol=TOL, maxiter=MAXIT_HIST),
-        reps=3)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fused_stencil_cg(a224, b, tol=TOL, maxiter=MAXIT_HIST, one_pass=True)
+    kw6 = dict(tol=TOL, maxiter=MAXIT_HIST)
+    t6, t3, t6_old = time_set([
+        lambda: fused_stencil_cg(a224, b, one_pass=True, **kw6),
+        lambda: fused_stencil_cg(a224, b, **kw6),
+        lambda: k6._before_solve(eng6, b, **kw6)], reps=3)
+    # Device time per iteration (profiler; the launches past the exit
+    # return at once), the redesign's kernel and the first design's.
+    dev_us = {}
+    for tag, fn, key in (
+            ("K6", lambda: fused_stencil_cg(a224, b, one_pass=True, **kw6),
+             "onepass2_kernel"),
+            ("first", lambda: k6._before_solve(eng6, b, **kw6),
+             "onepass_kernel<")):
         torch.cuda.synchronize()
-    u6, c6 = device_us(prof, lambda kk: "onepass_kernel" in kk)
-    # Per iteration: the launches past the exit return at once.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev_us[tag] = device_us(prof, lambda kk, key=key: key in kk)
+    u6, c6 = dev_us["K6"]
     dev6 = u6 / its6
+    dev6_old = dev_us["first"][0] / its6
     st6 = eng6.init(b)
     t6p = statistics.median(event_ms(lambda: eng6.kernel_c_reference(
         st6.rz, st6.x, st6.r, st6.p)) for _ in range(3))
     print(f"[{card}] S5 224^3 b=ones: K6 {t6:.3f} ms, "
           f"{t6 / its6 * 1e3:.2f} us/iter ({its6} it); K3 {t3:.3f} ms, "
-          f"{t3 / its6 * 1e3:.2f} us/iter; K6/K3 {t6 / t3:.3f}; K6 device "
-          f"time {dev6:.2f} us per iteration, {u6 / max(c6, 1):.2f} us per "
-          f"launch over {c6} launches (profiler; device busy "
-          f"{u6 / (t6 * 1e3):.3f} of the solve); "
-          f"plain iteration {t6p * 1e3:.2f} us; floor "
-          f"{floor_us(6, n224):.1f} us (6 streams)")
+          f"{t3 / its6 * 1e3:.2f} us/iter; first K6 design {t6_old:.3f} ms, "
+          f"{t6_old / its6 * 1e3:.2f} us/iter; K6/K3 {t6 / t3:.3f}, "
+          f"K6/first {t6 / t6_old:.3f}; K6 device time {dev6:.2f} us per "
+          f"iteration, {u6 / max(c6, 1):.2f} us per launch over {c6} "
+          f"launches (profiler; device busy {u6 / (t6 * 1e3):.3f} of the "
+          f"solve), first design {dev6_old:.2f} us per iteration; grid "
+          f"{grid6}, K3's ga {ga6}, gb {gb6}; plain "
+          f"iteration {t6p * 1e3:.2f} us; floors {k6.STREAMS} streams "
+          f"{floor_us(k6.STREAMS, n224):.1f} us, {k6.DEVICE_STREAMS} streams "
+          f"{floor_us(k6.DEVICE_STREAMS, n224):.1f} us")
 
     # Bounds: each input read once, each output written once (4 B words);
     # the operations at the fp32 rate.  K4 per solve: b in, x out (planes
@@ -2876,7 +2908,7 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
     t4p, its4p, n_pl = dia_us["DIA-7 160^3"]
     b_k4p = bound((n_pl + 3) * 4 * n160, its4p * n160 * (2 * 7 + 12))
     nnz224 = 7 * n224 - 6 * N224[0] * N224[1]
-    b_k6 = bound(6 * 4 * n224, 2 * 2 * nnz224 + 12 * n224)
+    b_k6 = bound(k6.STREAMS * 4 * n224, 2 * 2 * nnz224 + 12 * n224)
     print(f"S5 bounds: K4 160^3 {b_k4[0]:.3f} ms ({b_k4[1]}), K4 planes "
           f"DIA-7 160^3 {b_k4p[0]:.3f} ms ({b_k4p[1]}), K6 per launch "
           f"{b_k6[0] * 1e3:.2f} us ({b_k6[1]})")
@@ -2894,10 +2926,130 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
         entry("sr_cg_planes", src, "cgx/kernels/fused_semiresident.py:223",
               launches["sr_cg_planes"], err_k4p, t4p,
               plain_ms["DIA-7 160^3", "ones"], b_k4p),
-        entry("onepass_kernel_c", "cgx_torch/csrc/onepass.cu",
-              "cgx/kernels/fused_onepass.py:53", launches["onepass"], err_k6,
-              dev6 / 1e3, t6p, b_k6),
+        dict(entry("onepass_kernel_c", "cgx_torch/csrc/onepass.cu",
+                   "cgx/kernels/fused_onepass.py:53", launches["onepass"],
+                   err_k6, dev6 / 1e3, t6p, b_k6),
+             first_design_ms=dev6_old / 1e3),
     ]
+
+
+def k2_times(dev, card, stencils):
+    """K2's constant mode at 128³ and 224³ (b = ones) against the
+    three-phase kernel it replaced (the same-run "before", counted
+    nowhere): bit for bit at one grid, then timed in turns with the plain
+    version.  Returns ``({nx: (ms, plain ms, three-phase ms)}, {nx:
+    iterations})``."""
+    import cgx_torch
+    from cgx_torch.kernels import fused_resident as k2
+    from cgx_torch.kernels.fused_cg import stencil_taps
+
+    k2_ms, k2_its = {}, {}
+    for a in stencils:
+        b = torch.ones(a.shape[0], dtype=torch.float32, device=dev)
+        spec = stencil_taps(a)
+        n = a.shape[0]
+        g = min(k2.resident_grid(spec, dev), k2._three_phase_grid(spec, dev))
+        new = k2.resident_cg_call(spec, b, tol=TOL, maxiter=n, grid=g)
+        old = k2._three_phase_call(spec, b, tol=TOL, maxiter=n, grid=g)
+        same = int(new[3]) == int(old[3]) and all(
+            torch.equal(u, v) for u, v in zip(new[:3] + new[4:5],
+                                              old[:3] + old[4:5]))
+        print(f"K2 {a.nx}^3 b=ones: two-phase equal to three-phase at grid "
+              f"{g} (x, r, p, iterations, rz), bit for bit: {same}")
+        check(same, f"K2 {a.nx}^3: the two-phase kernel differs from the "
+              f"three-phase kernel at one grid")
+        its = int(cgx_torch.auto_solve(a, b, tol=TOL).iterations)
+        its_ref = int(k2.resident_cg_reference(spec, b, tol=TOL,
+                                               maxiter=n)[3])
+        its_old = int(k2._three_phase_call(spec, b, tol=TOL, maxiter=n)[3])
+        t_k2, t_k2p, t_old = time_set([
+            lambda: cgx_torch.auto_solve(a, b, tol=TOL),
+            lambda: k2.resident_cg_reference(spec, b, tol=TOL, maxiter=n),
+            lambda: k2._three_phase_call(spec, b, tol=TOL, maxiter=n)],
+            reps=5)
+        k2_ms[a.nx] = (t_k2, t_k2p, t_old)
+        k2_its[a.nx] = its
+        u_new, u_old = t_k2 / its * 1e3, t_old / its_old * 1e3
+        s2, s3 = (k2.iteration_streams(three_phase=tp) for tp in (False,
+                                                                   True))
+        print(f"[{card}] K2 {a.nx}^3 b=ones: {t_k2:.3f} ms/solve, "
+              f"{u_new:.2f} us/iter ({its} it); three-phase {t_old:.3f} "
+              f"ms/solve, {u_old:.2f} us/iter ({its_old} it); ratio "
+              f"{u_new / u_old:.3f}; floors {s2} streams "
+              f"{floor_us(s2, n):.1f} us/iter (8 with q recomputed: "
+              f"{floor_us(8, n):.1f}), {s3} streams {floor_us(s3, n):.1f}; "
+              f"plain {t_k2p:.3f} ms/solve, "
+              f"{t_k2p / its_ref * 1e3:.2f} us/iter ({its_ref} it)")
+    return k2_ms, k2_its
+
+
+def k2_plane_times(dev, card, dias):
+    """K2's planes mode in fp32 and bf16 planes on ``dias`` (DIA-7 192³,
+    DIA-27 128³; b = ones, Jacobi) against the three-phase kernel: bit for
+    bit at one grid, then timed in turns with the plain version.  Returns
+    ``{label: (ms, plain ms, planes, taps, iterations, three-phase ms)}``
+    of the fp32 planes."""
+    import cgx_torch
+    from cgx_torch.kernels import fused_dia_cg as fdia
+    from cgx_torch.kernels import fused_resident as k2
+
+    k2p_ms = {}
+    for label, a in dias.items():
+        m = cgx_torch.JacobiPrecond.from_matrix(a)
+        b = torch.ones(a.shape[0], dtype=torch.float32, device=dev)
+        nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
+            a, torch.float32, inv_diag=m.inv_diag)
+        spec, b_s = (nx, ny, nz, taps, coeffs), e * b
+        n = a.shape[0]
+        fns, its = [], {}
+        for pl in (planes, planes.to(torch.bfloat16)):
+            # DIA-7's bf16-rounded operator is indefinite and the solve
+            # breaks down (X3): 100 iterations there.
+            indefinite = pl.dtype == torch.bfloat16 and label.startswith(
+                "DIA-7")
+            kw = dict(planes=pl, weight=w, sym=sym, tol=TOL,
+                      maxiter=100 if indefinite else n)
+            g = min(k2.resident_grid(spec, dev, planes=pl, weight=w, sym=sym),
+                    k2._three_phase_grid(spec, dev, planes=pl, weight=w,
+                                         sym=sym))
+            new = k2.resident_cg_call(spec, b_s, grid=g, **kw)
+            old = k2._three_phase_call(spec, b_s, grid=g, **kw)
+            same = int(new[3]) == int(old[3]) and all(
+                torch.equal(u, v) for u, v in zip(new[:3] + new[4:5],
+                                                  old[:3] + old[4:5]))
+            tag = "bf16" if pl.dtype == torch.bfloat16 else "fp32"
+            print(f"K2 planes {label} {tag} b=ones: two-phase equal to "
+                  f"three-phase at grid {g}, bit for bit: {same}")
+            check(same, f"K2 planes {label} {tag}: the two-phase kernel "
+                  f"differs from the three-phase kernel at one grid")
+            its[tag] = int(k2.resident_cg_call(spec, b_s, **kw)[3])
+            its[tag + " old"] = int(k2._three_phase_call(spec, b_s, **kw)[3])
+            fns += [(lambda kw=kw: k2.resident_cg_call(spec, b_s, **kw)),
+                    (lambda kw=kw: k2._three_phase_call(spec, b_s, **kw))]
+        kw = dict(planes=planes, weight=w, sym=sym, tol=TOL, maxiter=n)
+        its_ref = int(k2.resident_cg_reference(spec, b_s, **kw)[3])
+        t_k, t_old, t_k16, t_old16, t_p = time_set(
+            fns + [lambda: k2.resident_cg_reference(spec, b_s, **kw)],
+            reps=3)
+        k2p_ms[label] = (t_k, t_p, planes.shape[0], len(taps), its["fp32"],
+                         t_old)
+        n_pl = planes.shape[0]
+        for tag, t_n, t_o, width in (("fp32", t_k, t_old, 1),
+                                     ("bf16", t_k16, t_old16, 0.5)):
+            u_n = t_n / its[tag] * 1e3
+            u_o = t_o / its[tag + " old"] * 1e3
+            s_n = k2.iteration_streams(n_pl * width, w is not None)
+            s_o = k2.iteration_streams(n_pl * width, w is not None, True)
+            print(f"[{card}] K2 planes {label} {tag} b=ones: {t_n:.3f} "
+                  f"ms/solve, {u_n:.2f} us/iter ({its[tag]} it, {len(taps)} "
+                  f"taps, {n_pl} planes, sym {sym}); three-phase {t_o:.3f} "
+                  f"ms/solve, {u_o:.2f} us/iter ({its[tag + ' old']} it); "
+                  f"ratio {u_n / u_o:.3f}; floors {s_n:g} streams "
+                  f"{floor_us(s_n, n):.1f} us/iter, {s_o:g} streams "
+                  f"{floor_us(s_o, n):.1f}")
+        print(f"[{card}] K2 planes {label} plain: {t_p:.3f} ms/solve, "
+              f"{t_p / its_ref * 1e3:.2f} us/iter ({its_ref} it)")
+    return k2p_ms
 
 
 def main() -> None:
@@ -3056,23 +3208,7 @@ def main() -> None:
           f"{t_k1p * 1e3:.2f} us ({nnz / (t_k1p * 1e-3) / 1e9:.1f} Gnnz/s); "
           f"conv3d {t_conv * 1e3:.2f} us")
 
-    k2_ms, k2_its = {}, {}
-    for a in (a128, a224):
-        b = torch.ones(a.shape[0], dtype=torch.float32, device=dev)
-        spec = stencil_taps(a)
-        its = int(cgx_torch.auto_solve(a, b, tol=TOL).iterations)
-        its_ref = int(k2.resident_cg_reference(spec, b, tol=TOL,
-                                               maxiter=a.shape[0])[3])
-        t_k2, t_k2p = time_pair(
-            lambda: cgx_torch.auto_solve(a, b, tol=TOL),
-            lambda: k2.resident_cg_reference(spec, b, tol=TOL,
-                                             maxiter=a.shape[0]), reps=5)
-        k2_ms[a.nx] = (t_k2, t_k2p)
-        k2_its[a.nx] = its
-        print(f"[{card}] K2 {a.nx}^3 b=ones: {t_k2:.3f} ms/solve, "
-              f"{t_k2 / its * 1e3:.2f} us/iter ({its} it); plain "
-              f"{t_k2p:.3f} ms/solve, {t_k2p / its_ref * 1e3:.2f} us/iter "
-              f"({its_ref} it)")
+    k2_ms, k2_its = k2_times(dev, card, (a128, a224))
 
     # -- 6. the Jacobi-PCG path over DIA operators ---------------------------
     from cgx_torch.io.poisson import poisson3d_dia27
@@ -3256,25 +3392,7 @@ def main() -> None:
         k3_err["b"] = max(k3_err["b"], err_b)
 
     # -- 9. times -----------------------------------------------------------
-    k2p_ms = {}
-    for label, a in dias.items():
-        m = cgx_torch.JacobiPrecond.from_matrix(a)
-        b = torch.ones(a.shape[0], dtype=torch.float32, device=dev)
-        nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
-            a, torch.float32, inv_diag=m.inv_diag)
-        spec, b_s = (nx, ny, nz, taps, coeffs), e * b
-        kw = dict(planes=planes, weight=w, sym=sym, tol=TOL,
-                  maxiter=a.shape[0])
-        its = int(k2.resident_cg_call(spec, b_s, **kw)[3])
-        its_ref = int(k2.resident_cg_reference(spec, b_s, **kw)[3])
-        t_k, t_p = time_pair(lambda: k2.resident_cg_call(spec, b_s, **kw),
-                             lambda: k2.resident_cg_reference(spec, b_s,
-                                                              **kw), reps=3)
-        k2p_ms[label] = (t_k, t_p, planes.shape[0], len(taps), its)
-        print(f"[{card}] K2 planes {label} b=ones: {t_k:.3f} ms/solve, "
-              f"{t_k / its * 1e3:.2f} us/iter ({its} it, {len(taps)} taps, "
-              f"{planes.shape[0]} planes, sym {sym}); plain {t_p:.3f} "
-              f"ms/solve, {t_p / its_ref * 1e3:.2f} us/iter ({its_ref} it)")
+    k2p_ms = k2_plane_times(dev, card, dias)
 
     k3_us = {}
     for label, (eng, e, b) in engines.items():
@@ -3339,7 +3457,7 @@ def main() -> None:
     n128 = N128[0] * N128[1] * N128[2]
     k1_b = bound(8 * n128, 2 * nnz - n128)
     k2_b = bound(8 * n128, k2_its[128] * (2 * nnz + 10 * n128))
-    n_pl, n_taps, its7 = k2p_ms["DIA-7 192^3"][2:]
+    n_pl, n_taps, its7 = k2p_ms["DIA-7 192^3"][2:5]
     n192 = N192[0] * N192[1] * N192[2]
     k2p_b = bound((n_pl + 3) * 4 * n192, its7 * n192 * (2 * n_taps + 12))
     k3a_b = bound((eng7.planes.shape[0] + 2) * 4 * eng7.n,
@@ -3347,12 +3465,12 @@ def main() -> None:
     k3b_b = bound(8 * 4 * eng7.n, 12 * eng7.n)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, b,
-              library_ms=None):
+              library_ms=None, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b[0], "bound_by": b[1],
-                "library_ms": library_ms}
+                "library_ms": library_ms, **extra}
 
     report = {"kernels": [
         entry("stencil3d_spmv", "cgx_torch/csrc/stencil.cu",
@@ -3360,11 +3478,12 @@ def main() -> None:
               t_k1, t_k1p, k1_b, t_conv),
         entry("resident_cg", "cgx_torch/csrc/resident_cg.cu",
               "cgx/kernels/fused_resident.py:115", launches["k2"], k2_err,
-              k2_ms[128][0], k2_ms[128][1], k2_b),
+              k2_ms[128][0], k2_ms[128][1], k2_b,
+              three_phase_ms=k2_ms[128][2]),
         entry("resident_cg_planes", "cgx_torch/csrc/resident_cg.cu",
               "cgx/kernels/fused_resident.py:115", launches["k2_planes"],
               k2p_err, k2p_ms["DIA-7 192^3"][0], k2p_ms["DIA-7 192^3"][1],
-              k2p_b),
+              k2p_b, three_phase_ms=k2p_ms["DIA-7 192^3"][5]),
         entry("fused_kernel_a", "cgx_torch/csrc/fused_engine.cu",
               "cgx/kernels/fused_engine.py:272", launches["k3_a"],
               k3_err["a"], t_a, t_ap, k3a_b, t_csr7),

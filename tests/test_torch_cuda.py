@@ -167,6 +167,76 @@ def test_k2_planes_resume_and_dia_entry(cuda_device):
     assert torch.equal(res.x, e * full[0])
 
 
+def _k2_case(op, dev):
+    """``(spec, b, kwargs)`` of a K2 solve: the constant stencils, or the
+    DIA operators through ``dia_prep`` (weighted Jacobi scaling, or plain
+    with ``dia7_plain``)."""
+    if op in ("p3d", "27point", "2d"):
+        a = {"p3d": lambda: cgx_torch.poisson3d_stencil(33, 29, 31),
+             "27point": lambda: cgx_torch.poisson3d_27point(17, 19, 15),
+             "2d": lambda: cgx_torch.poisson2d_stencil(61, 67)}[op]()
+        b = t(seeded(a.shape[0], seed=75, dtype=np.float32), dev)
+        return stencil_taps(a), b, {}
+    a = _dia("dia7" if op == "dia7_plain" else op, dev)
+    nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
+        a, torch.float32, jacobi=op != "dia7_plain")
+    b = t(seeded(a.shape[0], seed=76, dtype=np.float32), dev)
+    return ((nx, ny, nz, taps, coeffs), b if e is None else e * b,
+            dict(planes=planes, weight=w, sym=sym))
+
+
+@pytest.mark.parametrize("op", ["p3d", "27point", "2d", "dia7", "dia27",
+                                "dia7_plain"])
+def test_k2_two_phase_equals_three_phase_at_one_grid(cuda_device, op):
+    """The two-phase kernel forms the three-phase kernel's p and q and takes
+    its sums over the same rows: at one grid the two agree bit for bit (x,
+    r, p, the iteration count and (rz, rw)).  ``dia7`` is weighted
+    Jacobi."""
+    spec, b, kw = _k2_case(op, cuda_device)
+    grid = min(k2.resident_grid(spec, cuda_device, **kw),
+               k2._three_phase_grid(spec, cuda_device, **kw))
+    launches = (k2.resident_cg_launches, k2.resident_dia_launches)
+    new = k2.resident_cg_call(spec, b, tol=1e-6, maxiter=4000, grid=grid,
+                              **kw)
+    after = (k2.resident_cg_launches, k2.resident_dia_launches)
+    old = k2._three_phase_call(spec, b, tol=1e-6, maxiter=4000, grid=grid,
+                               **kw)
+    torch.cuda.synchronize()
+    assert sum(after) == sum(launches) + 1
+    assert (k2.resident_cg_launches, k2.resident_dia_launches) == after
+    assert int(new[3]) == int(old[3]) > 0
+    for got, want in zip(new[:3] + new[4:5], old[:3] + old[4:5]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("op", ["p3d", "dia27"])
+def test_k2_resume_across_the_exit(cuda_device, op):
+    """After 7 iterations the kernel leaves p = r + β·p_old in the state's
+    buffer (the three-phase kernel's p, bit for bit at one grid), and
+    resuming from that state gives the one-call solve bit for bit."""
+    spec, b, kw = _k2_case(op, cuda_device)
+    grid = min(k2.resident_grid(spec, cuda_device, **kw),
+               k2._three_phase_grid(spec, cuda_device, **kw))
+    kw = dict(kw, tol=1e-6, grid=grid)
+    full = k2.resident_cg_call(spec, b, maxiter=4000, **kw)
+    x, r, p, k, rz, _ = k2.resident_cg_call(spec, b, maxiter=7, **kw)
+    old = k2._three_phase_call(spec, b, maxiter=7, **kw)
+    assert int(k) == 7
+    for got, want in zip((x, r, p, rz), old[:3] + old[4:5]):
+        assert torch.equal(got, want)
+    rest = k2.resident_cg_call(spec, b, maxiter=4000,
+                               resume=(x, r, p, rz[0], rz[1]), **kw)
+    assert 7 + int(rest[3]) == int(full[3])
+    for got, want in zip(rest[:3] + rest[4:5], full[:3] + full[4:5]):
+        assert torch.equal(got, want)
+    # No iteration at all: p comes back as r (fresh) or as given (resume).
+    none = k2.resident_cg_call(spec, b, maxiter=0, **kw)
+    assert int(none[3]) == 0 and torch.equal(none[2], none[1])
+    again = k2.resident_cg_call(spec, b, maxiter=0,
+                                resume=(x, r, p, rz[0], rz[1]), **kw)
+    assert torch.equal(again[2], p) and torch.equal(again[0], x)
+
+
 def _engine(op, dev):
     if op == "p3d":
         return build_fused(cgx_torch.poisson3d_stencil(33, 29, 31),
@@ -1122,6 +1192,45 @@ def test_k6_equals_k3_and_plain(cuda_device, op):
     x0 = 0.1 * t(seeded(a.shape[0], seed=47, dtype=np.float32), cuda_device)
     _same(fused_stencil_cg(a, b, x0, tol=1e-6, maxiter=4000, one_pass=True),
           fused_stencil_cg(a, b, x0, tol=1e-6, maxiter=4000))
+
+
+@pytest.mark.parametrize("op", ["p3d", "27point"])
+def test_k6_launch_shape_is_balanced(cuda_device, op):
+    """K6's grid splits both of K3's partitions evenly: every block sweeps
+    the same number of virtual blocks.  The first design's kernel, kept as
+    the "before", equals the redesign and K3 bit for bit and counts no
+    launch."""
+    a = _stencil(op)
+    eng = build_fused(a, torch.float32, one_pass=True)
+    grid, ga, gb = eng.shape(cuda_device)
+    assert grid >= 1 and ga % grid == 0 and gb % grid == 0
+    b = t(seeded(a.shape[0], seed=49, dtype=np.float32), cuda_device)
+    kw = dict(tol=1e-6, maxiter=4000, track_history=True)
+    before = k6.onepass_launches
+    old = k6._before_solve(eng, b, **kw)
+    torch.cuda.synchronize()
+    assert k6.onepass_launches == before
+    new = eng.solve(b, **kw)
+    _same(new, old)
+    assert torch.equal(new.history, old.history)
+    _same(new, fused_stencil_cg(a, b, **kw))
+
+
+@pytest.mark.parametrize("share", [(1, 2), (3, 4)])
+def test_k6_any_grid_equals_k3(cuda_device, monkeypatch, share):
+    """Launched on a grid that does not divide K3's (some blocks sweep one
+    virtual block more), K6 still takes K3's sums: bit for bit."""
+    a = _stencil("p3d")
+    eng = build_fused(a, torch.float32, one_pass=True)
+    _, ga, _ = eng.shape(cuda_device)
+    grid = ga * share[0] // share[1] + 1
+    monkeypatch.setattr(k6, "_cached_shape", lambda *args: grid)
+    b = t(seeded(a.shape[0], seed=50, dtype=np.float32), cuda_device)
+    kw = dict(tol=1e-6, maxiter=4000, track_history=True)
+    one = eng.solve(b, **kw)
+    two = fused_stencil_cg(a, b, **kw)
+    _same(one, two)
+    assert torch.equal(one.history, two.history)
 
 
 def test_k6_single_step_matches_plain(cuda_device):
