@@ -11,7 +11,8 @@
 // On the card the loop is driven from the host, so the host must not read
 // anything per iteration (a read costs more than an iteration).  The
 // control state therefore lives on the device, in a small block `Ctl`, and
-// both kernels keep the exact iteration count by themselves:
+// both kernels keep the exact iteration count by themselves.  In the first
+// design (kernel_a, kernel_b; the redesign below folds once a launch):
 //
 //   * kernel A's prologue folds kernel B's block partials of the previous
 //     iteration (Σr², Σr²·w) into (rz, rw, k), writes the history slot,
@@ -88,7 +89,11 @@ struct Ctl {
   float n_rz, n_rw;
   int n_k;
   int n_done;
-  int pad[4];
+  // The redesign (kernel_a2, kernel_b2): p·q and q·q, folded by kernel A's
+  // last block and read by kernel B, and the two kernels' ticket counters
+  // (0 between launches).
+  float pq, qq;
+  int ticket_a, ticket_b;
 };
 static_assert(sizeof(Ctl) == 64, "Ctl is 16 words");
 
@@ -176,6 +181,7 @@ struct BArgs {  // x, r, p, q, w of the vector type V
   int grid_a;
   double* part_b;  // 2 × gridDim.x
   Ctl* ctl;
+  float* history;  // hist_len floats, or null (kernel_b2 writes it)
   int n;
 };
 
@@ -248,34 +254,238 @@ __global__ void __launch_bounds__(kThreads) kernel_b(BArgs a) {
   }
 }
 
+// -- The redesign: kernel_a2, kernel_b2 --------------------------------------
+// Kernel A computed every row's taps from global memory with two integer
+// divisions a row, and every block of A and of B re-summed the other
+// kernel's partials in its prologue.  The redesign keeps K3's partition of
+// the sums — thread u of virtual block vb of grid_a (the first kernel A's
+// occupancy grid, cgx_fused_a_grid) takes rows vb·256 + u + m·grid_a·256
+// in order — so q, the partials, p·q and q·q are those of kernel_a bit for
+// bit, and K4's and K6's copies of the partition stay valid.  Within it:
+//
+//   * each thread carries its node (cgx::Walk): no division a row (and no
+//     walk at all where no constant tap off the centre reads the node);
+//   * the taps are read from global memory (stencil_row_at, plane_row_at)
+//     with two of a thread's rows in flight, their sums added in row
+//     order.  Staging each step's segments of p in shared memory with
+//     cp.async lost to this at every instance measured on the H100
+//     (PERF.md §6): K3's rows are one a thread a step, so the L1 already
+//     serves the reuse a stage would give;
+//   * a block walks the virtual blocks blockIdx.x, + gridDim.x, … (its own
+//     grid is what fits at once, cgx_fused_a_fit);
+//   * the folds happen once a launch: kernel A's last block (a ticket)
+//     folds Σ p·q and Σ q·q, kernel B's last block folds Σr² and Σr²·w,
+//     counts the iteration and writes the history slot, each in the first
+//     design's fixed order (grid_sum), and publishes them in Ctl.
+//
+// The first design (kernel_a, kernel_b) stays as the same-run "before",
+// design 0 of the C entries: no entry point of the package reaches it.
+
+struct A2Args {
+  AArgs a;
+  int grid_a;  // K3's partition: the virtual blocks
+};
+
+// The first kernel A's occupancy (cgx_fused_a_grid) is 8 blocks an SM at 7
+// taps and 4 at 27 on the H100, so K3's partition has that many virtual
+// blocks; kernel_a2 is held to the same (32 or 64 registers) and runs one
+// virtual block a block.
+template <int kTaps>
+constexpr int kA2Blocks = kTaps > 7 ? 4 : 8;
+
+template <int kTaps, bool kPlanes, bool kSym, typename V, typename P>
+__global__ void __launch_bounds__(kThreads, kA2Blocks<kTaps>)
+    kernel_a2(A2Args args) {
+  __shared__ double smem[kWarps + 1];
+  const AArgs& a = args.a;
+  const V* __restrict__ p = static_cast<const V*>(a.p);
+  V* __restrict__ q = static_cast<V*>(a.q);
+  Ctl* c = a.ctl;
+  if (!a.init) {
+    // Kernel B's last block has folded the sums of iterate k into Ctl.
+    if (c->done) return;
+    const float rw = c->rw;
+    const int k = c->k;
+    const bool stop = !(k < c->maxit && rw > c->tol_sq);
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      c->n_rz = c->rz;
+      c->n_rw = rw;
+      c->n_k = k;
+      c->n_done = stop ? 1 : 0;
+    }
+    if (stop) return;
+  }
+  const int nx = a.nx, ny = a.ny, nz = a.nz;
+  const int n = nx * ny * nz;
+  const int ga = args.grid_a;
+  const int step = ga * kThreads;
+  const int u = threadIdx.x;
+  const auto ld = [=](int i) { return cgx::load<true>(p + i); };
+  // The node is read only by constant taps off the centre (the plane taps
+  // guard by flat index): without them the walk is not carried.
+  bool walk = !kPlanes;
+  for (int t = 0; t < a.taps.s.n; ++t)
+    walk = walk || (a.taps.plane[t] < 0 &&
+                    (a.taps.s.dx[t] | a.taps.s.dy[t] | a.taps.s.dz[t]) != 0);
+  // A row's q (unrounded).
+  const auto value = [&](int row, const cgx::Walk& w) {
+    if constexpr (kPlanes) {
+      return cgx::plane_row_at<kTaps, kSym>(
+          ld, static_cast<const P*>(a.planes), row, w, n, nx, ny, nz,
+          a.taps);
+    } else {
+      return cgx::stencil_row_at<kTaps>(ld, w, nx, ny, nz, a.taps.s);
+    }
+  };
+  // Store q and add the row's terms to the sums, in row order.
+  const auto use = [&](int row, float qv, float pv, double& pq, double& qq) {
+    const V qs = cgx::narrow<V>(qv);
+    q[row] = qs;
+    const double qd = cgx::widen(qs);
+    pq = __dadd_rn(pq, __dmul_rn(qd, static_cast<double>(pv)));
+    qq = __dadd_rn(qq, __dmul_rn(qd, qd));
+  };
+  for (int vb = blockIdx.x; vb < ga; vb += gridDim.x) {
+    double pq = 0.0, qq = 0.0;
+    int s = vb * kThreads;
+    cgx::Walk w(s + u, step, ny, nz);
+    for (; s + step < n; s += 2 * step) {
+      const int r0 = s + u, r1 = r0 + step;
+      cgx::Walk w1 = w;
+      if (walk) w1.advance(ny, nz);
+      const float v0 = r0 < n ? value(r0, w) : 0.0f;
+      const float v1 = r1 < n ? value(r1, w1) : 0.0f;
+      const float p0 = r0 < n ? ld(r0) : 0.0f;
+      const float p1 = r1 < n ? ld(r1) : 0.0f;
+      if (r0 < n) use(r0, v0, p0, pq, qq);
+      if (r1 < n) use(r1, v1, p1, pq, qq);
+      w = w1;
+      if (walk) w.advance(ny, nz);
+    }
+    if (s + u < n) use(s + u, value(s + u, w), ld(s + u), pq, qq);
+    pq = cgx::block_sum<kThreads>(pq, smem);
+    qq = cgx::block_sum<kThreads>(qq, smem);
+    if (u == 0) {
+      a.part_a[vb] = pq;
+      a.part_a[ga + vb] = qq;
+    }
+  }
+  if (a.init || !cgx::last_block(&c->ticket_a)) return;
+  __threadfence();
+  const float pqs =
+      static_cast<float>(cgx::grid_sum<kThreads>(a.part_a, ga, smem));
+  const float qqs =
+      static_cast<float>(cgx::grid_sum<kThreads>(a.part_a + ga, ga, smem));
+  if (u == 0) {
+    c->pq = pqs;
+    c->qq = qqs;
+  }
+}
+
+template <bool kWeighted, typename V>
+__global__ void __launch_bounds__(kThreads) kernel_b2(BArgs a) {
+  __shared__ double smem[kWarps + 1];
+  V* x = static_cast<V*>(a.x);
+  V* r = static_cast<V*>(a.r);
+  V* p = static_cast<V*>(a.p);
+  const V* q = static_cast<const V*>(a.q);
+  const V* w = static_cast<const V*>(a.w);
+  Ctl* c = a.ctl;
+  if (c->n_done) {
+    // Kernel A of this iteration took the exit; Ctl holds the final state.
+    if (blockIdx.x == 0 && threadIdx.x == 0) c->done = 1;
+    return;
+  }
+  const float rz = c->n_rz;
+  const float pq = c->pq;
+  const float qq = c->qq;
+  const float alpha32 = __fdiv_rn(rz, pq);
+  const float beta32 = __fdiv_rn(
+      __fsub_rn(__fmul_rn(__fmul_rn(alpha32, alpha32), qq), rz), rz);
+  const float alpha = cgx::widen(cgx::narrow<V>(alpha32));
+  const float beta = cgx::widen(cgx::narrow<V>(beta32));
+  const int stride = gridDim.x * kThreads;
+  double acc = 0.0, accw = 0.0;
+  for (int row = blockIdx.x * kThreads + threadIdx.x; row < a.n;
+       row += stride) {
+    const float pv = cgx::widen(p[row]);
+    x[row] = cgx::narrow<V>(
+        __fadd_rn(cgx::widen(x[row]), __fmul_rn(alpha, pv)));
+    const V rs = cgx::narrow<V>(
+        __fsub_rn(cgx::widen(r[row]), __fmul_rn(alpha, cgx::widen(q[row]))));
+    r[row] = rs;
+    const float rv = cgx::widen(rs);
+    p[row] = cgx::narrow<V>(__fadd_rn(rv, __fmul_rn(beta, pv)));
+    const double rsq = __dmul_rn(rv, rv);
+    acc = __dadd_rn(acc, rsq);
+    if constexpr (kWeighted)
+      accw = __dadd_rn(accw,
+                       __dmul_rn(rsq, static_cast<double>(cgx::widen(w[row]))));
+  }
+  acc = cgx::block_sum<kThreads>(acc, smem);
+  if constexpr (kWeighted) {
+    accw = cgx::block_sum<kThreads>(accw, smem);
+  } else {
+    accw = acc;
+  }
+  if (threadIdx.x == 0) {
+    a.part_b[blockIdx.x] = acc;
+    a.part_b[gridDim.x + blockIdx.x] = accw;
+  }
+  // Every block has read n_rz, pq and qq before its ticket.
+  if (!cgx::last_block(&c->ticket_b)) return;
+  __threadfence();
+  const float rz1 = static_cast<float>(
+      cgx::grid_sum<kThreads>(a.part_b, gridDim.x, smem));
+  const float rw1 = static_cast<float>(
+      cgx::grid_sum<kThreads>(a.part_b + gridDim.x, gridDim.x, smem));
+  if (threadIdx.x == 0) {
+    const int k1 = c->n_k + 1;
+    c->rz = rz1;
+    c->rw = rw1;
+    c->k = k1;
+    c->pending = 0;
+    const int hl = c->hist_len;
+    if (hl > 0) a.history[k1 < hl ? k1 : hl - 1] = rw1;
+  }
+}
+
+// The instance of kernel A (design 0: kernel_a, the first design; 1:
+// kernel_a2) for the operator and the types.
 template <typename V, typename P>
-const void* a_kernel_typed(int ntaps, int variable, int sym) {
+const void* a_kernel_typed(int ntaps, int variable, int sym, int design) {
   const bool wide = ntaps > 7;
+#define CGX_A(T, PL, SY)                                                   \
+  (design ? reinterpret_cast<const void*>(kernel_a2<T, PL, SY, V, P>)       \
+          : reinterpret_cast<const void*>(kernel_a<T, PL, SY, V, P>))
   if (!variable)
-    return wide ? reinterpret_cast<const void*>(
-                      kernel_a<cgx::kMaxTaps, false, false, V, P>)
-                : reinterpret_cast<const void*>(kernel_a<7, false, false, V, P>);
+    return wide ? CGX_A(cgx::kMaxTaps, false, false) : CGX_A(7, false, false);
   if (sym)
-    return wide ? reinterpret_cast<const void*>(
-                      kernel_a<cgx::kMaxTaps, true, true, V, P>)
-                : reinterpret_cast<const void*>(kernel_a<7, true, true, V, P>);
-  return wide ? reinterpret_cast<const void*>(
-                    kernel_a<cgx::kMaxTaps, true, false, V, P>)
-              : reinterpret_cast<const void*>(kernel_a<7, true, false, V, P>);
+    return wide ? CGX_A(cgx::kMaxTaps, true, true) : CGX_A(7, true, true);
+  return wide ? CGX_A(cgx::kMaxTaps, true, false) : CGX_A(7, true, false);
+#undef CGX_A
 }
 
 // The instance for the operator and the types; null for bf16 vectors with
 // fp32 planes, which no caller builds.
 const void* a_kernel_for(int ntaps, int variable, int sym, int vec_bf16,
-                         int plane_bf16) {
+                         int plane_bf16, int design) {
   if (!vec_bf16)
-    return plane_bf16 ? a_kernel_typed<float, bf16>(ntaps, variable, sym)
-                      : a_kernel_typed<float, float>(ntaps, variable, sym);
+    return plane_bf16
+               ? a_kernel_typed<float, bf16>(ntaps, variable, sym, design)
+               : a_kernel_typed<float, float>(ntaps, variable, sym, design);
   if (variable && !plane_bf16) return nullptr;
-  return a_kernel_typed<bf16, bf16>(ntaps, variable, sym);
+  return a_kernel_typed<bf16, bf16>(ntaps, variable, sym, design);
 }
 
-const void* b_kernel_for(int weighted, int vec_bf16) {
+const void* b_kernel_for(int weighted, int vec_bf16, int design) {
+  if (design) {
+    if (vec_bf16)
+      return weighted ? reinterpret_cast<const void*>(kernel_b2<true, bf16>)
+                      : reinterpret_cast<const void*>(kernel_b2<false, bf16>);
+    return weighted ? reinterpret_cast<const void*>(kernel_b2<true, float>)
+                    : reinterpret_cast<const void*>(kernel_b2<false, float>);
+  }
   if (vec_bf16)
     return weighted ? reinterpret_cast<const void*>(kernel_b<true, bf16>)
                     : reinterpret_cast<const void*>(kernel_b<false, bf16>);
@@ -285,48 +495,67 @@ const void* b_kernel_for(int weighted, int vec_bf16) {
 
 }  // namespace
 
+// The grids of the first design: K3's partition of the sums (kernel A's
+// and kernel B's occupancy), which the redesign and K4 and K6 keep.
 extern "C" int cgx_fused_a_grid(int device, int ntaps, int variable, int sym,
                                 int vec_bf16, int plane_bf16, int* grid) {
-  const void* k = a_kernel_for(ntaps, variable, sym, vec_bf16, plane_bf16);
+  const void* k = a_kernel_for(ntaps, variable, sym, vec_bf16, plane_bf16, 0);
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return cgx::full_grid<kThreads>(device, k, grid);
 }
 
 extern "C" int cgx_fused_b_grid(int device, int weighted, int vec_bf16,
                                 int* grid) {
-  return cgx::full_grid<kThreads>(device, b_kernel_for(weighted, vec_bf16),
-                                  grid);
+  return cgx::full_grid<kThreads>(device,
+                                  b_kernel_for(weighted, vec_bf16, 0), grid);
+}
+
+// Blocks of kernel_a2 that fit on the card at once.
+extern "C" int cgx_fused_a_fit(int device, int ntaps, int variable, int sym,
+                               int vec_bf16, int plane_bf16, int* blocks) {
+  const void* k = a_kernel_for(ntaps, variable, sym, vec_bf16, plane_bf16, 1);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return cgx::full_grid<kThreads>(device, k, blocks);
 }
 
 // Kernel A on `stream`.  `plane[t]` is tap t's plane index (−1: constant
 // tap coeffs[t]); `planes` is null for a constant-coefficient operator.
-// p and q hold bf16 when vec_bf16, planes bf16 when plane_bf16.
+// p and q hold bf16 when vec_bf16, planes bf16 when plane_bf16.  part_a
+// holds 2 × grid_a doubles (K3's partition).  design 0 runs the first
+// kernel A on grid_a blocks; design 1 runs kernel_a2 on `grid` blocks.
 extern "C" int cgx_fused_a(const void* p, void* q, const void* planes,
                            double* part_a, int grid_a, const double* part_b,
                            int grid_b, int* ctl, float* history, int init,
                            int nx, int ny, int nz, int ntaps,
                            const int* taps, const float* coeffs,
                            const int* plane, int sym, int vec_bf16,
-                           int plane_bf16, void* stream) {
-  const void* k =
-      a_kernel_for(ntaps, planes != nullptr, sym, vec_bf16, plane_bf16);
+                           int plane_bf16, int design, int grid,
+                           void* stream) {
+  const void* k = a_kernel_for(ntaps, planes != nullptr, sym, vec_bf16,
+                               plane_bf16, design);
   if (ntaps < 1 || ntaps > cgx::kMaxTaps || grid_a < 1 || k == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   AArgs a{p, q, planes, part_a, part_b, grid_b, reinterpret_cast<Ctl*>(ctl),
           history, init, nx, ny, nz,
           cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz)};
-  return cgx::launch<kThreads>(k, grid_a, &a, stream);
+  if (design == 0) return cgx::launch<kThreads>(k, grid_a, &a, stream);
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  A2Args a2{a, grid_a};
+  return cgx::launch<kThreads>(k, grid, &a2, stream);
 }
 
 // Kernel B on `stream`; `w` is null for an unweighted solve.  x, r, p, q
-// and w hold bf16 when vec_bf16.
+// and w hold bf16 when vec_bf16.  design 0: the first kernel B (folds
+// part_a itself); 1: kernel_b2 (reads p·q and q·q from ctl, folds its own
+// partials in its last block, writes `history`).  Both on grid_b blocks.
 extern "C" int cgx_fused_b(void* x, void* r, void* p, const void* q,
                            const void* w, const double* part_a, int grid_a,
-                           double* part_b, int grid_b, int* ctl, int n,
-                           int vec_bf16, void* stream) {
+                           double* part_b, int grid_b, int* ctl,
+                           float* history, int n, int vec_bf16, int design,
+                           void* stream) {
   if (grid_a < 1 || grid_b < 1) return static_cast<int>(cudaErrorInvalidValue);
   BArgs a{x, r, p, q, w, part_a, grid_a, part_b,
-          reinterpret_cast<Ctl*>(ctl), n};
-  return cgx::launch<kThreads>(b_kernel_for(w != nullptr, vec_bf16), grid_b,
-                               &a, stream);
+          reinterpret_cast<Ctl*>(ctl), history, n};
+  return cgx::launch<kThreads>(b_kernel_for(w != nullptr, vec_bf16, design),
+                               grid_b, &a, stream);
 }

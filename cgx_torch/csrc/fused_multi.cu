@@ -81,23 +81,7 @@ __device__ __forceinline__ float* field(int* ctl, int ncols, int f) {
   return reinterpret_cast<float*>(ctl + kHead + f * ncols);
 }
 
-// True in the block that finishes last.  Thread 0 has written the block's
-// partials; the fence orders them before its ticket, so the last block
-// reads every partial through L2 (grid_sum uses __ldcg).  The last block
-// resets the counter for the next launch: every other block has taken its
-// ticket by then.
-__device__ __forceinline__ bool last_block(int* count) {
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-    __threadfence();
-    const unsigned int ticket =
-        atomicAdd(reinterpret_cast<unsigned int*>(count), 1u);
-    last = ticket == gridDim.x - 1;
-    if (last) *count = 0;
-  }
-  __syncthreads();
-  return last;
-}
+using cgx::last_block;
 
 struct AArgs {
   const float* p;        // ncols × n
@@ -170,6 +154,196 @@ __global__ void __launch_bounds__(kThreads) multi_a(AArgs a) {
         a.part + static_cast<size_t>(a.ncols + c) * gridDim.x, gridDim.x,
         smem);
     if (threadIdx.x == 0) {
+      pqs[c] = static_cast<float>(s);
+      qqs[c] = static_cast<float>(s2);
+    }
+  }
+}
+
+// -- The redesign: multi_a2, the 2.5-D march ---------------------------------
+// multi_a read every neighbour of every column straight from global memory,
+// one scalar load a tap and column, and divided twice a row: K5 A ran at 15 %
+// of its byte bound at k = 4, its time following its loads (134 a row
+// against K3 A's 53).  multi_a2 partitions the rows by tiles of the grid
+// instead (cgx::MarchPlan): block b owns a tj × tk tile of nodes (j, k), two
+// a thread, over `len` x-planes; it stages each x-plane of the kCols
+// columns, tile and halo, into a ring of four slots in shared memory with
+// cp.async (16-byte copies where a line is aligned, 4-byte ones at a ragged
+// edge), copying plane i + 2 while it computes plane i from planes i − 1,
+// i, i + 1.  A thread reads the stage at 32-bit shared addresses (cgx::lds),
+// the taps' offsets come from the host (MarchPlan::rel) and their in-grid
+// masks are taken once for j and k and once a plane for i.  Each row's
+// arithmetic is multi_a's (stencil_tile_multi, plane_tile_multi: the same
+// taps, masks, products and sums in the same order), so q equals
+// multi_a's, the plain version's and K3 A's per column bit for bit; the
+// plane values are read from global memory (their mirrors from the L2, as
+// before: staging them too cost occupancy and measured slower).  The sums
+// run in fp64 per thread along its march, then the block tree, then the
+// last block's fold: another fixed order than multi_a's, the same in every
+// run.  The grid comes from the shape (tiles × chunks, the chunks filling
+// the card in one wave), not from occupancy.  multi_a (design 0) runs where
+// the taps' halo does not fit the ring (kernels/fused_multi.py:
+// FusedCGMulti.march is None) and is elsewhere the same-run "before".
+struct A2Args {
+  AArgs a;
+  cgx::MarchPlan mp;
+};
+
+// Build knobs, picked by measurement on the H100 (PERF.md §6): 4 blocks an
+// SM (64 registers; 3 and 5 were slower), one x-plane in flight ahead of
+// the three a step reads (two took a fifth slot and cost a block an SM),
+// two nodes a thread in a plane (one and four were slower).
+constexpr int kBlocksPerSm = 4;
+constexpr int kAhead = 1;
+constexpr int kSlots = 3 + kAhead;
+constexpr int kRows = 2;
+
+__device__ __forceinline__ int ring_slot(int ip) {
+  return ((ip % kSlots) + kSlots) % kSlots;
+}
+
+template <int kTaps, bool kPlanes, bool kSym, typename P>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    multi_a2(A2Args args) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ double smem[kWarps + 1];
+  const AArgs& a = args.a;
+  const cgx::MarchPlan& mp = args.mp;
+  if (a.ctl[kDone]) return;
+  const int nx = a.nx, ny = a.ny, nz = a.nz;
+  const int n = nx * ny * nz;
+  const size_t ld = static_cast<size_t>(n);
+  // The block's tile and chunk: k tiles fastest, then j tiles, then chunks.
+  int b = blockIdx.x;
+  const int tkx = b % mp.tiles_k;
+  b /= mp.tiles_k;
+  const int tjx = b % mp.tiles_j;
+  const int ic = b / mp.tiles_j;
+  const int j0 = tjx * mp.tj, k0 = tkx * mp.tk;
+  const int i0 = ic * mp.len;
+  const int i1 = min(i0 + mp.len, nx);
+  const int u = threadIdx.x;
+  // Thread u takes node k0 + kx of lines j0 + jx0 + r·(tj / rows), r <
+  // rows.
+  const int jx0 = u / mp.tk;
+  const int kx = u - jx0 * mp.tk;
+  const int jstep = mp.tj / mp.rows;
+  const int k = k0 + kx;
+  const int lines = mp.tj + 2 * mp.hj;
+  const int width = mp.tk + 2 * mp.hk;
+  const int cstride = lines * width;  // a column's share of a slot
+  const int slot = kCols * cstride;
+  const int chunks_line = width / 4;
+  float* ring = reinterpret_cast<float*>(dyn);
+  const int own0 = (jx0 + mp.hj) * width + kx + mp.hk;
+  // The taps inside the grid in j and k, for each of the thread's nodes
+  // (none for a node past the grid's edge), and all taps in i.
+  unsigned jk_in[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int j = j0 + jx0 + r * jstep;
+    jk_in[r] = j < ny && k < nz ? cgx::jk_taps(j, k, ny, nz, a.taps.s) : 0u;
+  }
+  const unsigned all_i = (1u << (a.taps.s.n - 1) << 1) - 1u;
+  // Shared-window byte addresses: the ring, a slot, a column, the node.
+  const unsigned ring_b =
+      static_cast<unsigned>(__cvta_generic_to_shared(ring));
+  const unsigned slot_b = slot * 4u, cstride_b = cstride * 4u;
+
+  for (int c0 = 0; c0 < a.ncols; c0 += kCols) {
+    const int nc = min(kCols, a.ncols - c0);
+    const float* p = a.p + c0 * ld;
+    float* q = a.q + c0 * ld;
+    // x-plane ip of the nc columns, tile and halo, into its ring slot.
+    auto stage_plane = [&](int ip) {
+      float* dst = ring + ring_slot(ip) * slot;
+      const int total = nc * lines * chunks_line;
+      for (int idx = u; idx < total; idx += kThreads) {
+        const int cl = idx / chunks_line;
+        const int ch = idx - cl * chunks_line;
+        const int c = cl / lines;
+        const int line = cl - c * lines;
+        const long f = (static_cast<long>(ip) * ny + (j0 - mp.hj + line)) *
+                           nz + k0 - mp.hk + ch * 4;
+        cgx::stage_chunk(dst + c * cstride + line * width + ch * 4,
+                         p + c * ld, f, n);
+      }
+    };
+    double pq[kCols];
+    double qq[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) pq[c] = qq[c] = 0.0;
+    for (int ip = i0 - 1; ip <= i0 + 1; ++ip) stage_plane(ip);
+    cgx::cp_async_commit();
+    for (int ip = i0 + 2; ip < i0 + 2 + kAhead; ++ip) {
+      if (ip <= i1) stage_plane(ip);
+      cgx::cp_async_commit();
+    }
+    for (int i = i0; i < i1; ++i) {
+      cgx::cp_async_wait<kAhead>();
+      __syncthreads();
+      const unsigned i_in = (i > 0 && i < nx - 1) ? all_i
+                                                  : cgx::i_taps(i, nx,
+                                                                a.taps.s);
+      const unsigned bm = ring_b + ring_slot(i - 1) * slot_b;
+      const unsigned b0 = ring_b + ring_slot(i) * slot_b;
+      const unsigned bp = ring_b + ring_slot(i + 1) * slot_b;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int j = j0 + jx0 + r * jstep;
+        if (j >= ny || k >= nz) continue;
+        const int row = (i * ny + j) * nz + k;
+        const unsigned own = (own0 + r * jstep * width) * 4u;
+        float acc[kCols];
+        const unsigned in = jk_in[r] & i_in;
+        if constexpr (kPlanes) {
+          cgx::plane_tile_multi<kTaps, kSym, kCols>(
+              bm + own, b0 + own, bp + own, cstride_b, in, mp.rel,
+              static_cast<const P*>(a.planes), row, n, a.taps, acc);
+        } else {
+          cgx::stencil_tile_multi<kTaps, kCols>(bm + own, b0 + own, bp + own,
+                                                cstride_b, in, mp.rel,
+                                                a.taps.s, acc);
+        }
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          if (c < nc) {
+            q[c * ld + row] = acc[c];
+            const double qd = acc[c];
+            const double pd = cgx::lds(b0 + own + c * cstride_b);
+            pq[c] = __dadd_rn(pq[c], __dmul_rn(qd, pd));
+            qq[c] = __dadd_rn(qq[c], __dmul_rn(qd, qd));
+          }
+        }
+      }
+      __syncthreads();
+      if (i + 2 + kAhead <= i1) stage_plane(i + 2 + kAhead);
+      cgx::cp_async_commit();
+    }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (c < nc) {  // nc is the same in every thread of the block
+        const double s = cgx::block_sum<kThreads>(pq[c], smem);
+        const double s2 = cgx::block_sum<kThreads>(qq[c], smem);
+        if (u == 0) {
+          a.part[static_cast<size_t>(c0 + c) * gridDim.x + blockIdx.x] = s;
+          a.part[static_cast<size_t>(a.ncols + c0 + c) * gridDim.x +
+                 blockIdx.x] = s2;
+        }
+      }
+    }
+  }
+  if (!last_block(a.ctl + kCountA)) return;
+  __threadfence();
+  float* pqs = field(a.ctl, a.ncols, kPq);
+  float* qqs = field(a.ctl, a.ncols, kQq);
+  for (int c = 0; c < a.ncols; ++c) {
+    const double s = cgx::grid_sum<kThreads>(
+        a.part + static_cast<size_t>(c) * gridDim.x, gridDim.x, smem);
+    const double s2 = cgx::grid_sum<kThreads>(
+        a.part + static_cast<size_t>(a.ncols + c) * gridDim.x, gridDim.x,
+        smem);
+    if (u == 0) {
       pqs[c] = static_cast<float>(s);
       qqs[c] = static_cast<float>(s2);
     }
@@ -281,26 +455,26 @@ __global__ void __launch_bounds__(kThreads) multi_b(BArgs a) {
   }
 }
 
+// The instance of kernel A (design 0: multi_a, 1: multi_a2).
 template <typename P>
-const void* a_kernel_typed(int ntaps, int variable, int sym) {
+const void* a_kernel_typed(int ntaps, int variable, int sym, int design) {
   const bool wide = ntaps > 7;
+#define CGX_A(T, PL, SY)                                              \
+  (design ? reinterpret_cast<const void*>(multi_a2<T, PL, SY, P>)     \
+          : reinterpret_cast<const void*>(multi_a<T, PL, SY, P>))
   if (!variable)
-    return wide ? reinterpret_cast<const void*>(
-                      multi_a<cgx::kMaxTaps, false, false, P>)
-                : reinterpret_cast<const void*>(multi_a<7, false, false, P>);
+    return wide ? CGX_A(cgx::kMaxTaps, false, false) : CGX_A(7, false, false);
   if (sym)
-    return wide ? reinterpret_cast<const void*>(
-                      multi_a<cgx::kMaxTaps, true, true, P>)
-                : reinterpret_cast<const void*>(multi_a<7, true, true, P>);
-  return wide ? reinterpret_cast<const void*>(
-                    multi_a<cgx::kMaxTaps, true, false, P>)
-              : reinterpret_cast<const void*>(multi_a<7, true, false, P>);
+    return wide ? CGX_A(cgx::kMaxTaps, true, true) : CGX_A(7, true, true);
+  return wide ? CGX_A(cgx::kMaxTaps, true, false) : CGX_A(7, true, false);
+#undef CGX_A
 }
 
-const void* a_kernel_for(int ntaps, int variable, int sym, int plane_bf16) {
+const void* a_kernel_for(int ntaps, int variable, int sym, int plane_bf16,
+                         int design) {
   return plane_bf16 && variable
-             ? a_kernel_typed<__nv_bfloat16>(ntaps, variable, sym)
-             : a_kernel_typed<float>(ntaps, variable, sym);
+             ? a_kernel_typed<__nv_bfloat16>(ntaps, variable, sym, design)
+             : a_kernel_typed<float>(ntaps, variable, sym, design);
 }
 
 const void* b_kernel_for(int weighted) {
@@ -308,12 +482,51 @@ const void* b_kernel_for(int weighted) {
                   : reinterpret_cast<const void*>(multi_b<false>);
 }
 
+// The march's checks: 256 threads a tile, whole 16-byte chunks a line, and
+// every tap inside the staged halo.
+bool march_ok(const cgx::MarchPlan& mp, int nx, int ny, int nz, int ntaps,
+              const int* taps) {
+  if (mp.tj < 1 || mp.tk < 1 || mp.rows != kRows || mp.tj % mp.rows != 0 ||
+      mp.tj / mp.rows * mp.tk != kThreads || mp.len < 1 || mp.hj < 0 ||
+      mp.hk < 0 || mp.hk % 4 != 0 || mp.tk % 4 != 0)
+    return false;
+  if (mp.tiles_j != (ny + mp.tj - 1) / mp.tj ||
+      mp.tiles_k != (nz + mp.tk - 1) / mp.tk ||
+      mp.chunks != (nx + mp.len - 1) / mp.len)
+    return false;
+  for (int t = 0; t < ntaps; ++t) {
+    const int dx = taps[3 * t], dy = taps[3 * t + 1], dz = taps[3 * t + 2];
+    if (dx < -1 || dx > 1 || dy < -mp.hj || dy > mp.hj || dz < -mp.hk ||
+        dz > mp.hk)
+      return false;
+  }
+  return true;
+}
+
+// The ring: kSlots x-planes of kCols columns' staged lines.
+int march_smem(const cgx::MarchPlan& mp) {
+  return kSlots * kCols * (mp.tj + 2 * mp.hj) * (mp.tk + 2 * mp.hk) *
+         static_cast<int>(sizeof(float));
+}
+
 }  // namespace
 
+// design 0: the first kernel A's grid (as many blocks as fit at once);
+// design 1: the march's, tiles_j × tiles_k × chunks from the plan (tj, tk,
+// len over the nx × ny × nz grid).
 extern "C" int cgx_multi_a_grid(int device, int ntaps, int variable, int sym,
-                                int plane_bf16, int* grid) {
-  return cgx::full_grid<kThreads>(
-      device, a_kernel_for(ntaps, variable, sym, plane_bf16), grid);
+                                int plane_bf16, int design, int nx, int ny,
+                                int nz, int tj, int tk, int len, int* grid) {
+  if (design == 0)
+    return cgx::full_grid<kThreads>(
+        device, a_kernel_for(ntaps, variable, sym, plane_bf16, 0), grid);
+  if (tj < 1 || tk < 1 || len < 1 || nx < 1 || ny < 1 || nz < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long g = static_cast<long>((ny + tj - 1) / tj) * ((nz + tk - 1) / tk) *
+                 ((nx + len - 1) / len);
+  if (g > 2147483647L) return static_cast<int>(cudaErrorInvalidValue);
+  *grid = static_cast<int>(g);
+  return 0;
 }
 
 extern "C" int cgx_multi_b_grid(int device, int weighted, int* grid) {
@@ -324,19 +537,50 @@ extern "C" int cgx_multi_b_grid(int device, int weighted, int* grid) {
 // `plane[t]` is tap t's plane index (−1: constant tap coeffs[t]); `planes`
 // is null for a constant-coefficient operator and holds bf16 when
 // plane_bf16.  `part` holds 2·ncols·grid doubles; `ctl` is the control
-// block.
+// block.  design 0 runs the first kernel A on `grid` blocks; design 1 the
+// march on the plan (tj, tk, rows, len, hj, hk), `grid` its tiles ×
+// chunks, with its ring of stage in dynamic shared memory; a plan that does
+// not fit the shape, the taps or the shared memory is refused.
 extern "C" int cgx_multi_a(const float* p, float* q, const void* planes,
                            double* part, int grid, int* ctl, int ncols, int nx,
                            int ny, int nz, int ntaps, const int* taps,
                            const float* coeffs, const int* plane, int sym,
-                           int plane_bf16, void* stream) {
+                           int plane_bf16, int design, int tj, int tk,
+                           int rows, int len, int hj, int hk, void* stream) {
   if (ntaps < 1 || ntaps > cgx::kMaxTaps || grid < 1 || ncols < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   AArgs a{p,     q,  planes, part, ctl, ncols, nx, ny, nz,
           cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz)};
-  return cgx::launch<kThreads>(
-      a_kernel_for(ntaps, planes != nullptr, sym, plane_bf16), grid, &a,
-      stream);
+  const void* k =
+      a_kernel_for(ntaps, planes != nullptr, sym, plane_bf16, design);
+  if (design == 0) return cgx::launch<kThreads>(k, grid, &a, stream);
+  cgx::MarchPlan mp{tj, tk, rows, len, hj, hk, 0, 0, 0, {}};
+  for (int t = 0; t < ntaps; ++t)
+    mp.rel[t] = 4 * (taps[3 * t + 1] * (tk + 2 * hk) + taps[3 * t + 2]);
+  if (tj >= 1 && tk >= 1 && len >= 1) {
+    mp.tiles_j = (ny + tj - 1) / tj;
+    mp.tiles_k = (nz + tk - 1) / tk;
+    mp.chunks = (nx + len - 1) / len;
+  }
+  if (!march_ok(mp, nx, ny, nz, ntaps, taps) ||
+      static_cast<long>(mp.tiles_j) * mp.tiles_k * mp.chunks != grid)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = march_smem(mp);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // not left for the next launch to report
+      return static_cast<int>(e);
+    }
+  }
+  A2Args a2{a, mp};
+  void* params[] = {&a2};
+  const cudaError_t e = cudaLaunchKernel(k, dim3(grid), dim3(kThreads),
+                                         params, smem,
+                                         static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Kernel B on `stream`; `w` is null for an unweighted solve.

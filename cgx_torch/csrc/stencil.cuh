@@ -35,6 +35,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace cgx {
@@ -421,6 +422,179 @@ __device__ __forceinline__ void plane_row_multi(
   }
 }
 
+// -- Asynchronous copies into shared memory ----------------------------------
+// cp.async: a copy from global into shared memory that runs while the
+// thread goes on; commit closes a group of them, wait<N> returns once at
+// most N of the thread's groups are still in flight (a __syncthreads after
+// it makes every thread's copies visible to the block).
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A float at a 32-bit shared-window address.  The march's readers address
+// their stage this way, so a load is one LDS at a register plus an offset;
+// a generic pointer into dynamic shared memory made the compiler rebuild
+// the window's base before every load.
+__device__ __forceinline__ float lds(unsigned addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// Copy the chunk x[first .. first + 4) into dst, elements outside [0, n)
+// left unwritten: one 16-byte copy where the chunk lies in range and is
+// 16-byte aligned in memory, else one 4-byte copy an element.
+__device__ __forceinline__ void stage_chunk(float* dst, const float* x,
+                                            long first, int n) {
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) + first * sizeof(float)) & 15) == 0;
+  if (aligned && first >= 0 && first + 4 <= n) {
+    cp_async16(dst, x + first);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (first + e >= 0 && first + e < n) cp_async4(dst + e, x + first + e);
+}
+
+// -- The 2.5-D march (the redesigned multi-RHS kernel A, fused_multi.cu) -----
+// A block owns a tile of tj × tk nodes of an x-plane (tj lines j of tk
+// nodes k; a thread takes `rows` of them, tj / rows lines apart) and
+// marches along i over `len` planes.  The x-plane
+// i' of each of the kCols columns is staged as lines j0 − hj … j0 + tj + hj
+// − 1, each the flat elements (i'·ny + j)·nz + k0 − hk … + tk + hk − 1
+// (hk a multiple of 4, so a line starts 16-byte aligned when nz, k0 and the
+// column are); a ring of slots holds planes i − 1, i, i + 1 and the ones in
+// flight.  Every flat read of a tap, x[row + off] with off = (dx·ny
+// + dy)·nz + dz, |dx| ≤ 1, |dy| ≤ hj, |dz| ≤ hk, is the element at (dx, dy,
+// dz) from the node in the stage, including reads that wrap past a line or a
+// plane (the copy is by flat index, clamped to [0, n)).  The row readers are
+// stencil_row_multi and plane_row_multi with those reads: bit for bit.
+// kernels/fused_multi.py `march_plan` makes the plan, `march_reference`
+// mirrors the walk.
+struct MarchPlan {
+  int tj, tk;  // the tile: tj lines of tk nodes
+  int rows;    // nodes a thread takes in a plane, tj / rows lines apart
+  int len;     // x-planes a block marches over
+  int hj, hk;  // halo of the staged lines (hk a multiple of 4)
+  int tiles_j, tiles_k, chunks;
+  int rel[kMaxTaps];  // a tap's stage offset (dy·(tk + 2hk) + dz) in bytes
+};
+
+// The taps whose neighbour of node (i, j, k) lies in the grid, one bit a
+// tap: the j and k conditions (fixed along a thread's march) and the i
+// conditions (|dx| ≤ 1: only the first and last x-plane drop taps).  The
+// same booleans as stencil_row's guards.
+__device__ __forceinline__ unsigned jk_taps(int j, int k, int ny, int nz,
+                                            const StencilTaps& t) {
+  unsigned m = 0;
+  for (int s = 0; s < t.n; ++s) {
+    const int jj = j + t.dy[s], kk = k + t.dz[s];
+    if (jj >= 0 && jj < ny && kk >= 0 && kk < nz) m |= 1u << s;
+  }
+  return m;
+}
+
+__device__ __forceinline__ unsigned i_taps(int i, int nx,
+                                           const StencilTaps& t) {
+  unsigned m = 0;
+  for (int s = 0; s < t.n; ++s) {
+    const int ii = i + t.dx[s];
+    if (ii >= 0 && ii < nx) m |= 1u << s;
+  }
+  return m;
+}
+
+// The rows of the march.  sm, s0, sp: the shared addresses of the thread's
+// node in column 0 of the slots of x-planes i − 1, i, i + 1; cstride: bytes
+// from one column to the next; in: the taps inside the grid (jk_taps &
+// i_taps); rel: the taps' stage offsets in bytes (MarchPlan::rel × 4).
+// Every column is computed (the callers store only the first nc), so no
+// load waits on a branch; the arithmetic per column is stencil_row_multi's
+// and plane_row_multi's.
+template <int kTaps, int kCols>
+__device__ __forceinline__ void stencil_tile_multi(
+    unsigned sm, unsigned s0, unsigned sp, unsigned cstride, unsigned in,
+    const int* rel, const StencilTaps& t, float (&acc)[kCols]) {
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kTaps; ++s) {
+    if (s < t.n && ((in >> s) & 1u)) {
+      const unsigned x = (t.dx[s] < 0 ? sm : t.dx[s] > 0 ? sp : s0) + rel[s];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        acc[c] = __fadd_rn(acc[c],
+                           __fmul_rn(t.c[s], lds(x + c * cstride)));
+    }
+  }
+}
+
+template <int kTaps, bool kSym, int kCols, typename P>
+__device__ __forceinline__ void plane_tile_multi(
+    unsigned sm, unsigned s0, unsigned sp, unsigned cstride,
+    unsigned in_taps, const int* rel, const P* planes, int row, int n,
+    const PlaneTaps& t, float (&acc)[kCols]) {
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kTaps; ++s) {
+    if (s < t.s.n) {
+      const int dx = t.s.dx[s];
+      const unsigned fwd_x = (dx < 0 ? sm : dx > 0 ? sp : s0) + rel[s];
+      const int pl = t.plane[s];
+      if (pl < 0) {
+        // A constant tap: one mask (the centre's always holds), then
+        // c·x[neighbour] (0 outside).
+        const bool in = (in_taps >> s) & 1u;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const float term =
+              in ? __fmul_rn(t.s.c[s], lds(fwd_x + c * cstride)) : 0.0f;
+          acc[c] = __fadd_rn(acc[c], term);
+        }
+        continue;
+      }
+      // The plane values from global memory (their mirrors from the L2):
+      // staging them beside P measured slower on the H100.
+      const P* w = planes + static_cast<size_t>(pl) * n;
+      const int off = t.off[s];
+      const bool fwd = off >= -row && off < n - row;
+      const bool mir = kSym && off != 0 && off <= row && off > row - n;
+      const float wf = fwd ? load<true>(w + row) : 0.0f;
+      const float wm = mir ? load<true>(w + row - off) : 0.0f;
+      const unsigned mir_x = (dx > 0 ? sm : dx < 0 ? sp : s0) - rel[s];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        float term = 0.0f;
+        if (fwd) term = __fmul_rn(wf, lds(fwd_x + c * cstride));
+        if (mir)
+          term = __fadd_rn(term,
+                           __fmul_rn(wm, lds(mir_x + c * cstride)));
+        acc[c] = __fadd_rn(acc[c], term);
+      }
+    }
+  }
+}
+
 // -- Reductions ---------------------------------------------------------------
 // Fixed-order sums, no atomics: the same inputs give bit-identical sums.
 // T is float (the whole-solve kernel) or double (the two-pass engine).
@@ -458,6 +632,25 @@ __device__ __forceinline__ T grid_sum(const T* part, int count, T* smem) {
   T v = 0;
   for (int b = threadIdx.x; b < count; b += kThreads) v += __ldcg(part + b);
   return block_sum<kThreads>(v, smem);
+}
+
+// True in the block that finishes last (the multi-RHS engine and the
+// redesigned two-pass engine fold their partials there, once a launch).
+// Thread 0 has written the block's partials; the fence orders them before
+// its ticket, so the last block reads every partial through L2 (grid_sum
+// uses __ldcg).  The last block resets the counter for the next launch:
+// every other block has taken its ticket by then.
+__device__ __forceinline__ bool last_block(int* count) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const unsigned int ticket =
+        atomicAdd(reinterpret_cast<unsigned int*>(count), 1u);
+    last = ticket == gridDim.x - 1;
+    if (last) *count = 0;
+  }
+  __syncthreads();
+  return last;
 }
 
 // -- Launch helpers -----------------------------------------------------------

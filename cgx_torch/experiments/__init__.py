@@ -16,7 +16,10 @@ tiled path against its general path over fp32 block sizes and ``k``, the
 measurement behind ``bell_plan``'s rule for small blocks;
 :mod:`~cgx_torch.experiments.resident_grid_sweep` times K2's constant mode
 over grids and sizes beside the three-phase kernel, the measurement
-behind ``fused_resident.default_grid``.
+behind ``fused_resident.default_grid``;
+:mod:`~cgx_torch.experiments.multi_tile_sweep` times K5 A's march over
+tile heights and chunk lengths beside its first kernel A, the
+measurement behind ``fused_multi.march_plan``'s defaults.
 
 Run one on the card from the repository root, for example
 ``python3 -m cgx_torch.experiments.tier_proto thermal2 1.0 1,4``.  A

@@ -43,8 +43,14 @@ On a CUDA tensor :meth:`FusedCG.run` launches kernel A and kernel B once
 per iteration from a Python loop.  The exit decision, α, β and the history
 slot stay on the device (see the source note); the host reads one flag per
 chunk of :data:`CHUNK` iterations, and the launches past the exit return at
-once.  On a CPU tensor it takes the plain version, :meth:`FusedCG.
-run_reference`, which a CUDA tensor can also be given explicitly.
+once.  The redesigned kernel A (``kernel_a2``) keeps K3's partition of
+the sums, so it equals the first kernel A bit for bit; it reads each
+row's taps at the carried node with two rows in flight.  Both kernels
+fold the other's partials once a launch.  The first design of both stays
+as the same-run "before" (:func:`_before_kernel_a`, :func:`_before_solve`,
+counted nowhere).  On a CPU tensor it takes the plain version,
+:meth:`FusedCG.run_reference`, which a CUDA tensor can also be given
+explicitly.
 ``fused_a_launches`` and ``fused_b_launches`` count the kernels' launches,
 ``fused_a_bf16_launches``, ``fused_b_bf16_launches`` and
 ``fused_a_bf16_planes_launches`` those of the narrow modes among them.
@@ -82,6 +88,11 @@ CHUNK = 32
 # Words of the device control block (the struct Ctl in fused_engine.cu).
 _RZ, _RW, _K, _PENDING, _DONE, _TOL, _MAXIT, _HLEN, _N_RZ, _N_DONE = (
     0, 1, 2, 3, 4, 5, 6, 7, 8, 11)
+_PQ, _QQ = 12, 13
+
+# The kernels of fused_engine.cu (its `design`): the first design, kept as
+# the same-run "before", and the redesign.
+_FIRST_DESIGN, _REDESIGN = 0, 1
 
 
 def tap_matvec(nx: int, ny: int, nz: int, taps, coeffs, planes, sym: bool,
@@ -256,20 +267,42 @@ class FusedCG:
         partials are summed here."""
         if p.device.type == "cpu":
             return self.kernel_a_reference(p)
+        q, part_a = self._kernel_a_call(p, design=_REDESIGN)
+        ga = part_a.shape[0] // 2
+        return (q, torch.sum(part_a[:ga]).float(),
+                torch.sum(part_a[ga:]).float())
+
+    def _kernel_a_call(self, p: torch.Tensor, design: int):
+        """One launch of kernel A in its x0 mode (``design``: the redesign,
+        counted, or the first design, counted nowhere): ``(q, part_a)``."""
         lib, ga, _ = self._setup(p)
         q = torch.empty_like(p)
         part_a = torch.empty(2 * ga, dtype=torch.float64, device=p.device)
         with torch.cuda.device(p.device):
             self._launch_a(lib, self._a_args(p, q, part_a, ga, None, 1, None,
-                                             None, init=1))
-        return (q, torch.sum(part_a[:ga]).float(),
-                torch.sum(part_a[ga:]).float())
+                                             None, init=1, design=design),
+                           count=design == _REDESIGN)
+        return q, part_a
 
     def kernel_b(self, rz, pq, qq, x, r, p, q):
         """Kernel B once on copies of ``x, r, p``: ``(x', r', p', Σ r'²,
         Σ r'²·w)``.  A CPU tensor takes the plain version."""
         if x.device.type == "cpu":
             return self.kernel_b_reference(rz, pq, qq, x, r, p, q)
+        lib, args, (x, r, p, part_b) = self._kernel_b_setup(
+            rz, pq, qq, x, r, p, q, _REDESIGN)
+        with torch.cuda.device(x.device):
+            self._launch_b(lib, args)
+        gb = part_b.shape[0] // 2
+        return (x, r, p, torch.sum(part_b[:gb]).float(),
+                torch.sum(part_b[gb:]).float())
+
+    def _kernel_b_setup(self, rz, pq, qq, x, r, p, q, design):
+        """Kernel B's library and arguments for one step from ``rz, pq,
+        qq`` on copies of ``x, r, p`` (``design``: the redesign reads p·q
+        and q·q from the control block, the first design sums them from
+        one partial each), and the tensors it writes ``(x, r, p,
+        part_b)``."""
         lib, _, gb = self._setup(x)
         dev = x.device
         x, r, p = x.clone(), r.clone(), p.clone()
@@ -278,13 +311,11 @@ class FusedCG:
                               for v in (pq, qq)]).double()
         part_b = torch.empty(2 * gb, dtype=torch.float64, device=dev)
         ctl = torch.zeros(16, dtype=torch.int32, device=dev)
-        ctl.view(torch.float32)[_N_RZ] = torch.as_tensor(
-            rz, dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            self._launch_b(lib, self._b_args(x, r, p, q, part_a, 1, part_b,
-                                             gb, ctl))
-        return (x, r, p, torch.sum(part_b[:gb]).float(),
-                torch.sum(part_b[gb:]).float())
+        f = ctl.view(torch.float32)
+        for word, v in ((_N_RZ, rz), (_PQ, pq), (_QQ, qq)):
+            f[word] = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        return lib, self._b_args(x, r, p, q, part_a, 1, part_b, gb, ctl,
+                                 None, design), (x, r, p, part_b)
 
     # -- chunked-stepping primitives -------------------------------------
 
@@ -416,26 +447,46 @@ class FusedCG:
         return (int(self.dtype == torch.bfloat16),
                 int(self.plane_dtype == torch.bfloat16))
 
-    def _a_args(self, p, q, part_a, ga, part_b, gb, ctl, hist, init=0):
+    def a_launch_grid(self, device: torch.device, ga: int) -> int:
+        """``kernel_a2``'s own grid: as many blocks as fit at once, at most
+        ``ga``, and then as few as keep the same number of K3's virtual
+        blocks (of ``ga``) in every block."""
+        lib = _build.library()
+        fit = ctypes.c_int(0)
+        _build.check(lib.cgx_fused_a_fit(
+            device.index, len(self.taps), int(self.planes is not None),
+            int(self.sym), *self._bf16_flags(), ctypes.byref(fit)),
+            "fused kernel A occupancy (redesign)")
+        per = -(-ga // min(fit.value, ga))
+        return -(-ga // per)
+
+    def _a_args(self, p, q, part_a, ga, part_b, gb, ctl, hist, init=0,
+                design=_REDESIGN):
         taps_c, coef_c, plane_c = plane_tap_arrays(self.taps, self.coeffs)
         ptr = (lambda t: None if t is None else t.data_ptr())
+        grid = (self.a_launch_grid(p.device, ga) if design == _REDESIGN
+                else ga)
         return (p.data_ptr(), q.data_ptr(), ptr(self.planes),
                 part_a.data_ptr(), ga, ptr(part_b), gb, ptr(ctl), ptr(hist),
                 init, self.nx, self.ny, self.nz, len(self.taps), taps_c,
-                coef_c, plane_c, int(self.sym), *self._bf16_flags(),
-                torch.cuda.current_stream(p.device).cuda_stream)
+                coef_c, plane_c, int(self.sym), *self._bf16_flags(), design,
+                grid, torch.cuda.current_stream(p.device).cuda_stream)
 
-    def _b_args(self, x, r, p, q, part_a, ga, part_b, gb, ctl):
+    def _b_args(self, x, r, p, q, part_a, ga, part_b, gb, ctl, hist,
+                design=_REDESIGN):
         return (x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(),
                 None if self.weight is None else self.weight.data_ptr(),
                 part_a.data_ptr(), ga, part_b.data_ptr(), gb,
-                ctl.data_ptr(), self.n, self._bf16_flags()[0],
+                ctl.data_ptr(), None if hist is None else hist.data_ptr(),
+                self.n, self._bf16_flags()[0], design,
                 torch.cuda.current_stream(x.device).cuda_stream)
 
-    def _launch_a(self, lib, args) -> None:
+    def _launch_a(self, lib, args, count: bool = True) -> None:
         global fused_a_launches, fused_a_bf16_launches
         global fused_a_bf16_planes_launches
         _build.check(lib.cgx_fused_a(*args), "fused kernel A launch")
+        if not count:
+            return
         fused_a_launches += 1
         vec_bf16, plane_bf16 = self._bf16_flags()
         if vec_bf16:
@@ -443,15 +494,17 @@ class FusedCG:
         elif plane_bf16 and self.planes is not None:
             fused_a_bf16_planes_launches += 1
 
-    def _launch_b(self, lib, args) -> None:
+    def _launch_b(self, lib, args, count: bool = True) -> None:
         global fused_b_launches, fused_b_bf16_launches
         _build.check(lib.cgx_fused_b(*args), "fused kernel B launch")
+        if not count:
+            return
         fused_b_launches += 1
         if self._bf16_flags()[0]:
             fused_b_bf16_launches += 1
 
-    def _run_cuda(self, state: FusedState, upto: int,
-                  tol_sq) -> FusedState:
+    def _run_cuda(self, state: FusedState, upto: int, tol_sq,
+                  design: int = _REDESIGN) -> FusedState:
         from cgx_torch.kernels.stencil import check_cuda_vector
 
         lib, ga, gb = self._setup(state.x)
@@ -470,17 +523,20 @@ class FusedCG:
         f[_TOL] = torch.as_tensor(tol_sq, dtype=torch.float32, device=dev)
         ctl[_MAXIT] = min(upto, 2 ** 31 - 1)
         ctl[_HLEN] = hist.shape[0]
+        hist_or_none = hist if hist.shape[0] else None
         args_a = self._a_args(p, q, part_a, ga, part_b, gb, ctl,
-                              hist if hist.shape[0] else None)
-        args_b = self._b_args(x, r, p, q, part_a, ga, part_b, gb, ctl)
+                              hist_or_none, design=design)
+        args_b = self._b_args(x, r, p, q, part_a, ga, part_b, gb, ctl,
+                              hist_or_none, design=design)
+        count = design == _REDESIGN
         # At most upto − k + 1 (A, B) pairs: the last A takes the exit.
         budget, launched = max(upto, 0) + 1, 0
         with torch.cuda.device(dev):
             while True:
                 chunk = min(CHUNK, budget - launched)
                 for _ in range(chunk):
-                    self._launch_a(lib, args_a)
-                    self._launch_b(lib, args_b)
+                    self._launch_a(lib, args_a, count)
+                    self._launch_b(lib, args_b, count)
                 launched += chunk
                 if int(ctl[_DONE]):
                     break
@@ -489,3 +545,21 @@ class FusedCG:
                                        "their exit")
         return FusedState(x=x, r=r, p=p, rz=f[_RZ:_RW + 1].clone(),
                           k=ctl[_K].clone(), history=hist)
+
+
+def _before_kernel_a(eng: FusedCG, p: torch.Tensor):
+    """The first kernel A once (the same-run "before" of ``kernel_a2``,
+    counted nowhere): ``(q, part_a)`` over K3's partition."""
+    return eng._kernel_a_call(p, design=_FIRST_DESIGN)
+
+
+def _before_solve(eng: FusedCG, b: torch.Tensor, x0=None, *,
+                  tol: float = 1e-6, atol: float = 0.0, maxiter: int = 1000,
+                  track_history: bool = False) -> CGResult:
+    """:meth:`FusedCG.solve` through the first design of kernels A and B
+    (the same-run "before", counted nowhere)."""
+    return eng._solve(b, x0, tol, atol, maxiter, track_history,
+                      lambda v: eng._kernel_a_call(
+                          v, design=_FIRST_DESIGN)[:1],
+                      lambda st, upto, tol_sq: eng._run_cuda(
+                          st, upto, tol_sq, design=_FIRST_DESIGN))

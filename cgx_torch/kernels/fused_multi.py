@@ -33,6 +33,15 @@ with α, β and the shared exit on the device; the host reads one flag per
 :data:`~cgx_torch.kernels.fused_engine.CHUNK` iterations.  On a CPU tensor
 it takes the plain version, :meth:`FusedCGMulti.run_reference`.
 ``multi_a_launches`` and ``multi_b_launches`` count the kernels' launches.
+
+Kernel A (``multi_a2``) marches tiles of the grid along x through shared
+memory (:func:`march_plan`; :func:`march_reference` mirrors it on the CPU):
+q equals the plain version's bit for bit, the sums are taken in the
+march's own fixed order.  An operator whose taps reach too far in y or z
+for a block's shared memory (:attr:`FusedCGMulti.march` is None) runs the
+first kernel A (``multi_a``), which reads its neighbours from global
+memory; elsewhere the first kernel A is the same-run "before"
+(:func:`_before_kernel_a`, :func:`_before_solve`, counted nowhere).
 """
 from __future__ import annotations
 
@@ -52,7 +61,8 @@ from cgx_torch.kernels.fused_engine import (CHUNK, FusedCG, exact_sums,
 from cgx_torch.ops.blas import safe_recip
 from cgx_torch.solve.cg import CGResult
 
-__all__ = ["FusedCGMulti", "FusedMultiState", "thresholds",
+__all__ = ["FusedCGMulti", "FusedMultiState", "MarchPlan", "march_plan",
+           "march_reference", "thresholds",
            "fused_stencil_cg_multi", "fused_dia_cg_multi",
            "multi_a_launches", "multi_b_launches", "multi_a_bf16_launches"]
 
@@ -66,6 +76,184 @@ multi_a_bf16_launches = 0
 # arrays of k columns in this order.
 _IT, _DONE, _MAXIT, _HEAD = 0, 1, 2, 8
 _RZ, _RW, _PQ, _QQ, _TOL = range(5)
+
+# Kernel A's designs in fused_multi.cu: the first kernel A (multi_a) and
+# the march (multi_a2).
+_FIRST_DESIGN, _MARCH = 0, 1
+
+# Kernel A's march: threads a block, columns a pass, the x-planes a block
+# marches over when the card is not known, and csrc/fused_multi.cu's build
+# knobs: the ring's slots of staged x-planes (kSlots), the nodes a thread
+# takes in a plane (kRows) and the blocks an SM (kBlocksPerSm); the shared
+# memory a block may take (the H100's 227 KB).
+TILE_THREADS = 256
+COLS = 4
+MARCH_LEN = 16
+MARCH_SLOTS = 4
+MARCH_ROWS = 2
+MARCH_BLOCKS_PER_SM = 4
+SMEM_LIMIT = 232448
+
+
+@dataclass(frozen=True)
+class MarchPlan:
+    """The tiles of kernel A's march (``cgx::MarchPlan``): ``tj`` lines of
+    ``tk`` nodes a block, ``rows`` of them a thread (``tj / rows`` lines
+    apart), ``length`` x-planes, staged halos ``hj`` lines and ``hk`` nodes
+    (a multiple of 4) on each side."""
+
+    tj: int
+    tk: int
+    rows: int
+    length: int
+    hj: int
+    hk: int
+    tiles_j: int
+    tiles_k: int
+    chunks: int
+
+    @property
+    def grid(self) -> int:
+        return self.tiles_j * self.tiles_k * self.chunks
+
+    @property
+    def smem_bytes(self) -> int:
+        """The ring: MARCH_SLOTS slots of COLS columns' staged x-planes,
+        fp32."""
+        return (MARCH_SLOTS * COLS * (self.tj + 2 * self.hj)
+                * (self.tk + 2 * self.hk) * 4)
+
+
+def march_plan(nx: int, ny: int, nz: int, taps, tj: Optional[int] = None,
+               length: Optional[int] = None,
+               blocks: Optional[int] = None) -> MarchPlan:
+    """Kernel A's tiles for an nx × ny × nz grid and its taps: by default
+    ``tj`` = 2 × min(8, the power of two at or above ``ny``) lines of
+    ``512 / tj`` nodes, :data:`MARCH_ROWS` (2) nodes a thread; the halos
+    the largest ``|dy|`` and ``|dk|`` (rounded up to 4).  The planes a
+    block marches over: ``length``, else as many as let the tiles × chunks
+    fill ``blocks`` (the blocks the card runs at once) in one wave, else
+    :data:`MARCH_LEN`."""
+    rows = MARCH_ROWS
+    if tj is None:
+        tj = rows * min(8, 1 << max(ny - 1, 0).bit_length())
+    if tj % rows or TILE_THREADS % (tj // rows):
+        raise ValueError(f"march_plan: tj={tj} lines in {rows} rows a "
+                         f"thread do not tile {TILE_THREADS} threads")
+    tk = TILE_THREADS * rows // tj
+    tiles = -(-ny // tj) * -(-nz // tk)
+    if length is None:
+        length = (MARCH_LEN if blocks is None
+                  else -(-nx // max(1, blocks // tiles)))
+    length = min(int(length), nx)
+    if tk % 4 or length < 1:
+        raise ValueError(f"march_plan: tk={tk} (a multiple of 4) and "
+                         f"length={length} (>= 1)")
+    hj = max(abs(dy) for _, dy, _ in taps)
+    hk = -(-max(abs(dk) for _, _, dk in taps) // 4) * 4
+    plan = MarchPlan(tj=tj, tk=tk, rows=rows, length=length, hj=hj, hk=hk,
+                     tiles_j=-(-ny // tj), tiles_k=-(-nz // tk),
+                     chunks=-(-nx // length))
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"fused multi kernel A: taps reaching {hj} lines "
+                         f"and {hk} nodes need {plan.smem_bytes} bytes of "
+                         f"shared memory a block, more than {SMEM_LIMIT}")
+    return plan
+
+
+def march_block(plan: MarchPlan, b: int, nx: int):
+    """Block ``b``'s tile and chunk as the kernel takes them (k tiles
+    fastest, then j tiles, then chunks): ``(i0, i1, j0, k0)``, planes
+    ``i0 … i1 − 1``."""
+    tkx = b % plan.tiles_k
+    tjx = (b // plan.tiles_k) % plan.tiles_j
+    ic = b // (plan.tiles_k * plan.tiles_j)
+    i0 = ic * plan.length
+    return i0, min(i0 + plan.length, nx), tjx * plan.tj, tkx * plan.tk
+
+
+def march_flat(plan: MarchPlan, ny: int, nz: int, ip, j0: int, k0: int,
+               line, elem):
+    """The flat index the kernel copies into element ``elem`` of staged
+    line ``line`` of x-plane ``ip`` of a block at ``(j0, k0)``."""
+    return (ip * ny + j0 - plan.hj + line) * nz + k0 - plan.hk + elem
+
+
+def march_reference(eng, p: torch.Tensor, plan: MarchPlan):
+    """Kernel A's march on the CPU: ``(Q, Σ p·q, Σ q·q)``.  Block by block
+    (tile and chunk) the x-planes i0 − 1 … i1 of the tile and its halo are
+    copied from ``p`` by flat index as the kernel stages them (elements
+    outside ``[0, n)`` left NaN, so a read there shows), each row's taps
+    are read from that stage at (dx, dy, dk) from the node with the first
+    kernel A's masks, products and sums in tap order, and each node sums its
+    rows in fp64 along the march (the block tree and the fold are plain
+    fp64 sums here)."""
+    n, nx, ny, nz = eng.n, eng.nx, eng.ny, eng.nz
+    k = p.shape[0]
+    planes = None if eng.planes is None else eng.planes.float()
+    sym = eng.sym
+    q = torch.empty_like(p)
+    pq = torch.zeros(k, dtype=torch.float64)
+    qq = torch.zeros(k, dtype=torch.float64)
+    lines, width = plan.tj + 2 * plan.hj, plan.tk + 2 * plan.hk
+    jx = torch.arange(plan.tj)[:, None]
+    kx = torch.arange(plan.tk)[None, :]
+    pl_index, pi = [], 0
+    for c in eng.coeffs:
+        pl_index.append(None if c is not None else pi)
+        pi += c is None
+    for b in range(plan.grid):
+        i0, i1, j0, k0 = march_block(plan, b, nx)
+        ii = torch.arange(i0, i1)[:, None, None]
+        # The stage: planes i0 - 1 .. i1, lines, elements.
+        flat = march_flat(plan, ny, nz,
+                          torch.arange(i0 - 1, i1 + 1)[:, None, None],
+                          j0, k0, torch.arange(lines)[None, :, None],
+                          torch.arange(width)[None, None, :])
+        inside = (flat >= 0) & (flat < n)
+        stage = torch.full((k,) + tuple(flat.shape), float("nan"))
+        stage[:, inside] = p[:, flat[inside]]
+        j = j0 + jx
+        kk = k0 + kx
+        row = (ii * ny + j) * nz + kk
+        live = ((j < ny) & (kk < nz)).expand(row.shape)
+
+        def at(dx, dy, dk):
+            return stage[:, ii - i0 + 1 + dx, jx + plan.hj + dy,
+                         kx + plan.hk + dk]
+
+        acc = torch.zeros((k,) + tuple(row.shape))
+        for t, ((dx, dy, dk), c) in enumerate(zip(eng.taps,
+                                                  eng.coeffs)):
+            ok = ((ii + dx >= 0) & (ii + dx < nx) & (j + dy >= 0)
+                  & (j + dy < ny) & (kk + dk >= 0) & (kk + dk < nz))
+            if c is not None:
+                x = at(dx, dy, dk)
+                if planes is None:
+                    acc = torch.where(ok, acc + c * x, acc)
+                elif dx == 0 and dy == 0 and dk == 0:
+                    acc = acc + c * x
+                else:
+                    acc = acc + torch.where(ok, c * x, 0.0)
+                continue
+            w = planes[pl_index[t]]
+            off = (dx * ny + dy) * nz + dk
+            fwd = (row + off >= 0) & (row + off < n)
+            rc = row.clamp(0, n - 1)
+            term = torch.where(fwd, w[rc] * at(dx, dy, dk), 0.0)
+            if sym and off != 0:
+                m = row - off
+                mir = (m >= 0) & (m < n)
+                term = torch.where(
+                    mir, term + w[m.clamp(0, n - 1)]
+                    * at(-dx, -dy, -dk), term)
+            acc = acc + term
+        q[:, row[live]] = acc[:, live]
+        qd = acc.double()
+        pd = at(0, 0, 0).double()
+        pq += torch.where(live, qd * pd, 0.0).sum(dim=(1, 2, 3))
+        qq += torch.where(live, qd * qd, 0.0).sum(dim=(1, 2, 3))
+    return q, pq.float(), qq.float()
 
 
 def thresholds(b: torch.Tensor, tol: float, atol: float,
@@ -129,13 +317,19 @@ class FusedCGMulti(FusedCG):
         plain version; on a CUDA tensor the sums are the kernel's own."""
         if p.device.type == "cpu":
             return self.kernel_a_reference(p)
-        lib, ga, _ = self._setup(p)
+        return self._kernel_a_call(p, self.a_design(), count=True)
+
+    def _kernel_a_call(self, p: torch.Tensor, design: int, count: bool):
+        """One launch of kernel A in ``design`` (counted if ``count``):
+        ``(Q, Σ p·q, Σ q·q)``."""
+        lib, ga, _ = self._setup(p, design)
         q = torch.empty_like(p)
         ctl, f = self._ctl(p.shape[0], p.device)
         part = torch.empty(2 * p.shape[0] * ga, dtype=torch.float64,
                            device=p.device)
         with torch.cuda.device(p.device):
-            self._launch_a(lib, self._a_args(p, q, part, ga, ctl))
+            self._launch_a(lib, self._a_args(p, q, part, ga, ctl, design),
+                           count=count)
         return q, self._field(f, _PQ).clone(), self._field(f, _QQ).clone()
 
     def kernel_b(self, rz, pq, qq, x, r, p, q):
@@ -143,7 +337,7 @@ class FusedCGMulti(FusedCG):
         Σ r'²·w)``.  A CPU tensor takes the plain version."""
         if x.device.type == "cpu":
             return self.kernel_b_reference(rz, pq, qq, x, r, p, q)
-        lib, _, gb = self._setup(x)
+        lib, _, gb = self._setup(x, self.a_design())
         k, dev = x.shape[0], x.device
         x, r, p = x.clone(), r.clone(), p.clone()
         ctl, f = self._ctl(k, dev)
@@ -238,8 +432,37 @@ class FusedCGMulti(FusedCG):
 
     # -- the CUDA path --------------------------------------------------------
 
-    def _setup(self, v: torch.Tensor):
-        """Checks, the library and the grids ``(lib, grid_a, grid_b)``."""
+    @property
+    def march(self) -> Optional[MarchPlan]:
+        """Kernel A's tiles: :func:`march_plan` of the grid and taps, with
+        :data:`MARCH_ROWS` nodes a thread, its chunks filling the current
+        CUDA card's blocks in one wave; None when the taps' halo does not
+        fit a block's shared memory (the only refusal of the default
+        tiles)."""
+        if "_march" not in self.__dict__:
+            blocks = None
+            if torch.cuda.is_available():
+                sms = torch.cuda.get_device_properties(
+                    torch.cuda.current_device()).multi_processor_count
+                blocks = MARCH_BLOCKS_PER_SM * sms
+            try:
+                self._march = march_plan(self.nx, self.ny, self.nz,
+                                         self.taps, blocks=blocks)
+            except ValueError:
+                self._march = None
+        return self._march
+
+    def a_design(self) -> int:
+        """Kernel A's design on the card, by the operator's shape: the
+        march where :attr:`march` stages the taps, else the first kernel
+        A."""
+        return _FIRST_DESIGN if self.march is None else _MARCH
+
+    def _setup(self, v: torch.Tensor, design: int,
+               plan: Optional[MarchPlan] = None):
+        """Checks, the library and the grids ``(lib, grid_a, grid_b)``:
+        kernel A's from the march's tiles (``plan``, default
+        :attr:`march`) or, for the first kernel A, its occupancy."""
         if v.device.type != "cuda":
             raise ValueError(f"FusedCGMulti: unsupported device {v.device}")
         if v.dtype != torch.float32:
@@ -262,11 +485,13 @@ class FusedCGMulti(FusedCG):
                                  f"{' or '.join(map(str, ok))} on "
                                  f"{v.device}, got {t.dtype} on {t.device}")
         lib = _build.library()
+        tj, tk, length = self._plan_fields(design, plan)[:3]
         ga, gb = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(lib.cgx_multi_a_grid(
             v.device.index, len(self.taps), int(self.planes is not None),
-            int(self.sym), self._bf16_flags()[1], ctypes.byref(ga)),
-            "multi kernel A occupancy")
+            int(self.sym), self._bf16_flags()[1], design, self.nx, self.ny,
+            self.nz, tj, tk, length, ctypes.byref(ga)),
+            "multi kernel A grid")
         _build.check(lib.cgx_multi_b_grid(
             v.device.index, int(self.weight is not None), ctypes.byref(gb)),
             "multi kernel B occupancy")
@@ -283,13 +508,25 @@ class FusedCGMulti(FusedCG):
         k = (f.shape[0] - _HEAD) // 5
         return f[_HEAD + fld * k:_HEAD + (fld + 1) * k]
 
-    def _a_args(self, p, q, part, ga, ctl):
+    def _plan_fields(self, design: int, plan: Optional[MarchPlan]):
+        """``(tj, tk, length, rows, hj, hk)`` of the march's ``plan``
+        (default :attr:`march`) for the C entries; zeros for the first
+        kernel A, which takes no plan."""
+        if design == _FIRST_DESIGN:
+            return (0,) * 6
+        mp = self.march if plan is None else plan
+        return mp.tj, mp.tk, mp.length, mp.rows, mp.hj, mp.hk
+
+    def _a_args(self, p, q, part, ga, ctl, design,
+                plan: Optional[MarchPlan] = None):
         taps_c, coef_c, plane_c = plane_tap_arrays(self.taps, self.coeffs)
+        tj, tk, length, rows, hj, hk = self._plan_fields(design, plan)
         return (p.data_ptr(), q.data_ptr(),
                 None if self.planes is None else self.planes.data_ptr(),
                 part.data_ptr(), ga, ctl.data_ptr(), p.shape[0], self.nx,
                 self.ny, self.nz, len(self.taps), taps_c, coef_c, plane_c,
-                int(self.sym), self._bf16_flags()[1],
+                int(self.sym), self._bf16_flags()[1], design, tj, tk, rows,
+                length, hj, hk,
                 torch.cuda.current_stream(p.device).cuda_stream)
 
     def _b_args(self, x, r, p, q, part, gb, ctl):
@@ -298,21 +535,26 @@ class FusedCGMulti(FusedCG):
                 part.data_ptr(), gb, ctl.data_ptr(), x.shape[0], self.n,
                 torch.cuda.current_stream(x.device).cuda_stream)
 
-    def _launch_a(self, lib, args) -> None:
+    def _launch_a(self, lib, args, count: bool = True) -> None:
         global multi_a_launches, multi_a_bf16_launches
         _build.check(lib.cgx_multi_a(*args), "multi kernel A launch")
+        if not count:
+            return
         multi_a_launches += 1
         if self.planes is not None and self._bf16_flags()[1]:
             multi_a_bf16_launches += 1
 
-    def _launch_b(self, lib, args) -> None:
+    def _launch_b(self, lib, args, count: bool = True) -> None:
         global multi_b_launches
         _build.check(lib.cgx_multi_b(*args), "multi kernel B launch")
-        multi_b_launches += 1
+        if count:
+            multi_b_launches += 1
 
-    def _run_cuda(self, state: FusedMultiState, upto: int,
-                  tol_sq) -> FusedMultiState:
-        lib, ga, gb = self._setup(state.x)
+    def _run_cuda(self, state: FusedMultiState, upto: int, tol_sq,
+                  design: Optional[int] = None,
+                  count: bool = True) -> FusedMultiState:
+        design = self.a_design() if design is None else design
+        lib, ga, gb = self._setup(state.x, design)
         k, dev = state.x.shape[0], state.x.device
         for v, name in ((state.r, "r"), (state.p, "p")):
             if v.shape != state.x.shape or not v.is_contiguous():
@@ -335,7 +577,7 @@ class FusedCGMulti(FusedCG):
         # The entry test on the device: no host read before the first chunk.
         ctl[_DONE] = (~((state.k < upto) & torch.any(rz[1] > tol))).to(
             torch.int32)
-        args_a = self._a_args(p, q, part_a, ga, ctl)
+        args_a = self._a_args(p, q, part_a, ga, ctl, design)
         args_b = self._b_args(x, r, p, q, part_b, gb, ctl)
         # At most upto − k (A, B) pairs: B counts the last one and exits.
         budget, launched = upto, 0
@@ -343,8 +585,8 @@ class FusedCGMulti(FusedCG):
             while True:
                 chunk = min(CHUNK, budget - launched)
                 for _ in range(chunk):
-                    self._launch_a(lib, args_a)
-                    self._launch_b(lib, args_b)
+                    self._launch_a(lib, args_a, count)
+                    self._launch_b(lib, args_b, count)
                 launched += chunk
                 if int(ctl[_DONE]):
                     break
@@ -355,6 +597,43 @@ class FusedCGMulti(FusedCG):
             x=x, r=r, p=p,
             rz=torch.stack([self._field(f, _RZ), self._field(f, _RW)]).clone(),
             k=ctl[_IT].clone())
+
+
+def _before_kernel_a(eng: FusedCGMulti, p: torch.Tensor):
+    """The first kernel A once (the same-run "before" of the march,
+    counted nowhere): ``(Q, Σ p·q, Σ q·q)``."""
+    return eng._kernel_a_call(p, _FIRST_DESIGN, count=False)
+
+
+def _kernel_a_launcher(eng: FusedCGMulti, p: torch.Tensor, design: int,
+                       plan: Optional[MarchPlan] = None):
+    """A zero-argument launch of kernel A on ``p`` in ``design`` (the
+    march on ``plan``, default :attr:`FusedCGMulti.march`), its arguments
+    built once, counted nowhere (the smoke's and the tile sweep's timings);
+    and the ``Q`` it writes and its grid: ``(run, q, grid)``."""
+    lib, ga, _ = eng._setup(p, design, plan)
+    q = torch.empty_like(p)
+    ctl, _ = eng._ctl(p.shape[0], p.device)
+    part = torch.empty(2 * p.shape[0] * ga, dtype=torch.float64,
+                       device=p.device)
+    args = eng._a_args(p, q, part, ga, ctl, design, plan)
+
+    def run():
+        _build.check(lib.cgx_multi_a(*args), "multi kernel A launch")
+
+    return run, q, ga
+
+
+def _before_solve(eng: FusedCGMulti, b: torch.Tensor, x0=None, *,
+                  tol: float = 1e-6, atol: float = 0.0,
+                  maxiter: int = 1000) -> CGResult:
+    """:meth:`FusedCGMulti.solve` through the first kernel A (the same-run
+    "before", counted nowhere)."""
+    return eng._solve(b, x0, tol, atol, maxiter,
+                      lambda v: eng._kernel_a_call(v, _FIRST_DESIGN,
+                                                   count=False),
+                      lambda st, upto, tol_sq: eng._run_cuda(
+                          st, upto, tol_sq, _FIRST_DESIGN, count=False))
 
 
 def fused_stencil_cg_multi(s, b: torch.Tensor, x0=None, *, tol: float = 1e-6,

@@ -30,14 +30,20 @@ Phases (any failed check exits nonzero, and no result line is printed):
    and on the 224³ stencil (``"fused_stencil"``), which run the two-pass
    engine K3 (kernels A and B);
 8. each solve of 6 and 7 held against its plain version on the card and
-   against an fp64 Jacobi-PCG solve of the same system; K2's planes mode
-   and K3 run twice to show they are bit-reproducible; K3's kernels A and
-   B each held against their plain versions for one step;
+   against an fp64 Jacobi-PCG solve of the same system, and K3's solves
+   against the same solves through K3's first design (the same-run
+   "before", kernel A and B folding each other's partials in every block)
+   bit for bit (x, iterations, history) and both timed in turns; K2's
+   planes mode and K3 run twice
+   to show they are bit-reproducible; K3's kernels A and B each held
+   against their plain versions for one step;
 9. times of K2's planes mode in fp32 and bf16 planes, each equal to the
    three-phase kernel bit for bit at one grid and timed in turns with it
    (``k2_plane_times``), of K3 and of K3's two kernels, each beside its
-   plain version (and K3 A beside torch's CSR product of Ã), and K2's
-   constant mode beside K3 at 224³;
+   plain version (and K3 A beside torch's CSR product of Ã), K3's kernel
+   A and B at DIA-7 192³ against their first design (q and K3's partials,
+   or x', r', p' and B's partials, bit for bit; device time per call of
+   both in turns), and K2's constant mode beside K3 at 224³;
 10. W1, the unstructured path's build: the thermal2 stand-in at full size
     (``standin("thermal2")``, 1,228,045 rows, seed 0) through
     ``auto_format``, which must choose WBELL, its tier plan, and the row
@@ -67,6 +73,8 @@ Phases (any failed check exits nonzero, and no result line is printed):
     their plain versions at DIA-27 160³ (``poisson3d_dia27(160, 160, 160,
     variable=True, seed=0)`` under Jacobi, 13 symmetric planes) and at the
     224³ stencil, k = 4 seeded columns; each column's q against K3 A's;
+    kernel A's march against the first kernel A (the same-run "before"):
+    q bit for bit, the sums within 1e-6;
 16. M2 and M3, the path as a user drives it: ``auto_solve(a, B)`` with B
     (n, 4) seeded, on DIA-27 160³ with ``JacobiPrecond`` and on the 224³
     stencil (K5 alone), each column against an fp64 solve and its
@@ -80,9 +88,12 @@ Phases (any failed check exits nonzero, and no result line is printed):
     sides against single CG;
 19. M6, times: K5 per iteration beside the four sequential K3 solves of
     the same B (at DIA-27 160³, the 224³ stencil and the narrow-band DIA-7
-    192³ of M4, which ``auto`` sends to K3), the profiler's device time of K5 A and B, one call of each
-    beside its plain version and bound, and the PyTorch calls that compute
-    K5 A's product (the CSR product of Ã, conv3d with batch 4);
+    192³ of M4, which ``auto`` sends to K3), K5 A's march and the first
+    kernel A in device time per call, in turns, with the march's tile,
+    planes a block and grid, the profiler's device time of K5 A and B, one
+    call of each beside its plain version and bound, and the PyTorch calls
+    that compute K5 A's product (the CSR product of Ã, conv3d with batch
+    4);
 20. B1, the block-ELL SpMM K11 (``cgx_torch.kernels.bell_spmm``) on the
     JAX package's block-dense record (512 block rows of 8 distinct seeded
     64×64 fp32 blocks, X (32768, k)) at k = 256 and 512, engines
@@ -117,11 +128,14 @@ Phases (any failed check exits nonzero, and no result line is printed):
     the same ``ir_cg_solve`` through the plain versions and against an
     fp64 solve (forward error ≤ 1e-4; the seeded b's fp64 true relres),
     and K3 A and B in bf16 one step each against their plain versions, bit
-    for bit;
+    for bit; K3 A and B in bf16 vectors and a 100-iteration solve against
+    K3's first design bit for bit, each pair timed in turns;
 26. X2, the same on DIA-27 160³ and DIA-7 192³ with ``JacobiPrecond``:
     ``bf16_plane_speedup`` chooses the plane mode (bf16 planes, fp32
     vectors), and K3 A in it equals its plain version and fp32 K3 A on the
-    planes rounded through bf16, bit for bit;
+    planes rounded through bf16, bit for bit; at DIA-27 160³ K3 A and a
+    100-iteration solve against K3's first design bit for bit, each pair
+    timed in turns;
 27. X3, K2 with bf16 planes (``resident_dia_cg(plane_dtype=bf16)``) at
     DIA-27 128³ (to tol) and DIA-7 192³ (100 iterations: its rounded
     operator is indefinite and the solve breaks down): equal to fp32 K2 on
@@ -132,7 +146,9 @@ Phases (any failed check exits nonzero, and no result line is printed):
 29. X5, times: each narrow mode per iteration beside its fp32 mode, its
     plain version and its bound (2 B per bf16 value), the profiler's
     device time per launch, the PyTorch calls computing the same products
-    (bf16 conv3d, the CSR product of Ã with bf16-rounded values), IR per
+    (bf16 conv3d, the CSR product of Ã with bf16-rounded values), K5 A in
+    bf16 planes against its first kernel A (q bit for bit, device time in
+    turns), IR per
     inner iteration beside the fp32 K3 and K2 solves, and the measured
     fp32/bf16-plane ratio beside ``bf16_plane_speedup``'s prediction (the
     TPU model) at DIA-7 192³, DIA-27 128³ and DIA-27 160³;
@@ -198,7 +214,9 @@ computes the same function where there is one (K7–K10, P1 and P3, which
 compute one function, Y = A·X, take one bound: the fewest bytes that move
 it, ``wbell_least_bytes``); the last line is
 ``{"ok": true, "device": {...}}``; K11's entry there also names its path
-at B1 and its launches by path.  Needs one CUDA card; it imports
+at B1 and its launches by path; the entries of K3 A and B and of K5 A
+give device time (``ms``) beside that of their first design, measured in
+turns in the same run (``before_ms``).  Needs one CUDA card; it imports
 neither JAX nor the JAX package.
 """
 from __future__ import annotations
@@ -351,6 +369,133 @@ def device_ms(fn, calls: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     return device_us(prof, lambda key: True)[0] / calls / 1e3
+
+
+def in_turns(fns, reps: int = 4):
+    """Median device ms per call of each of ``fns`` (:func:`queued_ms`),
+    timed in turns: a, b, …, then …, b, a."""
+    ms = [[] for _ in fns]
+    for i in range(reps):
+        order = range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))
+        for j in order:
+            ms[j].append(queued_ms(fns[j]))
+    return [statistics.median(m) for m in ms]
+
+
+def k3a_launcher(eng, p, design):
+    """A zero-argument launch of K3's kernel A on ``p`` in its x0 mode,
+    its arguments built once (``design``: the redesign or the first
+    design, the same-run "before"), and the ``q`` and partials it writes.
+    Launch counters count neither."""
+    from cgx_torch.kernels import _build
+
+    lib, ga, _ = eng._setup(p)
+    q = torch.empty_like(p)
+    part = torch.empty(2 * ga, dtype=torch.float64, device=p.device)
+    args = eng._a_args(p, q, part, ga, None, 1, None, None, init=1,
+                       design=design)
+    return (lambda: _build.check(lib.cgx_fused_a(*args), "K3 A launch"),
+            q, part)
+
+
+def k3a_versus_first(tag, label, eng, p, card):
+    """K3's redesigned kernel A against the first one on ``p``: q and K3's
+    partials bit for bit (checked), then the device time per call of both
+    in turns.  Returns ``(ms, first design's ms)``."""
+    from cgx_torch.kernels import fused_engine as k3
+
+    new, q1, part1 = k3a_launcher(eng, p, k3._REDESIGN)
+    old, q0, part0 = k3a_launcher(eng, p, k3._FIRST_DESIGN)
+    new()
+    old()
+    torch.cuda.synchronize()
+    same = torch.equal(q1, q0) and torch.equal(part1, part0)
+    t_new, t_old = in_turns([new, old])
+    print(f"[{card}] {tag} K3 A {label}: equal to the first kernel A bit "
+          f"for bit (q and {part0.shape[0]} partials): {same}; device "
+          f"{t_new * 1e3:.2f} us per call, the first {t_old * 1e3:.2f} us "
+          f"({t_new / t_old:.3f}), in turns")
+    check(same, f"{tag} {label}: K3's kernel A differs from its first design")
+    return t_new, t_old
+
+
+def k3b_versus_first(tag, label, eng, card, rz, pq, qq, x, r, p, q):
+    """K3's redesigned kernel B (p·q and q·q from the control block, its
+    partials folded once a launch) against the first one (every block
+    folding A's partials) for one step from ``rz, pq, qq`` on copies of
+    ``x, r, p``: x', r', p' and B's partials bit for bit (checked), then
+    the device time per call of both in turns.  Returns ``(ms, first
+    design's ms)``."""
+    from cgx_torch.kernels import _build
+    from cgx_torch.kernels import fused_engine as k3
+
+    fns, outs = [], []
+    for design in (k3._REDESIGN, k3._FIRST_DESIGN):
+        lib, args, out = eng._kernel_b_setup(rz, pq, qq, x, r, p, q, design)
+        fns.append(lambda lib=lib, args=args: _build.check(
+            lib.cgx_fused_b(*args), "K3 B launch"))
+        outs.append(out)
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    t_new, t_old = in_turns(fns)
+    print(f"[{card}] {tag} K3 B {label}: equal to the first kernel B bit "
+          f"for bit (x', r', p' and its partials): {same}; device "
+          f"{t_new * 1e3:.2f} us per call, the first {t_old * 1e3:.2f} us "
+          f"({t_new / t_old:.3f}), in turns")
+    check(same, f"{tag} {label}: K3's kernel B differs from its first design")
+    return t_new, t_old
+
+
+def k3_solve_versus_first(tag, label, eng, b, **kw):
+    """A K3 solve through the redesigned kernels against the first
+    design's: x, iterations and history bit for bit (checked), then both
+    timed in turns (CUDA events around a solve, medians of 3).  Returns
+    ``(µs per iteration, the first design's)``."""
+    from cgx_torch.kernels import fused_engine as k3
+
+    new = eng.solve(b, track_history=True, **kw)
+    old = k3._before_solve(eng, b, track_history=True, **kw)
+    its = int(new.iterations)
+    same = (its == int(old.iterations) and torch.equal(new.x, old.x)
+            and torch.equal(new.history, old.history))
+    t_new, t_old = time_pair(
+        lambda: eng.solve(b, track_history=True, **kw),
+        lambda: k3._before_solve(eng, b, track_history=True, **kw), reps=3)
+    us_new, us_old = t_new / its * 1e3, t_old / its * 1e3
+    print(f"{tag} K3 solve {label} ({its} iterations): x, iterations and "
+          f"history equal to the first design's: {same}; {us_new:.2f} us "
+          f"per iteration, the first design {us_old:.2f} "
+          f"({us_new / us_old:.3f}), in turns")
+    check(same, f"{tag} {label}: the K3 solve differs from its first design")
+    return us_new, us_old
+
+
+def k5a_versus_first(tag, label, eng, p, card):
+    """K5's march against its first kernel A on ``p``: q bit for bit and
+    the sums within 1e-6 (checked), the device time per call of both in
+    turns, the plan.  Returns ``(ms, first design's ms)``."""
+    from cgx_torch.kernels import fused_multi as k5
+
+    check(eng.a_design() == k5._MARCH,
+          f"{tag} {label}: K5 A does not take the march")
+    new, q1, _ = k5._kernel_a_launcher(eng, p, k5._MARCH)
+    old, q0, g0 = k5._kernel_a_launcher(eng, p, k5._FIRST_DESIGN)
+    new()
+    old()
+    torch.cuda.synchronize()
+    same = torch.equal(q1, q0)
+    t_new, t_old = in_turns([new, old])
+    mp = eng.march
+    print(f"[{card}] {tag} K5 A {label}, k={p.shape[0]}: the march (tile "
+          f"{mp.tj} x {mp.tk}, {mp.rows} a thread, {mp.length} planes a "
+          f"block, grid {mp.grid}, {mp.smem_bytes} B shared) equal to the "
+          f"first kernel A (grid {g0}) in q bit for bit: {same}; device "
+          f"{t_new * 1e3:.2f} us per call, the first {t_old * 1e3:.2f} us "
+          f"({t_new / t_old:.3f}), in turns")
+    check(same, f"{tag} {label}: K5's march differs from its first kernel A")
+    return t_new, t_old
 
 
 def rhs_set(dims, dev):
@@ -969,6 +1114,19 @@ def multi_phases(dev, card, dias):
               f"{rel_b:.3e}, sums {rel_bs:.3e}")
         check(rel_a <= 1e-6 and rel_as <= 1e-5 and as_k3,
               f"M1 {label}: K5 A disagrees")
+        # The march against the first kernel A (the same-run "before",
+        # counted nowhere) and the plain version: q bit for bit, the sums
+        # in another fixed order within 1e-6.
+        q0, pq0, qq0 = k5._before_kernel_a(eng, p)
+        torch.cuda.synchronize()
+        rel_first = max(relmax(pq, pq0), relmax(qq, qq0))
+        print(f"M1 {label}: K5 A's march equal bit for bit in q to the "
+              f"first kernel A {torch.equal(q, q0)} and to the plain "
+              f"version {torch.equal(q, q_ref)}; sums within "
+              f"{rel_first:.3e} of the first kernel A's")
+        check(torch.equal(q, q0) and torch.equal(q, q_ref)
+              and rel_first <= 1e-6 and rel_as <= 1e-6,
+              f"M1 {label}: K5's march differs from its first kernel A")
         check(rel_b <= 1e-6 and rel_bs <= 1e-5, f"M1 {label}: K5 B disagrees")
         errs["a"] = max(errs["a"], float((q - q_ref).abs().max()))
         errs["b"] = max(errs["b"], max(float((g - r).abs().max())
@@ -1130,7 +1288,7 @@ def multi_phases(dev, card, dias):
               f"{(t5 / (its * k)) / (t3 / sum(its1)):.3f}")
         return t5
 
-    dev_ms, per_call, bounds = {}, {}, {}
+    dev_ms, per_call, bounds, first_a = {}, {}, {}, {}
     for label, (a, m) in cells.items():
         eng, e, one, p, q_ref, pq_ref, qq_ref, rz = steps[label]
         B, its, its1, _ = main_runs[label]
@@ -1138,6 +1296,7 @@ def multi_phases(dev, card, dias):
         b2 = (B.T if e is None else B.T * e[None]).contiguous()
         cols = [b2[j] for j in range(k)]
         t5 = versus_k3(label, eng, one, b2, its, its1)
+        first_a[label] = k5a_versus_first("M6", label, eng, p, card)
         # The kernels' own device time over one solve (CUDA activity only).
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1146,7 +1305,7 @@ def multi_phases(dev, card, dias):
         us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
               if ev.self_device_time_total > 0}
         busy = sum(us.values())
-        ka = sum(v for kk, v in us.items() if "multi_a" in kk)
+        ka = sum(v for kk, v in us.items() if "multi_a2<" in kk)
         kb = sum(v for kk, v in us.items() if "multi_b" in kk)
         if ka == 0 or kb == 0:
             print("M6 profiler: no device time for K5 recorded; per-call "
@@ -1166,8 +1325,8 @@ def multi_phases(dev, card, dias):
             one.solve(cols[j], tol=TOL, maxiter=n)
             torch.cuda.synchronize()
         us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()}
-        k3a = sum(v for kk, v in us.items() if "kernel_a<" in kk)
-        k3b = sum(v for kk, v in us.items() if "kernel_b<" in kk)
+        k3a = sum(v for kk, v in us.items() if "kernel_a2<" in kk)
+        k3b = sum(v for kk, v in us.items() if "kernel_b2<" in kk)
         if k3a and k3b:
             print(f"[{card}] M6 profiler, K3 on column {j} of {label}: A "
                   f"{k3a / its1[j]:.2f} us and B {k3b / its1[j]:.2f} us of "
@@ -1194,7 +1353,9 @@ def multi_phases(dev, card, dias):
             bound((7 * k + (eng.weight is not None)) * 4 * n, 12 * k * n))
         print(f"[{card}] M6 {label} one call from Python: K5 A "
               f"{t_a * 1e3:.2f} us (plain {t_ap * 1e3:.2f} us, bound "
-              f"{bounds[label][0][0] * 1e3:.2f} us, {bounds[label][0][1]}), "
+              f"{bounds[label][0][0] * 1e3:.2f} us, {bounds[label][0][1]}; "
+              f"device {first_a[label][0] * 1e3:.2f} us, the first kernel A "
+              f"{first_a[label][1] * 1e3:.2f} us), "
               f"K5 B {t_b * 1e3:.2f} us (plain {t_bp * 1e3:.2f} us, bound "
               f"{bounds[label][1][0] * 1e3:.2f} us, {bounds[label][1][1]}; "
               f"the call copies X, R, P first)")
@@ -1252,12 +1413,13 @@ def multi_phases(dev, card, dias):
           f"{per_call[s_label][0] * 1e3:.2f} us)")
 
     t_a, t_ap, t_b, t_bp = per_call[d_label]
-    ms_a, ms_b = dev_ms.get(d_label, (t_a, t_b))
+    ms_b = dev_ms.get(d_label, (t_a, t_b))[1]
     return [
         {"name": "fused_multi_a", "route": "cuda",
          "source": "cgx_torch/csrc/fused_multi.cu",
          "replaces": "cgx/kernels/fused_multi.py:64",
-         "launches": launches["a"], "max_abs_err": errs["a"], "ms": ms_a,
+         "launches": launches["a"], "max_abs_err": errs["a"],
+         "ms": first_a[d_label][0], "before_ms": first_a[d_label][1],
          "plain_ms": t_ap, "bound_ms": bounds[d_label][0][0],
          "bound_by": bounds[d_label][0][1], "library_ms": t_csr},
         {"name": "fused_multi_b", "route": "cuda",
@@ -2158,6 +2320,12 @@ def mixed_phases(dev, card, dias, fp64_solution, relres_of):
           f" sums within {sums:.3e}")
     check(errs["a_bf16"] == 0 and errs["b_bf16"] == 0 and sums <= 1e-6,
           "X1: K3 in bf16 vectors differs from its plain version")
+    first_a = {"stencil 224^3": k3a_versus_first(
+        "X1", "224^3 bf16 vectors", eng16, p16, card)}
+    first_b = k3b_versus_first("X1", "224^3 bf16 vectors", eng16, card,
+                               rz16, pq_ref, qq_ref, x16, p16, p16, q_ref)
+    k3_solve_versus_first(f"[{card}] X1", "224^3 bf16 vectors", eng16,
+                          b224.to(bf16), tol=0.0, maxiter=its_fixed)
     steps["stencil 224^3"] = (eng16, build_fused(a224, torch.float32),
                               b224, p16, (rz16, pq_ref, qq_ref, x16, q_ref))
     errs["a_planes"] = 0.0
@@ -2181,6 +2349,13 @@ def mixed_phases(dev, card, dias, fp64_solution, relres_of):
               f"the pre-rounded planes {torch.equal(q, q32)}")
         check(torch.equal(q, q_ref) and torch.equal(q, q32),
               f"X2 {label}: K3 A in bf16 planes differs")
+        if label == "DIA-27 160^3":
+            first_a[label] = k3a_versus_first(
+                "X2", f"{label} bf16 planes", engp, p, card)
+            k3_solve_versus_first(f"[{card}] X2", f"{label} bf16 planes",
+                                  engp,
+                                  e * torch.ones_like(p), tol=0.0,
+                                  maxiter=its_fixed)
         errs["a_planes"] = max(errs["a_planes"], err)
         fp32_eng, _, _ = fdia.build_fused_dia(a, torch.float32,
                                               inv_diag=m.inv_diag)
@@ -2308,9 +2483,9 @@ def mixed_phases(dev, card, dias, fp64_solution, relres_of):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             eng_n.solve(b_n, tol=0.0, maxiter=its_fixed)
             torch.cuda.synchronize()
-        ua, na = device_us(prof, lambda kk: "kernel_a<" in kk
+        ua, na = device_us(prof, lambda kk: "kernel_a2<" in kk
                            and "bfloat16" in kk)
-        ub, nb = device_us(prof, lambda kk: "kernel_b<" in kk)
+        ub, nb = device_us(prof, lambda kk: "kernel_b2<" in kk)
         dev_us[label] = (ua / max(na, 1), ub / max(nb, 1))
         per_iter[label] = (t_n / its_fixed * 1e3, t_f / its_fixed * 1e3)
         pred = ("" if label.startswith("stencil") else
@@ -2381,20 +2556,16 @@ def mixed_phases(dev, card, dias, fp64_solution, relres_of):
                             lambda: engp.kernel_a_reference(pp), inner=10)
     t_5, t_5p = time_pair(lambda: eng5.kernel_a(P),
                           lambda: eng5.kernel_a_reference(P), inner=5)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            eng5.kernel_a(P)
-        torch.cuda.synchronize()
-    u5, c5 = device_us(prof, lambda kk: "multi_a<" in kk)
-    dev_k5 = u5 / max(c5, 1)
+    first_a["K5"] = k5a_versus_first("X5", "DIA-27 160^3 bf16 planes", eng5,
+                                     P, card)
     print(f"[{card}] X5 one call from Python: K3 A bf16 vectors 224^3 "
           f"{t_a16 * 1e3:.2f} us (plain {t_a16p * 1e3:.2f}), K3 B bf16 "
           f"vectors {t_b16 * 1e3:.2f} us (plain {t_b16p * 1e3:.2f}; the "
           f"call copies x, r, p first), K3 A bf16 planes DIA-27 160^3 "
           f"{t_ap * 1e3:.2f} us (plain {t_app * 1e3:.2f}), K5 A bf16 "
           f"planes DIA-27 160^3 k={K_MULTI} {t_5 * 1e3:.2f} us (plain "
-          f"{t_5p * 1e3:.2f}; device {dev_k5:.2f} us per launch)")
+          f"{t_5p * 1e3:.2f}; device {first_a['K5'][0] * 1e3:.2f} us per "
+          f"call)")
 
     # K2: 100 iterations (tol 0) in bf16 planes beside fp32, each at its
     # own grid, and the plain version of the same run.
@@ -2503,33 +2674,35 @@ def mixed_phases(dev, card, dias, fp64_solution, relres_of):
           f" K2 bf16 planes DIA-27 128^3 {b_k2[0]:.3f} ms per "
           f"{its_fixed} iterations ({b_k2[1]})")
 
-    def entry(name, source, replaces, nl, err, ms, plain_ms, b, lib):
+    def entry(name, source, replaces, nl, err, ms, plain_ms, b, lib,
+              **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": nl, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
-                "bound_by": b[1], "library_ms": lib}
+                "bound_by": b[1], "library_ms": lib, **extra}
 
     eng_src = "cgx_torch/csrc/fused_engine.cu"
     return [
         entry("fused_kernel_a_bf16", eng_src,
               "cgx/kernels/fused_engine.py:272", launches["a_bf16"],
-              errs["a_bf16"], dev_us["stencil 224^3"][0] / 1e3, t_a16p,
-              b_a16, t_conv),
+              errs["a_bf16"], first_a["stencil 224^3"][0], t_a16p,
+              b_a16, t_conv, before_ms=first_a["stencil 224^3"][1]),
         entry("fused_kernel_b_bf16", eng_src,
               "cgx/kernels/fused_engine.py:411", launches["b_bf16"],
-              errs["b_bf16"], dev_us["stencil 224^3"][1] / 1e3, t_b16p,
-              b_b16, None),
+              errs["b_bf16"], first_b[0], t_b16p, b_b16, None,
+              before_ms=first_b[1]),
         entry("fused_kernel_a_bf16_planes", eng_src,
               "cgx/kernels/fused_engine.py:272", launches["a_planes"],
-              errs["a_planes"], dev_us["DIA-27 160^3"][0] / 1e3, t_app,
-              b_ap, t_csr),
+              errs["a_planes"], first_a["DIA-27 160^3"][0], t_app,
+              b_ap, t_csr, before_ms=first_a["DIA-27 160^3"][1]),
         entry("resident_cg_planes_bf16", "cgx_torch/csrc/resident_cg.cu",
               "cgx/kernels/fused_resident.py:115", launches["k2_bf16"],
               errs["k2_bf16"], k2_ms["DIA-27 128^3"][0],
               k2_ms["DIA-27 128^3"][1], b_k2, None),
         entry("fused_multi_a_bf16_planes", "cgx_torch/csrc/fused_multi.cu",
               "cgx/kernels/fused_multi.py:64", launches["k5_a_bf16"],
-              errs["k5_a_bf16"], dev_k5 / 1e3, t_5p, b_5, t_csr5),
+              errs["k5_a_bf16"], first_a["K5"][0], t_5p, b_5, t_csr5,
+              before_ms=first_a["K5"][1]),
     ]
 
 
@@ -3348,6 +3521,10 @@ def main() -> None:
         print(f"K3 {label}: history over {k + 1} entries within {hdev:.3e} "
               f"of the plain version's (bound 2e-2)")
         check(hdev <= 2e-2, f"K3 {label}: history differs by {hdev}")
+        # The whole solve through the first design of K3's kernels (the
+        # same-run "before"): bit for bit, and both timed in turns.
+        k3_solve_versus_first(f"[{card}] §8", label, eng, b_s, tol=TOL,
+                              maxiter=MAXIT_HIST)
 
     r_a = cgx_torch.auto_solve(a7, b7, tol=TOL, preconditioner=m7)
     r_b = cgx_torch.auto_solve(a7, b7, tol=TOL, preconditioner=m7)
@@ -3439,6 +3616,9 @@ def main() -> None:
           f"{t_a * 1e3:.2f} us (plain {t_ap * 1e3:.2f} us; torch's CSR "
           f"product of Ã alone {t_csr7 * 1e3:.2f} us), B "
           f"{t_b * 1e3:.2f} us (plain {t_bp * 1e3:.2f} us)")
+    k3a_ms = k3a_versus_first("§9", "DIA-7 192^3 fp32", eng7, p7, card)
+    k3b_ms = k3b_versus_first("§9", "DIA-7 192^3 fp32", eng7, card, rz7,
+                              pq7, qq7, z7, p7, p7, q7)
 
     w_entries, thermal = wbell_phases(dev, card)
     m_entries = multi_phases(dev, card, dias)
@@ -3486,10 +3666,11 @@ def main() -> None:
               k2p_b, three_phase_ms=k2p_ms["DIA-7 192^3"][5]),
         entry("fused_kernel_a", "cgx_torch/csrc/fused_engine.cu",
               "cgx/kernels/fused_engine.py:272", launches["k3_a"],
-              k3_err["a"], t_a, t_ap, k3a_b, t_csr7),
+              k3_err["a"], k3a_ms[0], t_ap, k3a_b, t_csr7,
+              before_ms=k3a_ms[1]),
         entry("fused_kernel_b", "cgx_torch/csrc/fused_engine.cu",
               "cgx/kernels/fused_engine.py:411", launches["k3_b"],
-              k3_err["b"], t_b, t_bp, k3b_b),
+              k3_err["b"], k3b_ms[0], t_bp, k3b_b, before_ms=k3b_ms[1]),
     ] + w_entries + m_entries + b_entries + x_entries + s_entries
         + e_entries}
     print(json.dumps(report))

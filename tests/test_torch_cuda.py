@@ -33,7 +33,7 @@ from cgx_torch.kernels import wbell as kw  # noqa: E402
 from cgx_torch.kernels.fused_cg import (  # noqa: E402
     build_fused, fused_stencil_cg, stencil_taps)
 from torch_parity import (  # noqa: E402,F401
-    cuda_device, scaled_dia_data, seeded, t)
+    cuda_device, scaled_dia_data, seeded, t, wide_reach_dia)
 
 pytestmark = pytest.mark.cuda
 
@@ -1449,3 +1449,176 @@ def test_p3_segmented_kernel_on_dense_blocks(cuda_device, monkeypatch, wide):
     assert torch.equal(y, p3.half_reference(packed, lc, v, x, span=16,
                                             splane=64, walk=walk))
     assert torch.equal(y, p3._planes_p3(packed, lc, v, x, walk))
+
+
+# -- The redesigned kernels A of K3 and K5 against their first designs --------
+
+def _k3_case(op, dev):
+    """K3's engine for a case of the redesign's checks: the fp32 modes of
+    test_k3_single_steps_match_plain, bf16 vectors and bf16 planes on the
+    ragged 37×41×53 operators."""
+    mode, _, op = op.rpartition(":")
+    if mode == "bf16":
+        return _narrow_engine(op, dev, torch.bfloat16)[0]
+    if mode == "planes":
+        return _narrow_engine(op, dev, torch.float32, torch.bfloat16)[0]
+    if mode == "ragged":
+        return _narrow_engine(op, dev, torch.float32)[0]
+    return _engine(op, dev)[0]
+
+
+_K3_CASES = ["p3d", "dia7", "dia27", "ragged:p3d", "bf16:p3d", "bf16:dia7",
+             "bf16:dia27", "planes:dia7", "planes:dia27"]
+
+
+@pytest.mark.parametrize("op", _K3_CASES)
+def test_k3_redesigned_a_equals_first_design(cuda_device, op):
+    """The redesigned kernel A (the carried node, two rows in flight)
+    equals the first one bit for bit: q and the 2·ga partials of K3's
+    partition; only the redesign counts launches."""
+    eng = _k3_case(op, cuda_device)
+    p = t(seeded(eng.n, seed=90, dtype=np.float32), cuda_device).to(
+        eng.dtype)
+    before = k3.fused_a_launches
+    q0, part0 = k3._before_kernel_a(eng, p)
+    torch.cuda.synchronize()
+    assert k3.fused_a_launches == before
+    q, part = eng._kernel_a_call(p, design=k3._REDESIGN)
+    torch.cuda.synchronize()
+    assert k3.fused_a_launches == before + 1
+    assert torch.equal(q, q0) and torch.equal(part, part0)
+
+
+@pytest.mark.parametrize("op", _K3_CASES)
+def test_k3_redesigned_b_equals_first_design(cuda_device, op):
+    """The redesigned kernel B (p·q and q·q from the control block, its
+    partials folded once a launch) equals the first one bit for bit for
+    one step: x', r', p' and its partials."""
+    from cgx_torch.kernels import _build
+
+    eng = _k3_case(op, cuda_device)
+    p = t(seeded(eng.n, seed=95, dtype=np.float32), cuda_device).to(
+        eng.dtype)
+    q, pq, qq = eng.kernel_a(p)
+    rz = torch.sum(p.double() ** 2).float()
+    x = (0.5 * p.float()).to(eng.dtype)
+    outs = []
+    for design in (k3._REDESIGN, k3._FIRST_DESIGN):
+        lib, args, out = eng._kernel_b_setup(rz, pq, qq, x, p, p, q, design)
+        _build.check(lib.cgx_fused_b(*args), "K3 B launch")
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("op", _K3_CASES)
+def test_k3_solves_equal_first_design(cuda_device, op):
+    """A whole K3 solve through the redesigned kernels (the partials folded
+    once a launch) equals the first design's: x, iterations, history."""
+    eng = _k3_case(op, cuda_device)
+    b = t(seeded(eng.n, seed=91, dtype=np.float32), cuda_device).to(
+        eng.dtype)
+    kw = dict(tol=1e-6, maxiter=300, track_history=True)
+    new = eng.solve(b, **kw)
+    old = k3._before_solve(eng, b, **kw)
+    assert int(new.iterations) == int(old.iterations)
+    assert torch.equal(new.x, old.x) and torch.equal(new.history,
+                                                     old.history)
+
+
+@pytest.mark.parametrize("op", ["p3d", "dia7", "dia27", "bf16:p3d"])
+def test_k3_grids_unchanged(cuda_device, op):
+    """``FusedCG.grids`` is still the first kernels' occupancy: on the H100
+    8 blocks an SM of kernel A at 7 taps and 4 at 27, which K4 and K6 take
+    over; the redesigned kernel A runs no more blocks than that."""
+    eng = _k3_case(op, cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    ga, gb = eng.grids(cuda_device)
+    assert ga == (4 if len(eng.taps) > 7 else 8) * sms and gb % sms == 0
+    assert 1 <= eng.a_launch_grid(cuda_device, ga) <= ga
+
+
+def test_k3_redesigned_a_on_any_grid(cuda_device, monkeypatch):
+    """Launched on fewer blocks than K3's partition (blocks then walk
+    several of its virtual blocks), the redesigned kernel A and the solve
+    still equal the first design bit for bit."""
+    eng = _k3_case("dia7", cuda_device)
+    ga = eng.grids(cuda_device)[0]
+    monkeypatch.setattr(type(eng), "a_launch_grid",
+                        lambda self, dev, g: g // 3 + 1)
+    p = t(seeded(eng.n, seed=92, dtype=np.float32), cuda_device)
+    q, part = eng._kernel_a_call(p, design=k3._REDESIGN)
+    q0, part0 = k3._before_kernel_a(eng, p)
+    assert torch.equal(q, q0) and torch.equal(part, part0)
+    kw = dict(tol=1e-6, maxiter=300, track_history=True)
+    new, old = eng.solve(p, **kw), k3._before_solve(eng, p, **kw)
+    assert ga // 3 + 1 < ga
+    assert int(new.iterations) == int(old.iterations)
+    assert torch.equal(new.x, old.x) and torch.equal(new.history,
+                                                     old.history)
+
+
+@pytest.mark.parametrize("op,k", [
+    ("p3d", 1), ("dia27", 3), ("dia27_full", 8), ("2d", 11), ("dia7", 4)])
+def test_k5_march_equals_first_kernel_a(cuda_device, op, k):
+    """K5's march equals the first kernel A in q bit for bit for k = 1, 3,
+    8 and 11 (one to three groups of 4 columns), its sums within 1e-6 (fp64
+    sums in another order); only the march counts launches."""
+    from cgx_torch.kernels import fused_multi as k5
+
+    eng, _ = _multi(op, cuda_device)
+    p = _multi_block(eng.n, k, 93 + k, cuda_device)
+    before = k5.multi_a_launches
+    q0, pq0, qq0 = k5._before_kernel_a(eng, p)
+    torch.cuda.synchronize()
+    assert k5.multi_a_launches == before
+    q, pq, qq = eng.kernel_a(p)
+    torch.cuda.synchronize()
+    assert k5.multi_a_launches == before + 1
+    assert torch.equal(q, q0)
+    for g, r in ((pq, pq0), (qq, qq0)):
+        assert float((g - r).abs().max()) <= 1e-6 * float(r.abs().max())
+
+
+@pytest.mark.parametrize("op", ["p3d", "dia27"])
+def test_k5_solves_bit_identical(cuda_device, op):
+    """Two K5 solves through the march are bit-identical (the sums' order
+    is fixed), and they take the first kernel A's iteration count ±2."""
+    from cgx_torch.kernels import fused_multi as k5
+
+    eng, e = _multi(op, cuda_device)
+    b = t(np.random.default_rng(94).standard_normal((4, eng.n)).astype(
+        np.float32), cuda_device)
+    b = b if e is None else e * b
+    one = eng.solve(b, tol=1e-6, maxiter=4000)
+    two = eng.solve(b, tol=1e-6, maxiter=4000)
+    assert torch.equal(one.x, two.x)
+    assert torch.equal(one.iterations, two.iterations)
+    old = k5._before_solve(eng, b, tol=1e-6, maxiter=4000)
+    assert abs(int(one.iterations[0]) - int(old.iterations[0])) <= 2
+    assert bool(one.converged.all())
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_k5_wide_reach_takes_the_first_kernel_a(cuda_device, k):
+    """An operator reaching 40 lines in y, more than the march's stage
+    holds, runs K5 with the first kernel A (counted as K5 A's launches)
+    through ``cg_solve_multi(backend="fused")`` and converges to the
+    batched loop's answer."""
+    from cgx_torch.kernels import fused_multi as k5
+    from cgx_torch.solve import block
+
+    a = wide_reach_dia(8, 96, 16, 40).to(cuda_device)
+    m = cgx_torch.JacobiPrecond.from_matrix(a)
+    b = _multi_block(a.shape[0], k, 96, cuda_device).T.contiguous()
+    b[:, -1] = 1.0
+    before = k5.multi_a_launches
+    got = block.cg_solve_multi(a, b, preconditioner=m, backend="fused",
+                               tol=1e-6, maxiter=2000)
+    torch.cuda.synchronize()
+    assert k5.multi_a_launches > before
+    ref = block.cg_solve_multi(a, b, preconditioner=m, backend="xla",
+                               tol=1e-6, maxiter=2000)
+    assert bool(got.converged.all())
+    scale = float(ref.x.abs().max())
+    assert float((got.x - ref.x).abs().max()) <= 1e-4 * scale

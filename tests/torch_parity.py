@@ -45,6 +45,34 @@ def scaled_dia_data(nx: int, ny: int, nz: int, seed: int = 0):
     return data, a.offsets, a.shape
 
 
+def wide_reach_dia(nx: int, ny: int, nz: int, reach: int, seed: int = 0):
+    """An SPD operator whose taps reach ``reach`` lines in y: D·A·D with A
+    the 3-D Poisson matrix plus −½ between nodes ``reach`` lines apart (its
+    diagonal 7, zero where the partner leaves the grid) and D ~ U[0.5, 2)
+    from ``seed``, as a :class:`cgx_torch.DIAMatrix` on the CPU with its
+    grid."""
+    import cgx_torch
+    from cgx_torch.io.poisson import poisson3d_dia
+
+    a = poisson3d_dia(nx, ny, nz, device="cpu")
+    n = a.shape[0]
+    offs = tuple(a.offsets) + (reach * nz, -reach * nz)
+    data = np.zeros((len(offs), n))
+    data[:len(a.offsets)] = a.data.numpy()
+    data[offs.index(0)] += 1.0
+    j = (np.arange(n) // nz) % ny
+    data[-2][j + reach < ny] = -0.5
+    data[-1][j - reach >= 0] = -0.5
+    d = np.random.default_rng(seed).uniform(0.5, 2.0, n)
+    for k, off in enumerate(offs):
+        tgt = np.arange(n) + off
+        ok = (tgt >= 0) & (tgt < n)
+        data[k, ok] *= d[ok] * d[tgt[ok]]
+    return cgx_torch.DIAMatrix(data=torch.from_numpy(data.astype(np.float32)),
+                               offsets=offs, shape=a.shape,
+                               grid=(nx, ny, nz))
+
+
 @pytest.fixture
 def cuda_device():
     """The CUDA card, or a skip: the port's kernels run only there."""
