@@ -280,6 +280,7 @@ __global__ void __launch_bounds__(kThreads) kernel_b(BArgs a) {
 //
 // The first design (kernel_a, kernel_b) stays as the same-run "before",
 // design 0 of the C entries: no entry point of the package reaches it.
+// Kernel B's sweep is redesigned too: see kernel_b2.
 
 struct A2Args {
   AArgs a;
@@ -382,14 +383,46 @@ __global__ void __launch_bounds__(kThreads, kA2Blocks<kTaps>)
   }
 }
 
+// Kernel B's redesign.  The first design's sweep had one row a thread a
+// step, and its pointers could alias, so the compiler could not load the
+// next row before this row's three stores: with bf16 vectors (2-byte
+// loads) it moved 46 % of its bound.  kernel_b2 takes the pointers as
+// __restrict__ (the wrapper refuses vectors that share storage) and, with
+// bf16 vectors, loads two of a thread's rows, all five streams, before it
+// stores either; it then updates and stores them and adds their sums in
+// row order.  fp32 vectors keep one row a step: two rows measured 1.02×
+// (unweighted) and 1.13× (weighted, where they spill at 32 registers) the
+// first design's time on the H100 (PERF.md §6).  It runs on the first
+// design's grid_b blocks and partition: thread u of block b takes rows
+// b·256 + u + m·grid_b·256 in order, so x', r', p' and every partial equal
+// the first design's bit for bit.  It holds the first design's 8 blocks
+// an SM (32 registers).  The sweep is a loop over K3's blocks that runs
+// once at this grid: with bf16 vectors the same sweep without the loop
+// measured 1.13× the loop's time.  The last block folds the partials in
+// the first design's fixed order (grid_sum).
+template <typename V>
+struct BRows {  // kernel_b2's rows of a thread in flight
+  static constexpr int value = 1;
+};
+template <>
+struct BRows<bf16> {
+  static constexpr int value = 2;
+};
+
+struct B2Args {
+  BArgs a;
+  int grid_b;  // K3's partition: the blocks of the first design
+};
+
 template <bool kWeighted, typename V>
-__global__ void __launch_bounds__(kThreads) kernel_b2(BArgs a) {
+__global__ void __launch_bounds__(kThreads, 8) kernel_b2(B2Args args) {
   __shared__ double smem[kWarps + 1];
-  V* x = static_cast<V*>(a.x);
-  V* r = static_cast<V*>(a.r);
-  V* p = static_cast<V*>(a.p);
-  const V* q = static_cast<const V*>(a.q);
-  const V* w = static_cast<const V*>(a.w);
+  const BArgs& a = args.a;
+  V* __restrict__ x = static_cast<V*>(a.x);
+  V* __restrict__ r = static_cast<V*>(a.r);
+  V* __restrict__ p = static_cast<V*>(a.p);
+  const V* __restrict__ q = static_cast<const V*>(a.q);
+  const V* __restrict__ w = static_cast<const V*>(a.w);
   Ctl* c = a.ctl;
   if (c->n_done) {
     // Kernel A of this iteration took the exit; Ctl holds the final state.
@@ -404,42 +437,72 @@ __global__ void __launch_bounds__(kThreads) kernel_b2(BArgs a) {
       __fsub_rn(__fmul_rn(__fmul_rn(alpha32, alpha32), qq), rz), rz);
   const float alpha = cgx::widen(cgx::narrow<V>(alpha32));
   const float beta = cgx::widen(cgx::narrow<V>(beta32));
-  const int stride = gridDim.x * kThreads;
-  double acc = 0.0, accw = 0.0;
-  for (int row = blockIdx.x * kThreads + threadIdx.x; row < a.n;
-       row += stride) {
-    const float pv = cgx::widen(p[row]);
-    x[row] = cgx::narrow<V>(
-        __fadd_rn(cgx::widen(x[row]), __fmul_rn(alpha, pv)));
-    const V rs = cgx::narrow<V>(
-        __fsub_rn(cgx::widen(r[row]), __fmul_rn(alpha, cgx::widen(q[row]))));
-    r[row] = rs;
-    const float rv = cgx::widen(rs);
-    p[row] = cgx::narrow<V>(__fadd_rn(rv, __fmul_rn(beta, pv)));
-    const double rsq = __dmul_rn(rv, rv);
+  const int n = a.n;
+  const int gb = args.grid_b;
+  const int step = gb * kThreads;
+  const int u = threadIdx.x;
+  constexpr int kBRows = BRows<V>::value;
+  // Update a row from its loaded values, store it, add its sums.
+  const auto use = [&](int row, float xv, float rv, float pv, float qv,
+                       float wv, double& acc, double& accw) {
+    const cgx::Updated<V> v = cgx::cg_update<V>(xv, rv, pv, qv, alpha, beta);
+    x[row] = v.x;
+    r[row] = v.r;
+    p[row] = v.p;
+    const float rn = cgx::widen(v.r);
+    const double rsq = __dmul_rn(rn, rn);
     acc = __dadd_rn(acc, rsq);
     if constexpr (kWeighted)
-      accw = __dadd_rn(accw,
-                       __dmul_rn(rsq, static_cast<double>(cgx::widen(w[row]))));
-  }
-  acc = cgx::block_sum<kThreads>(acc, smem);
-  if constexpr (kWeighted) {
-    accw = cgx::block_sum<kThreads>(accw, smem);
-  } else {
-    accw = acc;
-  }
-  if (threadIdx.x == 0) {
-    a.part_b[blockIdx.x] = acc;
-    a.part_b[gridDim.x + blockIdx.x] = accw;
+      accw = __dadd_rn(accw, __dmul_rn(rsq, static_cast<double>(wv)));
+  };
+  for (int vb = blockIdx.x; vb < gb; vb += gridDim.x) {
+    double acc = 0.0, accw = 0.0;
+    int s = vb * kThreads;
+    // kBRows rows a step; only the last of them can lie past n.
+    for (; s + (kBRows - 1) * step < n; s += kBRows * step) {
+      float xv[kBRows], rv[kBRows], pv[kBRows], qv[kBRows], wv[kBRows];
+#pragma unroll
+      for (int j = 0; j < kBRows; ++j) {
+        const int row = s + u + j * step;
+        xv[j] = rv[j] = pv[j] = qv[j] = wv[j] = 0.0f;
+        if (j < kBRows - 1 || row < n) {
+          xv[j] = cgx::widen(x[row]);
+          rv[j] = cgx::widen(r[row]);
+          pv[j] = cgx::widen(p[row]);
+          qv[j] = cgx::widen(q[row]);
+          if constexpr (kWeighted) wv[j] = cgx::widen(w[row]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBRows; ++j) {
+        const int row = s + u + j * step;
+        if (j < kBRows - 1 || row < n)
+          use(row, xv[j], rv[j], pv[j], qv[j], wv[j], acc, accw);
+      }
+    }
+    for (int row = s + u; row < n; row += step)
+      use(row, cgx::widen(x[row]), cgx::widen(r[row]), cgx::widen(p[row]),
+          cgx::widen(q[row]), kWeighted ? cgx::widen(w[row]) : 0.0f, acc,
+          accw);
+    acc = cgx::block_sum<kThreads>(acc, smem);
+    if constexpr (kWeighted) {
+      accw = cgx::block_sum<kThreads>(accw, smem);
+    } else {
+      accw = acc;
+    }
+    if (u == 0) {
+      a.part_b[vb] = acc;
+      a.part_b[gb + vb] = accw;
+    }
   }
   // Every block has read n_rz, pq and qq before its ticket.
   if (!cgx::last_block(&c->ticket_b)) return;
   __threadfence();
-  const float rz1 = static_cast<float>(
-      cgx::grid_sum<kThreads>(a.part_b, gridDim.x, smem));
-  const float rw1 = static_cast<float>(
-      cgx::grid_sum<kThreads>(a.part_b + gridDim.x, gridDim.x, smem));
-  if (threadIdx.x == 0) {
+  const float rz1 =
+      static_cast<float>(cgx::grid_sum<kThreads>(a.part_b, gb, smem));
+  const float rw1 =
+      static_cast<float>(cgx::grid_sum<kThreads>(a.part_b + gb, gb, smem));
+  if (u == 0) {
     const int k1 = c->n_k + 1;
     c->rz = rz1;
     c->rw = rw1;
@@ -478,19 +541,16 @@ const void* a_kernel_for(int ntaps, int variable, int sym, int vec_bf16,
   return a_kernel_typed<bf16, bf16>(ntaps, variable, sym, design);
 }
 
+// The instance of kernel B: design 0 the first design, 1 kernel_b2; null
+// for another design.
 const void* b_kernel_for(int weighted, int vec_bf16, int design) {
-  if (design) {
-    if (vec_bf16)
-      return weighted ? reinterpret_cast<const void*>(kernel_b2<true, bf16>)
-                      : reinterpret_cast<const void*>(kernel_b2<false, bf16>);
-    return weighted ? reinterpret_cast<const void*>(kernel_b2<true, float>)
-                    : reinterpret_cast<const void*>(kernel_b2<false, float>);
-  }
-  if (vec_bf16)
-    return weighted ? reinterpret_cast<const void*>(kernel_b<true, bf16>)
-                    : reinterpret_cast<const void*>(kernel_b<false, bf16>);
-  return weighted ? reinterpret_cast<const void*>(kernel_b<true, float>)
-                  : reinterpret_cast<const void*>(kernel_b<false, float>);
+#define CGX_B(KW, V)                                                    \
+  (design ? reinterpret_cast<const void*>(kernel_b2<KW, V>)             \
+          : reinterpret_cast<const void*>(kernel_b<KW, V>))
+  if (design != 0 && design != 1) return nullptr;
+  if (vec_bf16) return weighted ? CGX_B(true, bf16) : CGX_B(false, bf16);
+  return weighted ? CGX_B(true, float) : CGX_B(false, float);
+#undef CGX_B
 }
 
 }  // namespace
@@ -507,7 +567,8 @@ extern "C" int cgx_fused_a_grid(int device, int ntaps, int variable, int sym,
 extern "C" int cgx_fused_b_grid(int device, int weighted, int vec_bf16,
                                 int* grid) {
   return cgx::full_grid<kThreads>(device,
-                                  b_kernel_for(weighted, vec_bf16, 0), grid);
+                                  b_kernel_for(weighted, vec_bf16, 0),
+                                  grid);
 }
 
 // Blocks of kernel_a2 that fit on the card at once.
@@ -545,17 +606,21 @@ extern "C" int cgx_fused_a(const void* p, void* q, const void* planes,
 }
 
 // Kernel B on `stream`; `w` is null for an unweighted solve.  x, r, p, q
-// and w hold bf16 when vec_bf16.  design 0: the first kernel B (folds
-// part_a itself); 1: kernel_b2 (reads p·q and q·q from ctl, folds its own
-// partials in its last block, writes `history`).  Both on grid_b blocks.
+// and w hold bf16 when vec_bf16.  Both designs run on grid_b blocks.
+// design 0: the first kernel B (folds part_a itself); 1: kernel_b2 (reads
+// p·q and q·q from ctl, folds its own partials in its last block, writes
+// `history`), which needs x, r, p, q and w in storage of their own.
 extern "C" int cgx_fused_b(void* x, void* r, void* p, const void* q,
                            const void* w, const double* part_a, int grid_a,
                            double* part_b, int grid_b, int* ctl,
                            float* history, int n, int vec_bf16, int design,
                            void* stream) {
-  if (grid_a < 1 || grid_b < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const void* k = b_kernel_for(w != nullptr, vec_bf16, design);
+  if (grid_a < 1 || grid_b < 1 || k == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   BArgs a{x, r, p, q, w, part_a, grid_a, part_b,
           reinterpret_cast<Ctl*>(ctl), history, n};
-  return cgx::launch<kThreads>(b_kernel_for(w != nullptr, vec_bf16, design),
-                               grid_b, &a, stream);
+  if (design == 0) return cgx::launch<kThreads>(k, grid_b, &a, stream);
+  B2Args b2{a, grid_b};
+  return cgx::launch<kThreads>(k, grid_b, &b2, stream);
 }

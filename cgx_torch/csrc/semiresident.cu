@@ -55,6 +55,42 @@
 // p_new: 7 streams, plus the planes twice.  Nothing of the TPU's VMEM
 // placement is carried over; keeping the resident vectors in shared memory
 // or the L2 on purpose is later work.
+//
+// The redesign (sr2_kernel; the first design, sr_kernel, stays as the
+// same-run "before", design 0 of the C entries, reached by no entry point
+// of the package).  The first design lost to the two-phase whole solve K2
+// in every tier while moving fewer streams (9 or 7 against K2's 10):
+//
+//   * every block re-summed all of the other sweep's partials after each
+//     barrier (grid_sum over ~1,056 doubles, twice, in each of ~1,056
+//     blocks).  Now the block that reaches a sweep's barrier last folds
+//     them, both arrays in one pass, in grid_sum's fixed order and
+//     publishes the two floats in a control block in device memory before
+//     it releases the others (cgx::barrier_fold: the arrival count is the
+//     ticket): (pq, qq) after the gram sweep, (rz, rw) after the update;
+//     every block reads two floats after the barrier;
+//   * each row's node came from two integer divisions and a thread had one
+//     row in flight.  Now a stencil's rows carry their node (cgx::Walk,
+//     stencil_row_at), and a 27-tap operator's gram sweep keeps two of a
+//     thread's rows in flight (virtual_sweep_rows), plane operators there
+//     at the carried node (plane_row_at, not carried where no constant tap
+//     off the centre reads it); their sums are added in row order, so K3's
+//     partition and order, and with them every bit, are unchanged.  At 7
+//     taps a second row or a carried node spilled at 32 registers and lost
+//     on the H100, so a thread takes one row a step and a plane operator
+//     reads flat (plane_row).  The update sweep loads all of a row's
+//     vectors before it stores any.  p is written in the kernel, so it is
+//     read with plain loads; the planes, which nothing writes, through the
+//     read-only path;
+//   * the kernel had no blocks-an-SM floor and the grid was whatever fit.
+//     Now it holds K3's first kernel A's occupancy (8 blocks an SM at 7
+//     taps, 4 at 27), and the wrapper picks a grid that divides K3's grids
+//     where it can (fused_onepass.launch_grid), so blocks sweep as many
+//     virtual blocks as each other.
+//
+// Plane operators of at most 7 taps in the rpq tier still run the first
+// design: there the redesign measured 1.012–1.019× its time on the H100
+// (fused_semiresident._design_for; PERF.md §6).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,6 +103,17 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+
+// The redesign's control block (8 words in device memory, zero before a
+// launch): the sums folded at each sweep's barrier, and the barrier.
+struct Ctl {
+  float pq, qq;        // after the gram sweep
+  float rz, rw;        // after the update sweep
+  unsigned int count;  // blocks at the current barrier (0 between them)
+  unsigned int gen;    // barriers passed
+  int pad[2];
+};
+static_assert(sizeof(Ctl) == 32, "Ctl is 8 words");
 
 struct Args {
   float* x;
@@ -86,6 +133,7 @@ struct Args {
   int* k_out;           // device: iterations run
   float* rz_out;        // device: (rz, rw) at the exit
   cgx::PlaneTaps taps;
+  Ctl* ctl;             // the redesign's control block; design 0: null
 };
 
 // One operator row of v: K3 kernel A's reader for the same operator.
@@ -219,54 +267,235 @@ __global__ void __launch_bounds__(kThreads) sr_kernel(Args a) {
   }
 }
 
+// -- The redesign ------------------------------------------------------------
+
+// The redesign's build knobs, by the operator's taps, picked on the H100
+// (PERF.md §6): the blocks an SM the kernel is held to (K3's first
+// kernel A's occupancy: 32 or 64 registers a thread); rows of a thread in
+// flight in the gram sweep (the update sweep keeps one); whether a plane
+// operator carries the node (else it reads flat, dividing only at a
+// constant tap off the centre, as the first design).  At 7 taps a second
+// row or a carried node spilled at 32 registers and lost.
+template <int kTaps>
+constexpr int kSr2Blocks = kTaps > 7 ? 4 : 8;
+template <int kTaps>
+constexpr int kGramRows = kTaps > 7 ? 2 : 1;
+template <int kTaps>
+constexpr bool kCarryPlanes = kTaps > 7;
+
+template <int kTaps, bool kPlanes, bool kSym, bool kRemat, typename P>
+__global__ void __launch_bounds__(kThreads, kSr2Blocks<kTaps>)
+    sr2_kernel(Args a) {
+  __shared__ double smem[2 * (kWarps + 1)];
+  const int nx = a.nx, ny = a.ny, nz = a.nz;
+  const int n = nx * ny * nz;
+  const int ga = a.grid_a, gb = a.grid_b;
+  const int u = threadIdx.x;
+  const bool weighted = a.w != nullptr;
+  Ctl* c = a.ctl;
+  float* p = a.p;
+  float* p_new = kRemat ? a.p_alt : a.p;
+  // The node is read only by constant taps off the centre (the plane taps
+  // guard by flat index): without them the walk is not carried.
+  bool walk = !kPlanes;
+  for (int t = 0; t < a.taps.s.n; ++t)
+    walk = walk || (a.taps.plane[t] < 0 &&
+                    (a.taps.s.dx[t] | a.taps.s.dy[t] | a.taps.s.dz[t]) != 0);
+  if (kPlanes && !kCarryPlanes<kTaps>) walk = false;
+  // A row of A·v, v read with plain loads (v is written in this kernel),
+  // the planes through the read-only path.
+  const auto apply = [&](const float* v, int row, const cgx::Walk& w) {
+    const auto ld = [=](int i) { return v[i]; };
+    if constexpr (kPlanes && kCarryPlanes<kTaps>) {
+      return cgx::plane_row_at<kTaps, kSym>(ld, static_cast<const P*>(a.planes),
+                                            row, w, n, nx, ny, nz, a.taps);
+    } else if constexpr (kPlanes) {
+      return cgx::plane_row<false, kTaps, kSym, float, P, true>(
+          v, static_cast<const P*>(a.planes), row, n, nx, ny, nz, a.taps);
+    } else {
+      return cgx::stencil_row_at<kTaps>(ld, w, nx, ny, nz, a.taps.s);
+    }
+  };
+  // A sweep ends at a grid-wide barrier whose last arriving block folds
+  // the sweep's g partials (two arrays) in grid_sum's order and publishes
+  // the two floats before it releases the others.
+  const auto barrier = [&](const double* part, int g, float* out) {
+    cgx::barrier_fold(&c->count, &c->gen, [&]() {
+      double s0, s1;
+      cgx::grid_sum2<kThreads>(part, g, s0, s1, smem);
+      if (u == 0) {
+        out[0] = static_cast<float>(s0);
+        out[1] = static_cast<float>(s1);
+      }
+    });
+    return make_float2(__ldcg(out), __ldcg(out + 1));
+  };
+
+  // Gram sweep over kernel A's partition: q = A·p (stored by rpq), Σ p·q,
+  // Σ q·q, as kernel A rounds and sums them.
+  auto gram = [&]() {
+    cgx::virtual_sweep_rows<kThreads, kGramRows<kTaps>>(
+        ga, n, ny, nz, walk,
+        [&](int row, const cgx::Walk& w) {
+          return make_float2(apply(p, row, w), p[row]);
+        },
+        [&](int row, float2 v, double (&acc)[2]) {
+          if constexpr (!kRemat) a.q[row] = v.x;
+          const double qd = v.x;
+          acc[0] = __dadd_rn(acc[0], __dmul_rn(qd, static_cast<double>(v.y)));
+          acc[1] = __dadd_rn(acc[1], __dmul_rn(qd, qd));
+        },
+        [&](int vb, double (&acc)[2]) {
+          cgx::block_sum2<kThreads>(acc[0], acc[1], smem);
+          if (u == 0) {
+            a.part_a[vb] = acc[0];
+            a.part_a[ga + vb] = acc[1];
+          }
+        });
+    return barrier(a.part_a, ga, &c->pq);
+  };
+
+  // Update sweep over kernel B's partition, as kernel B rounds and sums.
+  // rp / p recompute q = A·p_old from the old buffer and write the other.
+  struct Row {
+    cgx::Updated<float> v;
+    float w;
+  };
+  auto update = [&](float alpha, float beta) {
+    const auto store = [&](int vb, double (&acc)[2]) {
+      if (weighted) {
+        cgx::block_sum2<kThreads>(acc[0], acc[1], smem);
+      } else {
+        acc[0] = acc[1] = cgx::block_sum<kThreads>(acc[0], smem);
+      }
+      if (u == 0) {
+        a.part_b[vb] = acc[0];
+        a.part_b[gb + vb] = acc[1];
+      }
+    };
+    cgx::virtual_sweep_rows<kThreads, 1>(
+        gb, n, ny, nz, kRemat && walk,
+        [&](int row, const cgx::Walk& w) {
+          const float pv = p[row];
+          float qv;
+          if constexpr (kRemat) {
+            qv = apply(p, row, w);
+          } else {
+            qv = a.q[row];
+          }
+          return Row{cgx::cg_update<float>(a.x[row], a.r[row], pv, qv, alpha,
+                                           beta),
+                     weighted ? a.w[row] : 0.0f};
+        },
+        [&](int row, const Row& v, double (&acc)[2]) {
+          a.x[row] = v.v.x;
+          a.r[row] = v.v.r;
+          p_new[row] = v.v.p;
+          const double rsq = __dmul_rn(v.v.r, v.v.r);
+          acc[0] = __dadd_rn(acc[0], rsq);
+          if (weighted)
+            acc[1] = __dadd_rn(acc[1], __dmul_rn(rsq, static_cast<double>(v.w)));
+        },
+        store);
+    return barrier(a.part_b, gb, &c->rz);
+  };
+
+  float rz = a.rz_in[0];
+  float rw = a.rz_in[1];
+  const float tol_sq = *a.tol_sq;
+  int k = 0;
+  if (k < a.maxit && rw > tol_sq) {
+    float2 s = gram();
+    while (true) {
+      const float pq = s.x, qq = s.y;
+      const float alpha = __fdiv_rn(rz, pq);
+      const float beta = __fdiv_rn(
+          __fsub_rn(__fmul_rn(__fmul_rn(alpha, alpha), qq), rz), rz);
+      // A control word is written again only at its sweep's next barrier,
+      // which no block reaches before it has read the word.
+      s = update(alpha, beta);
+      rz = s.x;
+      rw = s.y;
+      ++k;
+      if constexpr (kRemat) {
+        float* t = p;
+        p = p_new;
+        p_new = t;
+      }
+      if (!(k < a.maxit && rw > tol_sq)) break;
+      s = gram();
+    }
+  }
+  if constexpr (kRemat) {
+    // The newest p into the first buffer (after the last barrier nothing
+    // reads either buffer).
+    if (p != a.p) {
+      for (int row = blockIdx.x * kThreads + u; row < n;
+           row += gridDim.x * kThreads)
+        a.p[row] = p[row];
+    }
+  }
+  if (blockIdx.x == 0 && u == 0) {
+    *a.k_out = k;
+    a.rz_out[0] = rz;
+    a.rz_out[1] = rw;
+  }
+}
+
+// design 0: the first design (sr_kernel); 1: the redesign (sr2_kernel).
+#define CGX_SR(T, PL, SY, RE, P)                                          \
+  (design ? reinterpret_cast<const void*>(sr2_kernel<T, PL, SY, RE, P>)   \
+          : reinterpret_cast<const void*>(sr_kernel<T, PL, SY, RE, P>))
+
 template <int kTaps, bool kRemat>
-const void* planes_kernel(int sym, int plane_bf16) {
+const void* planes_kernel(int sym, int plane_bf16, int design) {
   using bf16 = __nv_bfloat16;
   if (plane_bf16)
-    return sym ? reinterpret_cast<const void*>(
-                     sr_kernel<kTaps, true, true, kRemat, bf16>)
-               : reinterpret_cast<const void*>(
-                     sr_kernel<kTaps, true, false, kRemat, bf16>);
-  return sym ? reinterpret_cast<const void*>(
-                   sr_kernel<kTaps, true, true, kRemat, float>)
-             : reinterpret_cast<const void*>(
-                   sr_kernel<kTaps, true, false, kRemat, float>);
+    return sym ? CGX_SR(kTaps, true, true, kRemat, bf16)
+               : CGX_SR(kTaps, true, false, kRemat, bf16);
+  return sym ? CGX_SR(kTaps, true, true, kRemat, float)
+             : CGX_SR(kTaps, true, false, kRemat, float);
 }
 
 template <bool kRemat>
-const void* kernel_remat(int ntaps, int variable, int sym, int plane_bf16) {
+const void* kernel_remat(int ntaps, int variable, int sym, int plane_bf16,
+                         int design) {
   const bool wide = ntaps > 7;
   if (!variable)
-    return wide ? reinterpret_cast<const void*>(
-                      sr_kernel<cgx::kMaxTaps, false, false, kRemat, float>)
-                : reinterpret_cast<const void*>(
-                      sr_kernel<7, false, false, kRemat, float>);
-  return wide ? planes_kernel<cgx::kMaxTaps, kRemat>(sym, plane_bf16)
-              : planes_kernel<7, kRemat>(sym, plane_bf16);
+    return wide ? CGX_SR(cgx::kMaxTaps, false, false, kRemat, float)
+                : CGX_SR(7, false, false, kRemat, float);
+  return wide ? planes_kernel<cgx::kMaxTaps, kRemat>(sym, plane_bf16, design)
+              : planes_kernel<7, kRemat>(sym, plane_bf16, design);
 }
 
-// The instance for the operator, the plane type and the tier (remat: rp or
-// p, which never store q).
+#undef CGX_SR
+
+// The instance for the operator, the plane type, the tier (remat: rp or
+// p, which never store q) and the design; null for an unknown design.
 const void* kernel_for(int ntaps, int variable, int sym, int plane_bf16,
-                       int remat) {
-  return remat ? kernel_remat<true>(ntaps, variable, sym, plane_bf16)
-               : kernel_remat<false>(ntaps, variable, sym, plane_bf16);
+                       int remat, int design) {
+  if (design != 0 && design != 1) return nullptr;
+  return remat ? kernel_remat<true>(ntaps, variable, sym, plane_bf16, design)
+               : kernel_remat<false>(ntaps, variable, sym, plane_bf16,
+                                     design);
 }
 
 }  // namespace
 
 // The cooperative grid of the instance: as many blocks as fit at once.
 extern "C" int cgx_sr_grid(int device, int ntaps, int variable, int sym,
-                           int plane_bf16, int remat, int* grid) {
-  return cgx::full_grid<kThreads>(
-      device, kernel_for(ntaps, variable, sym, plane_bf16, remat), grid);
+                           int plane_bf16, int remat, int design, int* grid) {
+  const void* k = kernel_for(ntaps, variable, sym, plane_bf16, remat, design);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return cgx::full_grid<kThreads>(device, k, grid);
 }
 
 // One solve on `stream`.  `plane[t]` is tap t's plane index (−1: constant
 // tap coeffs[t]); `planes` is null for a constant-coefficient operator and
 // holds bf16 when plane_bf16; `w` may be null.  remat = 0 (rpq) needs q,
 // remat = 1 (rp, p) needs p_alt.  grid_a and grid_b are K3's kernel A and
-// B grids: the partition of the sums.
+// B grids: the partition of the sums.  design 0: the first design; 1: the
+// redesign, which needs `ctl` (8 words, zero).
 extern "C" int cgx_sr_cg(float* x, float* r, float* p, float* p_alt,
                          float* q, const void* planes, const float* w,
                          double* part_a, int grid_a, double* part_b,
@@ -275,15 +504,17 @@ extern "C" int cgx_sr_cg(float* x, float* r, float* p, float* p_alt,
                          const int* plane, int sym, int plane_bf16,
                          int remat, const float* tol_sq, int maxit,
                          const float* rz_in, int* k_out, float* rz_out,
-                         void* stream) {
+                         int* ctl, int design, void* stream) {
+  const void* k =
+      kernel_for(ntaps, planes != nullptr, sym, plane_bf16, remat, design);
   if (ntaps < 1 || ntaps > cgx::kMaxTaps || grid < 1 || grid_a < 1 ||
-      grid_b < 1 || (remat ? p_alt == nullptr : q == nullptr))
+      grid_b < 1 || (remat ? p_alt == nullptr : q == nullptr) ||
+      k == nullptr || (design == 1 && ctl == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{x,      r,      p,      p_alt,  q,     planes, w,     part_a,
          part_b, grid_a, grid_b, nx,     ny,    nz,     tol_sq, maxit,
          rz_in,  k_out,  rz_out,
-         cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz)};
-  return cgx::launch_cooperative<kThreads>(
-      kernel_for(ntaps, planes != nullptr, sym, plane_bf16, remat), grid, &a,
-      stream);
+         cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz),
+         reinterpret_cast<Ctl*>(ctl)};
+  return cgx::launch_cooperative<kThreads>(k, grid, &a, stream);
 }

@@ -163,8 +163,10 @@ __device__ __forceinline__ float stencil_row(const V* x, int row, int nx,
 
 // Row of a mixed operator over n = nx·ny·nz rows.  Plane p is
 // planes[p·n .. p·n + n).  The range guards are written so that nothing
-// overflows int32 for any n < 2³¹.
-template <bool kReadOnly, int kTaps, bool kSym, typename V, typename P>
+// overflows int32 for any n < 2³¹.  kPlanesReadOnly: the planes through
+// the read-only path (default: as x).
+template <bool kReadOnly, int kTaps, bool kSym, typename V, typename P,
+          bool kPlanesReadOnly = kReadOnly>
 __device__ __forceinline__ float plane_row(const V* x, const P* planes,
                                            int row,
                                            int n, int nx, int ny, int nz,
@@ -191,11 +193,11 @@ __device__ __forceinline__ float plane_row(const V* x, const P* planes,
       const int off = t.off[s];
       float term = 0.0f;
       if (off >= -row && off < n - row)
-        term = __fmul_rn(load<kReadOnly>(w + row),
+        term = __fmul_rn(load<kPlanesReadOnly>(w + row),
                          load<kReadOnly>(x + row + off));
       if (kSym && off != 0 && off <= row && off > row - n) {
         const int m = row - off;
-        term = __fadd_rn(term, __fmul_rn(load<kReadOnly>(w + m),
+        term = __fadd_rn(term, __fmul_rn(load<kPlanesReadOnly>(w + m),
                                          load<kReadOnly>(x + m)));
       }
       acc = __fadd_rn(acc, term);
@@ -300,6 +302,24 @@ __device__ __forceinline__ float plane_row_at(Load ld, const P* planes,
     }
   }
   return acc;
+}
+
+// One row of the CG update (the two-pass engine's kernel B and the
+// semi-resident kernel's update sweep): x' = x + αp, r' = r − αq and p' =
+// r' + βp from the widened values, each taken in fp32 and rounded once to
+// V, p' from the rounded r'.
+template <typename V>
+struct Updated {
+  V x, r, p;
+};
+
+template <typename V>
+__device__ __forceinline__ Updated<V> cg_update(float x, float r, float p,
+                                                float q, float alpha,
+                                                float beta) {
+  const V rs = narrow<V>(__fsub_rn(r, __fmul_rn(alpha, q)));
+  return {narrow<V>(__fadd_rn(x, __fmul_rn(alpha, p))), rs,
+          narrow<V>(__fadd_rn(widen(rs), __fmul_rn(beta, p)))};
 }
 
 // A grid-stride walk over rows first, first + stride, … < n with the node
@@ -625,6 +645,33 @@ __device__ __forceinline__ T block_sum(T v, T* smem) {
   return s;
 }
 
+// Two block sums with one tree's barriers, each in block_sum's order (the
+// same bits as two calls).  smem holds 2·(kThreads/32 + 1) values.
+template <int kThreads, typename T>
+__device__ __forceinline__ void block_sum2(T& a, T& b, T* smem) {
+  constexpr int kWarps = kThreads / 32;
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if ((threadIdx.x & 31) == 0) {
+    smem[threadIdx.x >> 5] = a;
+    smem[kWarps + 1 + (threadIdx.x >> 5)] = b;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T s = 0, t = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      s += smem[w];
+      t += smem[kWarps + 1 + w];
+    }
+    smem[kWarps] = s;
+    smem[2 * kWarps + 1] = t;
+  }
+  __syncthreads();
+  a = smem[kWarps];
+  b = smem[2 * kWarps + 1];
+  __syncthreads();
+}
+
 // Sum of `count` block partials, in the same order in every block.
 // __ldcg reads through L2, where the other blocks' writes land.
 template <int kThreads, typename T>
@@ -632,6 +679,20 @@ __device__ __forceinline__ T grid_sum(const T* part, int count, T* smem) {
   T v = 0;
   for (int b = threadIdx.x; b < count; b += kThreads) v += __ldcg(part + b);
   return block_sum<kThreads>(v, smem);
+}
+
+// grid_sum of part[0, count) and of part[count, 2·count) at once, each in
+// grid_sum's order (the same bits as two calls).
+template <int kThreads, typename T>
+__device__ __forceinline__ void grid_sum2(const T* part, int count, T& a,
+                                          T& b, T* smem) {
+  a = 0;
+  b = 0;
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    a += __ldcg(part + i);
+    b += __ldcg(part + count + i);
+  }
+  block_sum2<kThreads>(a, b, smem);
 }
 
 // True in the block that finishes last (the multi-RHS engine and the
@@ -651,6 +712,43 @@ __device__ __forceinline__ bool last_block(int* count) {
   }
   __syncthreads();
   return last;
+}
+
+// A grid-wide barrier whose last arriving block runs fold() (every thread
+// of it) before it releases the others: the fold is done once, on the
+// barrier's own critical path, and costs no ticket of its own.  A
+// cooperative launch keeps every block resident, so the others may spin.
+// count: the arrivals (0 between barriers); gen: the barrier's generation.
+// As cooperative_groups' grid.sync(), each block's thread 0 fences before
+// it arrives and after it is released, so every write before the barrier
+// (and fold()'s) is visible to every block after it.
+template <typename Fold>
+__device__ __forceinline__ void barrier_fold(unsigned int* count,
+                                             unsigned int* gen, Fold fold) {
+  __shared__ bool last;
+  volatile unsigned int* vgen = gen;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int g = *vgen;  // before arriving: no release can pass
+    __threadfence();
+    last = atomicAdd(count, 1u) == gridDim.x - 1;
+    if (!last) {
+      while (*vgen == g) {
+      }
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (last) {
+    fold();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      *count = 0;
+      __threadfence();
+      atomicAdd(gen, 1u);
+    }
+    __syncthreads();
+  }
 }
 
 // -- Launch helpers -----------------------------------------------------------
@@ -733,6 +831,48 @@ __device__ __forceinline__ void virtual_sweep_walk(int g, int n, int ny,
     for (Walk w(row < n ? row : 0, step, ny, nz); row < n; row += step) {
       use(row, value(row, w), acc);
       w.advance(ny, nz);
+    }
+    store(vb, acc);
+  }
+}
+
+// The same with kRows (1 or 2) of a thread's rows in flight (the
+// redesigned semi-resident kernel, as the redesigned kernel A of the
+// two-pass engine reads): value(row, walk) of rows r and r + g·kThreads is
+// formed before either is used, and use(row, v, acc) takes them in row
+// order, so every sum keeps the one-row order.  walk = false: value never
+// reads the node, which is then not carried.
+template <int kThreads, int kRows, typename Value, typename Use,
+          typename Store>
+__device__ __forceinline__ void virtual_sweep_rows(int g, int n, int ny,
+                                                   int nz, bool walk,
+                                                   Value value, Use use,
+                                                   Store store) {
+  static_assert(kRows == 1 || kRows == 2, "one or two rows in flight");
+  using T = decltype(value(0, Walk()));
+  const int step = g * kThreads;
+  const int u = threadIdx.x;
+  for (int vb = blockIdx.x; vb < g; vb += gridDim.x) {
+    double acc[2] = {0.0, 0.0};
+    int s = vb * kThreads;
+    Walk w(s + u, step, ny, nz);
+    if constexpr (kRows == 2) {
+      for (; s + step < n; s += 2 * step) {
+        const int r0 = s + u, r1 = r0 + step;  // r0 < n
+        Walk w1 = w;
+        if (walk) w1.advance(ny, nz);
+        const T v0 = value(r0, w);
+        T v1{};
+        if (r1 < n) v1 = value(r1, w1);
+        use(r0, v0, acc);
+        if (r1 < n) use(r1, v1, acc);
+        w = w1;
+        if (walk) w.advance(ny, nz);
+      }
+    }
+    for (; s + u < n; s += step) {
+      use(s + u, value(s + u, w), acc);
+      if (walk) w.advance(ny, nz);
     }
     store(vb, acc);
   }

@@ -46,9 +46,9 @@ _SIGNATURES = {
                     _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cgx_fused_b": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                     _P],
-    "cgx_sr_grid": [_I, _I, _I, _I, _I, _I, _P],
+    "cgx_sr_grid": [_I] * 7 + [_P],
     "cgx_sr_cg": [_P] * 8 + [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                             _I, _I, _P, _I, _P, _P, _P, _P],
+                             _I, _I, _P, _I, _P, _P, _P, _P, _I, _P],
     "cgx_onepass_grid": [_I, _I, _I, _P],
     "cgx_onepass": [_P] * 6 + [_I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I,
                                _P, _P, _P],

@@ -43,10 +43,13 @@ On a CUDA tensor :meth:`FusedCG.run` launches kernel A and kernel B once
 per iteration from a Python loop.  The exit decision, α, β and the history
 slot stay on the device (see the source note); the host reads one flag per
 chunk of :data:`CHUNK` iterations, and the launches past the exit return at
-once.  The redesigned kernel A (``kernel_a2``) keeps K3's partition of
-the sums, so it equals the first kernel A bit for bit; it reads each
-row's taps at the carried node with two rows in flight.  Both kernels
-fold the other's partials once a launch.  The first design of both stays
+once.  The redesigned kernels A and B (``kernel_a2``, ``kernel_b2``) keep
+K3's partition of the sums, so they equal the first kernels bit for bit;
+kernel A reads each row's taps at the carried node with two rows in
+flight, kernel B loads :data:`B_ROWS` of a thread's rows (two in bf16
+vectors) before it stores any (its vectors must then share no storage:
+:func:`check_no_alias`).
+Both kernels fold the other's partials once a launch.  The first design of both stays
 as the same-run "before" (:func:`_before_kernel_a`, :func:`_before_solve`,
 counted nowhere).  On a CPU tensor it takes the plain version,
 :meth:`FusedCG.run_reference`, which a CUDA tensor can also be given
@@ -71,7 +74,9 @@ from cgx_torch.sparse.stencil import _shift
 __all__ = ["FusedCG", "FusedState", "tap_matvec", "threshold",
            "plane_tap_arrays", "fused_a_launches", "fused_b_launches",
            "fused_a_bf16_launches", "fused_b_bf16_launches",
-           "fused_a_bf16_planes_launches", "CHUNK"]
+           "fused_a_bf16_planes_launches", "CHUNK", "B_ROWS",
+           "check_no_alias", "sweep_groups", "even_grid",
+           "kernel_b_rows_reference"]
 
 # Kernel launches so far, every mode (a run resets them to show which
 # kernels it used), and those of the narrow modes: bf16 vectors (kernels A
@@ -93,6 +98,60 @@ _PQ, _QQ = 12, 13
 # The kernels of fused_engine.cu (its `design`): the first design, kept as
 # the same-run "before", and the redesign.
 _FIRST_DESIGN, _REDESIGN = 0, 1
+
+# Rows of a thread the redesigned kernel B loads before it stores any, by
+# the vector type (BRows in fused_engine.cu; two fp32 rows measured slower
+# than the first design on the H100, PERF.md §6).
+B_ROWS = {torch.float32: 1, torch.bfloat16: 2}
+
+
+def check_no_alias(what: str, **tensors) -> None:
+    """Raise if two of the named tensors share storage (None entries are
+    skipped): the redesigned kernel B takes its vectors as ``__restrict__``
+    and loads rows ahead of its stores."""
+    seen = {}
+    for name, v in tensors.items():
+        if v is None:
+            continue
+        key = (v.device, v.untyped_storage().data_ptr())
+        if key in seen:
+            raise ValueError(f"{what}: {seen[key]} and {name} share storage")
+        seen[key] = name
+
+
+def even_grid(g: int, fit: int) -> int:
+    """A launch grid over ``g`` virtual blocks: at most ``fit`` blocks and
+    at most ``g``, then as few as keep the same number of virtual blocks in
+    every block."""
+    per = -(-g // min(fit, g))
+    return -(-g // per)
+
+
+def sweep_groups(g: int, n: int, rows: int, threads: int = 256):
+    """The rows of the redesigned sweeps, as a thread loads them:
+    ``{(vb, u): [group, ...]}`` for thread ``u`` of virtual block ``vb`` of
+    ``g``, each group the rows loaded together before any is used, in the
+    kernel's order.  The thread's rows are vb·threads + u + m·g·threads
+    < n; the kernels take ``rows`` at a time while the group's first row
+    plus ``rows − 1`` steps lies below n (only its last row may not, and
+    is dropped), then one at a time (K3 B's :data:`B_ROWS` and K4's
+    ``virtual_sweep_rows`` are ``rows`` = 1 or 2)."""
+    step = g * threads
+    out = {}
+    for vb in range(g):
+        for u in range(threads):
+            groups, s = [], vb * threads
+            while s + (rows - 1) * step < n:
+                grp = [s + u + j * step for j in range(rows)
+                       if s + u + j * step < n]
+                if grp:     # one row a step: past n nothing is loaded
+                    groups.append(grp)
+                s += rows * step
+            while s + u < n:
+                groups.append([s + u])
+                s += step
+            out[vb, u] = groups
+    return out
 
 
 def tap_matvec(nx: int, ny: int, nz: int, taps, coeffs, planes, sym: bool,
@@ -139,6 +198,74 @@ def exact_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``Σ u·v`` of fp32 vectors taken exactly: fp64 products (exact for
     fp32 factors) summed in fp64, rounded to fp32 once."""
     return torch.sum(u.to(torch.float64) * v.to(torch.float64)).float()
+
+
+def _block_tree(v: torch.Tensor, threads: int = 256) -> torch.Tensor:
+    """``cgx::block_sum`` of each row of ``v`` (…, threads) in fp64, in the
+    kernels' order: each warp's xor butterfly, then the warps' sums added
+    to 0 one after another."""
+    lane = torch.arange(32)
+    w = v.reshape(*v.shape[:-1], threads // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        w = w + w[..., lane ^ o]
+    s = torch.zeros(v.shape[:-1], dtype=v.dtype)
+    for i in range(threads // 32):
+        s = s + w[..., i, 0]
+    return s
+
+
+def _fold(part: torch.Tensor, threads: int = 256) -> torch.Tensor:
+    """``cgx::grid_sum`` of ``g`` partials: thread t adds t, t + threads,
+    … to 0, then the block tree; rounded to fp32 once."""
+    g = part.shape[0]
+    cols = -(-g // threads)
+    v = torch.zeros(cols * threads, dtype=torch.float64)
+    v[:g] = part
+    acc = torch.zeros(threads, dtype=torch.float64)
+    for c in range(cols):
+        acc = acc + v[c * threads:(c + 1) * threads]
+    return _block_tree(acc, threads).float()
+
+
+def kernel_b_rows_reference(eng: "FusedCG", rz, pq, qq, x, r, p, q, g: int,
+                            rows: int, threads: int = 256):
+    """Plain version of the redesigned kernel B over K3's partition of
+    ``g`` virtual blocks (CPU tensors): a thread's rows taken ``rows`` at a
+    time, each group's loads before its updates and stores, every sum in
+    fp64 in each thread's row order, each virtual block's tree, and the
+    fold of the ``g`` partials, in the kernel's orders.  Returns ``(x', r',
+    p', Σ r'², Σ r'²·w)``, which :meth:`FusedCG.kernel_b_reference` gives
+    with its sums taken in torch's order."""
+    dt = x.dtype
+    alpha32 = rz / pq
+    beta = ((alpha32 * alpha32 * qq - rz) / rz).to(dt).float()
+    alpha = alpha32.to(dt).float()
+    n, step = x.shape[0], g * threads
+    src = [v.float() for v in (x, r, p, q)]
+    w = None if eng.weight is None else eng.weight.double()
+    out = [torch.empty_like(v) for v in (x, r, p)]
+    acc = torch.zeros(step, dtype=torch.float64)
+    accw = torch.zeros(step, dtype=torch.float64)
+    steps = -(-n // step)
+    for m0 in range(0, steps, rows):
+        cuts = [slice(m * step, min((m + 1) * step, n))
+                for m in range(m0, min(m0 + rows, steps))]
+        loaded = [[v[c] for v in src] for c in cuts]
+        for c, (xv, rv, pv, qv) in zip(cuts, loaded):
+            xs = (xv + alpha * pv).to(dt)
+            rs = (rv - alpha * qv).to(dt)
+            ps = (rs.float() + beta * pv).to(dt)
+            for o, v in zip(out, (xs, rs, ps)):
+                o[c] = v
+            rsq = rs.double() ** 2
+            k = c.stop - c.start
+            acc[:k] = acc[:k] + rsq
+            if w is not None:
+                accw[:k] = accw[:k] + rsq * w[c]
+    part = _block_tree(acc.reshape(g, threads), threads)
+    part_w = (part if w is None
+              else _block_tree(accw.reshape(g, threads), threads))
+    return tuple(out) + (_fold(part, threads), _fold(part_w, threads))
 
 
 def exact_sums(r: torch.Tensor, weight: Optional[torch.Tensor]):
@@ -457,8 +584,7 @@ class FusedCG:
             device.index, len(self.taps), int(self.planes is not None),
             int(self.sym), *self._bf16_flags(), ctypes.byref(fit)),
             "fused kernel A occupancy (redesign)")
-        per = -(-ga // min(fit.value, ga))
-        return -(-ga // per)
+        return even_grid(ga, fit.value)
 
     def _a_args(self, p, q, part_a, ga, part_b, gb, ctl, hist, init=0,
                 design=_REDESIGN):
@@ -474,6 +600,9 @@ class FusedCG:
 
     def _b_args(self, x, r, p, q, part_a, ga, part_b, gb, ctl, hist,
                 design=_REDESIGN):
+        if design == _REDESIGN:
+            check_no_alias("FusedCG kernel B", x=x, r=r, p=p, q=q,
+                           w=self.weight)
         return (x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(),
                 None if self.weight is None else self.weight.data_ptr(),
                 part_a.data_ptr(), ga, part_b.data_ptr(), gb,

@@ -30,15 +30,28 @@ kernel takes them over the two-pass engine's partition
 The plain version, :func:`sr_cg_reference`, is the same algebra through
 K3's plain kernels, so on the CPU it equals K3's plain solve bit for bit.
 
+The kernel (``sr2_kernel``) folds each sweep's partials once, in the
+sweep's last block, carries each row's node and keeps two of a thread's
+rows in flight, and holds K3's first kernel A's occupancy; its grid is
+:func:`~cgx_torch.kernels.fused_onepass.launch_grid` over K3's grids
+(:func:`sr_launch_grid`), a launch knob that changes no bit.  The first
+design (``sr_kernel``) stays as the same-run "before"
+(:func:`_before_call`, :func:`_before_solve`: CUDA only, counted
+nowhere), and is the kernel of the one instance where the redesign
+measured slower on the H100 (:func:`_design_for`).
+
 :func:`sr_cg_call` launches the kernel for a CUDA ``b`` and takes the
 plain version only for a CPU ``b``.  ``sr_cg_launches`` counts the
-constant-tap launches, ``sr_cg_planes_launches`` the planes-mode ones and
-``sr_cg_bf16_launches`` those with bf16 planes among them.
+redesign's constant-tap launches, ``sr_cg_planes_launches`` its
+planes-mode ones, ``sr_cg_first_launches`` the first design's launches
+on the package's path (:func:`_design_for`), and ``sr_cg_bf16_launches``
+the launches with bf16 planes, of either kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -46,16 +59,19 @@ import torch
 
 from cgx_torch.kernels.fused_engine import (FusedCG, exact_sums,
                                             plane_tap_arrays)
+from cgx_torch.kernels.fused_onepass import launch_grid
 from cgx_torch.solve.cg import CGResult
 
 __all__ = ["SRGeometry", "make_sr_geometry", "sr_mode", "sr_cg",
            "sr_cg_call", "sr_cg_reference", "sr_stencil_cg", "sr_dia_cg",
-           "sr_dia_supported", "SR_L2_BUDGET", "sr_cg_launches",
-           "sr_cg_planes_launches", "sr_cg_bf16_launches"]
+           "sr_dia_supported", "SR_L2_BUDGET", "STREAMS", "sr_launch_grid",
+           "sr_cg_launches", "sr_cg_planes_launches", "sr_cg_first_launches",
+           "sr_cg_bf16_launches"]
 
 # Kernel launches so far (a run resets them to show which kernels it used).
 sr_cg_launches = 0
 sr_cg_planes_launches = 0
+sr_cg_first_launches = 0
 sr_cg_bf16_launches = 0
 
 # The tier plan's budget: the L2 of an NVIDIA H100 SXM, 50 MiB
@@ -64,6 +80,20 @@ SR_L2_BUDGET = 50 << 20
 
 # Vectors each tier keeps resident.
 _MODE_VECTORS = {"rpq": 3, "rp": 2, "p": 1}
+
+# Vector streams of n floats an iteration: rpq reads p (gram) and x, r, p,
+# q and writes q, x, r, p; rp and p read p (gram) and x, r, p_old and
+# write x, r, p_new (the planes and w apart).
+STREAMS = {"rpq": 9, "rp": 7, "p": 7}
+
+# The kernels of semiresident.cu (its `design`): the first design, kept as
+# the same-run "before", and the redesign.
+_FIRST_DESIGN, _REDESIGN = 0, 1
+
+# Words of the redesign's control block (struct Ctl in semiresident.cu).
+_CTL_WORDS = 8
+
+_cached_grid = functools.lru_cache(maxsize=None)(launch_grid)
 
 
 @dataclass(frozen=True)
@@ -204,9 +234,47 @@ def sr_cg_reference(g: SRGeometry, b: torch.Tensor, *, coeffs,
             torch.stack([rz, rw]), tol_sq)
 
 
+def _occupancy(lib, dev, g: SRGeometry, eng: FusedCG, design: int) -> int:
+    """Blocks of the kernel (``design``) for the operator and tier that fit
+    on the card at once."""
+    from cgx_torch.kernels import _build
+
+    variable = int(eng.planes is not None)
+    bf16 = int(variable and eng.plane_dtype == torch.bfloat16)
+    grid = ctypes.c_int(0)
+    _build.check(lib.cgx_sr_grid(dev.index, len(g.taps), variable,
+                                 int(eng.sym), bf16, int(g.mode != "rpq"),
+                                 design, ctypes.byref(grid)),
+                 "sr_cg occupancy query")
+    return grid.value
+
+
+def sr_launch_grid(g: SRGeometry, eng: FusedCG, dev, ga: int,
+                   gb: int) -> int:
+    """The kernel's grid on ``dev`` over K3's grids ``ga`` (the gram sweep)
+    and ``gb`` (the update): :func:`launch_grid` within the blocks that fit
+    at once."""
+    from cgx_torch.kernels import _build
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cap = _occupancy(_build.library(), dev, g, eng, _REDESIGN)
+    return _cached_grid(ga, gb, cap, sms)
+
+
+def _design_for(g: SRGeometry, eng: FusedCG) -> int:
+    """The kernel an instance runs: the redesign, but the first design for
+    plane operators of at most 7 taps in the rpq tier, where the redesign
+    measured 1.012–1.019× the first design's time in four same-run
+    comparisons on the H100 (PERF.md §6)."""
+    if eng.planes is not None and len(g.taps) <= 7 and g.mode == "rpq":
+        return _FIRST_DESIGN
+    return _REDESIGN
+
+
 def _sr_cuda(g: SRGeometry, eng: FusedCG, x, r, p, rz_in, tol_sq, maxiter,
-             grids):
-    global sr_cg_launches, sr_cg_planes_launches, sr_cg_bf16_launches
+             grids, design):
+    global sr_cg_launches, sr_cg_planes_launches, sr_cg_first_launches
+    global sr_cg_bf16_launches
     from cgx_torch.kernels import _build
     from cgx_torch.kernels.stencil import check_cuda_vector
 
@@ -222,13 +290,17 @@ def _sr_cuda(g: SRGeometry, eng: FusedCG, x, r, p, rz_in, tol_sq, maxiter,
                          f"planes, not {eng.plane_dtype}")
     lib = _build.library()
     ga, gb = eng.grids(dev) if grids is None else map(int, grids)
+    count = design is None          # the package's path, not the "before"
+    if design is None:
+        design = _design_for(g, eng)
     remat = int(g.mode != "rpq")
     variable = int(eng.planes is not None)
     bf16 = int(variable and eng.plane_dtype == torch.bfloat16)
-    grid = ctypes.c_int(0)
-    _build.check(lib.cgx_sr_grid(dev.index, len(g.taps), variable,
-                                 int(eng.sym), bf16, remat,
-                                 ctypes.byref(grid)), "sr_cg occupancy query")
+    if design == _REDESIGN:
+        grid = sr_launch_grid(g, eng, dev, ga, gb)
+        ctl = torch.zeros(_CTL_WORDS, dtype=torch.int32, device=dev)
+    else:
+        grid, ctl = _occupancy(lib, dev, g, eng, design), None
     part_a = torch.empty(2 * ga, dtype=torch.float64, device=dev)
     part_b = torch.empty(2 * gb, dtype=torch.float64, device=dev)
     p_alt = torch.empty_like(p) if remat else None
@@ -243,17 +315,20 @@ def _sr_cuda(g: SRGeometry, eng: FusedCG, x, r, p, rz_in, tol_sq, maxiter,
         rc = lib.cgx_sr_cg(
             x.data_ptr(), r.data_ptr(), p.data_ptr(), ptr(p_alt), ptr(q),
             ptr(eng.planes), ptr(eng.weight), part_a.data_ptr(), ga,
-            part_b.data_ptr(), gb, grid.value, g.nx, g.ny, g.nz,
+            part_b.data_ptr(), gb, grid, g.nx, g.ny, g.nz,
             len(g.taps), taps_c, coef_c, plane_c, int(eng.sym), bf16, remat,
             tol_sq.data_ptr(), min(int(maxiter), 2 ** 31 - 1),
-            rz_in.data_ptr(), k_out.data_ptr(), rz_out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            rz_in.data_ptr(), k_out.data_ptr(), rz_out.data_ptr(), ptr(ctl),
+            design, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "sr_cg cooperative launch")
-    if variable:
-        sr_cg_planes_launches += 1
+    if count:
         sr_cg_bf16_launches += bf16
-    else:
-        sr_cg_launches += 1
+        if design == _FIRST_DESIGN:
+            sr_cg_first_launches += 1
+        elif variable:
+            sr_cg_planes_launches += 1
+        else:
+            sr_cg_launches += 1
     return x, r, p, k_out[0], rz_out
 
 
@@ -283,10 +358,45 @@ def sr_cg_call(g: SRGeometry, b: torch.Tensor, *, coeffs,
                                resume=resume, x0_l=x0_l)
     if b.device.type != "cuda":
         raise ValueError(f"sr_cg: unsupported device {b.device}")
+    return _call(g, b, coeffs, tol, atol, maxiter, planes, w, plane_dtype,
+                 b_norm_sq, resume, x0_l, grids, None)
+
+
+def _call(g, b, coeffs, tol, atol, maxiter, planes, w, plane_dtype,
+          b_norm_sq, resume, x0_l, grids, design):
     eng, x, r, p, rz, tol_sq = _start(g, b, coeffs, tol, atol, planes, w,
                                       plane_dtype, b_norm_sq, resume, x0_l)
-    x, r, p, k, rz = _sr_cuda(g, eng, x, r, p, rz, tol_sq, maxiter, grids)
+    x, r, p, k, rz = _sr_cuda(g, eng, x, r, p, rz, tol_sq, maxiter, grids,
+                              design)
     return x, r, p, k, rz, tol_sq
+
+
+def _before_call(g: SRGeometry, b: torch.Tensor, *, coeffs,
+                 tol: float = 1e-6, atol=0.0, maxiter: int = 1000,
+                 planes=None, w=None, plane_dtype=None, b_norm_sq=None,
+                 resume=None, x0_l=None, grids=None):
+    """:func:`sr_cg_call` through the first design's kernel (the same-run
+    "before" of the tests and the smoke).  CUDA only; no launch counter
+    counts it."""
+    if b.device.type != "cuda":
+        raise ValueError("the first semi-resident kernel runs on CUDA "
+                         "tensors only")
+    return _call(g, b, coeffs, tol, atol, maxiter, planes, w, plane_dtype,
+                 b_norm_sq, resume, x0_l, grids, _FIRST_DESIGN)
+
+
+def _result(b, out) -> CGResult:
+    x, _, _, k, rz, tol_sq = out
+    return CGResult(x=x, iterations=k, residual_norm_sq=rz[1],
+                    converged=rz[1] <= tol_sq,
+                    history=torch.zeros(0, dtype=torch.float32,
+                                        device=b.device))
+
+
+def _before_solve(g: SRGeometry, b: torch.Tensor, **kw) -> CGResult:
+    """:func:`sr_cg` through the first design's kernel (CUDA only, counted
+    nowhere)."""
+    return _result(b, _before_call(g, b, **kw))
 
 
 def sr_cg(g: SRGeometry, b: torch.Tensor, *, coeffs, tol: float = 1e-6,
@@ -295,14 +405,10 @@ def sr_cg(g: SRGeometry, b: torch.Tensor, *, coeffs, tol: float = 1e-6,
     """Run the semi-resident solve on flat ``b`` from x₀ = 0 (see
     :func:`sr_cg_call`; callers with an initial guess solve for the
     correction, as :func:`sr_stencil_cg` does)."""
-    x, _, _, k, rz, tol_sq = sr_cg_call(
+    return _result(b, sr_cg_call(
         g, b, coeffs=coeffs, tol=tol, atol=atol, maxiter=maxiter,
         planes=planes, w=w, plane_dtype=plane_dtype, b_norm_sq=b_norm_sq,
-        grids=grids)
-    return CGResult(x=x, iterations=k, residual_norm_sq=rz[1],
-                    converged=rz[1] <= tol_sq,
-                    history=torch.zeros(0, dtype=torch.float32,
-                                        device=b.device))
+        grids=grids))
 
 
 def sr_stencil_cg(s, b: torch.Tensor, x0=None, *, tol: float = 1e-6,

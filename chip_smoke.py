@@ -43,7 +43,9 @@ Phases (any failed check exits nonzero, and no result line is printed):
    plain version (and K3 A beside torch's CSR product of Ã), K3's kernel
    A and B at DIA-7 192³ against their first design (q and K3's partials,
    or x', r', p' and B's partials, bit for bit; device time per call of
-   both in turns), and K2's constant mode beside K3 at 224³;
+   both in turns; X1 does the same in bf16 vectors at 224³), K3's kernel
+   B the same way on the 224³ stencil in fp32 (unweighted), and K2's
+   constant mode beside K3 at 224³;
 10. W1, the unstructured path's build: the thermal2 stand-in at full size
     (``standin("thermal2")``, 1,228,045 rows, seed 0) through
     ``auto_format``, which must choose WBELL, its tier plan, and the row
@@ -157,24 +159,33 @@ Phases (any failed check exits nonzero, and no result line is printed):
     backend="sr_stencil")`` (the card's tier plan gives rpq) and
     ``sr_stencil_cg(..., mode=m)`` with rpq at 160³, rp at 216³ and p at
     288³, b = ones and a seeded b; each solve equal to K3's
-    (``fused_stencil_cg``) bit for bit, held against K4's plain version
-    and an fp64 solve (forward error ≤ 1e-4), and run twice;
+    (``fused_stencil_cg``) bit for bit and to K4's first design
+    (``sr_kernel``, the same-run "before", counted nowhere) bit for bit
+    (x, iterations, rw), held against K4's plain version and an fp64
+    solve (forward error ≤ 1e-4), and run twice;
 31. S2, ``auto_solve(a, b, preconditioner=JacobiPrecond.from_matrix(a),
     backend="sr_dia")`` on the 7-point D·A·D at 160³ and on DIA-27 128³
     (b = ones and seeded), the rp and p tiers forced at DIA-7 160³, and
     bf16 planes at DIA-27 128³ (equal to fp32 K4 on the planes rounded
     through bf16 at one partition); each equal to ``fused_dia_cg`` (K3)
-    bit for bit;
+    and to K4's first design bit for bit, and each the kernel its
+    instance runs by its launch counters (``sr_kernel`` at DIA-7 rpq,
+    ``sr2_kernel`` elsewhere);
 32. S3, resume: ``sr_cg_call`` at 160³ stopped after 100 (rpq) or 101
-    (rp) iterations and resumed equals one call bit for bit;
+    (rp) iterations and resumed equals one call bit for bit, and so do
+    the first design resumed from the same state and in one call;
 33. S4, the one-pass engine K6: ``fused_stencil_cg(poisson3d_stencil(224,
     224, 224), b, one_pass=True)`` with b = ones and seeded, with and
     without ``track_history``; each equal to K3's solve (x, iterations,
     history) bit for bit, and to the first K6 design (the same-run
     "before"), held against its plain version and fp64; K6's grid beside
     K3's;
-34. S5, times: K4 per iteration in each tier beside K3 and K2 on the same
-    system and b, on DIA-7 160³ and DIA-27 128³ too, K6 beside K3 and the
+34. S5, times: K4 per iteration in each tier (160³ rpq, 216³ rp, 288³
+    p; DIA-7 160³ rpq, rp and p; DIA-27 128³ rpq in fp32 and bf16 planes)
+    beside its first design and K3 in turns (events around a solve, one
+    launch of K4 each) and K2 on the same system and b, with the kernel
+    that ran, the tier's stream floor and K4's grid over K3's; K6 beside
+    K3 and the
     first K6 design at 224³ in turns, and both K6s' device time per
     iteration (profiler), each beside its plain version and its 6- and
     7-stream floors;
@@ -216,7 +227,11 @@ it, ``wbell_least_bytes``); the last line is
 ``{"ok": true, "device": {...}}``; K11's entry there also names its path
 at B1 and its launches by path; the entries of K3 A and B and of K5 A
 give device time (``ms``) beside that of their first design, measured in
-turns in the same run (``before_ms``).  Needs one CUDA card; it imports
+turns in the same run (``before_ms``), and K4's entries their solve time
+beside the first K4 design's: ``sr_cg`` at 160³ rpq, ``sr_cg_planes`` (the
+redesign's planes mode) at DIA-27 128³ rpq and ``sr_cg_first`` (the first
+design, the kernel of DIA-7 rpq) at DIA-7 160³ rpq.  Needs one CUDA
+card; it imports
 neither JAX nor the JAX package.
 """
 from __future__ import annotations
@@ -421,7 +436,8 @@ def k3a_versus_first(tag, label, eng, p, card):
 
 def k3b_versus_first(tag, label, eng, card, rz, pq, qq, x, r, p, q):
     """K3's redesigned kernel B (p·q and q·q from the control block, its
-    partials folded once a launch) against the first one (every block
+    partials folded once a launch, in bf16 its rows loaded ahead of its
+    stores: ``fused_engine.B_ROWS``) against the first one (every block
     folding A's partials) for one step from ``rz, pq, qq`` on copies of
     ``x, r, p``: x', r', p' and B's partials bit for bit (checked), then
     the device time per call of both in turns.  Returns ``(ms, first
@@ -439,9 +455,13 @@ def k3b_versus_first(tag, label, eng, card, rz, pq, qq, x, r, p, q):
         fn()
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(*outs))
+    check(not torch.equal(outs[0][0], x), f"{tag} {label}: kernel B left "
+          "x as it was")
     t_new, t_old = in_turns(fns)
-    print(f"[{card}] {tag} K3 B {label}: equal to the first kernel B bit "
-          f"for bit (x', r', p' and its partials): {same}; device "
+    print(f"[{card}] {tag} K3 B {label} ({k3.B_ROWS[eng.dtype]} rows in "
+          f"flight): "
+          f"equal to the first "
+          f"kernel B bit for bit (x', r', p' and its partials): {same}; device "
           f"{t_new * 1e3:.2f} us per call, the first {t_old * 1e3:.2f} us "
           f"({t_new / t_old:.3f}), in turns")
     check(same, f"{tag} {label}: K3's kernel B differs from its first design")
@@ -2730,13 +2750,14 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
 
     def zero():
         k4.sr_cg_launches = k4.sr_cg_planes_launches = 0
-        k4.sr_cg_bf16_launches = 0
+        k4.sr_cg_first_launches = k4.sr_cg_bf16_launches = 0
         k2.resident_cg_launches = k2.resident_dia_launches = 0
         k3.fused_a_launches = k3.fused_b_launches = 0
         k6.onepass_launches = 0
 
     def counts():
         return {"k4": k4.sr_cg_launches, "k4_planes": k4.sr_cg_planes_launches,
+                "k4_first": k4.sr_cg_first_launches,
                 "k4_bf16": k4.sr_cg_bf16_launches,
                 "k2": k2.resident_cg_launches + k2.resident_dia_launches,
                 "k3_a": k3.fused_a_launches, "k3_b": k3.fused_b_launches,
@@ -2751,9 +2772,36 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
         check(ok, f"{label}: differs from K3 ({int(res.iterations)} vs "
               f"{int(ref.iterations)} iterations)")
 
+    # The K4 kernel a solve ran, by its launch counters: sr2_kernel (the
+    # redesign) or sr_kernel (the first design).
+    kernel_of = {"k4": "sr2_kernel", "k4_planes": "sr2_kernel",
+                 "k4_first": "sr_kernel"}
+
+    def k4_run(fn):
+        before = counts()
+        res = fn()
+        after = counts()
+        ran = [kernel_of[k] for k in kernel_of if after[k] != before[k]]
+        check(len(ran) == 1, f"a K4 solve launched {ran}")
+        return res, ran[0]
+
+    def k4_expected(g, eng):
+        return ("sr_kernel" if k4._design_for(g, eng) == k4._FIRST_DESIGN
+                else "sr2_kernel")
+
     def rhs(n, nm):
         return (torch.ones(n, dtype=torch.float32, device=dev)
                 if nm == "ones" else seeded_rhs(n, dev))
+
+    def same_first(label, res, first, scale=None):
+        # The first design's kernel (the "before", counted nowhere).
+        x = first.x if scale is None else scale * first.x
+        ok = (int(res.iterations) == int(first.iterations)
+              and torch.equal(res.x, x)
+              and torch.equal(res.residual_norm_sq, first.residual_norm_sq))
+        print(f"{label}: equal to the first K4 design bit for bit (x, "
+              f"iterations, rw): {ok}")
+        check(ok, f"{label}: K4 differs from its first design")
 
     # -- S1: sr_stencil as a user drives it --------------------------------
     stencils = {dims[0]: cgx_torch.poisson3d_stencil(*dims)
@@ -2798,6 +2846,8 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
         same(label, res, fused_stencil_cg(a, b, tol=TOL, maxiter=n))
         nx, ny, nz, taps, coeffs = stencil_taps(a)
         g = k4.make_sr_geometry(nx, ny, nz, taps, mode=mode)
+        same_first(label, res, k4._before_solve(g, b, coeffs=coeffs, tol=TOL,
+                                                maxiter=n))
         t0 = time.perf_counter()
         x_ref, _, _, k_ref, _, _ = k4.sr_cg_reference(
             g, b, coeffs=coeffs, tol=TOL, maxiter=n)
@@ -2828,30 +2878,37 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
         for nm in ("ones", "random"):
             b = rhs(a.shape[0], nm)
             check(k4.sr_dia_supported(a), f"{label}: no tier planned")
-            res = cgx_torch.auto_solve(a, b, tol=TOL, preconditioner=jac[label],
-                                       backend="sr_dia")
-            s2.append((label, "rpq", None, nm, b, res))
+            res, ran = k4_run(lambda a=a, b=b, label=label: (
+                cgx_torch.auto_solve(a, b, tol=TOL,
+                                     preconditioner=jac[label],
+                                     backend="sr_dia")))
+            s2.append((label, "rpq", None, nm, b, res, ran))
     b7 = rhs(d7.shape[0], "ones")
     for mode in ("rp", "p"):
-        s2.append(("DIA-7 160^3", mode, None, "ones", b7, k4.sr_dia_cg(
+        res, ran = k4_run(lambda mode=mode: k4.sr_dia_cg(
             d7, b7, tol=TOL, maxiter=d7.shape[0],
-            inv_diag=jac["DIA-7 160^3"].inv_diag, mode=mode)))
+            inv_diag=jac["DIA-7 160^3"].inv_diag, mode=mode))
+        s2.append(("DIA-7 160^3", mode, None, "ones", b7, res, ran))
     d27 = s2_ops["DIA-27 128^3"]
     b27 = rhs(d27.shape[0], "ones")
-    s2.append(("DIA-27 128^3", "rpq", bf16, "ones", b27, k4.sr_dia_cg(
+    res, ran = k4_run(lambda: k4.sr_dia_cg(
         d27, b27, tol=TOL, maxiter=d27.shape[0],
-        inv_diag=jac["DIA-27 128^3"].inv_diag, plane_dtype=bf16)))
+        inv_diag=jac["DIA-27 128^3"].inv_diag, plane_dtype=bf16))
+    s2.append(("DIA-27 128^3", "rpq", bf16, "ones", b27, res, ran))
     torch.cuda.synchronize()
     c = counts()
-    print(f"S2 launches: K4 planes {c['k4_planes']} (bf16 {c['k4_bf16']}), "
+    print(f"S2 launches: K4 planes {c['k4_planes']} (sr2_kernel), first "
+          f"design {c['k4_first']} (sr_kernel), bf16 planes {c['k4_bf16']}, "
           f"K4 const {c['k4']}, K2 {c['k2']}, K3 A {c['k3_a']}")
-    check(c["k4_planes"] == len(s2) and c["k4_bf16"] == 1 and c["k4"] == 0
+    check(c["k4_planes"] + c["k4_first"] == len(s2) and c["k4_planes"] > 0
+          and c["k4_first"] > 0 and c["k4_bf16"] == 1 and c["k4"] == 0
           and c["k2"] == 0 and c["k3_a"] == 0,
           f"S2 did not run through K4's planes mode alone: {c}")
     launches["sr_cg_planes"] = c["k4_planes"]
+    launches["sr_cg_first"] = c["k4_first"]
 
-    err_k4p = 0.0
-    for label, mode, pdt, nm, b, res in s2:
+    err_k4p = {"sr2_kernel": 0.0, "sr_kernel": 0.0}
+    for label, mode, pdt, nm, b, res, ran in s2:
         a, m = s2_ops[label], jac[label]
         n = a.shape[0]
         tag = (f"S2 {label} {mode} b={nm}"
@@ -2865,8 +2922,15 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
         g = k4.make_sr_geometry(nx, ny, nz, taps, mode=mode,
                                 n_planes=planes.shape[0], weighted=True,
                                 sym=sym)
+        want = k4_expected(g, k3.FusedCG(nx, ny, nz, taps, coeffs=coeffs,
+                                         planes=planes, weight=w, sym=sym,
+                                         plane_dtype=pdt))
+        print(f"{tag}: ran {ran} (the instance's kernel: {want})")
+        check(ran == want, f"{tag}: ran {ran}, not {want}")
         kw = dict(coeffs=coeffs, w=w, tol=TOL, maxiter=n,
                   b_norm_sq=torch.sum(b * b))
+        same_first(tag, res, k4._before_solve(g, e * b, planes=planes,
+                                              plane_dtype=pdt, **kw), e)
         t0 = time.perf_counter()
         xs, _, _, k_ref, _, _ = k4.sr_cg_reference(
             g, e * b, planes=planes, plane_dtype=pdt, **kw)
@@ -2874,7 +2938,7 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
         if pdt is None and mode == "rpq":
             plain_ms[label, nm] = (time.perf_counter() - t0) * 1e3
         x_ref = e * xs
-        err_k4p = max(err_k4p, float((res.x - x_ref).abs().max()))
+        err_k4p[ran] = max(err_k4p[ran], float((res.x - x_ref).abs().max()))
         if pdt is None:
             x64 = fp64_solution(label, nm, a, b)
             hold(f"K4 {tag}", res.x, int(res.iterations), x_ref, int(k_ref),
@@ -2923,6 +2987,19 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
         print(f"S3 {mode} {N1}^3: {split} + {int(rest[3])} iterations resumed "
               f"equal one call of {int(full[3])}, bit for bit: {ok}")
         check(ok, f"S3 {mode}: the resumed solve differs from one call")
+        # The first design from the same split state, and in one call.
+        old = k4._before_call(g, b, coeffs=coeffs, tol=TOL,
+                              maxiter=5000 - split,
+                              resume=(x, r, p, rz[0], rz[1]))
+        old_full = k4._before_call(g, b, coeffs=coeffs, tol=TOL,
+                                   maxiter=5000)
+        ok = all(int(u[3]) == int(v[3]) and all(
+            torch.equal(s_, t_) for s_, t_ in zip(u[:3] + u[4:5],
+                                                  v[:3] + v[4:5]))
+                 for u, v in ((old, rest), (old_full, full)))
+        print(f"S3 {mode} {N1}^3: the first K4 design resumed and in one "
+              f"call equal the redesign's, bit for bit: {ok}")
+        check(ok, f"S3 {mode}: K4 differs from its first design")
 
     # -- S4: the one-pass engine K6 --------------------------------------------
     a224 = cgx_torch.poisson3d_stencil(*N224)
@@ -2978,58 +3055,76 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
           f"{eng6._occupancy(_build.library(), dev, k6._FIRST_DESIGN)}")
 
     # -- S5: times -----------------------------------------------------------
-    # Per iteration, b = ones, medians of interleaved runs; the plain
-    # versions' solves were timed once above (host clock, synchronised).
+    # Per iteration, b = ones: K4 beside its first design (the same call
+    # through sr_kernel) and K3 in turns, events around a solve (one
+    # launch of K4 each), medians of 5; K2 separately; the plain versions'
+    # solves were timed once above (host clock, synchronised).
+    def k4_turns(label, a, g, b, kw, eng, k3_solve, k2_solve):
+        n = a.shape[0]
+        res, ran = k4_run(lambda: k4.sr_cg(g, b, **kw))
+        its = int(res.iterations)
+        check(ran == k4_expected(g, eng), f"S5 {label} {g.mode}: ran {ran}")
+        t4, t4_old, t3 = time_set([
+            lambda: k4.sr_cg(g, b, **kw),
+            lambda: k4._before_solve(g, b, **kw), k3_solve], reps=5)
+        its2 = int(k2_solve().iterations)
+        t2 = statistics.median(event_ms(k2_solve) for _ in range(3))
+        ga, gb = eng.grids(dev)
+        grid = k4.sr_launch_grid(g, eng, dev, ga, gb)
+        n_pl = 0 if eng.planes is None else eng.planes.shape[0]
+        streams = (k4.STREAMS[g.mode] + int(eng.weight is not None)
+                   + n_pl * (1 if g.mode == "rpq" else 2))
+        us = t4 / its * 1e3
+        print(f"[{card}] S5 {label} {g.mode} b=ones ({its} it; K4 ran "
+              f"{ran}): K4 "
+              f"{t4:.3f} ms, {us:.2f} us/iter; first K4 design "
+              f"{t4_old / its * 1e3:.2f} us/iter ({t4 / t4_old:.3f}), K3 "
+              f"{t3 / its * 1e3:.2f} us/iter ({t4 / t3:.3f}), in turns; K2 "
+              f"{t2 / its2 * 1e3:.2f} us/iter ({its2} it; K2/K4 "
+              f"{t2 / its2 / (t4 / its):.3f}); floor "
+              f"{floor_us(streams, n):.1f} us/iter ({streams} streams); "
+              f"grid {grid} over K3's ga {ga}, gb {gb} (first design "
+              f"{k4._occupancy(_build.library(), dev, g, eng, 0)})")
+        return t4, t4_old, its
+
     sr_us = {}
     for kind, N, mode, nm, b, res in s1:
         if kind == "auto" or nm != "ones":
             continue
         a = stencils[N]
         n = a.shape[0]
-        its = int(res.iterations)
-        t4, t3 = time_pair(
-            lambda: k4.sr_stencil_cg(a, b, tol=TOL, maxiter=n, mode=mode),
-            lambda: fused_stencil_cg(a, b, tol=TOL, maxiter=n), reps=3)
-        r2 = cgx_torch.auto_solve(a, b, tol=TOL, backend="resident_stencil")
-        its2 = int(r2.iterations)
-        t2 = statistics.median(event_ms(lambda: cgx_torch.auto_solve(
-            a, b, tol=TOL, backend="resident_stencil")) for _ in range(3))
-        streams = 9 if mode == "rpq" else 7
-        sr_us[N] = (t4, its)
-        print(f"[{card}] S5 {N}^3 b=ones: K4 {mode} {t4:.3f} ms, "
-              f"{t4 / its * 1e3:.2f} us/iter ({its} it); K3 {t3:.3f} ms, "
-              f"{t3 / its * 1e3:.2f} us/iter; K2 {t2:.3f} ms, "
-              f"{t2 / its2 * 1e3:.2f} us/iter ({its2} it); K4/K3 "
-              f"{t4 / t3:.3f}, K2/K4 {t2 / its2 / (t4 / its):.3f}; plain K4 "
-              f"{plain_ms[N, 'ones']:.1f} ms, "
-              f"{plain_ms[N, 'ones'] / its * 1e3:.2f} us/iter; floor "
-              f"{floor_us(streams, n):.1f} us/iter ({streams} streams)")
+        nx, ny, nz, taps, coeffs = stencil_taps(a)
+        g = k4.make_sr_geometry(nx, ny, nz, taps, mode=mode)
+        sr_us[N] = k4_turns(
+            f"{N}^3", a, g, b, dict(coeffs=coeffs, tol=TOL, maxiter=n),
+            k3.FusedCG(nx, ny, nz, taps, coeffs=coeffs),
+            lambda a=a, b=b, n=n: fused_stencil_cg(a, b, tol=TOL, maxiter=n),
+            lambda a=a, b=b: cgx_torch.auto_solve(
+                a, b, tol=TOL, backend="resident_stencil"))
     dia_us = {}
-    for label, a in s2_ops.items():
-        m = jac[label]
+    dia_cases = [("DIA-7 160^3", m_, None) for m_ in ("rpq", "rp", "p")]
+    dia_cases += [("DIA-27 128^3", "rpq", None), ("DIA-27 128^3", "rpq", bf16)]
+    for label, mode, pdt in dia_cases:
+        a, m = s2_ops[label], jac[label]
         n = a.shape[0]
         b = rhs(n, "ones")
-        its = int(next(r.iterations for lb, mo, pdt, nm, _, r in s2
-                       if lb == label and nm == "ones" and pdt is None))
-        t4, t3 = time_pair(
-            lambda: cgx_torch.auto_solve(a, b, tol=TOL, preconditioner=m,
-                                         backend="sr_dia"),
-            lambda: fdia.fused_dia_cg(a, b, tol=TOL, maxiter=n,
-                                      inv_diag=m.inv_diag), reps=3)
-        its2 = int(cgx_torch.auto_solve(a, b, tol=TOL, preconditioner=m,
-                                        backend="resident_dia").iterations)
-        t2 = statistics.median(event_ms(lambda: cgx_torch.auto_solve(
-            a, b, tol=TOL, preconditioner=m, backend="resident_dia"))
-            for _ in range(3))
-        n_pl = fdia.dia_prep(a, torch.float32, inv_diag=m.inv_diag)[5].shape[0]
-        dia_us[label] = (t4, its, n_pl)
-        print(f"[{card}] S5 {label} b=ones: K4 rpq {t4:.3f} ms, "
-              f"{t4 / its * 1e3:.2f} us/iter ({its} it); K3 {t3:.3f} ms, "
-              f"{t3 / its * 1e3:.2f} us/iter; K2 {t2:.3f} ms, "
-              f"{t2 / its2 * 1e3:.2f} us/iter ({its2} it); K4/K3 "
-              f"{t4 / t3:.3f}; plain K4 {plain_ms[label, 'ones']:.1f} ms; "
-              f"floor {floor_us(10 + n_pl, n):.1f} us/iter "
-              f"({10 + n_pl} streams)")
+        nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
+            a, torch.float32, inv_diag=m.inv_diag)
+        g = k4.make_sr_geometry(nx, ny, nz, taps, mode=mode,
+                                n_planes=planes.shape[0], weighted=True,
+                                sym=sym)
+        eng = k3.FusedCG(nx, ny, nz, taps, coeffs=coeffs, planes=planes,
+                         weight=w, sym=sym, plane_dtype=pdt)
+        tag = label + (" bf16 planes" if pdt is not None else "")
+        dia_us[tag, mode] = k4_turns(
+            tag, a, g, e * b, dict(coeffs=coeffs, w=w, tol=TOL, maxiter=n,
+                                   b_norm_sq=torch.sum(b * b), planes=planes,
+                                   plane_dtype=pdt), eng,
+            lambda a=a, b=b, m=m, n=n, pdt=pdt: fdia.fused_dia_cg(
+                a, b, tol=TOL, maxiter=n, inv_diag=m.inv_diag,
+                plane_dtype=pdt),
+            lambda a=a, b=b, m=m: cgx_torch.auto_solve(
+                a, b, tol=TOL, preconditioner=m, backend="resident_dia"))
     b = rhs(n224, "ones")
     its6 = int(next(r.iterations for nm, hist, _, r in s4
                     if nm == "ones" and not hist))
@@ -3076,14 +3171,26 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
     # row; K6 per launch: x, r, p in and out, two applies.
     n160 = N1 ** 3
     nnz160 = 7 * n160 - 6 * N1 * N1
-    t4, its4 = sr_us[N1]
+    t4, t4_old, its4 = sr_us[N1]
     b_k4 = bound(8 * n160, its4 * (2 * nnz160 + 12 * n160))
-    t4p, its4p, n_pl = dia_us["DIA-7 160^3"]
-    b_k4p = bound((n_pl + 3) * 4 * n160, its4p * n160 * (2 * 7 + 12))
+    # The planes redesign at DIA-27 128³ rpq (fp32 planes), the first
+    # design at DIA-7 160³ rpq, the instance that runs it: b in, x out,
+    # the planes and w in; per iteration 2 flops a tap and 12 a row.
+    d27 = s2_ops["DIA-27 128^3"]
+    n128 = d27.shape[0]
+    n_pl27 = fdia.dia_prep(d27, torch.float32, inv_diag=jac[
+        "DIA-27 128^3"].inv_diag)[5].shape[0]
+    t4p, t4p_old, its4p = dia_us["DIA-27 128^3", "rpq"]
+    b_k4p = bound((n_pl27 + 3) * 4 * n128, its4p * n128 * (2 * 27 + 12))
+    t4f, _, its4f = dia_us["DIA-7 160^3", "rpq"]
+    n_pl = fdia.dia_prep(d7, torch.float32,
+                         inv_diag=jac["DIA-7 160^3"].inv_diag)[5].shape[0]
+    b_k4f = bound((n_pl + 3) * 4 * n160, its4f * n160 * (2 * 7 + 12))
     nnz224 = 7 * n224 - 6 * N224[0] * N224[1]
     b_k6 = bound(k6.STREAMS * 4 * n224, 2 * 2 * nnz224 + 12 * n224)
     print(f"S5 bounds: K4 160^3 {b_k4[0]:.3f} ms ({b_k4[1]}), K4 planes "
-          f"DIA-7 160^3 {b_k4p[0]:.3f} ms ({b_k4p[1]}), K6 per launch "
+          f"DIA-27 128^3 {b_k4p[0]:.3f} ms ({b_k4p[1]}), first K4 design "
+          f"DIA-7 160^3 {b_k4f[0]:.3f} ms ({b_k4f[1]}), K6 per launch "
           f"{b_k6[0] * 1e3:.2f} us ({b_k6[1]})")
 
     def entry(name, source, replaces, nl, err, ms, p_ms, b):
@@ -3094,11 +3201,19 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
 
     src = "cgx_torch/csrc/semiresident.cu"
     return [
-        entry("sr_cg", src, "cgx/kernels/fused_semiresident.py:223",
-              launches["sr_cg"], err_k4, t4, plain_ms[N1, "ones"], b_k4),
-        entry("sr_cg_planes", src, "cgx/kernels/fused_semiresident.py:223",
-              launches["sr_cg_planes"], err_k4p, t4p,
-              plain_ms["DIA-7 160^3", "ones"], b_k4p),
+        dict(entry("sr_cg", src, "cgx/kernels/fused_semiresident.py:223",
+                   launches["sr_cg"], err_k4, t4, plain_ms[N1, "ones"],
+                   b_k4), before_ms=t4_old),
+        dict(entry("sr_cg_planes", src,
+                   "cgx/kernels/fused_semiresident.py:223",
+                   launches["sr_cg_planes"], err_k4p["sr2_kernel"], t4p,
+                   plain_ms["DIA-27 128^3", "ones"], b_k4p),
+             before_ms=t4p_old, cell="DIA-27 128^3 rpq"),
+        dict(entry("sr_cg_first", src,
+                   "cgx/kernels/fused_semiresident.py:223",
+                   launches["sr_cg_first"], err_k4p["sr_kernel"], t4f,
+                   plain_ms["DIA-7 160^3", "ones"], b_k4f),
+             cell="DIA-7 160^3 rpq"),
         dict(entry("onepass_kernel_c", "cgx_torch/csrc/onepass.cu",
                    "cgx/kernels/fused_onepass.py:53", launches["onepass"],
                    err_k6, dev6 / 1e3, t6p, b_k6),
@@ -3619,6 +3734,15 @@ def main() -> None:
     k3a_ms = k3a_versus_first("§9", "DIA-7 192^3 fp32", eng7, p7, card)
     k3b_ms = k3b_versus_first("§9", "DIA-7 192^3 fp32", eng7, card, rz7,
                               pq7, qq7, z7, p7, p7, q7)
+    # Kernel B unweighted, in fp32 on the 224³ stencil's path.
+    eng224 = build_fused(a224, torch.float32)
+    p224 = seeded_rhs(eng224.n, dev)
+    q224, pq224, qq224 = eng224.kernel_a_reference(p224)
+    k3b224_ms = k3b_versus_first(
+        "§9", "224^3 stencil fp32", eng224, card,
+        torch.sum(p224.double() ** 2).float(), pq224, qq224, 0.5 * p224,
+        p224, p224, q224)
+    del p224, q224
 
     w_entries, thermal = wbell_phases(dev, card)
     m_entries = multi_phases(dev, card, dias)
@@ -3670,7 +3794,9 @@ def main() -> None:
               before_ms=k3a_ms[1]),
         entry("fused_kernel_b", "cgx_torch/csrc/fused_engine.cu",
               "cgx/kernels/fused_engine.py:411", launches["k3_b"],
-              k3_err["b"], k3b_ms[0], t_bp, k3b_b, before_ms=k3b_ms[1]),
+              k3_err["b"], k3b_ms[0], t_bp, k3b_b, before_ms=k3b_ms[1],
+              stencil_224_fp32_ms=k3b224_ms[0],
+              stencil_224_fp32_before_ms=k3b224_ms[1]),
     ] + w_entries + m_entries + b_entries + x_entries + s_entries
         + e_entries}
     print(json.dumps(report))

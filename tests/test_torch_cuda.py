@@ -1091,10 +1091,15 @@ def test_k4_dia_equals_k3_and_plain(cuda_device, op, mode, jacobi):
     a, a_cpu = _dia_pair(op, cuda_device)
     b = t(seeded(a.shape[0], seed=41, dtype=np.float32), cuda_device)
     kw = dict(tol=1e-6, maxiter=4000, jacobi=jacobi)
-    before = k4.sr_cg_planes_launches
+    # 7-tap plane operators in rpq run the first design (_design_for).
+    ran = ("sr_cg_first_launches" if op == "dia7" and mode == "rpq"
+           else "sr_cg_planes_launches")
+    before = {c: getattr(k4, c) for c in ("sr_cg_first_launches",
+                                          "sr_cg_planes_launches")}
     res = k4.sr_dia_cg(a, b, mode=mode, **kw)
     torch.cuda.synchronize()
-    assert k4.sr_cg_planes_launches == before + 1
+    assert {c: getattr(k4, c) - v for c, v in before.items()} == {
+        c: int(c == ran) for c in before}
     assert bool(res.converged)
     _same(res, fdia.fused_dia_cg(a, b, **kw))
     _near(res, k4.sr_dia_cg(a_cpu, b.cpu(), mode=mode, **kw))
@@ -1151,14 +1156,17 @@ def test_k4_x0_and_auto_solve_on_card(cuda_device):
                                 maxiter=4000, mode="p"))
     d, _ = _dia_pair("dia7", cuda_device)
     m = cgx_torch.JacobiPrecond.from_matrix(d)
-    before = (k4.sr_cg_launches, k4.sr_cg_planes_launches,
+    before = (k4.sr_cg_launches,
+              k4.sr_cg_planes_launches + k4.sr_cg_first_launches,
               k2.resident_cg_launches, k2.resident_dia_launches,
               k3.fused_a_launches)
     s = cgx_torch.auto_solve(a, b, tol=1e-6, backend="sr_stencil")
     r = cgx_torch.auto_solve(d, b, tol=1e-6, preconditioner=m,
                              backend="sr_dia")
     torch.cuda.synchronize()
-    assert (k4.sr_cg_launches, k4.sr_cg_planes_launches,
+    # The DIA solve runs either K4 kernel (_design_for), counted once.
+    assert (k4.sr_cg_launches,
+            k4.sr_cg_planes_launches + k4.sr_cg_first_launches,
             k2.resident_cg_launches, k2.resident_dia_launches,
             k3.fused_a_launches) == (before[0] + 1, before[1] + 1) + before[2:]
     assert bool(s.converged) and bool(r.converged)
@@ -1622,3 +1630,160 @@ def test_k5_wide_reach_takes_the_first_kernel_a(cuda_device, k):
     assert bool(got.converged.all())
     scale = float(ref.x.abs().max())
     assert float((got.x - ref.x).abs().max()) <= 1e-4 * scale
+
+
+# -- K4's and K3 B's redesigns against their first designs ---------------------
+
+def _sr_case(op, dev, mode, plane_dtype=None, jacobi=True):
+    """``(g, b_s, kw, user_solve, k3_solve, scale)`` of a K4 case on the
+    ragged 37×41×53 operators (the 27-point stencil at 17×19×15): the
+    geometry, the solve-space right-hand side, :func:`k4.sr_cg_call`'s
+    arguments, the user entry and K3's solve of the same system, and the
+    scaling from the solve space."""
+    b = t(seeded(37 * 41 * 53, seed=96, dtype=np.float32), dev)
+    if op in ("p3d", "27point"):
+        a = _ragged("p3d", dev) if op == "p3d" else _stencil("27point")
+        b = b[:a.shape[0]].contiguous()
+        nx, ny, nz, taps, coeffs = stencil_taps(a)
+        g = k4.make_sr_geometry(nx, ny, nz, taps, mode=mode)
+        return (g, b, dict(coeffs=coeffs, tol=1e-6, maxiter=2000),
+                lambda: k4.sr_stencil_cg(a, b, tol=1e-6, maxiter=2000,
+                                         mode=mode),
+                lambda: fused_stencil_cg(a, b, tol=1e-6, maxiter=2000), None)
+    a = _ragged(op, dev)
+    nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
+        a, torch.float32, jacobi=jacobi)
+    g = k4.make_sr_geometry(nx, ny, nz, taps, mode=mode,
+                            n_planes=planes.shape[0], weighted=w is not None,
+                            sym=sym)
+    kw = dict(coeffs=coeffs, w=w, planes=planes, plane_dtype=plane_dtype,
+              tol=1e-6, maxiter=2000, b_norm_sq=torch.sum(b * b))
+    dkw = dict(tol=1e-6, maxiter=2000, jacobi=jacobi, plane_dtype=plane_dtype)
+    return (g, b if e is None else e * b, kw,
+            lambda: k4.sr_dia_cg(a, b, mode=mode, **dkw),
+            lambda: fdia.fused_dia_cg(a, b, **dkw), e)
+
+
+_SR_CASES = [("p3d", "rpq", None, True), ("p3d", "rp", None, True),
+             ("p3d", "p", None, True), ("27point", "rpq", None, True),
+             ("27point", "p", None, True), ("dia7", "rpq", None, True),
+             ("dia7", "rp", None, True), ("dia7", "p", None, True),
+             ("dia7", "rpq", None, False), ("dia27", "rpq", None, True),
+             ("dia27", "rp", None, True), ("dia7", "rpq", "bf16", True),
+             ("dia27", "rpq", "bf16", True)]
+
+
+@pytest.mark.parametrize("smaller", [False, True])
+@pytest.mark.parametrize("op,mode,pdt,jacobi", _SR_CASES)
+def test_k4_redesign_equals_first_design_and_k3(cuda_device, monkeypatch,
+                                                op, mode, pdt, jacobi,
+                                                smaller):
+    """The redesigned K4 (one fold at each barrier, K3's occupancy, carried
+    nodes, two rows in flight at 27 taps) equals its first design bit for
+    bit — x, r, p, the iteration count and (rz, rw) — and K3's solve
+    through the user entry, on its default grid and on a smaller one that
+    divides nothing; only the package's path counts a launch (7-tap plane
+    operators in rpq run the first design there)."""
+    pdt = None if pdt is None else torch.bfloat16
+    g, b, kw, user, k3_solve, e = _sr_case(op, cuda_device, mode, pdt,
+                                           jacobi)
+    if smaller:
+        monkeypatch.setattr(k4, "_cached_grid",
+                            lambda ga, gb, cap, sms: cap // 3 + 1)
+    counter = ("sr_cg_launches", "sr_cg_planes_launches",
+               "sr_cg_first_launches")
+    counts = [getattr(k4, c) for c in counter]
+    old = k4._before_call(g, b, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(k4, c) for c in counter] == counts
+    new = k4.sr_cg_call(g, b, **kw)
+    torch.cuda.synchronize()
+    eng = k3.FusedCG(g.nx, g.ny, g.nz, g.taps, coeffs=kw["coeffs"],
+                     planes=kw.get("planes"), weight=kw.get("w"), sym=g.sym)
+    ran = ("sr_cg_first_launches"
+           if k4._design_for(g, eng) == k4._FIRST_DESIGN
+           else "sr_cg_planes_launches" if "planes" in kw
+           else "sr_cg_launches")
+    assert [getattr(k4, c) - v for c, v in zip(counter, counts)] == [
+        int(c == ran) for c in counter]
+    assert int(new[3]) == int(old[3])
+    for u, v in zip(new[:3] + new[4:5], old[:3] + old[4:5]):
+        assert torch.equal(u, v)
+    res = user()
+    _same(res, k3_solve())
+    x = new[0] if e is None else e * new[0]
+    assert int(res.iterations) == int(new[3]) and torch.equal(res.x, x)
+
+
+def test_k4_grid_divides_k3_grids(cuda_device):
+    """At 7 taps and at 27 K4's grid splits both of K3's partitions evenly
+    and fits the card's blocks at once."""
+    for op in ("p3d", "27point", "dia27"):
+        g, _, kw, *_ = _sr_case(op, cuda_device, "rpq")
+        eng = k3.FusedCG(g.nx, g.ny, g.nz, g.taps, coeffs=kw["coeffs"],
+                         planes=kw.get("planes"), weight=kw.get("w"),
+                         sym=g.sym)
+        ga, gb = eng.grids(cuda_device)
+        grid = k4.sr_launch_grid(g, eng, cuda_device, ga, gb)
+        cap = k4._occupancy(_lib(), cuda_device, g, eng, k4._REDESIGN)
+        assert 1 <= grid <= cap and ga % grid == 0 and gb % grid == 0
+
+
+def test_k4_resume_through_both_designs(cuda_device):
+    """A solve split at an odd count and resumed through either design
+    equals one call of either, bit for bit (rp: p in the second buffer)."""
+    g, b, kw, *_ = _sr_case("p3d", cuda_device, "rp")
+    full = k4.sr_cg_call(g, b, **kw)
+    x, r, p, k, rz, _ = k4._before_call(g, b, **dict(kw, maxiter=7))
+    rest = k4.sr_cg_call(g, b, **dict(kw, maxiter=2000 - 7,
+                                      resume=(x, r, p, rz[0], rz[1])))
+    assert int(k) + int(rest[3]) == int(full[3])
+    for u, v in zip(rest[:3] + rest[4:5], full[:3] + full[4:5]):
+        assert torch.equal(u, v)
+
+
+def _lib():
+    from cgx_torch.kernels import _build
+    return _build.library()
+
+
+@pytest.mark.parametrize("op", ["p3d", "dia7", "bf16:p3d", "bf16:dia7"])
+def test_k3_b_rows_equal_first_design(cuda_device, op):
+    """Kernel B with its rows in flight (two in bf16 vectors, one in fp32)
+    equals the first kernel B bit for bit (x', r', p', its partials) in
+    fp32 and bf16 vectors, weighted (DIA) and not, at n = 80,401 (not a
+    multiple of 256)."""
+    eng = _k3_case(op, cuda_device)
+    p = t(seeded(eng.n, seed=97, dtype=np.float32), cuda_device).to(
+        eng.dtype)
+    q, pq, qq = eng.kernel_a(p)
+    rz = torch.sum(p.double() ** 2).float()
+    x = (0.5 * p.float()).to(eng.dtype)
+    outs = []
+    for design in (k3._REDESIGN, k3._FIRST_DESIGN):
+        lib, args, out = eng._kernel_b_setup(rz, pq, qq, x, p, p, q, design)
+        _build_check(lib.cgx_fused_b(*args))
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert eng.n % 256 != 0
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def _build_check(rc):
+    from cgx_torch.kernels import _build
+    _build.check(rc, "K3 B launch")
+
+
+def test_k3_b_refuses_aliased_vectors(cuda_device):
+    """The redesigned kernel B takes its vectors as __restrict__: its
+    wrapper refuses vectors that share storage."""
+    eng = _k3_case("dia7", cuda_device)
+    v = t(seeded(eng.n, seed=98, dtype=np.float32), cuda_device)
+    part = torch.zeros(2, dtype=torch.float64, device=cuda_device)
+    ctl = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    q = torch.empty_like(v)
+    with pytest.raises(ValueError, match="share storage"):
+        eng._b_args(v, v.clone(), v, q, part, 1, part, 1, ctl, None)
+    with pytest.raises(ValueError, match="share storage"):
+        eng._b_args(v, v.clone(), v.clone(), eng.weight, part, 1, part, 1,
+                    ctl, None)
