@@ -9,9 +9,9 @@
 //   K8  _kernel_resident_tiers    over its tier plan's row layout (K7's)
 //   P1  tier_proto _kernel_tiers  over its tiers' row layout
 //   P3  halfblock _kernel_half    over a segmented row layout
-//   K10 _kernel_resident_stacked  over slot planes, stacked x and y
+//   K10 _kernel_resident_stacked  over K7's row layout, stacked x and y
 //
-// -- The row layouts (K7, K8, K9, P1, P3) ------------------------------------
+// -- The row layouts (K7, K8, K9, K10, P1, P3) -------------------------------
 // The TPU kernels stream slot planes of 8×8 blocks, one block per lane of a
 // (8, 128) vreg.  At thermal2 scale a block holds 5.6 nonzeros of its 64
 // entries and 66 % of the lane slots hold one: the planes are 17.5× the
@@ -25,7 +25,8 @@
 // coalesced.  A column is a 16-bit offset from its group's (K9: its
 // stage's) window start.  At thermal2 scale that is 2 % padding and 58 MB
 // a product.  Each kernel's layout comes from its own planes and walk:
-// K7's from the matrix's planes in plane order, K8's from its tier plan's
+// K7's (and K10's) from the matrix's planes in plane order, K8's from its
+// tier plan's
 // class-major planes in the original plane order (the same entries in the
 // same order, so the same arrays: K8 is K7's kernel), P1's from its tiers
 // in their stored class-major order, P3's from its 4×8 half-block planes
@@ -52,14 +53,23 @@
 // reads 32 slots' flag words in one load and transposes them (lane_flags),
 // so a slot costs no load of its own (a load a slot measured slower).
 //
-// K7 (and K8, P1, P3): one thread per row, one warp per slice, half a group
-// (16 slices) a block, so that the L1 serves the gathers of neighbouring
-// warps; kUnroll slots' loads in flight; up to NR columns of x per value
-// read.  What bounds it on the card is the x gathers, not the layout's
-// bytes: a warp's 32 rows read 32 unrelated columns, about a 32-byte sector
-// each, and at k = 4 K7 takes 3.6× its k = 1 time for 1.45× the bytes
-// (chip_smoke.py W5).  The layout is loaded evict-first so that the caches
-// keep x.
+// K7 (and K8, K10, P1, P3): one thread per row, one warp per slice, half
+// a group (16 slices) a block, so that the L1 serves the gathers of
+// neighbouring warps; kUnroll slots' loads in flight; up to NR columns of x
+// per value read.  What bounds it on the card is the x gathers, not the
+// layout's bytes: a warp's 32 rows read 32 unrelated columns, about a
+// 32-byte sector each, and at k = 4 K7 takes 3.6× its k = 1 time for 1.45×
+// the bytes (chip_smoke.py W5).  The layout is loaded evict-first so that
+// the caches keep x.
+//
+// K10 is K7's kernel over K7's layout with x and y in the stacked layout
+// (the Stacked row map): internal row r = x0 + col of column c lies at
+// ((r >> 10)·nrhs + c)·1024 + (r & 1023), and each output row from the row
+// map is written at the same index.  A group's k columns are one
+// contiguous k·4 KB window, so a gather's k columns fall in one window
+// rather than k windows nt·4 KB apart; whether that helps the gathers is
+// what the smoke's E6 measures (on the TPU it lost: each column still
+// needed its own vreg gather).
 //
 // K9: the card's form of the TPU kernel's windowed DMA.  One block of 1024
 // threads per output group; the group's entries are split into stages, one
@@ -73,13 +83,13 @@
 // whole window through the L2: about 28 times the bytes of x a product at
 // thermal2 scale.
 //
-// -- The slot planes (K10, and the plane walks the row layouts replace) -----
+// -- The slot planes (the plane walks the row layouts replace) ---------------
 // These differ in how a plane finds its output group og and its window
 // start ga, and in layout:
 //   plane walk (K7's walk)    og = p_og[p], ga = p_ga[p]        (plane order)
 //   plane walk (K8's, P1's)   og, ga unpacked from packed[p]     (class-major)
 //   plane walk (K9's walk)    og = outg[t], ga = g0[t] + pgo[p]  (virtual tiles)
-//   K10                       K7's walk; x and y stacked: column c, row j
+//   plane walk (K10's first)  K7's walk; x and y stacked: column c, row j
 //                             of group g at x[(g·nrhs + c)·8 + j][m]
 //   plane walk (P3's)         K7's walk over (P, 4, 8, 128) half-block
 //                             planes; lc bits 0-13 the offset, bit 14
@@ -103,11 +113,9 @@
 // floats apart and neighbouring lanes read unrelated columns, so the x
 // reads are gathers that hit the L2.
 //
-// K10 is the plane walk with the column index moved inside the group index:
-// the k columns of a group sit in one contiguous k·4 KB window, and one lc
-// load per plane and lane serves every column of the block's chunk.  Whether
-// the contiguous window helps the gathers is what the smoke's E6 measures
-// (on the TPU it lost: each column still needed its own vreg gather).
+// K10's first design is the plane walk with the column index moved inside
+// the group index: one lc load per plane and lane serves every column of
+// the block's chunk.  It streams the planes, 17.5× the nonzeros.
 //
 // P3's plane walk stores 4×8 half-blocks: plane p holds, per lane, the top
 // or the bottom four rows of the lane's 8-row block row (bit 14 of lc).
@@ -202,10 +210,10 @@ __device__ __forceinline__ void store_group(float* __restrict__ y, int g,
   }
 }
 
-// K10 and the plane walks of K7, K8 and P1: the planes of group g are
-// order[ptr[g] .. ptr[g+1]); GaOf reads a plane's window start (K7's walk,
-// K10 from p_ga, K8's and P1's from the low half of packed); L is the
-// layout of x and y (K10 stacked, else batched).
+// The plane walks of K7, K8, K10 and P1: the planes of group g are
+// order[ptr[g] .. ptr[g+1]); GaOf reads a plane's window start (K7's and
+// K10's walk from p_ga, K8's and P1's from the low half of packed); L is
+// the layout of x and y (K10's stacked, else batched).
 struct GaFromArray {
   const int* ga;
   __device__ int operator()(int p) const { return __ldg(ga + p); }
@@ -361,19 +369,24 @@ __device__ __forceinline__ unsigned lane_flags(
 }
 
 // Adds slots [t0, min(t0 + kUnroll, w)) of this lane's row, in order, to
-// acc; x operands from xv (global or shared) at xv[col].  The loads of the
-// kUnroll slots are issued before the first sum.  kSeg (P3's segmented
-// layout): bit u of `cont` flags slot t0 + u as continuing its segment;
-// each product goes to the segment sum part, and an unflagged slot first
-// adds part to acc and restarts it from 0.
-template <typename V, typename C, int NR, bool kGlobal, bool kSeg = false>
+// acc; x operands from xv (global or shared) at xv[col] (column k at
+// xv[k·cstride + col]; L = Stacked: internal row r = xbase + col of column
+// k at xv[Stacked::at(k, r >> 10, 0, nrhs) + (r & 1023)], xv at column 0
+// of the chunk).  The loads of the kUnroll slots are issued before the
+// first sum.  kSeg (P3's segmented layout): bit u of `cont` flags slot t0
+// + u as continuing its segment; each product goes to the segment sum
+// part, and an unflagged slot first adds part to acc and restarts it from
+// 0.
+template <typename V, typename C, int NR, bool kGlobal, bool kSeg = false,
+          typename L = Batched>
 __device__ __forceinline__ void add_slots(const V* __restrict__ vp,
                                           const C* __restrict__ cp, int t0,
                                           int w, const float* __restrict__ xv,
                                           long long cstride, int ncol,
                                           float (&acc)[NR],
                                           float (&part)[NR],
-                                          unsigned cont = 0) {
+                                          unsigned cont = 0, int xbase = 0,
+                                          int nrhs = 0) {
   float v[kUnroll];
   int c[kUnroll];
 #pragma unroll
@@ -390,7 +403,11 @@ __device__ __forceinline__ void add_slots(const V* __restrict__ vp,
     for (int k = 0; k < NR; ++k) {
       xs[u][k] = 0.0f;
       if (t0 + u < w && k < ncol) {
-        if constexpr (kGlobal) {
+        if constexpr (kGlobal && std::is_same_v<L, Stacked>) {
+          const int r = xbase + c[u];
+          xs[u][k] = __ldg(xv + Stacked::at(k, r >> 10, 0, nrhs) +
+                           (r & 1023));
+        } else if constexpr (kGlobal) {
           xs[u][k] = __ldg(xv + k * cstride + c[u]);
         } else {
           xs[u][k] = xv[c[u]];
@@ -421,13 +438,16 @@ __device__ __forceinline__ void add_slots(const V* __restrict__ vp,
   }
 }
 
-// K7, K8, P1 and (kSeg) P3: slice k = 16·blockIdx.x + warp holds slots
-// sbase[k] .. sbase[k+1] (width w = that / 32) of group k / 32, whose
-// columns count from x0[k / 32]; lane e's row is rowmap[32·k + e]; columns
-// c0 .. c0+NR-1 of x (those < nrhs).  C is unsigned short (16-bit offsets)
-// or int (x0 = 0); with kSeg, flags[sbase[k] / 32 + t] holds slot t's
-// segment flags, one bit a lane (lane_flags reads 32 slots' at a time).
-template <typename V, typename C, int NR, bool kSeg>
+// K7, K8, P1, (kSeg) P3 and (L = Stacked) K10: slice k = 16·blockIdx.x +
+// warp holds slots sbase[k] .. sbase[k+1] (width w = that / 32) of group
+// k / 32, whose columns count from x0[k / 32]; lane e's row is rowmap[32·k
+// + e]; columns c0 .. c0+NR-1 of x (those < nrhs).  C is unsigned short
+// (16-bit offsets) or int (x0 = 0); with kSeg, flags[sbase[k] / 32 + t]
+// holds slot t's segment flags, one bit a lane (lane_flags reads 32 slots'
+// at a time).  L is the layout of x and y: Batched (nrhs, nrows) or
+// Stacked (nt, nrhs·8, 128), where internal row r of column c lies at
+// Stacked::at(c, r >> 10, nt, nrhs) + (r & 1023).
+template <typename V, typename C, int NR, bool kSeg, typename L = Batched>
 __global__ void __launch_bounds__(kRowThreads)
     wbell_rows_kernel(const V* __restrict__ values,
                       const C* __restrict__ cols,
@@ -446,7 +466,9 @@ __global__ void __launch_bounds__(kRowThreads)
   const int w = static_cast<int>((sbase[k + 1] - b) / kSlice);
   const V* vp = values + b + lane;
   const C* cp = cols + b + lane;
-  const float* xc = x + c0 * nrows + x0[k / kSlice];
+  constexpr bool kStacked = std::is_same_v<L, Stacked>;
+  const int xb = x0[k / kSlice];
+  const float* xc = kStacked ? x + c0 * kGroupRows : x + c0 * nrows + xb;
   float acc[NR] = {};
   float part[NR] = {};
   unsigned fl = 0;
@@ -455,8 +477,9 @@ __global__ void __launch_bounds__(kRowThreads)
       if ((t & (kSlice - 1)) == 0) fl = lane_flags(flags + b / kSlice, t, w,
                                                    lane);
     }
-    add_slots<V, C, NR, true, kSeg>(vp, cp, t, w, xc, nrows, ncol, acc,
-                                    part, fl >> (t & (kSlice - 1)));
+    add_slots<V, C, NR, true, kSeg, L>(vp, cp, t, w, xc, nrows, ncol, acc,
+                                       part, fl >> (t & (kSlice - 1)), xb,
+                                       nrhs);
   }
   if constexpr (kSeg) {
 #pragma unroll
@@ -464,8 +487,15 @@ __global__ void __launch_bounds__(kRowThreads)
   }
   const long long row = rowmap[static_cast<long long>(k) * kSlice + lane];
 #pragma unroll
-  for (int c = 0; c < NR; ++c)
-    if (c < ncol) y[(c0 + c) * nrows + row] = acc[c];
+  for (int c = 0; c < NR; ++c) {
+    if (c < ncol) {
+      if constexpr (kStacked) {
+        y[Stacked::at(c0 + c, row >> 10, 0, nrhs) + (row & 1023)] = acc[c];
+      } else {
+        y[(c0 + c) * nrows + row] = acc[c];
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -640,7 +670,8 @@ extern "C" int cgx_wbell_resident(const void* values, int bf16,
   });
 }
 
-// K10: K7's walk on the stacked layout, x and y (nt, nrhs·8, 128).
+// The plane walk in K7's order on the stacked layout, x and y (nt, nrhs·8,
+// 128): K10's first design (its "before").
 extern "C" int cgx_wbell_stacked(const void* values, int bf16, const int* lc,
                                  const int* order, const int* ptr,
                                  const int* p_ga, const float* x, float* y,
@@ -753,6 +784,41 @@ extern "C" int cgx_wbell_rows(const void* values, int bf16, const void* cols,
       launch(Tag<unsigned short>{}, std::true_type{});
     } else {
       launch(Tag<unsigned short>{}, std::false_type{});
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// K10: K7's row layout (16-bit columns from x0 of their group, or int32
+// indices when `wide` is 1) with x and y in the stacked layout (nt,
+// nrhs·8, 128).
+extern "C" int cgx_wbell_rows_stacked(const void* values, int bf16,
+                                      const void* cols, int wide,
+                                      const long long* sbase,
+                                      const int* rowmap, const int* x0,
+                                      const float* x, float* y, int nt,
+                                      int nrhs, void* stream) {
+  if (bad_shape(nt, nrhs)) return cudaErrorInvalidValue;
+  const int nslices = nt * kSlice;
+  const long long nrows = static_cast<long long>(nt) * kGroupRows;
+  return with_types(bf16, nrhs, [&](auto vt, auto nrt) {
+    using V = typename decltype(vt)::type;
+    constexpr int NR = decltype(nrt)::value;
+    const int per_block = kRowThreads / kSlice;
+    const dim3 grid((nslices + per_block - 1) / per_block,
+                    (nrhs + NR - 1) / NR);
+    const auto st = static_cast<cudaStream_t>(stream);
+    auto launch = [&](auto ct) {
+      using C = typename decltype(ct)::type;
+      wbell_rows_kernel<V, C, NR, false, Stacked>
+          <<<grid, kRowThreads, 0, st>>>(
+              static_cast<const V*>(values), static_cast<const C*>(cols),
+              nullptr, sbase, rowmap, x0, x, y, nslices, nrows, nrhs);
+    };
+    if (wide) {
+      launch(Tag<int>{});
+    } else {
+      launch(Tag<unsigned short>{});
     }
     return static_cast<int>(cudaGetLastError());
   });

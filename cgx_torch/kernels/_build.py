@@ -32,6 +32,7 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes (every pointer and the stream c_void_p).
 _SIGNATURES = {
     "cgx_stencil3d_spmv": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "cgx_stencil3d_march": [_P, _P, _I, _I, _I, _P, _P],
     "cgx_resident_cg_grid": [_I, _I, _I, _P],
     "cgx_resident_cg": [_P] * 6 + [_I] * 5 + [_P] * 3 + [_I, _I] + [_P] * 3
     + [_I, _P],
@@ -64,6 +65,8 @@ _SIGNATURES = {
     "cgx_wbell_stacked": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cgx_wbell_half": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cgx_wbell_rows": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "cgx_wbell_rows_stacked": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                               _P],
     "cgx_wbell_rows_windowed": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _P],
     "cgx_bell_spmm": [_P, _P, _P, _P] + [_I] * 11 + [_P],

@@ -1,20 +1,27 @@
 """K1: 7-point 3-D stencil SpMV — CUDA kernel and its plain version.
 
 Replaces the Pallas kernel :func:`cgx.kernels.stencil.stencil3d_spmv_pallas`
-(``_kernel``: one halo-window DMA per block).  The CUDA source
-(``cgx_torch/csrc/stencil.cu``, tap loop in ``stencil.cuh``) runs one thread
-per row over the flat vector with no padded operand: the boundary masks
-come from index arithmetic.  Its floor is bytes, about 8 B/row (read x,
-write y) when the neighbour reads hit L1/L2; this first version runs
-about 5× above that floor at 128³ (see PERF.md).
+(``_kernel``: one halo-window DMA per block).  The CUDA source is
+``cgx_torch/csrc/stencil.cu``.  Its kernel marches along x: each thread owns
+one (j, k) column of four z-values (a float4; one in the scalar form) and
+walks a chunk of ``kChunk`` rows along i with x at i−1, i and i+1 in
+registers, the z neighbours from its lane neighbours by shuffles and the y
+neighbours from the L1; the kernel's block, chunk and choice of form are
+set there alone.  Its floor is bytes: x read once and y written once, 8 B
+a row.  Each row sums its taps in ``cgx::stencil_row``'s order, each
+product and sum rounded on its own, so the march equals the first design
+bit for bit.
 
-:func:`stencil3d_spmv` launches the kernel for a CUDA tensor and takes the
+:func:`stencil3d_spmv` launches the march for a CUDA tensor and takes the
 plain PyTorch version, :func:`stencil3d_spmv_reference`, only for a CPU
-tensor.  ``stencil3d_spmv_launches`` counts the kernel's launches.
+tensor.  ``stencil3d_spmv_launches`` counts the march's launches.  The
+first design (one thread per row) stays as :func:`_before_spmv` (CUDA
+only, counted nowhere), the same-run "before" of the tests and the smoke.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -90,14 +97,54 @@ def check_cuda_vector(v: torch.Tensor, n: int, name: str,
         raise ValueError(f"{name}: {n} rows do not fit int32 indexing")
 
 
+@functools.lru_cache(maxsize=64)
+def _packed_coeffs(coeffs) -> ctypes.Array:
+    """The seven coefficients in tap order (centre, z+, z−, y+, y−, x+,
+    x−) as the C entry takes them, packed once per coefficient tuple."""
+    cc, cx, cy, cz = coeffs
+    return (ctypes.c_float * 7)(cc, cz, cz, cy, cy, cx, cx)
+
+
+@functools.cache
+def _march_call():
+    """The march's C entry, the reader of a device's current stream (its
+    raw handle, without a Stream object) and the return-code check, looked
+    up once."""
+    from cgx_torch.kernels import _build
+
+    return (_build.library().cgx_stencil3d_march,
+            torch._C._cuda_getCurrentRawStream, _build.check)
+
+
 def stencil3d_spmv(x: torch.Tensor, *, nx: int, ny: int, nz: int,
                    coeffs=(6.0, -1.0, -1.0, -1.0)) -> torch.Tensor:
     """``y = A x`` for the 7-point stencil; ``x`` flat ``(nx·ny·nz,)``."""
     global stencil3d_spmv_launches
-    if x.device.type == "cpu":
-        return stencil3d_spmv_reference(x, nx, ny, nz, coeffs)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return stencil3d_spmv_reference(x, nx, ny, nz, coeffs)
         raise ValueError(f"stencil3d_spmv: unsupported device {x.device}")
+    check_cuda_vector(x, nx * ny * nz, "stencil3d_spmv")
+    fn, stream, check = _march_call()
+    cf = _packed_coeffs(tuple(coeffs))
+    y = torch.empty_like(x)
+    index = x.get_device()
+    if index == torch.cuda.current_device():
+        rc = fn(x.data_ptr(), y.data_ptr(), nx, ny, nz, cf, stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(x.data_ptr(), y.data_ptr(), nx, ny, nz, cf,
+                    stream(index))
+    check(rc, "stencil3d_spmv launch")
+    stencil3d_spmv_launches += 1
+    return y
+
+
+def _before_spmv(x: torch.Tensor, nx: int, ny: int, nz: int,
+                 coeffs=(6.0, -1.0, -1.0, -1.0)) -> torch.Tensor:
+    """K1's first design, one thread per row, through its first host call
+    (the taps packed per call, a device context): the same-run "before"
+    of the tests and the smoke.  CUDA only; counted nowhere."""
     from cgx_torch.kernels import _build
 
     check_cuda_vector(x, nx * ny * nz, "stencil3d_spmv")
@@ -109,6 +156,5 @@ def stencil3d_spmv(x: torch.Tensor, *, nx: int, ny: int, nz: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.cgx_stencil3d_spmv(x.data_ptr(), y.data_ptr(), nx, ny, nz,
                                     len(_TAPS7), taps, cf, stream)
-    _build.check(rc, "stencil3d_spmv launch")
-    stencil3d_spmv_launches += 1
+    _build.check(rc, "stencil3d_spmv first design launch")
     return y

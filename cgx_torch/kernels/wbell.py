@@ -27,9 +27,10 @@ on the internal layout ``(nrhs, nt, 8, 128)`` of a
   for bit and a column of the multi-RHS solve equals the single-RHS solve
   of that column.
 * **K10** (``wbell_spmm_stacked``, replaces ``_kernel_resident_stacked``):
-  the planes in K7's walk with ``X`` and ``Y`` in the stacked layout
-  ``(nt, k·8, 128)`` (:func:`to_stacked`, :func:`from_stacked`), read and
-  written in place by the kernel; it equals K7 bit for bit.  The TPU
+  K7's kernel over K7's row layout (:attr:`WBELLMatrix.rows`) with ``X``
+  and ``Y`` in the stacked layout ``(nt, k·8, 128)`` (:func:`to_stacked`,
+  :func:`from_stacked`), read and written in place by the kernel
+  (``Stacked::at`` in the CUDA source); it equals K7 bit for bit.  The TPU
   measured it slower than K7 (docs/PERF_NOTES.md 5a); nothing routes to
   it.
 
@@ -43,10 +44,10 @@ exact ±0 product leaves the sum as it was.  A segmented layout (the 4×8
 half-block prototype P3's) sums each (row, plane) segment from 0 first,
 as that prototype does.  ``wbell_resident_launches``,
 ``wbell_tiered_launches``, ``wbell_windowed_launches`` and
-``wbell_stacked_launches`` count launches.  The plane walks that K7, K8
-and K9 replace stay as ``_planes_k7``, ``_planes_k8`` and ``_planes_k9``
-(CUDA only, counted nowhere): the same-run "before" of the tests and the
-smoke.
+``wbell_stacked_launches`` count launches.  The plane walks that K7, K8,
+K9 and K10 replace stay as ``_planes_k7``, ``_planes_k8``, ``_planes_k9``
+and ``_planes_k10`` (CUDA only, counted nowhere): the same-run "before"
+of the tests and the smoke.
 
 Not ported, because they encode TPU VMEM: ``_resident_fits``,
 ``_RESIDENT_VMEM_CAP``, ``_SPLANE``.
@@ -240,10 +241,11 @@ def _launch(fn: str, what: str, values, lc, x, *ints32, nt=None,
     return y
 
 
-def _launch_rows(rows: WBellRows, x: torch.Tensor, what: str):
+def _launch_rows(rows: WBellRows, x: torch.Tensor, what: str, *,
+                 stacked: bool = False):
     """Check the operands, launch the row kernel (resident layout: K7, K8,
-    P1, P3 segmented) or K9's (windowed) over ``rows`` and return ``y``
-    (shaped as ``x``)."""
+    P1, P3 segmented; ``stacked``: K10, x and y ``(nt, nrhs·8, 128)``) or
+    K9's (windowed) over ``rows`` and return ``y`` (shaped as ``x``)."""
     from cgx_torch.kernels import _build
 
     if rows.values.dtype not in (torch.float32, torch.bfloat16):
@@ -255,7 +257,16 @@ def _launch_rows(rows: WBellRows, x: torch.Tensor, what: str):
     if x.device != rows.values.device or not x.is_contiguous():
         raise ValueError(f"{what}: the CUDA kernel needs a contiguous x on "
                          f"{rows.values.device}")
-    _check_x(x, rows.nt, what)
+    if stacked:
+        if rows.windowed or rows.segmented:
+            raise ValueError(f"{what}: the stacked kernel reads a resident, "
+                             f"unsegmented row layout")
+        if x.dim() != 3 or x.shape[0] != rows.nt or x.shape[1] % 8 \
+                or x.shape[1] == 0 or x.shape[2] != 128:
+            raise ValueError(f"{what}: stacked layout is (nt={rows.nt}, "
+                             f"k*8, 128); got {tuple(x.shape)}")
+    else:
+        _check_x(x, rows.nt, what)
     if x.data_ptr() % 16:
         x = x.clone()                # cp.async.bulk reads 16-byte units
     y = torch.empty_like(x)
@@ -263,7 +274,13 @@ def _launch_rows(rows: WBellRows, x: torch.Tensor, what: str):
     bf16 = int(rows.values.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if rows.windowed:
+        if stacked:
+            rc = lib.cgx_wbell_rows_stacked(
+                rows.values.data_ptr(), bf16, rows.cols.data_ptr(),
+                int(rows.cols.dtype == torch.int32), rows.sbase.data_ptr(),
+                rows.rowmap.data_ptr(), rows.x0.data_ptr(), x.data_ptr(),
+                y.data_ptr(), rows.nt, x.shape[1] // 8, stream)
+        elif rows.windowed:
             rc = lib.cgx_wbell_rows_windowed(
                 rows.values.data_ptr(), bf16, rows.cols.data_ptr(),
                 rows.sbase.data_ptr(), rows.rowmap.data_ptr(),
@@ -348,6 +365,14 @@ def _planes_k9(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
                    torder, tptr, a.ps, a.wb, a.g0, a.pgo)
 
 
+def _planes_k10(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    """K10's first design: the plane walk in K7's order on the stacked
+    layout ``(nt, k·8, 128)`` (K10's "before"); CUDA only, counted
+    nowhere."""
+    return _launch("cgx_wbell_stacked", "plane walk", a.values, a.lc, x,
+                   *a.resident_walk, a.p_ga, nt=a.nt, nrhs=x.shape[1] // 8)
+
+
 def _wbell_call_resident(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
     _check_x(x, a.nt, "wbell kernel")
     return wbell_resident_raw(a.p_og, a.p_ga, a.lc, a.values,
@@ -400,9 +425,10 @@ def wbell_stacked_reference(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def wbell_spmm_stacked(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
     """K10: ``Y = A @ X`` on the stacked layout ``(nt, k·8, 128)`` (column
-    c of a group in rows ``c·8 .. c·8+7``); equal to :func:`wbell_spmm` on
-    the batched layout bit for bit.  Raises for ``nt >= 65536``, as the JAX
-    package does."""
+    c of a group in rows ``c·8 .. c·8+7``) over the row layout
+    :attr:`WBELLMatrix.rows`; equal to :func:`wbell_spmm` on the batched
+    layout bit for bit.  Raises for ``nt >= 65536``, as the JAX package
+    does."""
     global wbell_stacked_launches
     nt = a.nt
     if nt >= 1 << 16:
@@ -414,9 +440,7 @@ def wbell_spmm_stacked(a: WBELLMatrix, x: torch.Tensor) -> torch.Tensor:
     x = x.to(a.vector_dtype).contiguous()
     if not _on_device(x, "wbell_spmm_stacked"):
         return wbell_stacked_reference(a, x)
-    order, ptr = a.resident_walk
-    y = _launch("cgx_wbell_stacked", "wbell_spmm_stacked", a.values, a.lc, x,
-                order, ptr, a.p_ga, nt=nt, nrhs=x.shape[1] // 8)
+    y = _launch_rows(a.rows, x, "wbell_spmm_stacked", stacked=True)
     wbell_stacked_launches += 1
     return y
 

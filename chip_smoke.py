@@ -6,8 +6,10 @@ Phases (any failed check exits nonzero, and no result line is printed):
 
 1. device: the card's name and power limit, the toolchain probe;
 2. build: compile the CUDA kernels from ``cgx_torch/csrc`` with nvcc;
-3. K1 (stencil SpMV) against its plain PyTorch version at 128³ and at a
-   ragged 37×41×53;
+3. K1 (stencil SpMV, the march along x) against its plain PyTorch version
+   and against its first design (one thread a row, the same-run "before",
+   counted nowhere) bit for bit, at 128³ (the float4 form) and at a ragged
+   37×41×53 (the scalar form);
 4. the main path as a user drives it: three right-hand sides at 128³ and
    one at 224³ through ``cgx_torch.auto_solve`` (routed to the whole-solve
    kernel K2), each answer checked with ``cgx_torch.spmv`` (K1); the
@@ -16,7 +18,11 @@ Phases (any failed check exits nonzero, and no result line is printed):
    an fp64 solve of the same system, and K2 is run twice to show it is
    bit-reproducible;
 5. times (CUDA events, median of interleaved repetitions) of both kernels
-   and their plain versions; K2 at 128³ and 224³ (b = ones) equal to the
+   and their plain versions; K1 at 128³ beside its first design in turns:
+   device time cold (x rotated over 8 buffers of 8 MB, past the L2) and
+   warm (one buffer), by queued events, the host's µs per call (1,000
+   calls enqueued behind a spin kernel), and events around 20 calls from
+   Python; K2 at 128³ and 224³ (b = ones) equal to the
    three-phase kernel it replaced (kept as the same-run "before", counted
    nowhere) bit for bit at one grid, and timed in turns with it, beside
    the stream floors (``k2_times``);
@@ -184,14 +190,19 @@ Phases (any failed check exits nonzero, and no result line is printed):
     p; DIA-7 160³ rpq, rp and p; DIA-27 128³ rpq in fp32 and bf16 planes)
     beside its first design and K3 in turns (events around a solve, one
     launch of K4 each) and K2 on the same system and b, with the kernel
-    that ran, the tier's stream floor and K4's grid over K3's; K6 beside
+    that ran, the tier's stream floor and K4's grid over K3's; on the DIA
+    operators all three on the planes of one ``dia_prep`` (K3 on its
+    prepared engine, K2 through ``resident_cg_call``), the prep's own time
+    printed apart; K6 beside
     K3 and the
     first K6 design at 224³ in turns, and both K6s' device time per
     iteration (profiler), each beside its plain version and its 6- and
     7-stream floors;
-35. E1, the column-stacked WBELL SpMM K10 (``wbell_spmm_stacked``) on W1's
-    thermal2 operator, k = 4 seeded columns: ``from_stacked`` of its Y
-    equal to K7's batched Y and to its plain version bit for bit, twice;
+35. E1, the column-stacked WBELL SpMM K10 (``wbell_spmm_stacked``, K7's
+    kernel over K7's row layout) on W1's thermal2 operator, k = 4 seeded
+    columns: ``from_stacked`` of its Y equal to K7's batched Y, to its
+    plain version and to its first design (the plane walk,
+    ``_planes_k10``) bit for bit, twice;
 36. E2, the tiered single call P1 (``cgx_torch.experiments.tier_proto``):
     ``build_tiers`` on thermal2 (host seconds printed) and its row layout,
     ``tier_spmm`` at k = 1 and 4 equal bit for bit to its plain version,
@@ -211,7 +222,8 @@ Phases (any failed check exits nonzero, and no result line is printed):
 40. E6, times (CUDA events, interleaved medians): K10 and P1 beside K7 and
     K8 at k = 4, P1 and P3 beside K7 at k = 1, K12 and P2 beside K11 at B1
     and B2, each beside its plain version, its bound and torch's CSR or
-    BSR product of the same matrix; P1 (k = 1 and 4) and P3 (k = 1) in
+    BSR product of the same matrix; K10 beside its first design and K7 in
+    device time, in turns; P1 (k = 1 and 4) and P3 (k = 1) in
     device time too, beside the plane walks they replace, and at k = 1
     below the CSR product's device time.
 
@@ -224,7 +236,11 @@ tensor cores for bf16 operands) and the time of one PyTorch call that
 computes the same function where there is one (K7–K10, P1 and P3, which
 compute one function, Y = A·X, take one bound: the fewest bytes that move
 it, ``wbell_least_bytes``); the last line is
-``{"ok": true, "device": {...}}``; K11's entry there also names its path
+``{"ok": true, "device": {...}}``; K1's entry gives its device time
+cold and warm (``device_ms``, ``warm_device_ms``), its host µs per call
+(``host_us``) and its first design's (``before_ms`` by events,
+``before_device_ms``, ``before_host_us``), K10's its device time beside
+its first design's and K7's; K11's entry there also names its path
 at B1 and its launches by path; the entries of K3 A and B and of K5 A
 give device time (``ms``) beside that of their first design, measured in
 turns in the same run (``before_ms``), and K4's entries their solve time
@@ -237,6 +253,7 @@ neither JAX nor the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -270,6 +287,8 @@ HBM_BYTES_PER_S = 3.35e12
 # Cycles of the spin kernel that holds the card while the host enqueues
 # the calls :func:`queued_ms` times (~10 ms at the H100's clock).
 SPIN_CYCLES = 20_000_000
+# x buffers K1's cold timing rotates over: 8 × 8 MB at 128³, past the L2.
+K1_COLD_BUFFERS = 8
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
 # The block-sparse phases: the JAX package's block-dense records
@@ -395,6 +414,63 @@ def in_turns(fns, reps: int = 4):
         for j in order:
             ms[j].append(queued_ms(fns[j]))
     return [statistics.median(m) for m in ms]
+
+
+def rotating(fn, xs):
+    """A call of ``fn`` on the next of ``xs`` each time, round and round:
+    with their sum past the 50 MB L2, every call reads its x cold."""
+    it = itertools.cycle(xs)
+    return lambda: fn(next(it))
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """µs of host time per call of ``fn``: ``calls`` calls enqueued behind
+    a spin kernel (~20 ms) and timed by the host clock, so the clock reads
+    the enqueue, not the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2 * SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def k1_times(card, fns, xs, plain=None, reps: int = 4):
+    """K1's four figures for each of ``fns`` ({name: f(x)}), in turns: the
+    device time per call cold (x rotated over ``xs``, whose sum exceeds the
+    L2) and warm (``xs[0]`` alone), both by :func:`queued_ms`; the host µs
+    per call (:func:`host_us`); and CUDA events around 20 calls from
+    Python on ``xs[0]`` (the figure the kernel table kept before the
+    other three), beside ``plain`` where given.  Returns ``{name: {"cold_ms", "warm_ms", "host_us",
+    "events_ms"}}``."""
+    names = list(fns)
+    cold = in_turns([rotating(fns[nm], xs) for nm in names], reps)
+    warm = in_turns([lambda f=fns[nm]: f(xs[0]) for nm in names], reps)
+    hosts = [[] for _ in names]
+    for i in range(reps):
+        order = range(len(names)) if i % 2 == 0 else reversed(
+            range(len(names)))
+        for j in order:
+            hosts[j].append(host_us(lambda f=fns[names[j]]: f(xs[0])))
+    calls = [lambda f=fns[nm]: f(xs[0]) for nm in names]
+    if plain is not None:
+        calls.append(lambda: plain(xs[0]))
+    events = time_set(calls, reps=5, inner=20)
+    out = {nm: {"cold_ms": cold[j], "warm_ms": warm[j],
+                "host_us": statistics.median(hosts[j]),
+                "events_ms": events[j]} for j, nm in enumerate(names)}
+    if plain is not None:
+        out["plain"] = {"events_ms": events[-1]}
+    labels = {"cold_ms": "device cold", "warm_ms": "device warm",
+              "host_us": "host", "events_ms": "events"}
+    for nm, v in out.items():
+        print(f"[{card}] K1 {nm}: " + ", ".join(
+            f"{labels[key]} {val if key == 'host_us' else val * 1e3:.2f} us"
+            for key, val in v.items()))
+    return out
 
 
 def k3a_launcher(eng, p, design):
@@ -1961,15 +2037,21 @@ def proto_phases(dev, card, thermal, bells):
     y7 = kw.wbell_spmm(op, xb)
     torch.cuda.synchronize()
     y10_ref = kw.wbell_stacked_reference(op, xst)
+    y10_first = kw._planes_k10(op, xst)
+    torch.cuda.synchronize()
     errs["K10"] = float((y10 - y10_ref).abs().max())
     same7 = torch.equal(kw.from_stacked(y10), y7)
-    print(f"E1 K10 thermal2 k=4: from_stacked(K10) equal to K7 bit for bit: "
-          f"{same7}; equal to its plain version: "
-          f"{torch.equal(y10, y10_ref)}; two runs equal: "
+    print(f"E1 K10 thermal2 k=4 (K7's row layout): from_stacked(K10) equal "
+          f"to K7 bit for bit: {same7}; equal to its plain version: "
+          f"{torch.equal(y10, y10_ref)}; to its first design (the plane "
+          f"walk): {torch.equal(y10, y10_first)}; two runs equal: "
           f"{torch.equal(y10, again)}")
     check(same7, "E1: K10 differs from K7")
     check(torch.equal(y10, y10_ref), "E1: K10 differs from its plain version")
+    check(torch.equal(y10, y10_first), "E1: K10 differs from its first "
+          "design")
     check(torch.equal(y10, again), "E1: two K10 runs differ")
+    del y10_first
 
     # -- E2. P1: the tiered single call, k = 1 and 4 --------------------------
     errs["P1"] = 0.0
@@ -2077,6 +2159,17 @@ def proto_phases(dev, card, thermal, bells):
               + (f", K10 {ms['K10'] * 1e3 / k:.1f}" if k == 4 else ""))
     print(f"[{card}] E6 plain versions (us/call): "
           + ", ".join(f"{nm} {t * 1e3:.1f}" for nm, t in wp.items()))
+    # K10 beside its first design (the plane walk) and K7, device time
+    # (queued events), in turns.
+    d10 = dict(zip(("K10", "K10 first", "K7"), in_turns([
+        lambda: kw.wbell_spmm_stacked(op, xst),
+        lambda: kw._planes_k10(op, xst),
+        lambda: kw.wbell_spmm(op, xb)])))
+    print(f"[{card}] E6 K10 thermal2 k=4, device (in turns): "
+          f"{d10['K10'] * 1e3:.1f} us over K7's row layout; its first "
+          f"design (the plane walk) {d10['K10 first'] * 1e3:.1f} us "
+          f"({d10['K10'] / d10['K10 first']:.3f}x); K7 "
+          f"{d10['K7'] * 1e3:.1f} us ({d10['K10'] / d10['K7']:.3f}x)")
     # Device time alone (queued events; the plain version's and a
     # cross-check of the kernel's by the profiler): P1 and P3, the plane
     # walks they replace, torch's CSR product, beside the one bound.
@@ -2159,9 +2252,10 @@ def proto_phases(dev, card, thermal, bells):
 
     wsrc, bsrc = "cgx_torch/csrc/wbell.cu", "cgx_torch/csrc/bsr.cu"
     return [
-        entry("wbell_spmm_stacked", wsrc, "cgx/kernels/wbell.py:384",
-              "wbell_stacked_launches", errs["K10"], w4["K10"], wp["K10"],
-              b4, w4["CSR"]),
+        dict(entry("wbell_spmm_stacked", wsrc, "cgx/kernels/wbell.py:384",
+                   "wbell_stacked_launches", errs["K10"], w4["K10"],
+                   wp["K10"], b4, w4["CSR"]), device_ms=d10["K10"],
+             before_device_ms=d10["K10 first"], k7_device_ms=d10["K7"]),
         entry("bell_spmm_prefetch", bsrc, "cgx/kernels/bsr.py:215",
               "bell_prefetch_launches", errs["K12"], bt["B1"]["K12"],
               bt["B1"]["K12 plain"], b1, bt["B1"]["BSR"]),
@@ -3058,7 +3152,10 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
     # Per iteration, b = ones: K4 beside its first design (the same call
     # through sr_kernel) and K3 in turns, events around a solve (one
     # launch of K4 each), medians of 5; K2 separately; the plain versions'
-    # solves were timed once above (host clock, synchronised).
+    # solves were timed once above (host clock, synchronised).  On a DIA
+    # operator all three run on the planes of one dia_prep (K3 on its
+    # prepared engine, K2 through resident_cg_call), whose own time is
+    # printed apart.
     def k4_turns(label, a, g, b, kw, eng, k3_solve, k2_solve):
         n = a.shape[0]
         res, ran = k4_run(lambda: k4.sr_cg(g, b, **kw))
@@ -3067,7 +3164,8 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
         t4, t4_old, t3 = time_set([
             lambda: k4.sr_cg(g, b, **kw),
             lambda: k4._before_solve(g, b, **kw), k3_solve], reps=5)
-        its2 = int(k2_solve().iterations)
+        r2 = k2_solve()
+        its2 = int(r2.iterations if hasattr(r2, "iterations") else r2[3])
         t2 = statistics.median(event_ms(k2_solve) for _ in range(3))
         ga, gb = eng.grids(dev)
         grid = k4.sr_launch_grid(g, eng, dev, ga, gb)
@@ -3108,23 +3206,35 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
         a, m = s2_ops[label], jac[label]
         n = a.shape[0]
         b = rhs(n, "ones")
-        nx, ny, nz, taps, coeffs, planes, e, w, sym = fdia.dia_prep(
-            a, torch.float32, inv_diag=m.inv_diag)
+        t_prep = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prep = fdia.dia_prep(a, torch.float32, inv_diag=m.inv_diag)
+            torch.cuda.synchronize()
+            t_prep.append(time.perf_counter() - t0)
+        nx, ny, nz, taps, coeffs, planes, e, w, sym = prep
+        t_prep = statistics.median(t_prep) * 1e3
+        print(f"[{card}] S5 {label}: one dia_prep {t_prep:.2f} ms (host "
+              f"clock, synchronised, median of 3), outside the times below")
         g = k4.make_sr_geometry(nx, ny, nz, taps, mode=mode,
                                 n_planes=planes.shape[0], weighted=True,
                                 sym=sym)
         eng = k3.FusedCG(nx, ny, nz, taps, coeffs=coeffs, planes=planes,
                          weight=w, sym=sym, plane_dtype=pdt)
         tag = label + (" bf16 planes" if pdt is not None else "")
+        b_s = e * b
+        k2_planes = planes if pdt is None else planes.to(pdt)
         dia_us[tag, mode] = k4_turns(
-            tag, a, g, e * b, dict(coeffs=coeffs, w=w, tol=TOL, maxiter=n,
-                                   b_norm_sq=torch.sum(b * b), planes=planes,
-                                   plane_dtype=pdt), eng,
-            lambda a=a, b=b, m=m, n=n, pdt=pdt: fdia.fused_dia_cg(
-                a, b, tol=TOL, maxiter=n, inv_diag=m.inv_diag,
-                plane_dtype=pdt),
-            lambda a=a, b=b, m=m: cgx_torch.auto_solve(
-                a, b, tol=TOL, preconditioner=m, backend="resident_dia"))
+            tag, a, g, b_s, dict(coeffs=coeffs, w=w, tol=TOL, maxiter=n,
+                                 b_norm_sq=torch.sum(b * b), planes=planes,
+                                 plane_dtype=pdt), eng,
+            lambda eng=eng, b_s=b_s, n=n: eng.solve(b_s, tol=TOL,
+                                                    maxiter=n),
+            lambda b_s=b_s, n=n, spec=(nx, ny, nz, taps, coeffs),
+            pl=k2_planes, w=w, sym=sym: k2.resident_cg_call(
+                spec, b_s, planes=pl, weight=w, sym=sym, tol=TOL,
+                maxiter=n))
     b = rhs(n224, "ones")
     its6 = int(next(r.iterations for nm, hist, _, r in s4
                     if nm == "ones" and not hist))
@@ -3382,13 +3492,21 @@ def main() -> None:
         y = k1.stencil3d_spmv(x, nx=nx, ny=ny, nz=nz)
         torch.cuda.synchronize()
         y_ref = k1.stencil3d_spmv_reference(x, nx, ny, nz)
+        y_first = k1._before_spmv(x, nx, ny, nz)
+        torch.cuda.synchronize()
         err = float((y - y_ref).abs().max())
         scale = float(y_ref.abs().max())
-        print(f"K1 {nx}x{ny}x{nz}: max|y-y_ref| = {err:.3e} "
-              f"(bound 1e-6 * {scale:.3e})")
+        # The form cgx_stencil3d_march (csrc/stencil.cu) chooses.
+        w = 4 if (nz % 4 == 0 and x.data_ptr() % 16 == 0
+                  and y.data_ptr() % 16 == 0) else 1
+        same = torch.equal(y, y_first)
+        print(f"K1 {nx}x{ny}x{nz} ({'float4' if w == 4 else 'scalar'} "
+              f"form): max|y-y_ref| = {err:.3e} (bound 1e-6 * "
+              f"{scale:.3e}); equal to the first design bit for bit: {same}")
         check(k1.stencil3d_spmv_launches == before + 1,
               "K1 launch counter did not move")
         check(err <= 1e-6 * scale, f"K1 disagrees at {dims}: {err}")
+        check(same, f"K1 differs from its first design at {dims}")
         k1_err[dims] = err
 
     # -- 4. the main path, as users drive it --------------------------------
@@ -3470,10 +3588,18 @@ def main() -> None:
     nx, ny, nz = N128
     n = nx * ny * nz
     nnz = 7 * n - 6 * nx * ny
-    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
-    t_k1, t_k1p = time_pair(
-        lambda: k1.stencil3d_spmv(x, nx=nx, ny=ny, nz=nz),
-        lambda: k1.stencil3d_spmv_reference(x, nx, ny, nz), inner=20)
+    # K1 beside its first design in turns, cold (x over 8 buffers of 8 MB,
+    # past the 50 MB L2) and warm in device time, the host's µs per call,
+    # and events around 20 calls from Python (beside the plain version).
+    xs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        dev) for _ in range(K1_COLD_BUFFERS)]
+    x = xs[0]
+    k1t = k1_times(card, {
+        "march": lambda v: k1.stencil3d_spmv(v, nx=nx, ny=ny, nz=nz),
+        "first design": lambda v: k1._before_spmv(v, nx, ny, nz)}, xs,
+        plain=lambda v: k1.stencil3d_spmv_reference(v, nx, ny, nz))
+    t_k1 = k1t["march"]["events_ms"]
+    t_k1p = k1t["plain"]["events_ms"]
     # One PyTorch call that computes K1's function: conv3d with the seven
     # taps in a 3x3x3 kernel, padding 1, in full fp32 (cuDNN's TF32 off).
     torch.backends.cudnn.allow_tf32 = False
@@ -3491,8 +3617,15 @@ def main() -> None:
         x, nx, ny, nz)) <= 1e-6, "conv3d does not compute K1's function")
     conv()
     t_conv = statistics.median(event_ms(conv, inner=20) for _ in range(5))
-    print(f"[{card}] K1 128^3: {t_k1 * 1e3:.2f} us/SpMV "
-          f"({nnz / (t_k1 * 1e-3) / 1e9:.1f} Gnnz/s); plain "
+    k1_b = bound(8 * n, 2 * nnz - n)
+    d_k1, d_k1f = k1t["march"]["cold_ms"], k1t["first design"]["cold_ms"]
+    print(f"[{card}] K1 128^3: {t_k1 * 1e3:.2f} us/SpMV by events "
+          f"({nnz / (t_k1 * 1e-3) / 1e9:.1f} Gnnz/s); device cold "
+          f"{d_k1 * 1e3:.2f} us ({k1_b[0] / d_k1:.3f} of the "
+          f"{k1_b[0] * 1e3:.2f} us bound; the first design "
+          f"{d_k1f * 1e3:.2f}, {d_k1 / d_k1f:.3f}x); host "
+          f"{k1t['march']['host_us']:.2f} us per call (first design "
+          f"{k1t['first design']['host_us']:.2f}); plain "
           f"{t_k1p * 1e3:.2f} us ({nnz / (t_k1p * 1e-3) / 1e9:.1f} Gnnz/s); "
           f"conv3d {t_conv * 1e3:.2f} us")
 
@@ -3759,7 +3892,6 @@ def main() -> None:
     # for the dots and updates.  K3 one call: A reads p and its planes and
     # writes q; B reads x, r, p, q, w and writes x, r, p.
     n128 = N128[0] * N128[1] * N128[2]
-    k1_b = bound(8 * n128, 2 * nnz - n128)
     k2_b = bound(8 * n128, k2_its[128] * (2 * nnz + 10 * n128))
     n_pl, n_taps, its7 = k2p_ms["DIA-7 192^3"][2:5]
     n192 = N192[0] * N192[1] * N192[2]
@@ -3779,7 +3911,13 @@ def main() -> None:
     report = {"kernels": [
         entry("stencil3d_spmv", "cgx_torch/csrc/stencil.cu",
               "cgx/kernels/stencil.py:29", launches["k1"], k1_err[N128],
-              t_k1, t_k1p, k1_b, t_conv),
+              t_k1, t_k1p, k1_b, t_conv, device_ms=d_k1,
+              warm_device_ms=k1t["march"]["warm_ms"],
+              host_us=k1t["march"]["host_us"],
+              before_ms=k1t["first design"]["events_ms"],
+              before_device_ms=d_k1f,
+              before_warm_device_ms=k1t["first design"]["warm_ms"],
+              before_host_us=k1t["first design"]["host_us"]),
         entry("resident_cg", "cgx_torch/csrc/resident_cg.cu",
               "cgx/kernels/fused_resident.py:115", launches["k2"], k2_err,
               k2_ms[128][0], k2_ms[128][1], k2_b,

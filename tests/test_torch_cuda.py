@@ -53,6 +53,34 @@ def test_k1_kernel_matches_plain(cuda_device, dims):
         k1.stencil3d_spmv(x.double(), nx=nx, ny=ny, nz=nz)
 
 
+@pytest.mark.parametrize("dims,offset", [((5, 7, 6), 0), ((37, 41, 53), 0),
+                                         ((16, 24, 32), 0), ((16, 24, 32), 1),
+                                         ((128, 128, 128), 0)])
+def test_k1_march_equals_first_design(cuda_device, dims, offset):
+    """The march equals K1's first design (``_before_spmv``) bit for bit:
+    the scalar form at nz % 4 != 0 and on a misaligned x (a view at offset
+    1), the float4 form otherwise; one launch, and within 1e-6 · max|y| of
+    the plain version."""
+    nx, ny, nz = dims
+    n = nx * ny * nz
+    buf = t(seeded(n + offset, seed=dims[0] + offset, dtype=np.float32),
+            cuda_device)
+    x = buf[offset:]
+    coeffs = (6.5, -1.25, -0.75, -1.5)
+    before = k1.stencil3d_spmv_launches
+    y = k1.stencil3d_spmv(x, nx=nx, ny=ny, nz=nz, coeffs=coeffs)
+    torch.cuda.synchronize()
+    assert k1.stencil3d_spmv_launches == before + 1
+    first = k1._before_spmv(x, nx, ny, nz, coeffs)
+    torch.cuda.synchronize()
+    assert k1.stencil3d_spmv_launches == before + 1
+    assert torch.equal(y, first)
+    y_ref = k1.stencil3d_spmv_reference(x, nx, ny, nz, coeffs)
+    assert float((y - y_ref).abs().max()) <= 1e-6 * float(y_ref.abs().max())
+    assert torch.equal(k1.stencil3d_spmv(x, nx=nx, ny=ny, nz=nz,
+                                         coeffs=coeffs), y)
+
+
 @pytest.mark.parametrize("op", ["p3d_small", "p3d", "27point", "2d"])
 def test_k2_kernel_matches_plain(cuda_device, op):
     a = {"p3d_small": lambda: cgx_torch.poisson3d_stencil(10, 8, 9),
@@ -1261,9 +1289,10 @@ def test_k6_single_step_matches_plain(cuda_device):
     ("one_group", 3, False), ("five_groups", 9, False), ("thermal", 4, False),
     ("five_groups", 4, True)])
 def test_k10_equals_k7_and_plain(cuda_device, case, k, bf16):
-    """K10 reads and writes the stacked layout and sums as K7: equal to
-    K7's Y (restacked) and to its plain version bit for bit, one launch,
-    two runs equal.  k = 9 runs two column chunks."""
+    """K10 reads K7's row layout and reads and writes the stacked layout,
+    summing as K7: equal to K7's Y (restacked), to its plain version and
+    to its first design (the plane walk) bit for bit, one launch, two runs
+    equal.  k = 9 runs two column chunks."""
     a = _wbell(case, cuda_device, torch.bfloat16 if bf16 else None)
     xb = t(np.random.default_rng(k).standard_normal(
         (k, a.nt, 8, 128)).astype(np.float32), cuda_device)
@@ -1274,10 +1303,31 @@ def test_k10_equals_k7_and_plain(cuda_device, case, k, bf16):
     assert kw.wbell_stacked_launches == before + 1
     assert torch.equal(y, kw.to_stacked(kw.wbell_spmm(a, xb)))
     assert torch.equal(y, kw.wbell_stacked_reference(a, xs))
+    assert torch.equal(y, kw.to_stacked(kw.rows_product(a.rows, xb)))
+    assert torch.equal(y, kw._planes_k10(a, xs))
     assert torch.equal(kw.wbell_spmm_stacked(a, xs), y)
     with pytest.raises(TypeError, match="float32 vectors"):
-        kw._launch("cgx_wbell_stacked", "K10", a.values, a.lc, xs.double(),
-                   *a.resident_walk, a.p_ga, nt=a.nt, nrhs=k)
+        kw._launch_rows(a.rows, xs.double(), "K10", stacked=True)
+
+
+def test_k10_int32_columns(cuda_device, monkeypatch):
+    """K10 over a row layout with absolute int32 columns (where a group
+    spans more than 16 bits of x): equal to K7 over the same layout, to the
+    layout's plain product (restacked) and to the plane walk bit for
+    bit."""
+    from cgx_torch.sparse import wbell as sw
+
+    a = _wbell("thermal", cuda_device)
+    monkeypatch.setattr(sw, "ROW_OFFSET_LIMIT", 1024)
+    assert a.rows.cols.dtype == torch.int32
+    xb = t(np.random.default_rng(5).standard_normal(
+        (4, a.nt, 8, 128)).astype(np.float32), cuda_device)
+    xs = kw.to_stacked(xb)
+    y = kw.wbell_spmm_stacked(a, xs)
+    torch.cuda.synchronize()
+    assert torch.equal(y, kw.to_stacked(kw.wbell_spmm(a, xb)))
+    assert torch.equal(y, kw.to_stacked(kw.rows_product(a.rows, xb)))
+    assert torch.equal(y, kw._planes_k10(a, xs))
 
 
 @pytest.mark.parametrize("nbr,bs,k,dtype", [
