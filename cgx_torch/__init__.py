@@ -17,14 +17,18 @@ from cgx_torch.sparse.wbell import (WBELL_MIN_ROWS, WBELLMatrix, auto_format,
                                     pick_format, wbell_from_csr)
 from cgx_torch.ops.spmv import spmm, spmv
 from cgx_torch.ops import blas
-from cgx_torch.solve.cg import CGResult, cg_solve
+from cgx_torch.solve.cg import (CGResult, cg_solve, cg_solve_pipelined,
+                                cg_solve_single_reduction)
 from cgx_torch.solve.precond import (BlockJacobiPrecond, JacobiPrecond,
                                      PolynomialPrecond)
+from cgx_torch.solve.ic0 import IC0Precond, IC0SweepPrecond
 from cgx_torch.solve.block import block_cg_solve, cg_solve_multi
 from cgx_torch.solve.wbell import (WBellBlockJacobiPrecond, wbell_cg_solve,
                                    wbell_cg_solve_multi)
 from cgx_torch.solve.ir import ir_cg_solve, ir_supported
 from cgx_torch.solve.auto import auto_solve, select_backend
+from cgx_torch.solve.chebyshev import (analytic_bounds, chebyshev_solve,
+                                       estimate_bounds)
 
 __version__ = "0.1.0"
 
@@ -35,8 +39,10 @@ __all__ = [
     "coo_from_scipy", "bsr_from_csr", "dia_from_csr",
     "ell_from_csr", "wbell_from_csr", "auto_format", "pick_format",
     "WBELL_MIN_ROWS", "spmv", "spmm", "blas", "CGResult", "cg_solve",
+    "cg_solve_single_reduction", "cg_solve_pipelined",
     "wbell_cg_solve", "wbell_cg_solve_multi", "WBellBlockJacobiPrecond",
     "JacobiPrecond", "BlockJacobiPrecond", "PolynomialPrecond",
     "cg_solve_multi", "block_cg_solve", "auto_solve", "select_backend",
-    "ir_cg_solve", "ir_supported",
+    "ir_cg_solve", "ir_supported", "analytic_bounds", "chebyshev_solve",
+    "estimate_bounds", "IC0Precond", "IC0SweepPrecond",
 ]

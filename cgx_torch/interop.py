@@ -6,8 +6,8 @@ neither JAX nor ``cgx``: a ``cgx`` object is read by its class name and
 fields.  The data of a ``DIAMatrix``, ``CSRMatrix``, ``COOMatrix``,
 ``BSRMatrix``, ``BlockELL`` or ``WBELLMatrix`` (every field, the static
 ones included; bfloat16 values stay bfloat16) and of a ``JacobiPrecond``,
-``BlockJacobiPrecond``, ``WBellBlockJacobiPrecond`` or
-``PolynomialPrecond`` is copied to
+``BlockJacobiPrecond``, ``WBellBlockJacobiPrecond``,
+``PolynomialPrecond``, ``IC0Precond`` or ``IC0SweepPrecond`` is copied to
 ``device`` (the card unless the caller asks for the CPU), so both packages
 solve the same system from the same numbers.
 """
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from cgx_torch.solve.cg import CGResult
+from cgx_torch.solve.ic0 import IC0Precond, IC0SweepPrecond
 from cgx_torch.solve.precond import (BlockJacobiPrecond, JacobiPrecond,
                                      PolynomialPrecond)
 from cgx_torch.solve.wbell import WBellBlockJacobiPrecond
@@ -105,8 +106,11 @@ def precond_from_cgx(m, device="cuda", operator=None):
     ``blocksize``), ``WBellBlockJacobiPrecond`` (its ``binv``) or
     ``PolynomialPrecond`` (its ``inv_diag``, ``steps`` and ``omega``, over
     ``operator``, the port's operator for the same matrix: the JAX
-    object's matvec is a closure and cannot cross).  Data lands on
-    ``device``."""
+    object's matvec is a closure and cannot cross), ``IC0Precond`` (its
+    forward and backward level packings, ``n``, ``n_levels`` and
+    ``perm``) or ``IC0SweepPrecond`` (its ``lower`` and ``upper`` DIA
+    triangles, ``inv_diag``, ``nsweeps`` and ``n_levels``).  Data lands
+    on ``device``."""
     kind = type(m).__name__
     if kind == "JacobiPrecond":
         return JacobiPrecond(inv_diag=tensor_from_numpy(m.inv_diag, device))
@@ -124,6 +128,21 @@ def precond_from_cgx(m, device="cuda", operator=None):
         return PolynomialPrecond(operator,
                                  tensor_from_numpy(m.inv_diag, device),
                                  steps=int(m.steps), omega=float(m.omega))
+    if kind == "IC0Precond":
+        fields = {f: tensor_from_numpy(getattr(m, f), device)
+                  for f in ("f_rows", "f_cols", "f_vals", "f_inv_diag",
+                            "b_rows", "b_cols", "b_vals", "b_inv_diag")}
+        perm = None if m.perm is None else tuple(
+            tensor_from_numpy(p, device) for p in m.perm)
+        return IC0Precond(**fields, n=int(m.n), n_levels=int(m.n_levels),
+                          perm=perm)
+    if kind == "IC0SweepPrecond":
+        return IC0SweepPrecond(lower=operator_from_cgx(m.lower, device),
+                               upper=operator_from_cgx(m.upper, device),
+                               inv_diag=tensor_from_numpy(m.inv_diag,
+                                                          device),
+                               nsweeps=int(m.nsweeps),
+                               n_levels=int(m.n_levels))
     raise TypeError(f"precond_from_cgx: unsupported preconditioner "
                     f"{kind!r}")
 

@@ -11,10 +11,11 @@ line 2: A values    (nnz doubles)
 line 3: b values    (n doubles)
 ```
 
-Each line is parsed by numpy in one call.  The JAX package prefers its
-native C++ parser (``cgx/native``) at the reference's full scale (~18 M
-nonzeros); the port parses with numpy only (ROADMAP queue A item 5 keeps
-the native parser).  The writer writes integers with ``str`` and floats
+:func:`read_legacy` parses with the port's native C++ parser
+(:mod:`cgx_torch.native`, built at first use), the JAX package's choice
+for the reference's full scale (~18 M nonzeros).  :func:`parse_numpy`,
+one numpy call a line, stays beside it as the plain version; no
+fallback reaches it.  The writer writes integers with ``str`` and floats
 with ``repr`` (shortest round-trip), as the JAX package does, so a file
 read back gives the same numbers.
 """
@@ -25,21 +26,34 @@ import torch
 
 from cgx_torch.sparse.types import CSRMatrix, resolve_device
 
-__all__ = ["read_legacy", "write_legacy"]
+__all__ = ["read_legacy", "parse_numpy", "write_legacy"]
 
 
 def read_legacy(path: str, dtype=np.float64, device="cuda"):
-    """Parse the 4-line format → ``(CSRMatrix, b)`` on ``device``."""
+    """Parse the 4-line format with the native parser → ``(CSRMatrix,
+    b)`` on ``device``."""
+    from cgx_torch.native import parse_legacy
+
     dev = resolve_device(device)
+    col_indices, indptr, values, b = parse_legacy(path)
+    values = values.astype(dtype, copy=False)
+    b = b.astype(dtype, copy=False)
+    n = len(indptr) - 1
+    a = CSRMatrix.from_arrays(values, col_indices, indptr, (n, n), device=dev)
+    return a, torch.from_numpy(b).to(dev)
+
+
+def parse_numpy(path: str, dtype=np.float64):
+    """The plain parse, one numpy call a line → ``(col_indices, row_ptr,
+    a_values, b_values)`` host arrays (int64, int64, ``dtype``,
+    ``dtype``)."""
     with open(path, "r") as f:
         lines = [f.readline().strip() for _ in range(4)]
     col_indices = np.array(lines[0].split(","), dtype=np.int64)
     indptr = np.array(lines[1].split(","), dtype=np.int64)
     values = np.array(lines[2].split(","), dtype=dtype)
     b = np.array(lines[3].split(","), dtype=dtype)
-    n = len(indptr) - 1
-    a = CSRMatrix.from_arrays(values, col_indices, indptr, (n, n), device=dev)
-    return a, torch.from_numpy(b).to(dev)
+    return col_indices, indptr, values, b
 
 
 def _host(v) -> np.ndarray:

@@ -11,8 +11,15 @@ The JAX package runs the loop as one ``lax.while_loop`` on the device.
 Here it is a Python ``while`` over the same ``cond``/``body``: each test of
 ``cond`` reads one boolean back from the device.  The whole-solve CUDA
 kernel (:mod:`cgx_torch.kernels.fused_resident`) is the path that keeps
-the loop on the device.  ``cg_solve_single_reduction`` and
-``cg_solve_pipelined`` are not ported yet.
+the loop on the device.
+
+:func:`cg_solve_single_reduction` (Chronopoulos–Gear) and
+:func:`cg_solve_pipelined` (Ghysels–Vanroose, with periodic or adaptive
+residual replacement) keep their fused dots as one stacked tensor, the
+one all-reduce a distributed solve will need.  Each reads the device once
+an iteration: the single-reduction loop its exit test; the pipelined loop
+its exit test together with the replacement flag and the stagnation
+guard's strikes (see :func:`cg_solve_pipelined`).
 """
 from __future__ import annotations
 
@@ -25,8 +32,8 @@ import torch
 from cgx_torch.ops import blas
 from cgx_torch.ops.spmv import spmv
 
-__all__ = ["CGResult", "CGState", "cg_solve", "cg_init", "cg_chunk",
-           "as_matvec"]
+__all__ = ["CGResult", "CGState", "cg_solve", "cg_solve_single_reduction",
+           "cg_solve_pipelined", "cg_init", "cg_chunk", "as_matvec"]
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -176,6 +183,256 @@ def _make_cond_body(matvec, apply_m, maxiter, tol_sq, track_history):
                        history=hist)
 
     return cond, body
+
+
+# Host reads made by the single-reduction and pipelined loops, and the
+# pipelined loop's residual replacements and discarded steps (see
+# cg_solve_pipelined).  Counted like the kernels' launches: set to 0
+# before a solve and read after it.
+host_reads = 0
+replacements = 0
+discarded_steps = 0
+
+
+def _read(flags: torch.Tensor) -> list:
+    """One read of a small tensor from the device, counted."""
+    global host_reads
+    host_reads += 1
+    return flags.tolist()
+
+
+def _count(k: int, b: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(k, dtype=torch.int32, device=b.device)
+
+
+def cg_solve_single_reduction(
+    a,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    tol: float = 1e-6,
+    atol: float = 0.0,
+    maxiter: Optional[int] = None,
+    preconditioner=None,
+) -> CGResult:
+    """Chronopoulos–Gear CG: one fused reduction per iteration.
+
+    The recurrences are arranged so that γ = rᵀu, δ = wᵀu and ρ = rᵀr come
+    from independent data and form one stacked tensor, the single
+    all-reduce of a distributed solve, at the cost of one more axpy and one
+    more carried vector (``s = A p`` by linearity).  The trajectory is
+    CG's in exact arithmetic.  Each iteration reads the exit test once.
+
+    Reference: Chronopoulos & Gear, J. Comput. Appl. Math. 25 (1989).
+    """
+    matvec = as_matvec(a)
+    apply_m = _as_apply(preconditioner)
+    maxiter = int(b.shape[0] if maxiter is None else maxiter)
+    tol_sq = _tol_sq(tol, atol, b)
+
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x = x0
+        r = b - matvec(x0)
+    u = apply_m(r) if apply_m is not None else r
+    w = matvec(u)
+
+    def fused_dots(r, u, w):
+        """γ = rᵀu, δ = wᵀu, ρ = rᵀr as one stacked tensor."""
+        return torch.stack([blas.dot(r, u), blas.dot(w, u), blas.dot(r, r)])
+
+    gamma, delta, rr = fused_dots(r, u, w)
+    alpha = gamma / delta
+    p = torch.zeros_like(b)
+    s = torch.zeros_like(b)
+    beta = torch.zeros((), dtype=b.dtype, device=b.device)
+    k = 0
+    while k < maxiter and _read(rr > tol_sq):
+        p = u + beta * p
+        s = w + beta * s            # s = A p by linearity
+        x = x + alpha * p
+        r = r - alpha * s
+        u = apply_m(r) if apply_m is not None else r
+        w = matvec(u)
+        gamma_new, delta, rr = fused_dots(r, u, w)
+        beta = gamma_new / gamma
+        alpha = gamma_new / (delta - beta * gamma_new / alpha)
+        gamma = gamma_new
+        k += 1
+    return CGResult(x=x, iterations=_count(k, b), residual_norm_sq=rr,
+                    converged=rr <= tol_sq,
+                    history=torch.zeros(0, dtype=b.dtype, device=b.device))
+
+
+def cg_solve_pipelined(
+    a,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    tol: float = 1e-6,
+    atol: float = 0.0,
+    maxiter: Optional[int] = None,
+    preconditioner=None,
+    replace_every: int = 25,
+    adaptive_replace: bool = False,
+) -> CGResult:
+    """Ghysels–Vanroose pipelined (P)CG: ``m = M⁻¹w`` and ``n = A m`` do
+    not depend on the iteration's reduction, so a distributed solve can
+    overlap the two.
+
+    The recurrences and both stabilisations are :mod:`cgx.solve.cg`'s:
+    α's denominator ``p'ᵀAp' = δ + β(uᵀs + pᵀw) + β²·pᵀs`` from three
+    cross dots in the same stacked reduction (seven scalars), and residual
+    replacement (``r = b − Ax``, ``u = M⁻¹r``, ``w = Au``, ``s = Ap``,
+    ``q = M⁻¹s``, ``z = Aq``: four matvecs) every ``replace_every``
+    iterations (0 disables), or, with ``adaptive_replace``, by the van der
+    Vorst–Ye drift bound ``d ← d + ε·(‖r‖ + λ̂·‖x‖)`` (λ̂ the running max of
+    δ/γ) once ``d > √ε·‖r‖``, ``d > 1.1·d_at_last_replacement`` and
+    ``‖r‖² > 100·tol²‖b‖²``.  ε, d, λ̂ and the gate are float32 in any
+    solve dtype, as in the JAX package.  Where replacement is on, a
+    stagnation guard every 50 iterations ends the solve with
+    ``converged=False`` after two windows without a 1 % gain in ‖r‖².
+
+    In fp32 the periodic form converges only up to κ ≈ 4·10³ (2-D
+    Poisson, the JAX package's measurement); past that it ends on the
+    guard and the adaptive form is the one that converges.  In fp64
+    neither fix fires and the trajectory is CG's.
+
+    One read from the device an iteration.  The periodic form knows its
+    replacement steps on the host and reads the exit test.  The adaptive
+    form reads the replacement flag, the exit test of the step without
+    replacement and, after a replacement, the exit test of the replaced
+    state, together: the step after a replacement is computed before
+    that state's exit test is read, and discarded (``discarded_steps``)
+    if the test says stop, so the iterate and the count are the
+    ``lax.while_loop``'s.
+    """
+    global replacements, discarded_steps
+    matvec = as_matvec(a)
+    apply_m = _as_apply(preconditioner)
+    maxiter = int(b.shape[0] if maxiter is None else maxiter)
+    dtype, dev = b.dtype, b.device
+    tol_sq = _tol_sq(tol, atol, b)
+
+    def precond(v):
+        return apply_m(v) if apply_m is not None else v
+
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x = x0
+        r = b - matvec(x0)
+    u = precond(r)
+    w = matvec(u)
+
+    def fused_dots(r, u, w, p, s, x):
+        """γ = rᵀu, δ = wᵀu, ρ = rᵀr, the cross terms uᵀs, pᵀw, pᵀs and
+        xᵀx (for the drift model) as one stacked tensor."""
+        return torch.stack([blas.dot(r, u), blas.dot(w, u), blas.dot(r, r),
+                            blas.dot(u, s), blas.dot(p, w), blas.dot(p, s),
+                            blas.dot(x, x)])
+
+    def refresh(x, p):
+        r2 = b - matvec(x)
+        u2 = precond(r2)
+        w2 = matvec(u2)
+        s2 = matvec(p)
+        q2 = precond(s2)
+        z2 = matvec(q2)
+        return r2, u2, w2, z2, q2, s2, fused_dots(r2, u2, w2, p, s2, x)
+
+    def fresh_drift(dots, lam):
+        return eps * (torch.sqrt(dots[2].float())
+                      + lam * torch.sqrt(dots[6].float()))
+
+    def guard(k1, dots, best_rr, strikes):
+        """The stagnation guard on its fixed 50-iteration cadence."""
+        if k1 % 50:
+            return best_rr, strikes
+        improved = dots[2] < 0.99 * best_rr
+        return (torch.where(improved, dots[2], best_rr),
+                torch.where(improved, torch.zeros_like(strikes),
+                            strikes + 1))
+
+    replacing = bool(replace_every) or adaptive_replace
+    zeros = torch.zeros_like(b)
+    z = q = s = p = zeros
+    dots = fused_dots(r, u, w, zeros, zeros, x)
+    g_prev = torch.ones((), dtype=dtype, device=dev)
+    best_rr = dots[2]
+    strikes = torch.zeros((), dtype=torch.int32, device=dev)
+    eps = torch.tensor(torch.finfo(dtype).eps, dtype=torch.float32,
+                       device=dev)
+    drift = lam = d_gate = torch.zeros((), dtype=torch.float32, device=dev)
+    true_ = torch.ones((), dtype=torch.bool, device=dev)
+
+    k = 0
+    go = _read(dots[2] > tol_sq)
+    pending = None      # the unread exit test of a replaced state
+    while go and k < maxiter:
+        gamma, delta, us, pw, ps = (dots[0], dots[1], dots[3], dots[4],
+                                    dots[5])
+        m = precond(w)
+        n = matvec(m)
+        beta = (torch.zeros((), dtype=dtype, device=dev) if k == 0
+                else gamma / g_prev)
+        alpha = gamma / (delta + beta * (us + pw) + beta * beta * ps)
+        z_n = n + beta * z
+        q_n = m + beta * q
+        s_n = w + beta * s
+        p_n = u + beta * p
+        x_n = x + alpha * p_n
+        r_n = r - alpha * s_n
+        u_n = u - alpha * q_n
+        w_n = w - alpha * z_n
+        new = fused_dots(r_n, u_n, w_n, p_n, s_n, x_n)
+        lam_n = torch.maximum(lam, torch.where(
+            gamma > 0, delta / gamma, torch.zeros_like(gamma)).float())
+        at_replace = False
+        if replacing:
+            drift_n = drift + fresh_drift(new, lam_n)
+            if adaptive_replace:
+                at_flag = ((drift_n * drift_n > eps * new[2].float())
+                           & (drift_n > 1.1 * d_gate)
+                           & (new[2] > 100.0 * tol_sq))
+            else:
+                at_replace = (k + 1) % replace_every == 0
+        if not at_replace:
+            best_k, strikes_k = ((best_rr, strikes) if not replacing
+                                 else guard(k + 1, new, best_rr, strikes))
+            go_k = (new[2] > tol_sq) & (strikes_k < 2)
+        if adaptive_replace:
+            prev_ok, at_replace, go = _read(torch.stack(
+                [true_ if pending is None else pending, at_flag, go_k]))
+            if not prev_ok:     # the replaced state was the last one
+                discarded_steps += 1
+                break
+        elif not at_replace:
+            go = _read(go_k)
+        k += 1
+        x, r, u, w, z, q, s, p = x_n, r_n, u_n, w_n, z_n, q_n, s_n, p_n
+        g_prev, lam, pending = gamma, lam_n, None
+        if at_replace:
+            replacements += 1
+            d_gate = drift_n
+            r, u, w, z, q, s, dots = refresh(x, p)
+            drift = fresh_drift(dots, lam)
+            best_rr, strikes = guard(k, dots, best_rr, strikes)
+            go_r = (dots[2] > tol_sq) & (strikes < 2)
+            if adaptive_replace:
+                pending, go = go_r, True
+            else:
+                go = _read(go_r)
+        else:
+            dots, best_rr, strikes = new, best_k, strikes_k
+            if replacing:
+                drift = drift_n
+    return CGResult(x=x, iterations=_count(k, b),
+                    residual_norm_sq=dots[2], converged=dots[2] <= tol_sq,
+                    history=torch.zeros(0, dtype=dtype, device=dev))
 
 
 def cg_chunk(a, state: CGState, iters: int, *,

@@ -225,10 +225,36 @@ Phases (any failed check exits nonzero, and no result line is printed):
     BSR product of the same matrix; K10 beside its first design and K7 in
     device time, in turns; P1 (k = 1 and 4) and P3 (k = 1) in
     device time too, beside the plane walks they replace, and at k = 1
-    below the CSR product's device time.
+    below the CSR product's device time;
+41. N, the port's native library (``cgx_torch.native``): built with g++
+    into a fresh directory (its seconds printed), and a seeded legacy file
+    of ``poisson2d(256, 256)`` parsed by it, equal to the numpy parse, to
+    the writer's input and to ``read_legacy`` on the card;
+42. SR, ``cg_solve_single_reduction``, ``cg_solve_pipelined(
+    adaptive_replace=True)`` and the periodic ``cg_solve_pipelined()``
+    beside ``cg_solve`` on the 128³ stencil, b = ones and seeded: each
+    one's iterations, ``converged``, true relres, forward error against an
+    fp64 solve (≤ 1e-4 where converged; the pipelined forms may end on
+    their stagnation guard, ``GUARD_EXITS``), ms per solve and µs per
+    iteration in turns, host reads (one an iteration), and K1's launches
+    against what the recurrences imply (one an iteration, one at the
+    start, four a replacement);
+43. CH, ``chebyshev_solve`` with ``analytic_bounds`` on the 128³ stencil
+    (checked against the closed form), and with ``estimate_bounds`` (a
+    generator seeded 0) under Jacobi on DIA-7 192³, capped at 2,000
+    iterations; ``estimate_bounds`` on the 128³ stencil beside the
+    analytic bounds; the same figures and the host reads (one a check);
+44. IC, ``IC0Precond`` natural and multicolor and ``IC0SweepPrecond(
+    nsweeps=3)`` on ``poisson3d(128, 128, 128)`` (CSR, fp32): host seconds
+    of each set-up step, levels, width and padded gathers, ms per apply
+    (events) and its device time (profiler), each apply against the same
+    function on a CPU copy (1e-5), and each PCG solve beside Jacobi-PCG
+    (natural IC(0) must take fewer iterations).  Each of N, SR, CH and
+    IC prints its seconds.
 
 The launch counters are set to 0 just before each of the paths 4, 6, 7,
-W3–W4, M2–M5, B1–B4, X1–X4, S1, S2, S4 and E1–E5 and read just after it.  The line before the last
+W3–W4, M2–M5, B1–B4, X1–X4, S1, S2, S4, E1–E5, SR and CH and read just
+after it (K1's entry gives SR's and CH's as ``solver_launches``).  The line before the last
 is a JSON object describing each kernel, with its bound (the larger of
 its bytes, each input read once and each output written once, over 3.35
 TB/s, and its operations over 67 TFLOP/s fp32, or 989 TFLOP/s on the
@@ -3450,6 +3476,336 @@ def k2_plane_times(dev, card, dias):
     return k2p_ms
 
 
+SOLVER_MAXIT = 5000       # maxiter of SR's solves and the IC PCG solves
+# The pipelined solves SR prints, not fails, when they end on the
+# stagnation guard: the periodic form past κ ≈ 4·10³ (cgx/solve/cg.py's
+# docstring), and the adaptive form at b = ones, where cgx's own adaptive
+# form ends on the guard too (fp32 3-D Poisson from 48³ up on the CPU).
+GUARD_EXITS = {("pipelined_periodic", "ones"),
+               ("pipelined_periodic", "random"),
+               ("pipelined_adaptive", "ones")}
+CHEB_MAXIT = 20000        # maxiter of CH's Chebyshev solves at 128³
+# maxiter of CH's DIA-7 192³ solves, about 4x Jacobi-PCG's 509-540: with
+# estimate_bounds' λ_min above the spectrum's bottom (30 power steps on
+# λ_max·I − A cannot resolve its cluster) Chebyshev stalls, and 20,000
+# steps took 15.6 s there (H100 80GB HBM3, 700 W).
+CHEB_DIA_MAXIT = 2000
+
+
+def solver_phases(dev, card, dias, fp64_solution):
+    """N, SR, CH and IC: the rest of the solver family on the card.
+
+    N builds the port's native library into a fresh directory (its build
+    time) and parses a seeded legacy file with it, against the numpy parse
+    and the writer's input.  SR runs ``cg_solve_single_reduction``,
+    ``cg_solve_pipelined(adaptive_replace=True)`` and the periodic
+    ``cg_solve_pipelined()`` beside ``cg_solve`` on the 128³ stencil (b =
+    ones and seeded), K1's launches of each against what its recurrences
+    imply.  CH runs ``chebyshev_solve`` with ``analytic_bounds`` at 128³
+    and with ``estimate_bounds`` (a generator seeded 0) under Jacobi on
+    DIA-7 192³.  IC builds ``IC0Precond`` (natural, multicolor) and
+    ``IC0SweepPrecond(nsweeps=3)`` on ``poisson3d`` 128³ (CSR, fp32), each
+    apply against the same function on a CPU copy, and runs their PCG
+    beside Jacobi-PCG.  Returns K1's launches in SR and CH."""
+    import cgx_torch
+    from cgx_torch import native
+    from cgx_torch.io.legacy import parse_numpy, read_legacy, write_legacy
+    from cgx_torch.io.poisson import poisson2d, poisson3d
+    from cgx_torch.kernels import stencil as k1
+    from cgx_torch.solve import cg as tcg
+    from cgx_torch.solve import chebyshev as tcheb
+    from cgx_torch.solve.ic0 import IC0Precond, IC0SweepPrecond
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    launches = {}
+
+    # -- N. the native library --------------------------------------------
+    t_phase = time.perf_counter()
+    so, secs = native.build(os.path.join(out_dir, f"native_{os.getpid()}"))
+    check(secs > 0, "N: the native library was not built afresh")
+    native.build()
+    print(f"N native library {so.name}: built in {secs:.2f} s (g++ "
+          f"{' '.join(native.GXX_FLAGS)})")
+    a_l = poisson2d(*LEGACY_2D, device="cpu")
+    b_l = np.random.default_rng(SEED + 17).standard_normal(a_l.shape[0])
+    path = os.path.join(out_dir, "legacy_seeded_poisson2d_256.txt")
+    write_legacy(path, a_l, torch.from_numpy(b_l))
+    t0 = time.perf_counter()
+    parsed = native.parse_legacy(path)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = parse_numpy(path)
+    t_np = time.perf_counter() - t0
+    want = (a_l.col_indices.numpy(), a_l.indptr.numpy(), a_l.values.numpy(),
+            b_l)
+    same_np = all(np.array_equal(g, w) for g, w in zip(parsed, plain))
+    same_in = all(np.array_equal(g, w) for g, w in zip(parsed, want))
+    ra, rb = read_legacy(path, device=dev)
+    same_dev = (torch.equal(ra.values.cpu(), a_l.values)
+                and torch.equal(rb.cpu(), torch.from_numpy(b_l)))
+    print(f"N legacy file ({os.path.getsize(path)} bytes, seed "
+          f"{SEED + 17}): native parse {t_nat * 1e3:.1f} ms, numpy parse "
+          f"{t_np * 1e3:.1f} ms; equal to the numpy parse: {same_np}, to "
+          f"the writer's input: {same_in}, read_legacy on the card: "
+          f"{same_dev}")
+    check(same_np and same_in and same_dev,
+          "N: the native parse differs from the numpy parse or the input")
+    print(f"N: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- SR. single-reduction and pipelined CG -------------------------------
+    t_phase = time.perf_counter()
+    a = cgx_torch.poisson3d_stencil(*N128)
+    n = a.shape[0]
+    rhs = {"ones": torch.ones(n, dtype=torch.float32, device=dev),
+           "random": seeded_rhs(n, dev)}
+    x64 = {nm: cgx_torch.cg_solve(a.matvec, b.double(), tol=1e-10,
+                                  maxiter=SOLVER_MAXIT).x
+           for nm, b in rhs.items()}
+    solvers = {
+        "cg_solve": lambda b: cgx_torch.cg_solve(
+            a, b, tol=TOL, maxiter=SOLVER_MAXIT),
+        "single_reduction": lambda b: cgx_torch.cg_solve_single_reduction(
+            a, b, tol=TOL, maxiter=SOLVER_MAXIT),
+        "pipelined_adaptive": lambda b: cgx_torch.cg_solve_pipelined(
+            a, b, tol=TOL, maxiter=SOLVER_MAXIT, adaptive_replace=True),
+        "pipelined_periodic": lambda b: cgx_torch.cg_solve_pipelined(
+            a, b, tol=TOL, maxiter=SOLVER_MAXIT),
+    }
+    k1.stencil3d_spmv_launches = 0
+    runs = {}
+    for nm, b in rhs.items():
+        for label, solve in solvers.items():
+            before = k1.stencil3d_spmv_launches
+            tcg.host_reads = tcg.replacements = tcg.discarded_steps = 0
+            res = solve(b)
+            torch.cuda.synchronize()
+            its = int(res.iterations)
+            got = k1.stencil3d_spmv_launches - before
+            # The recurrences' matvecs: cg_solve one an iteration from
+            # x0 = 0; single-reduction one more at the start (w0 = A u0);
+            # pipelined the same plus four a replacement (A x, A u, A p,
+            # A q) and one a discarded step.
+            want = its if label == "cg_solve" else its + 1
+            if label.startswith("pipelined"):
+                want += 4 * tcg.replacements + tcg.discarded_steps
+            runs[nm, label] = (res, its, got, tcg.host_reads,
+                               tcg.replacements, tcg.discarded_steps)
+            check(got == want, f"SR {label} b={nm}: K1 launched {got} "
+                  f"times, the recurrences imply {want}")
+            if label != "cg_solve":
+                check(tcg.host_reads == its + 1 + tcg.discarded_steps,
+                      f"SR {label} b={nm}: {tcg.host_reads} host reads "
+                      f"for {its} iterations")
+    launches["SR"] = k1.stencil3d_spmv_launches
+    for nm, b in rhs.items():
+        ms = dict(zip(solvers, time_set([lambda f=f: f(b) for f in
+                                         solvers.values()], reps=3)))
+        its_cg = runs[nm, "cg_solve"][1]
+        for label in solvers:
+            res, its, got, reads, reps_, disc = runs[nm, label]
+            conv = bool(res.converged)
+            fwd = rel(res.x, x64[nm])
+            if label == "cg_solve":
+                reads = its + 1              # its exit test, uncounted
+            print(f"[{card}] SR 128^3 b={nm} {label}: {its} iterations "
+                  f"(cg_solve {its_cg}), converged {conv}, true relres "
+                  f"(fp64) {true_relres(a, b, res.x):.3e}, |x-x64|/|x64| "
+                  f"{fwd:.3e}, {ms[label]:.3f} ms/solve, "
+                  f"{ms[label] / max(its, 1) * 1e3:.2f} us/iter; K1 "
+                  f"{got} launches, host reads {reads}, replacements "
+                  f"{reps_}, discarded steps {disc}")
+            if conv:
+                check(fwd <= 1e-4, f"SR {label} b={nm}: forward error "
+                      f"{fwd}")
+            elif (label, nm) in GUARD_EXITS:
+                print(f"SR {label} b={nm}: ended on the stagnation guard "
+                      f"(converged=False), as the JAX package's form does "
+                      f"past its fp32 envelope")
+            else:
+                fail(f"SR {label} b={nm} did not converge")
+    print(f"SR: K1 {launches['SR']} launches; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- CH. Chebyshev ---------------------------------------------------------
+    t_phase = time.perf_counter()
+    lo, hi = cgx_torch.analytic_bounds(a)
+    span = 6.0 * float(np.cos(np.pi / (N128[0] + 1)))
+    print(f"CH analytic_bounds 128^3: ({lo!r}, {hi!r}); closed form "
+          f"6 -/+ 6 cos(pi/129) = ({6.0 - span:.17g}, {6.0 + span:.17g})")
+    check(abs(lo - (6.0 - span)) <= 1e-12 and abs(hi - (6.0 + span))
+          <= 1e-12, "CH: analytic_bounds differ from the closed form")
+    a7 = dias["DIA-7 192^3"]
+    m7 = cgx_torch.JacobiPrecond.from_matrix(a7)
+    n7 = a7.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    lo7, hi7 = cgx_torch.estimate_bounds(
+        lambda v: m7.apply(cgx_torch.spmv(a7, v)), n7, key=gen, device=dev)
+    lo7, hi7 = float(lo7), float(hi7)
+    t_est = time.perf_counter() - t0
+    print(f"CH estimate_bounds DIA-7 192^3 under Jacobi (30 + 30 power "
+          f"steps, generator seeded 0): ({lo7:.6e}, {hi7:.6e}) in "
+          f"{t_est:.2f} s")
+    # The same estimate where the spectrum is known: the 128³ stencil.
+    gen.manual_seed(0)
+    lo_e, hi_e = (float(v) for v in cgx_torch.estimate_bounds(
+        a, n, key=gen, device=dev))
+    print(f"CH estimate_bounds 128^3 stencil (generator seeded 0): "
+          f"({lo_e:.6e}, {hi_e:.6e}) against the analytic ({lo:.6e}, "
+          f"{hi:.6e}): lambda_min {lo_e / lo:.1f}x the true one, "
+          f"lambda_max {hi_e / hi:.4f}x")
+    check(hi_e >= hi, "CH: estimate_bounds' lambda_max is below the "
+          "spectrum's top")
+    cases = [("128^3", nm, a, None, lo, hi, b, x64[nm],
+              runs[nm, "cg_solve"][1], CHEB_MAXIT) for nm, b in rhs.items()]
+    for nm in ("ones", "random"):
+        b = (torch.ones(n7, dtype=torch.float32, device=dev) if nm == "ones"
+             else seeded_rhs(n7, dev))
+        jac = cgx_torch.cg_solve(a7, b, tol=TOL, maxiter=SOLVER_MAXIT,
+                                 preconditioner=m7)
+        cases.append(("DIA-7 192^3", nm, a7, m7, lo7, hi7, b,
+                      fp64_solution("DIA-7 192^3", nm, a7, b),
+                      int(jac.iterations), CHEB_DIA_MAXIT))
+    k1.stencil3d_spmv_launches = 0
+    for label, nm, op, m, lmin, lmax, b, xref, its_cg, maxit in cases:
+        before = k1.stencil3d_spmv_launches
+        tcheb.host_reads = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = cgx_torch.chebyshev_solve(op, b, lmin, lmax, tol=TOL,
+                                        maxiter=maxit, preconditioner=m)
+        end.record()
+        end.synchronize()
+        its, reads = int(res.iterations), tcheb.host_reads
+        got = k1.stencil3d_spmv_launches - before
+        want = its if m is None else 0      # DIA products are plain torch
+        check(got == want, f"CH {label} b={nm}: K1 launched {got} times, "
+              f"the recurrence implies {want}")
+        check(reads == 1 + its // 16, f"CH {label} b={nm}: {reads} host "
+              f"reads for {its} iterations")
+        ms = start.elapsed_time(end)
+        if m is None:        # the 128³ solves again, in three repetitions
+            ms = statistics.median(event_ms(
+                lambda: cgx_torch.chebyshev_solve(
+                    op, b, lmin, lmax, tol=TOL, maxiter=maxit))
+                for _ in range(3))
+        conv = bool(res.converged)
+        fwd = rel(res.x, xref)
+        relres = (true_relres(op, b, res.x) if m is None else rel(
+            cgx_torch.spmv(op.astype(torch.float64), res.x.double()),
+            b.double()))
+        print(f"[{card}] CH {label} b={nm}: {its} iterations "
+              f"({'cg_solve' if m is None else 'Jacobi-PCG'} {its_cg}), "
+              f"converged {conv}, true relres (fp64) {relres:.3e}, "
+              f"|x-x64|/|x64| {fwd:.3e}, {ms:.3f} ms/solve, "
+              f"{ms / its * 1e3:.2f} us/iter, host reads {reads}, K1 "
+              f"{got} launches")
+        if m is None:
+            check(conv, f"CH {label} b={nm} did not converge")
+            check(fwd <= 1e-4, f"CH {label} b={nm}: forward error {fwd}")
+        elif conv:
+            check(fwd <= 1e-4, f"CH {label} b={nm}: forward error {fwd}")
+        else:
+            print(f"CH {label} b={nm}: not converged in {maxit} "
+                  f"iterations: estimate_bounds' lambda_min is above the "
+                  f"spectrum's bottom (see the 128^3 estimate)")
+    launches["CH"] = k1.stencil3d_spmv_launches
+    print(f"CH: K1 {launches['CH']} launches; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- IC. IC(0) -------------------------------------------------------------
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    acsr = poisson3d(*N128, dtype=np.float32, device=dev)
+    print(f"IC poisson3d 128^3 CSR ({acsr.nnz} nonzeros) built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    v = seeded_rhs(n, dev)
+    check(maxrel(cgx_torch.spmv(acsr, v), a.matvec(v)) <= 1e-6,
+          "IC: poisson3d's CSR is not the 128^3 stencil's matrix")
+    b = rhs["ones"]
+    builders = {
+        "natural": lambda tm: IC0Precond.from_matrix(acsr, timings=tm),
+        "multicolor": lambda tm: IC0Precond.from_matrix(
+            acsr, ordering="multicolor", timings=tm),
+        "sweep nsweeps=3": lambda tm: IC0SweepPrecond.from_matrix(
+            acsr, nsweeps=3),
+    }
+    jac = cgx_torch.JacobiPrecond.from_matrix(acsr)
+    pcg = {}
+    for label, build in builders.items():
+        tm = {}
+        t0 = time.perf_counter()
+        m = build(tm)
+        t_setup = time.perf_counter() - t0
+        if isinstance(m, IC0Precond):
+            shape = (f"levels {m.n_levels} (backward "
+                     f"{len(m.b_levels.counts)}), widest "
+                     f"{max(m.f_levels.counts)} rows, row_nnz "
+                     f"{m.f_cols.shape[2]}, padded gathers per apply "
+                     f"{m.padded_gathers}")
+            m_cpu = IC0Precond(**{f: getattr(m, f).cpu() for f in (
+                "f_rows", "f_cols", "f_vals", "f_inv_diag", "b_rows",
+                "b_cols", "b_vals", "b_inv_diag")}, n=m.n,
+                n_levels=m.n_levels, perm=None if m.perm is None
+                else tuple(p.cpu() for p in m.perm))
+        else:
+            shape = (f"levels {m.n_levels}, {2 * m.nsweeps} DIA "
+                     f"products of {len(m.lower.offsets)} diagonals, no "
+                     f"gathers")
+            m_cpu = IC0SweepPrecond(lower=m.lower.to("cpu"),
+                                    upper=m.upper.to("cpu"),
+                                    inv_diag=m.inv_diag.cpu(),
+                                    nsweeps=m.nsweeps, n_levels=m.n_levels)
+        z = m.apply(v)
+        z_cpu = m_cpu.apply(v.cpu())
+        d_apply = rel(z.cpu(), z_cpu)
+        ms_apply = statistics.median(event_ms(lambda: m.apply(v))
+                                     for _ in range(3))
+        dev_apply = device_ms(lambda: m.apply(v), calls=3)
+        steps = ", ".join(f"{k} {tm[k]:.2f}" for k in (
+            "coloring", "permute", "pattern", "factor", "levels", "pack",
+            "to_device") if k in tm)
+        steps = f" ({steps})" if steps else ""
+        print(f"[{card}] IC {label}: setup {t_setup:.2f} s on the host"
+              f"{steps}; {shape}; {ms_apply:.3f} ms per apply "
+              f"(events), of it {dev_apply:.3f} ms on the device "
+              f"(profiler); apply against its CPU copy {d_apply:.3e} "
+              f"(bound 1e-5)")
+        check(d_apply <= 1e-5, f"IC {label}: the apply differs from its "
+              f"CPU copy by {d_apply}")
+        pcg[label] = m
+    pcg["Jacobi"] = jac
+    its = {}
+    for label, m in pcg.items():
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = cgx_torch.cg_solve(acsr, b, tol=TOL, maxiter=SOLVER_MAXIT,
+                                 preconditioner=m)
+        end.record()
+        end.synchronize()
+        its[label] = int(res.iterations)
+        conv = bool(res.converged)
+        fwd = rel(res.x, x64["ones"])
+        print(f"[{card}] IC PCG 128^3 b=ones, {label}: {its[label]} "
+              f"iterations, converged {conv}, |x-x64|/|x64| {fwd:.3e}, "
+              f"{start.elapsed_time(end):.1f} ms/solve (one solve, "
+              f"events), {start.elapsed_time(end) / its[label] * 1e3:.1f} "
+              f"us/iter")
+        check(conv, f"IC PCG {label} did not converge")
+        check(fwd <= 1e-4, f"IC PCG {label}: forward error {fwd}")
+    check(its["natural"] < its["Jacobi"], f"IC: natural IC(0) took "
+          f"{its['natural']} iterations, Jacobi-PCG {its['Jacobi']}")
+    print(f"IC: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3884,6 +4240,7 @@ def main() -> None:
     del thermal, bells
     x_entries = mixed_phases(dev, card, dias, fp64_solution, relres_of)
     s_entries = sr_phases(dev, card, dias, fp64_solution, relres_of)
+    solver_launches = solver_phases(dev, card, dias, fp64_solution)
 
     # Bounds: each input read once, each output written once (4 B words),
     # against the operations at the fp32 rate.  K1: x in, y out, 2 flops
@@ -3917,7 +4274,8 @@ def main() -> None:
               before_ms=k1t["first design"]["events_ms"],
               before_device_ms=d_k1f,
               before_warm_device_ms=k1t["first design"]["warm_ms"],
-              before_host_us=k1t["first design"]["host_us"]),
+              before_host_us=k1t["first design"]["host_us"],
+              solver_launches=solver_launches),
         entry("resident_cg", "cgx_torch/csrc/resident_cg.cu",
               "cgx/kernels/fused_resident.py:115", launches["k2"], k2_err,
               k2_ms[128][0], k2_ms[128][1], k2_b,
