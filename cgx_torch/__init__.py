@@ -29,6 +29,10 @@ from cgx_torch.solve.ir import ir_cg_solve, ir_supported
 from cgx_torch.solve.auto import auto_solve, select_backend
 from cgx_torch.solve.chebyshev import (analytic_bounds, chebyshev_solve,
                                        estimate_bounds)
+from cgx_torch.solve.hp import (IRDF64Operator, df64_cg_solve, ir_df64_solve,
+                                make_ir_df64_solver,
+                                make_ir_df64_solver_multi)
+from cgx_torch.utils.checkpoint import cg_solve_checkpointed
 
 __version__ = "0.1.0"
 
@@ -45,4 +49,6 @@ __all__ = [
     "cg_solve_multi", "block_cg_solve", "auto_solve", "select_backend",
     "ir_cg_solve", "ir_supported", "analytic_bounds", "chebyshev_solve",
     "estimate_bounds", "IC0Precond", "IC0SweepPrecond",
+    "cg_solve_checkpointed", "df64_cg_solve", "ir_df64_solve",
+    "make_ir_df64_solver", "make_ir_df64_solver_multi", "IRDF64Operator",
 ]

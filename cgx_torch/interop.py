@@ -9,7 +9,10 @@ ones included; bfloat16 values stay bfloat16) and of a ``JacobiPrecond``,
 ``BlockJacobiPrecond``, ``WBellBlockJacobiPrecond``,
 ``PolynomialPrecond``, ``IC0Precond`` or ``IC0SweepPrecond`` is copied to
 ``device`` (the card unless the caller asks for the CPU), so both packages
-solve the same system from the same numbers.
+solve the same system from the same numbers.  The df64 state crosses the
+same way: a ``DF64ELL`` or an ``IRDF64Operator`` (``operator_from_cgx``),
+a ``DF64`` pair (``df64_from_cgx``) and a ``CGState`` snapshot
+(``state_from_cgx``).
 """
 from __future__ import annotations
 
@@ -28,16 +31,30 @@ from cgx_torch.sparse.types import (BSRMatrix, COOMatrix, CSRMatrix,
 from cgx_torch.sparse.wbell import WBELLMatrix
 
 __all__ = ["operator_from_cgx", "precond_from_cgx", "tensor_from_numpy",
-           "result_to_numpy"]
+           "result_to_numpy", "df64_from_cgx", "state_from_cgx"]
 
 
 def operator_from_cgx(a, device="cuda"):
     """The port's operator for a ``cgx`` ``Stencil2D``/``Stencil3D``/
     ``GeneralStencil3D``/``DIAMatrix``/``CSRMatrix``/``COOMatrix``/
-    ``BSRMatrix``/``BlockELL``/``WBELLMatrix`` (duck-typed by class name and
-    fields; a port operator is read the same way).  Stored data lands on
-    ``device``; a stencil stores none."""
+    ``BSRMatrix``/``BlockELL``/``WBELLMatrix``/``DF64ELL``/
+    ``IRDF64Operator`` (duck-typed by class name and fields; a port
+    operator is read the same way).  Stored data lands on ``device``; a
+    stencil stores none."""
     kind = type(a).__name__
+    if kind == "DF64ELL":
+        from cgx_torch.solve.hp import DF64ELL
+        return DF64ELL(vhi=tensor_from_numpy(a.vhi, device),
+                       vlo=tensor_from_numpy(a.vlo, device),
+                       col_indices=tensor_from_numpy(
+                           a.col_indices, device).to(torch.int64),
+                       shape=(int(a.shape[0]), int(a.shape[1])))
+    if kind == "IRDF64Operator":
+        from cgx_torch.solve.hp import IRDF64Operator
+        return IRDF64Operator(
+            a_hp=operator_from_cgx(a.a_hp, device),
+            wb=None if a.wb is None else operator_from_cgx(a.wb, device),
+            diag=np.asarray(_numpy(a.diag), np.float64))
     dtype_name = str(getattr(a, "dtype_name", "float32"))
     if kind == "Stencil3D":
         return Stencil3D(nx=int(a.nx), ny=int(a.ny), nz=int(a.nz),
@@ -145,6 +162,24 @@ def precond_from_cgx(m, device="cuda", operator=None):
                                n_levels=int(m.n_levels))
     raise TypeError(f"precond_from_cgx: unsupported preconditioner "
                     f"{kind!r}")
+
+
+def df64_from_cgx(x, device="cuda"):
+    """The port's :class:`~cgx_torch.ops.df64.DF64` for a ``cgx`` ``DF64``
+    (its ``hi`` and ``lo`` words, on ``device``)."""
+    from cgx_torch.ops.df64 import DF64
+    return DF64(tensor_from_numpy(x.hi, device),
+                tensor_from_numpy(x.lo, device))
+
+
+def state_from_cgx(state, device="cuda"):
+    """The port's :class:`~cgx_torch.solve.cg.CGState` for a ``cgx``
+    ``CGState`` (every field, on ``device``), to resume its solve through
+    :func:`cgx_torch.solve.cg.cg_chunk`."""
+    from cgx_torch.solve.cg import CGState
+    return CGState(**{f: tensor_from_numpy(getattr(state, f), device)
+                      for f in ("x", "r", "z", "p", "rz", "rr", "k",
+                                "history")})
 
 
 def _numpy(v) -> np.ndarray:

@@ -35,9 +35,10 @@ The port works on flat vectors, as the whole-solve kernel does.  The
 JAX package's TPU placement — ``Geometry``/``make_geometry`` (lane blocks,
 VMEM windows, ``double_buffer``, halo rows) and ``to_layout`` — is not
 ported: the CUDA kernels (``cgx_torch/csrc/fused_engine.cu``) run a flat
-grid-stride loop.  Neither are ``state_to_flat``/``state_from_flat`` (the
-checkpoint slice, ROADMAP queue A item 11) or ``axis_name``
-(distribution).
+grid-stride loop, so :meth:`FusedCG.state_to_flat` and
+:meth:`FusedCG.state_from_flat` (the checkpoint files' unscaled flat
+state, :mod:`cgx_torch.utils.checkpoint`) only undo and redo the Jacobi
+scaling.  ``axis_name`` (distribution) is not ported.
 
 On a CUDA tensor :meth:`FusedCG.run` launches kernel A and kernel B once
 per iteration from a Python loop.  The exit decision, α, β and the history
@@ -503,6 +504,31 @@ class FusedCG:
         return CGResult(x=state.x, iterations=state.k,
                         residual_norm_sq=state.rz[1],
                         converged=state.rz[1] <= tol_sq, history=hist)
+
+    # -- checkpoint interop (flat CGState <-> FusedState) -----------------
+
+    def state_to_flat(self, st: FusedState, e=None):
+        """The state as a :class:`cgx_torch.solve.cg.CGState` in the
+        original (unscaled) problem space, the form of the checkpoint files
+        of every backend (:func:`cgx_torch.utils.checkpoint.to_flat`).
+        ``e`` is the Jacobi scaling vector of the DIA transform."""
+        from cgx_torch.utils.checkpoint import to_flat
+
+        return to_flat(st.x, st.r, st.p, st.rz[0], st.rz[1], st.k,
+                       st.history, e)
+
+    def state_from_flat(self, cg, e=None) -> FusedState:
+        """Inverse of :meth:`state_to_flat`: resume from any backend's
+        snapshot (:func:`cgx_torch.utils.checkpoint.from_flat`)."""
+        from cgx_torch.utils.checkpoint import from_flat
+
+        x, r, p = from_flat(cg, e)
+        rz = torch.stack([torch.as_tensor(cg.rz).to(torch.float32),
+                          torch.as_tensor(cg.rr).to(torch.float32)])
+        return FusedState(x=x.to(self.dtype), r=r.to(self.dtype),
+                          p=p.to(self.dtype), rz=rz.to(x.device),
+                          k=torch.as_tensor(cg.k).to(torch.int32),
+                          history=cg.history.to(torch.float32))
 
     # -- monolithic solve ---------------------------------------------------
 

@@ -250,11 +250,53 @@ Phases (any failed check exits nonzero, and no result line is printed):
     (events) and its device time (profiler), each apply against the same
     function on a CPU copy (1e-5), and each PCG solve beside Jacobi-PCG
     (natural IC(0) must take fewer iterations).  Each of N, SR, CH and
-    IC prints its seconds.
+    IC prints its seconds;
+45. HP, the df64 accuracy layer (``cgx_torch.ops.df64``,
+    ``cgx_torch.solve.hp``): ``two_prod`` and ``two_sum`` over 2²⁰ seeded
+    fp32 pairs with 0 mismatches against the exact fp64 result on the
+    card, ``df_dot`` within 2⁻⁴⁶ of an extended-precision dot (and within
+    1e-11 under cancellation), ``df64_ell_spmv`` at thermal2 (W1's
+    matrix) within 1e-13 of torch's fp64 CSR product and both timed; the
+    refinement ``make_ir_df64_solver(inner_format="wbell",
+    preconditioner=JacobiPrecond)`` at thermal2, two seeded b, each to a
+    TRUE relres ≤ 1.5e-6 in fp64 through K7 (its build on the host clock,
+    each solve by events); on the bcsstk17 stand-in (10,974 rows) the
+    refinement with an IC(0) and with a Jacobi ELL inner (≤ 1.5e-6),
+    fp32 Jacobi-PCG's own true relres, and ``df64_cg_solve(jacobi=True)``
+    capped at 20,000 iterations (converged implies ≤ 1.5·tol); after NF,
+    ``make_ir_df64_solver_multi`` at thermal2 on the loaded bundle, k = 4
+    seeded columns, each to ≤ 1.5e-6 through K8;
+46. NF, the native format: the thermal2 operator bundle saved and loaded
+    (size and both times), the prebuilt solver's x equal to the fresh
+    one's bit for bit, and ``save_matrix``/``load_matrix`` of the
+    bcsstk17 stand-in's WBELL and of DIA-7 64³ (every array and the
+    product bit for bit);
+47. CK, checkpointed solves (``cgx_torch.utils.checkpoint``, chunks of
+    100, seeded b): ``"xla"`` and K2 (``"resident"``) on the 128³ stencil,
+    K3 (``"fused"``) on DIA-7 192³ under Jacobi, K4 (``"sr"``, tier rpq)
+    on the 160³ stencil, each equal to its monolithic solve bit for bit
+    and timed beside it; each preempted after two chunks and resumed from
+    its file (bit for bit where the state is unscaled; within 1e-5 and one
+    iteration for K3's Jacobi-scaled state); a K3 snapshot resumed under
+    ``"xla"`` within 1e-4 of ``cg_solve``; one snapshot write timed;
+    each preempted run's file holds k = 200, the resumed run's first
+    chunk ends at k = 300 and its kernel's launches are the chunked
+    solve's less the preempted run's;
+48. PF, profiling (``cgx_torch.utils.profiling``), run right after 3 in a
+    child process of its own (``python3 chip_smoke.py --profiling-phase``,
+    its own CUDA context: a CPU and CUDA profiler session leaves this
+    process's later CUDA-only sessions reading no device time):
+    ``trace`` around one K2 solve at 128³, ``trace_report`` naming K2's
+    kernel with a device time, printed beside ``queued_ms`` of the same
+    solve, and ``overlap_report``.  Each of HP, NF, CK and PF prints its
+    seconds.  Every profiler figure of the result line must be above 0.
 
 The launch counters are set to 0 just before each of the paths 4, 6, 7,
-W3–W4, M2–M5, B1–B4, X1–X4, S1, S2, S4, E1–E5, SR and CH and read just
-after it (K1's entry gives SR's and CH's as ``solver_launches``).  The line before the last
+W3–W4, M2–M5, B1–B4, X1–X4, S1, S2, S4, E1–E5, SR, CH, HP, CK and PF and
+read just after it (K1's entry gives SR's and CH's as
+``solver_launches``; HP's, CK's and PF's launches are the keys
+``hp_launches``, ``ck_launches`` and ``pf_launches`` of K1's, K2's, K3's,
+K4's, K7's and K8's entries).  The line before the last
 is a JSON object describing each kernel, with its bound (the larger of
 its bytes, each input read once and each output written once, over 3.35
 TB/s, and its operations over 67 TFLOP/s fp32, or 989 TFLOP/s on the
@@ -282,6 +324,7 @@ import dataclasses
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -428,7 +471,9 @@ def device_ms(fn, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return device_us(prof, lambda key: True)[0] / calls / 1e3
+    us = device_us(prof, lambda key: True)[0]
+    check(us > 0, "device_ms: the profiler recorded no device time")
+    return us / calls / 1e3
 
 
 def in_turns(fns, reps: int = 4):
@@ -2626,6 +2671,8 @@ def mixed_phases(dev, card, dias, fp64_solution, relres_of):
         ua, na = device_us(prof, lambda kk: "kernel_a2<" in kk
                            and "bfloat16" in kk)
         ub, nb = device_us(prof, lambda kk: "kernel_b2<" in kk)
+        check(na > 0 and nb > 0, f"X5 {label}: the profiler recorded no "
+              "device time for K3")
         dev_us[label] = (ua / max(na, 1), ub / max(nb, 1))
         per_iter[label] = (t_n / its_fixed * 1e3, t_f / its_fixed * 1e3)
         pred = ("" if label.startswith("stencil") else
@@ -3282,6 +3329,8 @@ def sr_phases(dev, card, dias, fp64_solution, relres_of):
             fn()
             torch.cuda.synchronize()
         dev_us[tag] = device_us(prof, lambda kk, key=key: key in kk)
+        check(dev_us[tag][0] > 0 and dev_us[tag][1] > 0,
+              f"S5: the profiler recorded no device time for {tag}")
     u6, c6 = dev_us["K6"]
     dev6 = u6 / its6
     dev6_old = dev_us["first"][0] / its6
@@ -3806,6 +3855,554 @@ def solver_phases(dev, card, dias, fp64_solution):
 
 
 
+EFT_PAIRS = 1 << 20       # HP's seeded pairs for two_prod and two_sum
+DF64_CG_MAXIT = 20000     # maxiter of HP's whole-df64 CG
+HP_STANDIN = "bcsstk17"   # HP's ill-conditioned stand-in, full scale
+CK_CHUNK = 100            # iterations a chunk in CK
+CK_MAXIT = 5000           # maxiter of CK's solves (chunked and monolithic)
+
+
+class Preempted(Exception):
+    """Raised from an ``on_chunk`` hook to stop a solve as a preemption
+    would."""
+
+
+def kill_after(chunks: int):
+    """An ``on_chunk`` hook that raises after ``chunks`` chunks."""
+    seen = []
+
+    def hook(state):
+        seen.append(int(state.k))
+        if len(seen) == chunks:
+            raise Preempted
+    return hook
+
+
+def df_equal(u, v) -> bool:
+    """Two df64 arrays equal word for word."""
+    return torch.equal(u.hi, v.hi) and torch.equal(u.lo, v.lo)
+
+
+def accuracy_phases(dev, card, thermal, dias):
+    """HP, NF and CK: the accuracy and reliability layer on the card.
+
+    HP holds the df64 error-free transforms against fp64 on the card, the
+    df64 ELL product at thermal2 against torch's fp64 CSR product, and
+    drives the df64 refinement: WBELL inners (K7) at thermal2, IC(0) and
+    Jacobi ELL inners on the bcsstk17 stand-in, the k = 4 multi-RHS
+    refinement (K8) at thermal2, and the whole-df64 CG on the bcsstk17
+    stand-in.  NF saves and loads the thermal2 operator bundle (the
+    prebuilt solver equals the fresh one bit for bit) and round-trips a
+    WBELL and a DIA matrix (the bcsstk17 stand-in's, DIA-7 64³).  CK runs the four checkpointed backends
+    ("xla" and K2 on the 128³ stencil, K3 on DIA-7 192³ under Jacobi, K4
+    in rpq on the 160³ stencil) against their monolithic solves, after a
+    preemption, and across backends.  ``thermal``
+    is W1's ``(a, op, plan)``.  Returns each phase's launches of the
+    kernels it drove."""
+    import cgx_torch
+    from cgx_torch.io import native_format as nf
+    from cgx_torch.io.suitesparse import standin
+    from cgx_torch.kernels import fused_engine as k3
+    from cgx_torch.kernels import fused_resident as k2
+    from cgx_torch.kernels import fused_semiresident as k4
+    from cgx_torch.kernels import stencil as k1
+    from cgx_torch.kernels import wbell as kw
+    from cgx_torch.kernels.fused_dia_cg import fused_dia_cg
+    from cgx_torch.kernels.fused_cg import stencil_taps
+    from cgx_torch.ops import df64 as d64
+    from cgx_torch.solve import hp
+    from cgx_torch.solve.ic0 import IC0Precond
+    from cgx_torch.utils import checkpoint as ckp
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(SEED + 41)
+    launches = {}
+
+    def csr64(a):
+        """torch's fp64 CSR tensor of a port CSR matrix (the reference
+        product)."""
+        return torch.sparse_csr_tensor(a.indptr, a.col_indices,
+                                       a.values.double(), size=a.shape)
+
+    def product64(a64, x):
+        return (a64 @ x[:, None])[:, 0]
+
+    def relres64(a64, b, x):
+        """TRUE ‖b − A·x‖/‖b‖ in fp64 on the card (x a df64 pair or an
+        fp64/fp32 vector; b a host fp64 array)."""
+        b = torch.from_numpy(np.asarray(b, np.float64)).to(dev)
+        if isinstance(x, d64.DF64):
+            x = x.hi.double() + x.lo.double()
+        r = b - product64(a64, x.double())
+        return float(torch.linalg.vector_norm(r)
+                     / torch.linalg.vector_norm(b))
+
+    def timed(fn):
+        """``(fn(), ms)`` by CUDA events around one call."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    # -- HP. the error-free transforms on the card ------------------------
+    t_phase = time.perf_counter()
+
+    def pairs():
+        mag = rng.uniform(1.0, 2.0, EFT_PAIRS) * np.exp2(
+            rng.integers(-12, 13, EFT_PAIRS))
+        sign = rng.choice(np.array([-1.0, 1.0]), EFT_PAIRS)
+        return torch.from_numpy((sign * mag).astype(np.float32)).to(dev)
+
+    ea, eb = pairs(), pairs()
+    p, e = d64.two_prod(ea, eb)
+    s, se = d64.two_sum(ea, eb)
+    # Exact in fp64: a product of two fp32 has 48 bits, and the sum of two
+    # whose exponents differ by at most 25 has at most 50.
+    bad_p = int(((p.double() + e.double())
+                 != ea.double() * eb.double()).sum())
+    bad_s = int(((s.double() + se.double())
+                 != ea.double() + eb.double()).sum())
+    print(f"HP error-free transforms on the card, {EFT_PAIRS} seeded fp32 "
+          f"pairs (seed {SEED + 41}): two_prod {bad_p} mismatches against "
+          f"the exact fp64 product, two_sum {bad_s} against the exact sum")
+    check(bad_p == 0 and bad_s == 0, f"HP: the transforms are not exact on "
+          f"the card ({bad_p} products, {bad_s} sums)")
+    del ea, eb, p, e, s, se
+    # df_dot without cancellation (2^20 positive pairs), against the dot in
+    # extended precision on the host and torch's fp64 dot on the card.
+    xs = rng.uniform(0.5, 1.5, EFT_PAIRS)
+    ys = rng.uniform(0.5, 1.5, EFT_PAIRS)
+    ref = float(np.sum(xs.astype(np.longdouble) * ys.astype(np.longdouble)))
+    dd = d64.df_dot(d64.df_from_f64(xs, dev), d64.df_from_f64(ys, dev))
+    got = float(dd.hi) + float(dd.lo)
+    f64 = float(torch.dot(torch.from_numpy(xs).to(dev),
+                          torch.from_numpy(ys).to(dev)))
+    rel_df, rel_64 = abs(got - ref) / abs(ref), abs(f64 - ref) / abs(ref)
+    print(f"HP df_dot over {EFT_PAIRS} positive pairs: {rel_df:.3e} "
+          f"relative to the extended-precision dot (bound 2^-46 = "
+          f"{2.0 ** -46:.3e}); torch's fp64 dot {rel_64:.3e}")
+    check(rel_df <= 2.0 ** -46, f"HP: df_dot off by {rel_df}")
+    # With cancellation (tests/test_hp.py's adversarial case).
+    xc = rng.standard_normal(4096) * np.logspace(0, 6, 4096)
+    yc = rng.standard_normal(4096)
+    ref_c = float(np.sum(xc.astype(np.longdouble) * yc.astype(np.longdouble)))
+    dc = d64.df_dot(d64.df_from_f64(xc, dev), d64.df_from_f64(yc, dev))
+    rel_c = abs(float(dc.hi) + float(dc.lo) - ref_c) / abs(ref_c)
+    rel_c32 = abs(float(torch.dot(
+        torch.from_numpy(xc.astype(np.float32)).to(dev),
+        torch.from_numpy(yc.astype(np.float32)).to(dev))) - ref_c) / abs(ref_c)
+    print(f"HP df_dot with cancellation (4096 pairs): {rel_c:.3e} relative "
+          f"(bound 1e-11), fp32 dot {rel_c32:.3e}")
+    check(rel_c <= 1e-11 and rel_c <= 1e-3 * rel_c32,
+          f"HP: df_dot with cancellation off by {rel_c}")
+
+    # -- HP. df64 SpMV at thermal2 ----------------------------------------
+    a_th = thermal[0]
+    n_th = a_th.shape[0]
+    a64 = csr64(a_th)
+    s_th = hp._scipy_f64(a_th)
+    t0 = time.perf_counter()
+    a_hp = hp.df64_ell_from_csr(s_th, device=dev)
+    torch.cuda.synchronize()
+    t_ell = time.perf_counter() - t0
+    xs = rng.standard_normal(n_th)
+    xd = d64.df_from_f64(xs, dev)
+    x64 = torch.from_numpy(xs).to(dev)
+    y = hp.df64_ell_spmv(a_hp, xd)
+    y64 = product64(a64, x64)
+    err = float(torch.linalg.vector_norm(y.hi.double() + y.lo.double() - y64)
+                / torch.linalg.vector_norm(y64))
+    t_df, t_csr = time_pair(lambda: hp.df64_ell_spmv(a_hp, xd),
+                            lambda: product64(a64, x64), reps=5)
+    print(f"[{card}] HP df64_ell_spmv thermal2 ({n_th} rows, width "
+          f"{a_hp.width}, built on the host in {t_ell:.2f} s): "
+          f"{err:.3e} relative to torch's fp64 CSR product (bound 1e-13); "
+          f"{t_df:.3f} ms against the fp64 CSR product's {t_csr:.3f} ms")
+    check(err <= 1e-13, f"HP: df64 SpMV off by {err}")
+
+    # -- HP. the refinement over WBELL inners (K7) at thermal2 -------------
+    diag_th = s_th.diagonal()
+    m_th = cgx_torch.JacobiPrecond(inv_diag=torch.from_numpy(
+        (1.0 / diag_th).astype(np.float32)).to(dev))
+    t0 = time.perf_counter()
+    solve_th = cgx_torch.make_ir_df64_solver(
+        a_th, tol=TOL, inner_format="wbell", preconditioner=m_th,
+        device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    b1 = rng.standard_normal(n_th)
+    b2 = rng.standard_normal(n_th)
+    kw.wbell_resident_launches = 0
+    (res1, info1), ms1 = timed(lambda: solve_th(b1))
+    k7_ir = kw.wbell_resident_launches
+    (res2, info2), ms2 = timed(lambda: solve_th(b2))
+    launches["HP_k7"] = kw.wbell_resident_launches
+    rel1, rel2 = relres64(a64, b1, res1.x), relres64(a64, b2, res2.x)
+    for nm, info, rel_, ms in (("b1", info1, rel1, ms1),
+                               ("b2", info2, rel2, ms2)):
+        print(f"[{card}] HP IR-df64 thermal2 WBELL+Jacobi {nm}: "
+              f"{info['outer']} outer cycles, {info['inner_iterations']} "
+              f"inner iterations, true relres (fp64) {rel_:.3e} (the "
+              f"loop's {info['relres']:.3e}), {ms:.1f} ms per right-hand "
+              f"side")
+        check(rel_ <= 1.5e-6, f"HP thermal2 {nm}: true relres {rel_}")
+    print(f"HP IR-df64 thermal2: operator build (df64 ELL + WBELL) "
+          f"{t_build:.2f} s on the host; K7 {k7_ir} launches in the first "
+          f"solve, {launches['HP_k7']} in both")
+    check(k7_ir > 0, "HP: the WBELL refinement did not launch K7")
+
+    # -- HP. the bcsstk17 stand-in: IC(0) and Jacobi ELL inners -------------
+    t0 = time.perf_counter()
+    a_b = standin(HP_STANDIN, seed=SEED, device=dev)
+    s_b = hp._scipy_f64(a_b)
+    n_b = s_b.shape[0]
+    a_b64 = csr64(a_b)
+    a32 = cgx_torch.csr_from_scipy(s_b.astype(np.float32), device=dev)
+    ic = IC0Precond.from_matrix(a32)
+    m_b = cgx_torch.JacobiPrecond(inv_diag=torch.from_numpy(
+        (1.0 / s_b.diagonal()).astype(np.float32)).to(dev))
+    print(f"HP {HP_STANDIN} stand-in: {n_b} rows, {s_b.nnz} nonzeros; "
+          f"stand-in and IC(0) ({ic.n_levels} levels) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    bb = rng.standard_normal(n_b)
+    for label, m in (("IC(0)", ic), ("Jacobi", m_b)):
+        (res, info), ms = timed(lambda: cgx_torch.ir_df64_solve(
+            s_b, bb, tol=TOL, inner_maxiter=5000, preconditioner=m,
+            inner_format="ell", device=dev))
+        rel_ = relres64(a_b64, bb, res.x)
+        print(f"[{card}] HP IR-df64 {HP_STANDIN} ELL+{label}: "
+              f"{info['outer']} outer, {info['inner_iterations']} inner "
+              f"iterations, true relres (fp64) {rel_:.3e}, {ms:.1f} ms "
+              f"(operator builds included)")
+        check(rel_ <= 1.5e-6, f"HP {HP_STANDIN} {label}: true relres "
+              f"{rel_}")
+    r32 = cgx_torch.cg_solve(a32, torch.from_numpy(bb.astype(np.float32))
+                             .to(dev), tol=TOL, maxiter=DF64_CG_MAXIT,
+                             preconditioner=m_b)
+    print(f"HP fp32 Jacobi-PCG {HP_STANDIN}: {int(r32.iterations)} "
+          f"iterations, converged {bool(r32.converged)}, true relres "
+          f"(fp64) {relres64(a_b64, bb, r32.x):.3e}")
+
+    # -- HP. whole-df64 CG on the bcsstk17 stand-in --------------------------
+    a_b_hp = hp.df64_ell_from_csr(s_b, device=dev)
+    t0 = time.perf_counter()
+    res, ms = timed(lambda: hp.df64_cg_solve(
+        a_b_hp, bb, tol=TOL, maxiter=DF64_CG_MAXIT, jacobi=True))
+    its, conv = int(res.iterations), bool(res.converged)
+    rel_ = relres64(a_b64, bb, res.x)
+    print(f"[{card}] HP df64_cg_solve(jacobi=True) {HP_STANDIN}: {its} "
+          f"iterations (cap {DF64_CG_MAXIT}), converged {conv}, true "
+          f"relres (fp64) {rel_:.3e}, {ms / 1e3:.2f} s "
+          f"({ms / max(its, 1):.3f} ms/iter)")
+    if conv:
+        check(rel_ <= 1.5 * TOL, f"HP df64 CG: converged with true relres "
+              f"{rel_}")
+    print(f"HP: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- NF. the operator bundle and matrix files ---------------------------
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    op = hp.IRDF64Operator(a_hp=a_hp, wb=cgx_torch.wbell_from_csr(
+        s_th, device=dev), diag=diag_th)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    path = os.path.join(out_dir, f"thermal2_ir_df64_{os.getpid()}.npz")
+    t0 = time.perf_counter()
+    nf.save_df64_operator(path, op)
+    t_save = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    op2, _ = nf.load_df64_operator(path, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    os.remove(path)
+    del op
+    kw.wbell_resident_launches = 0
+    res_p, info_p = cgx_torch.make_ir_df64_solver(
+        prebuilt=op2, tol=TOL, preconditioner=m_th)(b1)
+    k7_nf = kw.wbell_resident_launches
+    same = df_equal(res_p.x, res1.x) and info_p == info1
+    print(f"[{card}] NF thermal2 bundle: {size / 1e6:.1f} MB, saved in "
+          f"{t_save:.2f} s, loaded in {t_load:.2f} s (the WBELL build for "
+          f"it {t_op:.2f} s); the prebuilt solver's x equals the freshly "
+          f"built one's bit for bit: {same} ({info_p['outer']} outer, "
+          f"{info_p['inner_iterations']} inner, K7 {k7_nf} launches)")
+    check(same, "NF: the prebuilt solver differs from the fresh one")
+    x_b = torch.from_numpy(rng.standard_normal(n_b).astype(np.float32)).to(
+        dev)
+    d64_7 = scaled_dia7(N64, dev)
+    x_7 = seeded_rhs(d64_7.shape[0], dev)
+    wb_b = cgx_torch.wbell_from_csr(s_b, device=dev)
+    for label, m, x, fields, product in (
+            (f"WBELL {HP_STANDIN}", wb_b, x_b, nf._WBELL_FIELDS,
+             lambda w, v: kw.wbell_spmv(w, w.to_internal(v))),
+            ("DIA-7 64^3", d64_7, x_7, ("data",), cgx_torch.spmv)):
+        p_m = os.path.join(out_dir, f"nf_{os.getpid()}.npz")
+        t0 = time.perf_counter()
+        nf.save_matrix(p_m, m)
+        t_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m2, _ = nf.load_matrix(p_m, device=dev)
+        t_l = time.perf_counter() - t0
+        size_m = os.path.getsize(p_m)
+        os.remove(p_m)
+        same = all(torch.equal(getattr(m2, f), getattr(m, f))
+                   for f in fields) and m2.shape == m.shape
+        same_y = torch.equal(product(m2, x), product(m, x))
+        print(f"NF {label}: {size_m / 1e6:.1f} MB, saved in {t_s:.2f} s, "
+              f"loaded in {t_l:.2f} s; every array equal: {same}; its "
+              f"product equal bit for bit: {same_y}")
+        check(same and same_y, f"NF: {label} does not round-trip")
+    print(f"NF: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- HP. multi-RHS refinement (K8) at thermal2, on the loaded bundle --
+    t_phase = time.perf_counter()
+    bk = rng.standard_normal((n_th, K_MULTI))
+    kw.wbell_tiered_launches = 0
+    kw.wbell_resident_launches = 0
+    t0 = time.perf_counter()
+    solve_k = cgx_torch.make_ir_df64_solver_multi(prebuilt=op2, tol=TOL)
+    t_plan = time.perf_counter() - t0
+    (res_k, info_k), ms_k = timed(lambda: solve_k(bk))
+    launches["HP_k8"] = kw.wbell_tiered_launches
+    rels = [relres64(a64, bk[:, j], d64.DF64(res_k.x.hi[:, j],
+                                              res_k.x.lo[:, j]))
+            for j in range(K_MULTI)]
+    print(f"[{card}] HP IR-df64 multi thermal2 k={K_MULTI} (Jacobi, tier "
+          f"plan in {t_plan:.2f} s): {info_k['outer']} outer, "
+          f"{info_k['inner_iterations']} inner iterations, true relres "
+          f"(fp64) per column {[f'{r:.3e}' for r in rels]}, {ms_k:.1f} ms "
+          f"({ms_k / K_MULTI:.1f} per column); K8 {launches['HP_k8']} "
+          f"launches, K7 {kw.wbell_resident_launches}")
+    check(all(r <= 1.5e-6 for r in rels), f"HP multi: true relres {rels}")
+    check(launches["HP_k8"] > 0, "HP multi: K8 was not launched")
+    del op2, solve_k, solve_th, a_hp, a64
+    print(f"HP multi: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- CK. the checkpointed backends ---------------------------------------
+    from cgx_torch.kernels.fused_resident import resident_stencil_cg
+    from cgx_torch.kernels.fused_semiresident import sr_stencil_cg
+
+    t_phase = time.perf_counter()
+    a128 = cgx_torch.poisson3d_stencil(*N128)
+    a160 = cgx_torch.poisson3d_stencil(*N160)
+    a7 = dias["DIA-7 192^3"]
+    m7 = cgx_torch.JacobiPrecond.from_matrix(a7)
+    b128, b160 = seeded_rhs(a128.shape[0], dev), seeded_rhs(a160.shape[0],
+                                                            dev)
+    b7 = seeded_rhs(a7.shape[0], dev)
+    nx, ny, nz, taps, _ = stencil_taps(a160)
+    tier = k4.sr_mode(nx, ny, nz, taps)
+    check(tier == "rpq", f"CK: K4's tier at 160^3 is {tier}")
+    counters = {"xla": (k1, "stencil3d_spmv_launches"),
+                "resident": (k2, "resident_cg_launches"),
+                "fused": (k3, "fused_a_launches"),
+                "sr": (k4, "sr_cg_launches")}
+    cells = [
+        ("xla", "128^3 stencil", a128, None, b128,
+         lambda: cgx_torch.cg_solve(a128, b128, tol=TOL, maxiter=CK_MAXIT)),
+        ("resident", "128^3 stencil", a128, None, b128,
+         lambda: resident_stencil_cg(a128, b128, tol=TOL,
+                                     maxiter=CK_MAXIT)),
+        ("fused", "DIA-7 192^3 Jacobi", a7, m7, b7,
+         lambda: fused_dia_cg(a7, b7, tol=TOL, maxiter=CK_MAXIT,
+                              inv_diag=m7.inv_diag)),
+        ("sr", "160^3 stencil rpq", a160, None, b160,
+         lambda: sr_stencil_cg(a160, b160, tol=TOL, maxiter=CK_MAXIT)),
+    ]
+    for backend, label, a, m, b, mono in cells:
+        solver = ckp.make_checkpointed_solver(
+            a, tol=TOL, maxiter=CK_MAXIT, preconditioner=m, chunk=CK_CHUNK,
+            backend=backend)
+        mod, attr = counters[backend]
+        setattr(mod, attr, 0)
+        if backend == "fused":
+            k3.fused_b_launches = 0
+        res_c = solver(b)
+        torch.cuda.synchronize()
+        launches[f"CK_{backend}"] = getattr(mod, attr)
+        if backend == "fused":
+            launches["CK_fused_b"] = k3.fused_b_launches
+        res_m = mono()
+        its = int(res_c.iterations)
+        same = its == int(res_m.iterations) and torch.equal(res_c.x, res_m.x)
+        t_c, t_m = time_pair(lambda: solver(b), mono, reps=3)
+        print(f"[{card}] CK {backend} ({label}): {its} iterations in "
+              f"chunks of {CK_CHUNK}, equal to the monolithic solve bit for "
+              f"bit: {same}; chunked {t_c:.2f} ms, monolithic {t_m:.2f} ms "
+              f"({t_c / t_m:.3f}x); {attr} {launches[f'CK_{backend}']}")
+        check(bool(res_c.converged) and same,
+              f"CK {backend}: the chunked solve differs from the monolithic")
+        check(launches[f"CK_{backend}"] > 0,
+              f"CK {backend}: its kernel was not launched")
+        # Preempted after two chunks, relaunched from the file.
+        p_ck = os.path.join(out_dir, f"ck_{backend}_{os.getpid()}.npz")
+        if os.path.exists(p_ck):
+            os.remove(p_ck)
+        setattr(mod, attr, 0)
+        try:
+            solver(b, checkpoint_path=p_ck, on_chunk=kill_after(2))
+            fail(f"CK {backend}: the preemption hook did not fire")
+        except Preempted:
+            pass
+        n_pre = getattr(mod, attr)
+        k_file = (int(ckp.load_state(p_ck, device=dev).k)
+                  if os.path.exists(p_ck) else None)
+        check(k_file == 2 * CK_CHUNK, f"CK {backend}: the preempted run's "
+              f"file holds k = {k_file}, not {2 * CK_CHUNK}")
+        if backend == "fused":
+            # One snapshot write, timed apart.
+            st = ckp.load_state(p_ck, device=dev)
+            t0 = time.perf_counter()
+            ckp.save_state(p_ck + ".w.npz", st)
+            t_w = time.perf_counter() - t0
+            print(f"CK snapshot write ({label}, {a.shape[0]} rows, fp32): "
+                  f"{os.path.getsize(p_ck + '.w.npz') / 1e6:.1f} MB in "
+                  f"{t_w * 1e3:.1f} ms (host clock, from the card)")
+            os.remove(p_ck + ".w.npz")
+        seen = []
+        setattr(mod, attr, 0)
+        res_r = solver(b, checkpoint_path=p_ck,
+                       on_chunk=lambda st: seen.append(int(st.k)))
+        n_res = getattr(mod, attr)
+        os.remove(p_ck)
+        d_r = rel(res_r.x, res_c.x)
+        bitwise = (int(res_r.iterations) == its
+                   and torch.equal(res_r.x, res_c.x))
+        print(f"CK {backend}: preempted after 2 chunks ({n_pre} launches; "
+              f"its file at k = {k_file}) and resumed from its file: first "
+              f"chunk ends at k = {seen[:1]}, {n_res} launches (the "
+              f"chunked solve's {launches[f'CK_{backend}']}), "
+              f"{int(res_r.iterations)} iterations, equal to the "
+              f"uninterrupted solve bit for bit: {bitwise} "
+              f"(|dx|/|x| {d_r:.3e})")
+        check(seen[:1] == [min(3 * CK_CHUNK, its)], f"CK {backend}: the "
+              f"resumed run's first chunk ends at {seen[:1]}, so it did not "
+              f"start from the file's k = {2 * CK_CHUNK}")
+        check(n_res == launches[f"CK_{backend}"] - n_pre, f"CK {backend}: "
+              f"the resumed run launched {n_res} times, not the chunked "
+              f"solve's {launches[f'CK_{backend}']} less the preempted "
+              f"run's {n_pre}")
+        if m is None:
+            check(bitwise, f"CK {backend}: the resumed solve differs")
+        else:
+            # The file holds the unscaled state; e·(x̃/e) may move a bit.
+            check(abs(int(res_r.iterations) - its) <= 1 and d_r <= 1e-5,
+                  f"CK {backend}: the resumed solve is off by {d_r}")
+    # A fused (K3) snapshot resumed under "xla".
+    p_x = os.path.join(out_dir, f"ck_cross_{os.getpid()}.npz")
+    fused7 = ckp.make_checkpointed_solver(a7, tol=TOL, maxiter=CK_MAXIT,
+                                          preconditioner=m7, chunk=CK_CHUNK,
+                                          backend="fused")
+    try:
+        fused7(b7, checkpoint_path=p_x, on_chunk=kill_after(1))
+    except Preempted:
+        pass
+    res_x = ckp.make_checkpointed_solver(
+        a7, tol=TOL, maxiter=CK_MAXIT, preconditioner=m7, chunk=CK_CHUNK,
+        backend="xla")(b7, checkpoint_path=p_x)
+    os.remove(p_x)
+    plain = cgx_torch.cg_solve(a7, b7, tol=TOL, maxiter=CK_MAXIT,
+                               preconditioner=m7)
+    d_x = rel(res_x.x, plain.x)
+    print(f"CK a fused snapshot (DIA-7 192^3, after 1 chunk) resumed under "
+          f"xla: {int(res_x.iterations)} iterations (cg_solve "
+          f"{int(plain.iterations)}), |x-x_plain|/|x_plain| {d_x:.3e} "
+          f"(bound 1e-4)")
+    check(bool(res_x.converged) and d_x <= 1e-4,
+          f"CK: the cross-backend resume is off by {d_x}")
+    print(f"CK: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def profiling_phase(dev, card) -> int:
+    """PF: ``cgx_torch.utils.profiling.trace`` around one K2 solve at 128³;
+    ``trace_report`` must name K2's kernel with a device time, printed
+    beside the same solve's queued-event time, and ``overlap_report``
+    runs.  Returns K2's launches in the traced solve.  Run by
+    :func:`profiling_child` in a process of its own."""
+    import cgx_torch
+    from cgx_torch.kernels import fused_resident as k2
+    from cgx_torch.kernels.fused_resident import resident_stencil_cg
+    from cgx_torch.utils import profiling as prof
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    a128 = cgx_torch.poisson3d_stencil(*N128)
+    b128 = seeded_rhs(a128.shape[0], dev)
+    t_phase = time.perf_counter()
+    tb_dir = os.path.join(out_dir, f"trace_{os.getpid()}")
+    k2.resident_cg_launches = 0
+    with prof.trace(tb_dir):
+        with prof.annotate("cgx_k2_solve"):
+            res = resident_stencil_cg(a128, b128, tol=TOL, maxiter=CK_MAXIT)
+    launches = k2.resident_cg_launches
+    rows = prof.trace_report(tb_dir, top=None)
+    k2_rows = [r for r in rows if "two_phase_kernel" in r["op"]]
+    k2_us = sum(r["total_us"] for r in k2_rows)
+    q_ms = queued_ms(lambda: resident_stencil_cg(a128, b128, tol=TOL,
+                                                 maxiter=CK_MAXIT),
+                     calls=5)
+    ov = prof.overlap_report(tb_dir)
+    top = [(r["op"][:48], round(r["total_us"], 1)) for r in rows[:4]]
+    print(f"[{card}] PF trace of one K2 solve at 128^3 "
+          f"({int(res.iterations)} iterations): trace_report gives K2's "
+          f"kernel {k2_us / 1e3:.3f} ms device time over "
+          f"{sum(r['count'] for r in k2_rows)} launch(es); queued events "
+          f"{q_ms:.3f} ms per solve (profiler/events "
+          f"{k2_us / 1e3 / q_ms:.3f}); top device ops {top}; "
+          f"overlap_report {json.dumps(ov)}")
+    check(k2_rows and k2_us > 0, "PF: trace_report did not name K2's kernel "
+          "with a device time")
+    check(launches == 1, "PF: the traced solve did not launch K2")
+    shutil.rmtree(tb_dir, ignore_errors=True)
+    print(f"PF: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def profiling_child() -> int:
+    """PF in a child process with its own CUDA context: a CPU and CUDA
+    profiler session (``trace``) leaves the later CUDA-only sessions of
+    the same process reading no device time (PERF.md §7).  Relays the
+    child's output and returns K2's launches in its traced solve."""
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--profiling-phase"],
+            capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("PF: the profiling child did not end within 300 s")
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        print("\n".join(lines))
+        sys.stderr.write(out.stderr[-3000:])
+        fail(f"PF: the profiling child exited with {out.returncode}")
+    for line in lines[:-1]:
+        print(line)
+    launches = int(json.loads(lines[-1])["pf_launches"])
+    print(f"PF child: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def profiling_main() -> None:
+    """The child's entry: PF alone, its launches as the last line."""
+    from cgx_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        fail("PF: no CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.library()
+    launches = profiling_phase(dev, card_line())
+    print(json.dumps({"pf_launches": launches}))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3864,6 +4461,8 @@ def main() -> None:
         check(err <= 1e-6 * scale, f"K1 disagrees at {dims}: {err}")
         check(same, f"K1 differs from its first design at {dims}")
         k1_err[dims] = err
+
+    pf_launches = profiling_child()
 
     # -- 4. the main path, as users drive it --------------------------------
     a128 = cgx_torch.poisson3d_stencil(*N128)
@@ -4237,7 +4836,9 @@ def main() -> None:
     m_entries = multi_phases(dev, card, dias)
     b_entries, bells = bsr_phases(dev, card)
     e_entries = proto_phases(dev, card, thermal, bells)
-    del thermal, bells
+    del bells
+    acc_launches = accuracy_phases(dev, card, thermal, dias)
+    del thermal
     x_entries = mixed_phases(dev, card, dias, fp64_solution, relres_of)
     s_entries = sr_phases(dev, card, dias, fp64_solution, relres_of)
     solver_launches = solver_phases(dev, card, dias, fp64_solution)
@@ -4295,6 +4896,22 @@ def main() -> None:
               stencil_224_fp32_before_ms=k3b224_ms[1]),
     ] + w_entries + m_entries + b_entries + x_entries + s_entries
         + e_entries}
+    # The launches of HP, CK and PF, as extra keys on their kernels'
+    # entries (no new kernel in those phases).
+    extra = {
+        "stencil3d_spmv": {"ck_launches": acc_launches["CK_xla"]},
+        "resident_cg": {"ck_launches": acc_launches["CK_resident"],
+                        "pf_launches": pf_launches},
+        "fused_kernel_a": {"ck_launches": acc_launches["CK_fused"]},
+        "fused_kernel_b": {"ck_launches": acc_launches["CK_fused_b"]},
+        "sr_cg": {"ck_launches": acc_launches["CK_sr"]},
+        "wbell_resident": {"hp_launches": acc_launches["HP_k7"]},
+        "wbell_tiered": {"hp_launches": acc_launches["HP_k8"]},
+    }
+    for e in report["kernels"]:
+        e.update(extra.get(e["name"], {}))
+    check(all(any(e["name"] == nm for e in report["kernels"])
+              for nm in extra), "a kernel of HP, CK or PF has no entry")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -4302,6 +4919,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--profiling-phase"]:
+        profiling_main()
+        sys.exit(0)
     t0 = time.perf_counter()
     main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

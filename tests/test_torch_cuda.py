@@ -1837,3 +1837,145 @@ def test_k3_b_refuses_aliased_vectors(cuda_device):
     with pytest.raises(ValueError, match="share storage"):
         eng._b_args(v, v.clone(), v.clone(), eng.weight, part, 1, part, 1,
                     ctl, None)
+
+
+# -- the accuracy and reliability layer on the card ---------------------------
+
+def test_df64_on_card_equals_cpu(cuda_device):
+    """The error-free transforms stay exact on the card (0 mismatches
+    against fp64), and df_dot and the df64 ELL product equal the CPU's
+    word for word: every step is one IEEE-rounded op on both."""
+    import scipy.sparse as sp
+
+    from cgx_torch.ops import df64 as d
+    from cgx_torch.solve import hp
+
+    rng = np.random.default_rng(51)
+    a32 = (rng.standard_normal(1 << 16) * np.exp2(
+        rng.integers(-12, 13, 1 << 16))).astype(np.float32)
+    b32 = rng.standard_normal(1 << 16).astype(np.float32)
+    ta, tb = t(a32, cuda_device), t(b32, cuda_device)
+    p, e = d.two_prod(ta, tb)
+    assert torch.equal(p.double() + e.double(), ta.double() * tb.double())
+    s, se = d.two_sum(ta, tb)
+    assert torch.equal(s.double() + se.double(), ta.double() + tb.double())
+    x = rng.standard_normal(5000) * np.logspace(0, 4, 5000)
+    y = rng.standard_normal(5000)
+    on_card = d.df_dot(d.df_from_f64(x, cuda_device),
+                       d.df_from_f64(y, cuda_device))
+    on_cpu = d.df_dot(d.df_from_f64(x, "cpu"), d.df_from_f64(y, "cpu"))
+    assert float(on_card.hi) == float(on_cpu.hi)
+    assert float(on_card.lo) == float(on_cpu.lo)
+    m = sp.random(700, 700, density=0.02, random_state=5, format="csr")
+    m = (m + m.T + sp.eye(700) * 5.0).tocsr()
+    v = rng.standard_normal(700)
+    yc = hp.df64_ell_spmv(hp.df64_ell_from_csr(m, device=cuda_device),
+                          d.df_from_f64(v, cuda_device))
+    yh = hp.df64_ell_spmv(hp.df64_ell_from_csr(m, device="cpu"),
+                          d.df_from_f64(v, "cpu"))
+    assert torch.equal(yc.hi.cpu(), yh.hi) and torch.equal(yc.lo.cpu(),
+                                                           yh.lo)
+
+
+def test_ir_df64_wbell_on_card(cuda_device):
+    """The refinement over K7 inners reaches its TRUE tolerance on the
+    card, and K7 is what ran."""
+    import scipy.sparse as sp
+
+    from cgx_torch.ops.df64 import df_to_f64
+
+    rng = np.random.default_rng(3)
+    m = sp.random(600, 600, density=0.02, random_state=3, format="csr")
+    m = (m + m.T + sp.eye(600) * 14.0).tocsr()
+    d = sp.diags(np.logspace(0, 3, 600))
+    m = (d @ m @ d).tocsr()
+    b = rng.standard_normal(600)
+    pre = cgx_torch.JacobiPrecond(inv_diag=t(
+        (1.0 / m.diagonal()).astype(np.float32), cuda_device))
+    before = kw.wbell_resident_launches
+    res, info = cgx_torch.ir_df64_solve(m, b, tol=1e-8, inner_tol=1e-2,
+                                        preconditioner=pre,
+                                        inner_format="wbell",
+                                        device=cuda_device)
+    assert kw.wbell_resident_launches - before >= info["inner_iterations"]
+    x = df_to_f64(res.x)
+    assert np.linalg.norm(b - m @ x) / np.linalg.norm(b) <= 1.5e-8
+
+
+@pytest.mark.parametrize("backend,op_kind", [
+    ("resident", "stencil"), ("fused", "stencil"), ("fused", "dia"),
+    ("fused", "dia7"), ("sr", "stencil"), ("sr", "dia"), ("sr", "dia7")])
+def test_checkpointed_kernels_equal_monolithic(cuda_device, tmp_path,
+                                               backend, op_kind):
+    """A chunked solve through K2, K3 or K4 equals the kernel's monolithic
+    solve under the same Jacobi bit for bit, on the 2-D Poisson DIA (a
+    constant diagonal) and on the scaled DIA-7 D·A·D (a varying one); on a
+    stencil (an unscaled state) a solve preempted after two chunks and
+    resumed from its file does too."""
+    from cgx_torch.kernels.fused_resident import resident_stencil_cg
+    from cgx_torch.utils.checkpoint import make_checkpointed_solver
+
+    if op_kind == "stencil":
+        a, m = cgx_torch.poisson3d_stencil(24, 20, 18), None
+    elif op_kind == "dia7":
+        a = _dia("dia7", cuda_device)
+        m = cgx_torch.JacobiPrecond.from_matrix(a)
+    else:
+        a = poisson2d_dia(48, 40, dtype=np.float32, device=cuda_device)
+        a = cgx_torch.DIAMatrix(data=a.data, offsets=a.offsets,
+                                shape=a.shape, grid=(48, 1, 40))
+        m = cgx_torch.JacobiPrecond.from_matrix(a)
+    b = t(seeded(a.shape[0], seed=17, dtype=np.float32), cuda_device)
+    kind = "stencil" if op_kind == "stencil" else "dia"
+    mono = {
+        ("resident", "stencil"): lambda: resident_stencil_cg(
+            a, b, tol=1e-6, maxiter=2000),
+        ("fused", "stencil"): lambda: fused_stencil_cg(a, b, tol=1e-6,
+                                                       maxiter=2000),
+        ("fused", "dia"): lambda: fdia.fused_dia_cg(
+            a, b, tol=1e-6, maxiter=2000, inv_diag=m.inv_diag),
+        ("sr", "stencil"): lambda: k4.sr_stencil_cg(a, b, tol=1e-6,
+                                                    maxiter=2000),
+        ("sr", "dia"): lambda: k4.sr_dia_cg(a, b, tol=1e-6, maxiter=2000,
+                                            inv_diag=m.inv_diag),
+    }[backend, kind]()
+    solve = make_checkpointed_solver(a, tol=1e-6, maxiter=2000,
+                                     preconditioner=m, chunk=10,
+                                     backend=backend)
+    res = solve(b)
+    assert int(res.iterations) == int(mono.iterations) > 20
+    assert torch.equal(res.x, mono.x)
+    if op_kind == "stencil":
+        class Preempted(Exception):
+            pass
+
+        path = str(tmp_path / "ck.npz")
+        seen = []
+
+        def stop(state):
+            seen.append(int(state.k))
+            if len(seen) == 2:
+                raise Preempted
+
+        with pytest.raises(Preempted):
+            solve(b, checkpoint_path=path, on_chunk=stop)
+        again = solve(b, checkpoint_path=path)
+        assert int(again.iterations) == int(res.iterations)
+        assert torch.equal(again.x, res.x)
+
+
+def test_native_format_on_card(cuda_device, tmp_path):
+    """A WBELL operator saved and loaded onto the card gives K7's product
+    bit for bit."""
+    import scipy.sparse as sp
+
+    from cgx_torch.io.native_format import load_matrix, save_matrix
+
+    m = sp.random(900, 900, density=0.01, random_state=7, format="csr")
+    w = cgx_torch.wbell_from_csr((m + m.T + sp.eye(900) * 9.0).tocsr(),
+                                 device=cuda_device)
+    path = str(tmp_path / "w.npz")
+    save_matrix(path, w)
+    w2, _ = load_matrix(path, device=cuda_device)
+    x = w.to_internal(t(seeded(900, seed=4, dtype=np.float32), cuda_device))
+    assert torch.equal(kw.wbell_spmv(w2, x), kw.wbell_spmv(w, x))
