@@ -62,6 +62,31 @@
 // agrees with it to a bf16 tolerance and with its own plain version
 // (fused_engine.py: kernel_a_reference, kernel_b_reference), which rounds
 // as above, bit for bit.  The bf16 loads are 2-byte scalar loads.
+//
+// Distribution (the Pallas engine under shard_map, FusedCG(axis_name=...):
+// cgx/kernels/fused_engine.py:_exchange and _allsum, the halo rows and the
+// two psums).  A rank runs kernel_a2 and kernel_b2 on its own x-planes of
+// the grid, in the cross-rank mode (the instances with kShard, chosen where
+// the C entry gets a span and `sums`):
+//   * kernel A reads p one ghost x-plane beyond its planes on each side
+//     where a neighbour rank exists (cgx::Span; the planes carry ghost
+//     planes too in the symmetric mode, for the mirror taps).  The wrapper
+//     sends the boundary planes before each kernel A; the outer ranks have
+//     no neighbour there, and their masks drop those taps;
+//   * kernel A's last block writes its rank's p·q and q·q unrounded, in
+//     fp64, to sums[0..1]; NCCL sums them over the ranks on the stream;
+//     kernel B rounds the reduced values to fp32 once;
+//   * kernel B's last block writes Σr², Σr²·w unrounded to sums[2..3],
+//     counts the iteration and sets `pending`; after their all-reduce the
+//     next kernel A rounds them, writes the history slot and takes the exit
+//     decision.  So an iteration makes two all-reduces of two doubles, the
+//     Pallas engine's two psums, and the host still reads one flag a chunk.
+// Every rank reads the same reduced bits, so every rank takes the same
+// exit.  A sum over one rank is the rank's own value, so at one rank the
+// cross-rank mode equals the single-card mode bit for bit; over P ranks the
+// sums differ from one card's only in the order of fp64 additions.  The
+// single-card instances (kShard false) read the whole grid with the span's
+// zeros as constants and have no cross-rank branch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -91,7 +116,9 @@ struct Ctl {
   int n_done;
   // The redesign (kernel_a2, kernel_b2): p·q and q·q, folded by kernel A's
   // last block and read by kernel B, and the two kernels' ticket counters
-  // (0 between launches).
+  // (0 between launches).  In the cross-rank mode `pending` (1: kernel B's
+  // newest sums are in `sums`, reduced over the ranks) is written by kernel
+  // B and read by kernel A.
   float pq, qq;
   int ticket_a, ticket_b;
 };
@@ -111,6 +138,8 @@ struct AArgs {
   int init;        // 1: only q = A·p (the x0 start), no control state
   int nx, ny, nz;
   cgx::PlaneTaps taps;
+  cgx::Span span;  // kernel_a2 of a shard: what p and the planes hold
+  double* sums;    // kernel_a2, kernel_b2 of a shard: the cross-rank sums
 };
 
 template <int kTaps, bool kPlanes, bool kSym, typename V, typename P>
@@ -183,6 +212,7 @@ struct BArgs {  // x, r, p, q, w of the vector type V
   Ctl* ctl;
   float* history;  // hist_len floats, or null (kernel_b2 writes it)
   int n;
+  double* sums;    // kernel_b2 of a shard: the cross-rank sums
 };
 
 template <bool kWeighted, typename V>
@@ -294,7 +324,8 @@ struct A2Args {
 template <int kTaps>
 constexpr int kA2Blocks = kTaps > 7 ? 4 : 8;
 
-template <int kTaps, bool kPlanes, bool kSym, typename V, typename P>
+template <int kTaps, bool kPlanes, bool kSym, bool kShard, typename V,
+          typename P>
 __global__ void __launch_bounds__(kThreads, kA2Blocks<kTaps>)
     kernel_a2(A2Args args) {
   __shared__ double smem[kWarps + 1];
@@ -303,21 +334,31 @@ __global__ void __launch_bounds__(kThreads, kA2Blocks<kTaps>)
   V* __restrict__ q = static_cast<V*>(a.q);
   Ctl* c = a.ctl;
   if (!a.init) {
-    // Kernel B's last block has folded the sums of iterate k into Ctl.
+    // Kernel B's last block has folded the sums of iterate k into Ctl, or,
+    // across ranks, into `sums`, which NCCL has reduced since.
     if (c->done) return;
-    const float rw = c->rw;
+    const bool fresh = kShard && c->pending != 0;
+    const float rz = fresh ? static_cast<float>(a.sums[2]) : c->rz;
+    const float rw = fresh ? static_cast<float>(a.sums[3]) : c->rw;
     const int k = c->k;
     const bool stop = !(k < c->maxit && rw > c->tol_sq);
     if (blockIdx.x == 0 && threadIdx.x == 0) {
-      c->n_rz = c->rz;
+      c->n_rz = rz;
       c->n_rw = rw;
       c->n_k = k;
       c->n_done = stop ? 1 : 0;
+      if (fresh && c->hist_len > 0)
+        a.history[k < c->hist_len ? k : c->hist_len - 1] = rw;
+      if (kShard && stop) {  // nothing left for NCCL to sum
+        a.sums[0] = 0.0;
+        a.sums[1] = 0.0;
+      }
     }
     if (stop) return;
   }
-  const int nx = a.nx, ny = a.ny, nz = a.nz;
-  const int n = nx * ny * nz;
+  const int ny = a.ny, nz = a.nz;
+  const int n = a.nx * ny * nz;
+  const cgx::Span span = kShard ? a.span : cgx::whole_grid(n, a.nx);
   const int ga = args.grid_a;
   const int step = ga * kThreads;
   const int u = threadIdx.x;
@@ -331,11 +372,10 @@ __global__ void __launch_bounds__(kThreads, kA2Blocks<kTaps>)
   // A row's q (unrounded).
   const auto value = [&](int row, const cgx::Walk& w) {
     if constexpr (kPlanes) {
-      return cgx::plane_row_at<kTaps, kSym>(
-          ld, static_cast<const P*>(a.planes), row, w, n, nx, ny, nz,
-          a.taps);
+      return cgx::plane_row_span<kTaps, kSym>(
+          ld, static_cast<const P*>(a.planes), row, w, span, ny, nz, a.taps);
     } else {
-      return cgx::stencil_row_at<kTaps>(ld, w, nx, ny, nz, a.taps.s);
+      return cgx::stencil_row_span<kTaps>(ld, w, span, ny, nz, a.taps.s);
     }
   };
   // Store q and add the row's terms to the sums, in row order.
@@ -373,13 +413,16 @@ __global__ void __launch_bounds__(kThreads, kA2Blocks<kTaps>)
   }
   if (a.init || !cgx::last_block(&c->ticket_a)) return;
   __threadfence();
-  const float pqs =
-      static_cast<float>(cgx::grid_sum<kThreads>(a.part_a, ga, smem));
-  const float qqs =
-      static_cast<float>(cgx::grid_sum<kThreads>(a.part_a + ga, ga, smem));
+  const double pqs = cgx::grid_sum<kThreads>(a.part_a, ga, smem);
+  const double qqs = cgx::grid_sum<kThreads>(a.part_a + ga, ga, smem);
   if (u == 0) {
-    c->pq = pqs;
-    c->qq = qqs;
+    if constexpr (kShard) {  // this rank's share, summed by NCCL next
+      a.sums[0] = pqs;
+      a.sums[1] = qqs;
+    } else {
+      c->pq = static_cast<float>(pqs);
+      c->qq = static_cast<float>(qqs);
+    }
   }
 }
 
@@ -414,7 +457,7 @@ struct B2Args {
   int grid_b;  // K3's partition: the blocks of the first design
 };
 
-template <bool kWeighted, typename V>
+template <bool kWeighted, bool kShard, typename V>
 __global__ void __launch_bounds__(kThreads, 8) kernel_b2(B2Args args) {
   __shared__ double smem[kWarps + 1];
   const BArgs& a = args.a;
@@ -425,13 +468,24 @@ __global__ void __launch_bounds__(kThreads, 8) kernel_b2(B2Args args) {
   const V* __restrict__ w = static_cast<const V*>(a.w);
   Ctl* c = a.ctl;
   if (c->n_done) {
-    // Kernel A of this iteration took the exit; Ctl holds the final state.
-    if (blockIdx.x == 0 && threadIdx.x == 0) c->done = 1;
+    // Kernel A of this iteration took the exit; Ctl holds the final state
+    // (across ranks kernel A read it from `sums`: publish it).
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      if constexpr (kShard) {
+        c->rz = c->n_rz;
+        c->rw = c->n_rw;
+        c->k = c->n_k;
+        c->pending = 0;
+        a.sums[2] = 0.0;
+        a.sums[3] = 0.0;
+      }
+      c->done = 1;
+    }
     return;
   }
   const float rz = c->n_rz;
-  const float pq = c->pq;
-  const float qq = c->qq;
+  const float pq = kShard ? static_cast<float>(a.sums[0]) : c->pq;
+  const float qq = kShard ? static_cast<float>(a.sums[1]) : c->qq;
   const float alpha32 = __fdiv_rn(rz, pq);
   const float beta32 = __fdiv_rn(
       __fsub_rn(__fmul_rn(__fmul_rn(alpha32, alpha32), qq), rz), rz);
@@ -498,13 +552,19 @@ __global__ void __launch_bounds__(kThreads, 8) kernel_b2(B2Args args) {
   // Every block has read n_rz, pq and qq before its ticket.
   if (!cgx::last_block(&c->ticket_b)) return;
   __threadfence();
-  const float rz1 =
-      static_cast<float>(cgx::grid_sum<kThreads>(a.part_b, gb, smem));
-  const float rw1 =
-      static_cast<float>(cgx::grid_sum<kThreads>(a.part_b + gb, gb, smem));
+  const double s1 = cgx::grid_sum<kThreads>(a.part_b, gb, smem);
+  const double sw1 = cgx::grid_sum<kThreads>(a.part_b + gb, gb, smem);
   if (u == 0) {
     const int k1 = c->n_k + 1;
-    c->rz = rz1;
+    if constexpr (kShard) {  // the next kernel A rounds the reduced sums
+      a.sums[2] = s1;
+      a.sums[3] = sw1;
+      c->k = k1;
+      c->pending = 1;
+      return;
+    }
+    const float rw1 = static_cast<float>(sw1);
+    c->rz = static_cast<float>(s1);
     c->rw = rw1;
     c->k = k1;
     c->pending = 0;
@@ -514,13 +574,15 @@ __global__ void __launch_bounds__(kThreads, 8) kernel_b2(B2Args args) {
 }
 
 // The instance of kernel A (design 0: kernel_a, the first design; 1:
-// kernel_a2) for the operator and the types.
+// kernel_a2, a shard's when `shard`) for the operator and the types.
 template <typename V, typename P>
-const void* a_kernel_typed(int ntaps, int variable, int sym, int design) {
+const void* a_kernel_typed(int ntaps, int variable, int sym, int design,
+                           bool shard) {
   const bool wide = ntaps > 7;
-#define CGX_A(T, PL, SY)                                                   \
-  (design ? reinterpret_cast<const void*>(kernel_a2<T, PL, SY, V, P>)       \
-          : reinterpret_cast<const void*>(kernel_a<T, PL, SY, V, P>))
+#define CGX_A(T, PL, SY)                                                    \
+  (design == 0 ? reinterpret_cast<const void*>(kernel_a<T, PL, SY, V, P>)   \
+   : shard ? reinterpret_cast<const void*>(kernel_a2<T, PL, SY, true, V, P>) \
+           : reinterpret_cast<const void*>(kernel_a2<T, PL, SY, false, V, P>))
   if (!variable)
     return wide ? CGX_A(cgx::kMaxTaps, false, false) : CGX_A(7, false, false);
   if (sym)
@@ -532,21 +594,24 @@ const void* a_kernel_typed(int ntaps, int variable, int sym, int design) {
 // The instance for the operator and the types; null for bf16 vectors with
 // fp32 planes, which no caller builds.
 const void* a_kernel_for(int ntaps, int variable, int sym, int vec_bf16,
-                         int plane_bf16, int design) {
+                         int plane_bf16, int design, bool shard = false) {
   if (!vec_bf16)
-    return plane_bf16
-               ? a_kernel_typed<float, bf16>(ntaps, variable, sym, design)
-               : a_kernel_typed<float, float>(ntaps, variable, sym, design);
+    return plane_bf16 ? a_kernel_typed<float, bf16>(ntaps, variable, sym,
+                                                    design, shard)
+                      : a_kernel_typed<float, float>(ntaps, variable, sym,
+                                                     design, shard);
   if (variable && !plane_bf16) return nullptr;
-  return a_kernel_typed<bf16, bf16>(ntaps, variable, sym, design);
+  return a_kernel_typed<bf16, bf16>(ntaps, variable, sym, design, shard);
 }
 
-// The instance of kernel B: design 0 the first design, 1 kernel_b2; null
-// for another design.
-const void* b_kernel_for(int weighted, int vec_bf16, int design) {
-#define CGX_B(KW, V)                                                    \
-  (design ? reinterpret_cast<const void*>(kernel_b2<KW, V>)             \
-          : reinterpret_cast<const void*>(kernel_b<KW, V>))
+// The instance of kernel B: design 0 the first design, 1 kernel_b2 (a
+// shard's when `shard`); null for another design.
+const void* b_kernel_for(int weighted, int vec_bf16, int design,
+                         bool shard = false) {
+#define CGX_B(KW, V)                                                       \
+  (design == 0 ? reinterpret_cast<const void*>(kernel_b<KW, V>)            \
+   : shard     ? reinterpret_cast<const void*>(kernel_b2<KW, true, V>)     \
+               : reinterpret_cast<const void*>(kernel_b2<KW, false, V>))
   if (design != 0 && design != 1) return nullptr;
   if (vec_bf16) return weighted ? CGX_B(true, bf16) : CGX_B(false, bf16);
   return weighted ? CGX_B(true, float) : CGX_B(false, float);
@@ -571,7 +636,8 @@ extern "C" int cgx_fused_b_grid(int device, int weighted, int vec_bf16,
                                   grid);
 }
 
-// Blocks of kernel_a2 that fit on the card at once.
+// Blocks of kernel_a2 that fit on the card at once (a shard's instance is
+// held to the same launch bounds and launched on the same grid).
 extern "C" int cgx_fused_a_fit(int device, int ntaps, int variable, int sym,
                                int vec_bf16, int plane_bf16, int* blocks) {
   const void* k = a_kernel_for(ntaps, variable, sym, vec_bf16, plane_bf16, 1);
@@ -584,6 +650,10 @@ extern "C" int cgx_fused_a_fit(int device, int ntaps, int variable, int sym,
 // p and q hold bf16 when vec_bf16, planes bf16 when plane_bf16.  part_a
 // holds 2 × grid_a doubles (K3's partition).  design 0 runs the first
 // kernel A on grid_a blocks; design 1 runs kernel_a2 on `grid` blocks.
+// A rank's shard (design 1 only) runs the cross-rank instance: nx is its
+// x-planes, `span` five ints (lo, hi, xlo, xhi, pstride: cgx::Span), p and
+// planes point at the first local row and `sums` holds 4 doubles; on one
+// card both are null.
 extern "C" int cgx_fused_a(const void* p, void* q, const void* planes,
                            double* part_a, int grid_a, const double* part_b,
                            int grid_b, int* ctl, float* history, int init,
@@ -591,14 +661,20 @@ extern "C" int cgx_fused_a(const void* p, void* q, const void* planes,
                            const int* taps, const float* coeffs,
                            const int* plane, int sym, int vec_bf16,
                            int plane_bf16, int design, int grid,
-                           void* stream) {
+                           const int* span, double* sums, void* stream) {
+  const bool shard = span != nullptr;
   const void* k = a_kernel_for(ntaps, planes != nullptr, sym, vec_bf16,
-                               plane_bf16, design);
-  if (ntaps < 1 || ntaps > cgx::kMaxTaps || grid_a < 1 || k == nullptr)
+                               plane_bf16, design, shard);
+  if (ntaps < 1 || ntaps > cgx::kMaxTaps || grid_a < 1 || k == nullptr ||
+      shard != (sums != nullptr) || (design == 0 && shard))
     return static_cast<int>(cudaErrorInvalidValue);
+  const cgx::Span sp =
+      shard ? cgx::Span{span[0], span[1], span[2], span[3], span[4]}
+            : cgx::Span{};
   AArgs a{p, q, planes, part_a, part_b, grid_b, reinterpret_cast<Ctl*>(ctl),
           history, init, nx, ny, nz,
-          cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz)};
+          cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz), sp,
+          sums};
   if (design == 0) return cgx::launch<kThreads>(k, grid_a, &a, stream);
   if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
   A2Args a2{a, grid_a};
@@ -610,16 +686,20 @@ extern "C" int cgx_fused_a(const void* p, void* q, const void* planes,
 // design 0: the first kernel B (folds part_a itself); 1: kernel_b2 (reads
 // p·q and q·q from ctl, folds its own partials in its last block, writes
 // `history`), which needs x, r, p, q and w in storage of their own.
+// `sums` (design 1; null on one card): a shard's cross-rank instance, p·q
+// and q·q read from sums[0..1], Σr² and Σr²·w written to sums[2..3].
 extern "C" int cgx_fused_b(void* x, void* r, void* p, const void* q,
                            const void* w, const double* part_a, int grid_a,
                            double* part_b, int grid_b, int* ctl,
                            float* history, int n, int vec_bf16, int design,
-                           void* stream) {
-  const void* k = b_kernel_for(w != nullptr, vec_bf16, design);
-  if (grid_a < 1 || grid_b < 1 || k == nullptr)
+                           double* sums, void* stream) {
+  const void* k = b_kernel_for(w != nullptr, vec_bf16, design,
+                               sums != nullptr);
+  if (grid_a < 1 || grid_b < 1 || k == nullptr ||
+      (design == 0 && sums != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   BArgs a{x, r, p, q, w, part_a, grid_a, part_b,
-          reinterpret_cast<Ctl*>(ctl), history, n};
+          reinterpret_cast<Ctl*>(ctl), history, n, sums};
   if (design == 0) return cgx::launch<kThreads>(k, grid_b, &a, stream);
   B2Args b2{a, grid_b};
   return cgx::launch<kThreads>(k, grid_b, &b2, stream);

@@ -49,6 +49,28 @@
 // plane value is widened to fp32 in a register as it is loaded (exact) and
 // everything else is unchanged, so the bf16 mode equals the fp32 mode run on
 // the planes rounded through bf16, bit for bit.  Kernel B streams no planes.
+//
+// Distribution (cgx/kernels/fused_multi.py:_exchange_multi and the psums of
+// _solve_multi under shard_map): K3's cross-rank mode (fused_engine.cu) over
+// k columns.  A rank holds its x-planes of every column; P's columns carry
+// one ghost x-plane on each side (column stride ldp, P pointing at the first
+// local row; the wrapper sends the boundary planes before kernel A), and a
+// cgx::Span says which ghost planes hold a neighbour's values.  The march
+// stages planes i0 − 1 … i1 of its chunk from that span, so a chunk at the
+// rank's first or last plane reads the ghost plane, and the outer ranks'
+// masks drop the taps that leave the grid.  A shard runs the cross-rank
+// instances (kShard; the C entries take them where they get a span and
+// `sums`, 4·ncols doubles):
+//   * kernel A's last block writes its rank's Σ p·q and Σ q·q per column
+//     unrounded (sums[0, 2k)); NCCL sums them; kernel B rounds them once;
+//   * kernel B's last block writes Σr² and Σr²·w per column unrounded
+//     (sums[2k, 4k)), counts the iteration and sets `pending`; after their
+//     all-reduce the next kernel A's blocks each round them and take the
+//     shared exit (the same bits in every block and on every rank), and its
+//     block 0 publishes rz, rw and the flag.
+// At one rank this is the single-card iteration bit for bit.  The
+// single-card instances (kShard false) read the whole grid with the span's
+// zeros and n as constants and have no cross-rank branch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -69,6 +91,7 @@ constexpr int kDone = 1;    // 1: the shared exit is taken
 constexpr int kMaxit = 2;   // iteration cap of the run
 constexpr int kCountA = 3;  // kernel A's ticket counter (0 between launches)
 constexpr int kCountB = 4;  // kernel B's ticket counter
+constexpr int kPending = 5;  // cross-rank mode: B's sums wait in `sums`
 constexpr int kHead = 8;
 // Float arrays of ncols after the header, in this order.
 constexpr int kRz = 0;   // Σ r² (solve space; β's denominator)
@@ -84,7 +107,7 @@ __device__ __forceinline__ float* field(int* ctl, int ncols, int f) {
 using cgx::last_block;
 
 struct AArgs {
-  const float* p;        // ncols × n
+  const float* p;        // ncols columns, ldp apart
   float* q;              // ncols × n
   const void* planes;    // P; null: constant taps only
   double* part;          // 2·ncols × gridDim.x: Σ p·q per column, then Σ q·q
@@ -92,18 +115,78 @@ struct AArgs {
   int ncols;
   int nx, ny, nz;
   cgx::PlaneTaps taps;
+  cgx::Span span;        // a shard's: what P and the planes hold
+  int ldp;               // a shard's P column stride (n on one card)
+  double* sums;          // a shard's cross-rank sums (4·ncols)
 };
 
-template <int kTaps, bool kPlanes, bool kSym, typename P>
+// Kernel A's entry: true when the shared exit is taken.  Across ranks the
+// exit is decided here, from kernel B's sums reduced since: every block
+// rounds them and decides alike, block 0 publishes them (no block reads
+// what it writes except the flag, and a block that reads the flag set
+// returns as the deciding blocks do).
+template <bool kShard>
+__device__ __forceinline__ bool multi_a_stop(const AArgs& a) {
+  int* ctl = a.ctl;
+  if (ctl[kDone]) return true;
+  if (!kShard || !ctl[kPending]) return false;
+  const int k = a.ncols;
+  const float* tol = field(ctl, k, kTol);
+  bool go = false;
+  for (int c = 0; c < k; ++c)
+    go = go || static_cast<float>(a.sums[3 * k + c]) > tol[c];
+  const bool stop = !(ctl[kIt] < ctl[kMaxit] && go);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    float* rz = field(ctl, k, kRz);
+    float* rw = field(ctl, k, kRw);
+    for (int c = 0; c < k; ++c) {
+      rz[c] = static_cast<float>(a.sums[2 * k + c]);
+      rw[c] = static_cast<float>(a.sums[3 * k + c]);
+    }
+    if (stop) {  // nothing left for NCCL to sum (kernel B clears the rest)
+      ctl[kDone] = 1;
+      for (int c = 0; c < 2 * k; ++c) a.sums[c] = 0.0;
+    }
+  }
+  return stop;
+}
+
+// Kernel A's last block: the per-column sums, to the control block or,
+// across ranks, unrounded to `sums`.
+template <bool kShard>
+__device__ __forceinline__ void multi_a_fold(const AArgs& a, double* smem) {
+  float* pqs = field(a.ctl, a.ncols, kPq);
+  float* qqs = field(a.ctl, a.ncols, kQq);
+  for (int c = 0; c < a.ncols; ++c) {
+    const double s = cgx::grid_sum<kThreads>(
+        a.part + static_cast<size_t>(c) * gridDim.x, gridDim.x, smem);
+    const double s2 = cgx::grid_sum<kThreads>(
+        a.part + static_cast<size_t>(a.ncols + c) * gridDim.x, gridDim.x,
+        smem);
+    if (threadIdx.x == 0) {
+      if constexpr (kShard) {
+        a.sums[c] = s;
+        a.sums[a.ncols + c] = s2;
+      } else {
+        pqs[c] = static_cast<float>(s);
+        qqs[c] = static_cast<float>(s2);
+      }
+    }
+  }
+}
+
+template <int kTaps, bool kPlanes, bool kSym, bool kShard, typename P>
 __global__ void __launch_bounds__(kThreads) multi_a(AArgs a) {
   __shared__ double smem[kWarps + 1];
-  if (a.ctl[kDone]) return;
+  if (multi_a_stop<kShard>(a)) return;
   const int n = a.nx * a.ny * a.nz;
   const size_t ld = static_cast<size_t>(n);
+  const size_t ldp = kShard ? static_cast<size_t>(a.ldp) : ld;
+  const cgx::Span span = kShard ? a.span : cgx::whole_grid(n, a.nx);
   const int stride = gridDim.x * kThreads;
   for (int c0 = 0; c0 < a.ncols; c0 += kCols) {
     const int nc = min(kCols, a.ncols - c0);
-    const float* p = a.p + c0 * ld;
+    const float* p = a.p + c0 * ldp;
     float* q = a.q + c0 * ld;
     double pq[kCols];
     double qq[kCols];
@@ -114,10 +197,10 @@ __global__ void __launch_bounds__(kThreads) multi_a(AArgs a) {
       float acc[kCols];
       if constexpr (kPlanes) {
         cgx::plane_row_multi<kTaps, kSym, kCols>(
-            p, ld, nc, static_cast<const P*>(a.planes), row, n, a.nx, a.ny,
+            p, ldp, nc, static_cast<const P*>(a.planes), row, span, a.ny,
             a.nz, a.taps, acc);
       } else {
-        cgx::stencil_row_multi<kTaps, kCols>(p, ld, nc, row, a.nx, a.ny,
+        cgx::stencil_row_multi<kTaps, kCols>(p, ldp, nc, row, span, a.ny,
                                              a.nz, a.taps.s, acc);
       }
 #pragma unroll
@@ -125,7 +208,7 @@ __global__ void __launch_bounds__(kThreads) multi_a(AArgs a) {
         if (c < nc) {
           q[c * ld + row] = acc[c];
           const double qd = acc[c];
-          const double pd = __ldg(p + c * ld + row);
+          const double pd = __ldg(p + c * ldp + row);
           pq[c] = __dadd_rn(pq[c], __dmul_rn(qd, pd));
           qq[c] = __dadd_rn(qq[c], __dmul_rn(qd, qd));
         }
@@ -145,19 +228,7 @@ __global__ void __launch_bounds__(kThreads) multi_a(AArgs a) {
     }
   }
   if (!last_block(a.ctl + kCountA)) return;
-  float* pqs = field(a.ctl, a.ncols, kPq);
-  float* qqs = field(a.ctl, a.ncols, kQq);
-  for (int c = 0; c < a.ncols; ++c) {
-    const double s = cgx::grid_sum<kThreads>(
-        a.part + static_cast<size_t>(c) * gridDim.x, gridDim.x, smem);
-    const double s2 = cgx::grid_sum<kThreads>(
-        a.part + static_cast<size_t>(a.ncols + c) * gridDim.x, gridDim.x,
-        smem);
-    if (threadIdx.x == 0) {
-      pqs[c] = static_cast<float>(s);
-      qqs[c] = static_cast<float>(s2);
-    }
-  }
+  multi_a_fold<kShard>(a, smem);
 }
 
 // -- The redesign: multi_a2, the 2.5-D march ---------------------------------
@@ -202,17 +273,19 @@ __device__ __forceinline__ int ring_slot(int ip) {
   return ((ip % kSlots) + kSlots) % kSlots;
 }
 
-template <int kTaps, bool kPlanes, bool kSym, typename P>
+template <int kTaps, bool kPlanes, bool kSym, bool kShard, typename P>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     multi_a2(A2Args args) {
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ double smem[kWarps + 1];
   const AArgs& a = args.a;
   const cgx::MarchPlan& mp = args.mp;
-  if (a.ctl[kDone]) return;
+  if (multi_a_stop<kShard>(a)) return;
   const int nx = a.nx, ny = a.ny, nz = a.nz;
   const int n = nx * ny * nz;
   const size_t ld = static_cast<size_t>(n);
+  const size_t ldp = kShard ? static_cast<size_t>(a.ldp) : ld;
+  const cgx::Span span = kShard ? a.span : cgx::whole_grid(n, nx);
   // The block's tile and chunk: k tiles fastest, then j tiles, then chunks.
   int b = blockIdx.x;
   const int tkx = b % mp.tiles_k;
@@ -252,7 +325,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 
   for (int c0 = 0; c0 < a.ncols; c0 += kCols) {
     const int nc = min(kCols, a.ncols - c0);
-    const float* p = a.p + c0 * ld;
+    const float* p = a.p + c0 * ldp;
     float* q = a.q + c0 * ld;
     // x-plane ip of the nc columns, tile and halo, into its ring slot.
     auto stage_plane = [&](int ip) {
@@ -266,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
         const long f = (static_cast<long>(ip) * ny + (j0 - mp.hj + line)) *
                            nz + k0 - mp.hk + ch * 4;
         cgx::stage_chunk(dst + c * cstride + line * width + ch * 4,
-                         p + c * ld, f, n);
+                         p + c * ldp, f, span.lo, span.hi);
       }
     };
     double pq[kCols];
@@ -282,9 +355,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     for (int i = i0; i < i1; ++i) {
       cgx::cp_async_wait<kAhead>();
       __syncthreads();
-      const unsigned i_in = (i > 0 && i < nx - 1) ? all_i
-                                                  : cgx::i_taps(i, nx,
-                                                                a.taps.s);
+      const unsigned i_in = (i > span.xlo && i < span.xhi - 1)
+                                ? all_i
+                                : cgx::i_taps(i, span.xlo, span.xhi,
+                                              a.taps.s);
       const unsigned bm = ring_b + ring_slot(i - 1) * slot_b;
       const unsigned b0 = ring_b + ring_slot(i) * slot_b;
       const unsigned bp = ring_b + ring_slot(i + 1) * slot_b;
@@ -299,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
         if constexpr (kPlanes) {
           cgx::plane_tile_multi<kTaps, kSym, kCols>(
               bm + own, b0 + own, bp + own, cstride_b, in, mp.rel,
-              static_cast<const P*>(a.planes), row, n, a.taps, acc);
+              static_cast<const P*>(a.planes), row, span, a.taps, acc);
         } else {
           cgx::stencil_tile_multi<kTaps, kCols>(bm + own, b0 + own, bp + own,
                                                 cstride_b, in, mp.rel,
@@ -335,42 +409,37 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   }
   if (!last_block(a.ctl + kCountA)) return;
   __threadfence();
-  float* pqs = field(a.ctl, a.ncols, kPq);
-  float* qqs = field(a.ctl, a.ncols, kQq);
-  for (int c = 0; c < a.ncols; ++c) {
-    const double s = cgx::grid_sum<kThreads>(
-        a.part + static_cast<size_t>(c) * gridDim.x, gridDim.x, smem);
-    const double s2 = cgx::grid_sum<kThreads>(
-        a.part + static_cast<size_t>(a.ncols + c) * gridDim.x, gridDim.x,
-        smem);
-    if (u == 0) {
-      pqs[c] = static_cast<float>(s);
-      qqs[c] = static_cast<float>(s2);
-    }
-  }
+  multi_a_fold<kShard>(a, smem);
 }
 
 struct BArgs {
   float* x;        // ncols × n, updated in place
   float* r;
-  float* p;
+  float* p;        // ncols columns, ldp apart (its rows only are written)
   const float* q;
   const float* w;  // n, shared by the columns; null: unweighted
   double* part;    // 2·ncols × gridDim.x: Σ r² per column, then Σ r²·w
   int* ctl;
   int ncols;
   int n;
+  int ldp;         // a shard's P column stride (n on one card)
+  double* sums;    // a shard's cross-rank sums (4·ncols)
 };
 
-template <bool kWeighted>
+template <bool kWeighted, bool kShard>
 __global__ void __launch_bounds__(kThreads) multi_b(BArgs a) {
   __shared__ double smem[kWarps + 1];
   int* ctl = a.ctl;
-  if (ctl[kDone]) return;
+  if (ctl[kDone]) {
+    if (kShard && blockIdx.x == 0 && threadIdx.x == 0)
+      for (int c = 2 * a.ncols; c < 4 * a.ncols; ++c) a.sums[c] = 0.0;
+    return;
+  }
   const float* rzs = field(ctl, a.ncols, kRz);
   const float* pqs = field(ctl, a.ncols, kPq);
   const float* qqs = field(ctl, a.ncols, kQq);
   const size_t ld = static_cast<size_t>(a.n);
+  const size_t ldp = kShard ? static_cast<size_t>(a.ldp) : ld;
   const int stride = gridDim.x * kThreads;
   for (int c0 = 0; c0 < a.ncols; c0 += kCols) {
     const int nc = min(kCols, a.ncols - c0);
@@ -381,8 +450,11 @@ __global__ void __launch_bounds__(kThreads) multi_b(BArgs a) {
       alpha[c] = beta[c] = 0.0f;
       if (c < nc) {
         const float rz = rzs[c0 + c];
-        const float pq = pqs[c0 + c];
-        const float qq = qqs[c0 + c];
+        const float pq = kShard ? static_cast<float>(a.sums[c0 + c])
+                                : pqs[c0 + c];
+        const float qq = kShard
+                             ? static_cast<float>(a.sums[a.ncols + c0 + c])
+                             : qqs[c0 + c];
         if (rz > 0.0f && pq > 0.0f) {
           alpha[c] = __fdiv_rn(rz, pq);
           beta[c] = __fdiv_rn(
@@ -402,11 +474,12 @@ __global__ void __launch_bounds__(kThreads) multi_b(BArgs a) {
       for (int c = 0; c < kCols; ++c) {
         if (c < nc) {
           const size_t i = (c0 + c) * ld + row;
-          const float pv = a.p[i];
+          const size_t ip = (c0 + c) * ldp + row;
+          const float pv = a.p[ip];
           a.x[i] = __fadd_rn(a.x[i], __fmul_rn(alpha[c], pv));
           const float rv = __fsub_rn(a.r[i], __fmul_rn(alpha[c], a.q[i]));
           a.r[i] = rv;
-          a.p[i] = __fadd_rn(rv, __fmul_rn(beta[c], pv));
+          a.p[ip] = __fadd_rn(rv, __fmul_rn(beta[c], pv));
           const double rsq = __dmul_rn(rv, rv);
           acc[c] = __dadd_rn(acc[c], rsq);
           if constexpr (kWeighted)
@@ -441,6 +514,13 @@ __global__ void __launch_bounds__(kThreads) multi_b(BArgs a) {
     const double sw = cgx::grid_sum<kThreads>(
         a.part + static_cast<size_t>(a.ncols + c) * gridDim.x, gridDim.x,
         smem);
+    if constexpr (kShard) {  // the next kernel A rounds the reduced sums
+      if (threadIdx.x == 0) {
+        a.sums[2 * a.ncols + c] = s;
+        a.sums[3 * a.ncols + c] = sw;
+      }
+      continue;
+    }
     const float rw = static_cast<float>(sw);
     go = go || rw > tol[c];
     if (threadIdx.x == 0) {
@@ -451,17 +531,21 @@ __global__ void __launch_bounds__(kThreads) multi_b(BArgs a) {
   if (threadIdx.x == 0) {
     const int it = ctl[kIt] + 1;
     ctl[kIt] = it;
-    ctl[kDone] = (it < ctl[kMaxit] && go) ? 0 : 1;
+    if constexpr (kShard)
+      ctl[kPending] = 1;
+    else
+      ctl[kDone] = (it < ctl[kMaxit] && go) ? 0 : 1;
   }
 }
 
-// The instance of kernel A (design 0: multi_a, 1: multi_a2).
-template <typename P>
-const void* a_kernel_typed(int ntaps, int variable, int sym, int design) {
+// The instance of kernel A (design 0: multi_a, 1: multi_a2; a shard's when
+// `shard`).
+template <bool kShard, typename P>
+const void* a_kernel_shard(int ntaps, int variable, int sym, int design) {
   const bool wide = ntaps > 7;
-#define CGX_A(T, PL, SY)                                              \
-  (design ? reinterpret_cast<const void*>(multi_a2<T, PL, SY, P>)     \
-          : reinterpret_cast<const void*>(multi_a<T, PL, SY, P>))
+#define CGX_A(T, PL, SY)                                                  \
+  (design ? reinterpret_cast<const void*>(multi_a2<T, PL, SY, kShard, P>) \
+          : reinterpret_cast<const void*>(multi_a<T, PL, SY, kShard, P>))
   if (!variable)
     return wide ? CGX_A(cgx::kMaxTaps, false, false) : CGX_A(7, false, false);
   if (sym)
@@ -470,16 +554,27 @@ const void* a_kernel_typed(int ntaps, int variable, int sym, int design) {
 #undef CGX_A
 }
 
-const void* a_kernel_for(int ntaps, int variable, int sym, int plane_bf16,
-                         int design) {
-  return plane_bf16 && variable
-             ? a_kernel_typed<__nv_bfloat16>(ntaps, variable, sym, design)
-             : a_kernel_typed<float>(ntaps, variable, sym, design);
+template <typename P>
+const void* a_kernel_typed(int ntaps, int variable, int sym, int design,
+                           bool shard) {
+  return shard ? a_kernel_shard<true, P>(ntaps, variable, sym, design)
+               : a_kernel_shard<false, P>(ntaps, variable, sym, design);
 }
 
-const void* b_kernel_for(int weighted) {
-  return weighted ? reinterpret_cast<const void*>(multi_b<true>)
-                  : reinterpret_cast<const void*>(multi_b<false>);
+const void* a_kernel_for(int ntaps, int variable, int sym, int plane_bf16,
+                         int design, bool shard = false) {
+  return plane_bf16 && variable
+             ? a_kernel_typed<__nv_bfloat16>(ntaps, variable, sym, design,
+                                             shard)
+             : a_kernel_typed<float>(ntaps, variable, sym, design, shard);
+}
+
+const void* b_kernel_for(int weighted, bool shard = false) {
+#define CGX_B(KW)                                                  \
+  (shard ? reinterpret_cast<const void*>(multi_b<KW, true>)        \
+         : reinterpret_cast<const void*>(multi_b<KW, false>))
+  return weighted ? CGX_B(true) : CGX_B(false);
+#undef CGX_B
 }
 
 // The march's checks: 256 threads a tile, whole 16-byte chunks a line, and
@@ -511,7 +606,8 @@ int march_smem(const cgx::MarchPlan& mp) {
 
 }  // namespace
 
-// design 0: the first kernel A's grid (as many blocks as fit at once);
+// design 0: the first kernel A's grid (as many blocks as fit at once; a
+// shard's instance runs on the same grid, the same partition of the sums);
 // design 1: the march's, tiles_j × tiles_k × chunks from the plan (tj, tk,
 // len over the nx × ny × nz grid).
 extern "C" int cgx_multi_a_grid(int device, int ntaps, int variable, int sym,
@@ -529,6 +625,8 @@ extern "C" int cgx_multi_a_grid(int device, int ntaps, int variable, int sym,
   return 0;
 }
 
+// Kernel B's grid, the partition of its sums (a shard's instance runs on
+// the same grid).
 extern "C" int cgx_multi_b_grid(int device, int weighted, int* grid) {
   return cgx::full_grid<kThreads>(device, b_kernel_for(weighted), grid);
 }
@@ -540,19 +638,42 @@ extern "C" int cgx_multi_b_grid(int device, int weighted, int* grid) {
 // block.  design 0 runs the first kernel A on `grid` blocks; design 1 the
 // march on the plan (tj, tk, rows, len, hj, hk), `grid` its tiles ×
 // chunks, with its ring of stage in dynamic shared memory; a plan that does
-// not fit the shape, the taps or the shared memory is refused.
+// not fit the shape, the taps or the shared memory is refused.  A rank's
+// shard runs the cross-rank instance: nx is its x-planes, `span` five ints
+// (lo, hi, xlo, xhi, pstride: cgx::Span), P's columns ldp apart, p and
+// planes pointing at the first local row, and `sums` 4·ncols doubles; on
+// one card span and sums are null and ldp is n.
 extern "C" int cgx_multi_a(const float* p, float* q, const void* planes,
                            double* part, int grid, int* ctl, int ncols, int nx,
                            int ny, int nz, int ntaps, const int* taps,
                            const float* coeffs, const int* plane, int sym,
                            int plane_bf16, int design, int tj, int tk,
-                           int rows, int len, int hj, int hk, void* stream) {
+                           int rows, int len, int hj, int hk, const int* span,
+                           int ldp, double* sums, void* stream) {
   if (ntaps < 1 || ntaps > cgx::kMaxTaps || grid < 1 || ncols < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  AArgs a{p,     q,  planes, part, ctl, ncols, nx, ny, nz,
-          cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz)};
+  const int n = nx * ny * nz;
+  const bool shard = span != nullptr;
+  if (shard != (sums != nullptr) || (shard ? ldp < n : ldp != n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cgx::Span sp =
+      shard ? cgx::Span{span[0], span[1], span[2], span[3], span[4]}
+            : cgx::Span{};
+  AArgs a{p,
+          q,
+          planes,
+          part,
+          ctl,
+          ncols,
+          nx,
+          ny,
+          nz,
+          cgx::make_plane_taps(ntaps, taps, coeffs, plane, ny, nz),
+          sp,
+          ldp,
+          sums};
   const void* k =
-      a_kernel_for(ntaps, planes != nullptr, sym, plane_bf16, design);
+      a_kernel_for(ntaps, planes != nullptr, sym, plane_bf16, design, shard);
   if (design == 0) return cgx::launch<kThreads>(k, grid, &a, stream);
   cgx::MarchPlan mp{tj, tk, rows, len, hj, hk, 0, 0, 0, {}};
   for (int t = 0; t < ntaps; ++t)
@@ -583,11 +704,17 @@ extern "C" int cgx_multi_a(const float* p, float* q, const void* planes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel B on `stream`; `w` is null for an unweighted solve.
+// Kernel B on `stream`; `w` is null for an unweighted solve.  P's columns
+// lie ldp apart (n on one card); `sums` (4·ncols doubles; null on one card)
+// selects a shard's cross-rank instance.
 extern "C" int cgx_multi_b(float* x, float* r, float* p, const float* q,
                            const float* w, double* part, int grid, int* ctl,
-                           int ncols, int n, void* stream) {
-  if (grid < 1 || ncols < 1) return static_cast<int>(cudaErrorInvalidValue);
-  BArgs a{x, r, p, q, w, part, ctl, ncols, n};
-  return cgx::launch<kThreads>(b_kernel_for(w != nullptr), grid, &a, stream);
+                           int ncols, int n, int ldp, double* sums,
+                           void* stream) {
+  const bool shard = sums != nullptr;
+  if (grid < 1 || ncols < 1 || (shard ? ldp < n : ldp != n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BArgs a{x, r, p, q, w, part, ctl, ncols, n, ldp, sums};
+  return cgx::launch<kThreads>(b_kernel_for(w != nullptr, shard), grid, &a,
+                               stream);
 }

@@ -35,6 +35,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 #include <type_traits>
 
@@ -240,14 +241,39 @@ struct Walk {
   }
 };
 
+// -- Shards of a row-partitioned grid (the distributed two-pass engines,
+// fused_engine.cu and fused_multi.cu) ----------------------------------------
+// A shard holds x-planes [0, nx) of its part of the grid, rows [0, n), and
+// its vector p one ghost x-plane beyond them on each side where a neighbour
+// shard exists (the neighbour's boundary plane, sent before kernel A).
+// Span says what a row reader may read around the local rows: the flat range
+// [lo, hi) of p (lo = −ny·nz with a left neighbour, else 0; hi = n + ny·nz
+// with a right one, else n), the x-planes [xlo, xhi) a constant tap may
+// reach, and the elements from one coefficient plane to the next (pstride:
+// n, or n + 2·ny·nz where the planes carry ghost planes for the symmetric
+// mode's mirror taps; the plane pointer is then the interior's).  A whole
+// grid on one card is the span {0, n, 0, nx, n} (whole_grid): the readers
+// below are then stencil_row and plane_row at a carried node, bit for bit,
+// and at a shard they equal the whole grid's rows bit for bit.
+struct Span {
+  int lo, hi;
+  int xlo, xhi;
+  int pstride;
+};
+
+__device__ __forceinline__ Span whole_grid(int n, int nx) {
+  return Span{0, n, 0, nx, n};
+}
+
 // stencil_row at a carried node, each value read through ld(index): the
 // same taps, guards, products and sums in the same order as stencil_row, so
 // the same bits.  ld lets a caller form the vector as it reads it (the
 // two-phase kernel's p = r + β·p_old at each neighbour).
 template <int kTaps, typename Load>
-__device__ __forceinline__ float stencil_row_at(Load ld, const Walk& w,
-                                                int nx, int ny, int nz,
-                                                const StencilTaps& t) {
+__device__ __forceinline__ float stencil_row_span(Load ld, const Walk& w,
+                                                  const Span& sp, int ny,
+                                                  int nz,
+                                                  const StencilTaps& t) {
   float acc = 0.0f;
 #pragma unroll
   for (int s = 0; s < kTaps; ++s) {
@@ -255,7 +281,8 @@ __device__ __forceinline__ float stencil_row_at(Load ld, const Walk& w,
       const int ii = w.i + t.dx[s];
       const int jj = w.j + t.dy[s];
       const int kk = w.k + t.dz[s];
-      if (ii >= 0 && ii < nx && jj >= 0 && jj < ny && kk >= 0 && kk < nz)
+      if (ii >= sp.xlo && ii < sp.xhi && jj >= 0 && jj < ny && kk >= 0 &&
+          kk < nz)
         acc = __fadd_rn(acc, __fmul_rn(t.c[s], ld((ii * ny + jj) * nz + kk)));
     }
   }
@@ -264,12 +291,13 @@ __device__ __forceinline__ float stencil_row_at(Load ld, const Walk& w,
 
 // plane_row at a carried node, x read through ld(index), the planes through
 // the read-only path (no kernel writes them): plane_row's arithmetic, bit
-// for bit.
+// for bit.  The guards are written against lo − row and hi − row so that
+// nothing overflows int32 for any n + ny·nz < 2³¹.
 template <int kTaps, bool kSym, typename P, typename Load>
-__device__ __forceinline__ float plane_row_at(Load ld, const P* planes,
-                                              int row, const Walk& w, int n,
-                                              int nx, int ny, int nz,
-                                              const PlaneTaps& t) {
+__device__ __forceinline__ float plane_row_span(Load ld, const P* planes,
+                                                int row, const Walk& w,
+                                                const Span& sp, int ny,
+                                                int nz, const PlaneTaps& t) {
   float acc = 0.0f;
 #pragma unroll
   for (int s = 0; s < kTaps; ++s) {
@@ -283,18 +311,19 @@ __device__ __forceinline__ float plane_row_at(Load ld, const P* planes,
           const int jj = w.j + t.s.dy[s];
           const int kk = w.k + t.s.dz[s];
           float term = 0.0f;
-          if (ii >= 0 && ii < nx && jj >= 0 && jj < ny && kk >= 0 && kk < nz)
+          if (ii >= sp.xlo && ii < sp.xhi && jj >= 0 && jj < ny && kk >= 0 &&
+              kk < nz)
             term = __fmul_rn(t.s.c[s], ld((ii * ny + jj) * nz + kk));
           acc = __fadd_rn(acc, term);
         }
         continue;
       }
-      const P* c = planes + static_cast<size_t>(pl) * n;
+      const P* c = planes + static_cast<ptrdiff_t>(pl) * sp.pstride;
       const int off = t.off[s];
       float term = 0.0f;
-      if (off >= -row && off < n - row)
+      if (off >= sp.lo - row && off < sp.hi - row)
         term = __fmul_rn(load<true>(c + row), ld(row + off));
-      if (kSym && off != 0 && off <= row && off > row - n) {
+      if (kSym && off != 0 && off <= row - sp.lo && off > row - sp.hi) {
         const int m = row - off;
         term = __fadd_rn(term, __fmul_rn(load<true>(c + m), ld(m)));
       }
@@ -302,6 +331,25 @@ __device__ __forceinline__ float plane_row_at(Load ld, const P* planes,
     }
   }
   return acc;
+}
+
+// The readers over a whole grid: the span's zeros are constants here, so the
+// compiler folds the guards to stencil_row's and plane_row's.
+template <int kTaps, typename Load>
+__device__ __forceinline__ float stencil_row_at(Load ld, const Walk& w,
+                                                int nx, int ny, int nz,
+                                                const StencilTaps& t) {
+  return stencil_row_span<kTaps>(ld, w, whole_grid(nx * ny * nz, nx), ny, nz,
+                                 t);
+}
+
+template <int kTaps, bool kSym, typename P, typename Load>
+__device__ __forceinline__ float plane_row_at(Load ld, const P* planes,
+                                              int row, const Walk& w, int n,
+                                              int nx, int ny, int nz,
+                                              const PlaneTaps& t) {
+  return plane_row_span<kTaps, kSym>(ld, planes, row, w, whole_grid(n, nx),
+                                     ny, nz, t);
 }
 
 // One row of the CG update (the two-pass engine's kernel B and the
@@ -360,8 +408,9 @@ __device__ __forceinline__ void walk_rows(int first, int stride, int n,
 
 template <int kTaps, int kCols>
 __device__ __forceinline__ void stencil_row_multi(const float* x, size_t ld,
-                                                  int nc, int row, int nx,
-                                                  int ny, int nz,
+                                                  int nc, int row,
+                                                  const Span& sp, int ny,
+                                                  int nz,
                                                   const StencilTaps& t,
                                                   float (&acc)[kCols]) {
   const int line = row / nz;
@@ -376,7 +425,8 @@ __device__ __forceinline__ void stencil_row_multi(const float* x, size_t ld,
       const int ii = i + t.dx[s];
       const int jj = j + t.dy[s];
       const int kk = k + t.dz[s];
-      if (ii >= 0 && ii < nx && jj >= 0 && jj < ny && kk >= 0 && kk < nz) {
+      if (ii >= sp.xlo && ii < sp.xhi && jj >= 0 && jj < ny && kk >= 0 &&
+          kk < nz) {
         const int idx = (ii * ny + jj) * nz + kk;
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
@@ -391,8 +441,9 @@ __device__ __forceinline__ void stencil_row_multi(const float* x, size_t ld,
 
 template <int kTaps, bool kSym, int kCols, typename P>
 __device__ __forceinline__ void plane_row_multi(
-    const float* x, size_t ld, int nc, const P* planes, int row, int n,
-    int nx, int ny, int nz, const PlaneTaps& t, float (&acc)[kCols]) {
+    const float* x, size_t ld, int nc, const P* planes, int row,
+    const Span& sp, int ny, int nz, const PlaneTaps& t,
+    float (&acc)[kCols]) {
 #pragma unroll
   for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
 #pragma unroll
@@ -409,7 +460,8 @@ __device__ __forceinline__ void plane_row_multi(
           const int ii = i + t.s.dx[s];
           const int jj = line - i * ny + t.s.dy[s];
           const int kk = row - line * nz + t.s.dz[s];
-          in = ii >= 0 && ii < nx && jj >= 0 && jj < ny && kk >= 0 && kk < nz;
+          in = ii >= sp.xlo && ii < sp.xhi && jj >= 0 && jj < ny &&
+               kk >= 0 && kk < nz;
           idx = (ii * ny + jj) * nz + kk;
         }
 #pragma unroll
@@ -421,10 +473,11 @@ __device__ __forceinline__ void plane_row_multi(
         }
         continue;
       }
-      const P* w = planes + static_cast<size_t>(pl) * n;
+      const P* w = planes + static_cast<ptrdiff_t>(pl) * sp.pstride;
       const int off = t.off[s];
-      const bool fwd = off >= -row && off < n - row;
-      const bool mir = kSym && off != 0 && off <= row && off > row - n;
+      const bool fwd = off >= sp.lo - row && off < sp.hi - row;
+      const bool mir =
+          kSym && off != 0 && off <= row - sp.lo && off > row - sp.hi;
       const int m = row - off;
       const float wf = fwd ? load<true>(w + row) : 0.0f;
       const float wm = mir ? load<true>(w + m) : 0.0f;
@@ -479,20 +532,21 @@ __device__ __forceinline__ float lds(unsigned addr) {
   return v;
 }
 
-// Copy the chunk x[first .. first + 4) into dst, elements outside [0, n)
-// left unwritten: one 16-byte copy where the chunk lies in range and is
-// 16-byte aligned in memory, else one 4-byte copy an element.
+// Copy the chunk x[first .. first + 4) into dst, elements outside [lo, hi)
+// (a shard's span of x; [0, n) on one card) left unwritten: one 16-byte copy
+// where the chunk lies in range and is 16-byte aligned in memory, else one
+// 4-byte copy an element.
 __device__ __forceinline__ void stage_chunk(float* dst, const float* x,
-                                            long first, int n) {
+                                            long first, int lo, int hi) {
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(x) + first * sizeof(float)) & 15) == 0;
-  if (aligned && first >= 0 && first + 4 <= n) {
+  if (aligned && first >= lo && first + 4 <= hi) {
     cp_async16(dst, x + first);
     return;
   }
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    if (first + e >= 0 && first + e < n) cp_async4(dst + e, x + first + e);
+    if (first + e >= lo && first + e < hi) cp_async4(dst + e, x + first + e);
 }
 
 // -- The 2.5-D march (the redesigned multi-RHS kernel A, fused_multi.cu) -----
@@ -533,12 +587,13 @@ __device__ __forceinline__ unsigned jk_taps(int j, int k, int ny, int nz,
   return m;
 }
 
-__device__ __forceinline__ unsigned i_taps(int i, int nx,
+// (A shard's taps may reach its ghost planes: ii in [xlo, xhi).)
+__device__ __forceinline__ unsigned i_taps(int i, int xlo, int xhi,
                                            const StencilTaps& t) {
   unsigned m = 0;
   for (int s = 0; s < t.n; ++s) {
     const int ii = i + t.dx[s];
-    if (ii >= 0 && ii < nx) m |= 1u << s;
+    if (ii >= xlo && ii < xhi) m |= 1u << s;
   }
   return m;
 }
@@ -571,8 +626,8 @@ __device__ __forceinline__ void stencil_tile_multi(
 template <int kTaps, bool kSym, int kCols, typename P>
 __device__ __forceinline__ void plane_tile_multi(
     unsigned sm, unsigned s0, unsigned sp, unsigned cstride,
-    unsigned in_taps, const int* rel, const P* planes, int row, int n,
-    const PlaneTaps& t, float (&acc)[kCols]) {
+    unsigned in_taps, const int* rel, const P* planes, int row,
+    const Span& span, const PlaneTaps& t, float (&acc)[kCols]) {
 #pragma unroll
   for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
 #pragma unroll
@@ -595,10 +650,11 @@ __device__ __forceinline__ void plane_tile_multi(
       }
       // The plane values from global memory (their mirrors from the L2):
       // staging them beside P measured slower on the H100.
-      const P* w = planes + static_cast<size_t>(pl) * n;
+      const P* w = planes + static_cast<ptrdiff_t>(pl) * span.pstride;
       const int off = t.off[s];
-      const bool fwd = off >= -row && off < n - row;
-      const bool mir = kSym && off != 0 && off <= row && off > row - n;
+      const bool fwd = off >= span.lo - row && off < span.hi - row;
+      const bool mir =
+          kSym && off != 0 && off <= row - span.lo && off > row - span.hi;
       const float wf = fwd ? load<true>(w + row) : 0.0f;
       const float wm = mir ? load<true>(w + row - off) : 0.0f;
       const unsigned mir_x = (dx > 0 ? sm : dx < 0 ? sp : s0) - rel[s];

@@ -12,7 +12,9 @@ ones included; bfloat16 values stay bfloat16) and of a ``JacobiPrecond``,
 solve the same system from the same numbers.  The df64 state crosses the
 same way: a ``DF64ELL`` or an ``IRDF64Operator`` (``operator_from_cgx``),
 a ``DF64`` pair (``df64_from_cgx``) and a ``CGState`` snapshot
-(``state_from_cgx``).
+(``state_from_cgx``).  A ``cgx.dist`` ``Partition`` becomes the port's
+host-side :class:`~cgx_torch.dist.partition.Partition`
+(``partition_from_cgx``).
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from cgx_torch.sparse.types import (BSRMatrix, COOMatrix, CSRMatrix,
 from cgx_torch.sparse.wbell import WBELLMatrix
 
 __all__ = ["operator_from_cgx", "precond_from_cgx", "tensor_from_numpy",
-           "result_to_numpy", "df64_from_cgx", "state_from_cgx"]
+           "result_to_numpy", "df64_from_cgx", "state_from_cgx",
+           "partition_from_cgx"]
 
 
 def operator_from_cgx(a, device="cuda"):
@@ -180,6 +183,24 @@ def state_from_cgx(state, device="cuda"):
     return CGState(**{f: tensor_from_numpy(getattr(state, f), device)
                       for f in ("x", "r", "z", "p", "rz", "rr", "k",
                                 "history")})
+
+
+def partition_from_cgx(part):
+    """The port's :class:`~cgx_torch.dist.partition.Partition` for a
+    ``cgx.dist`` ``Partition``: the same stacked arrays, on the host, and
+    the same static fields."""
+    from cgx_torch.dist.partition import Partition
+
+    def host(v):
+        return None if v is None else np.array(_numpy(v), copy=True)
+
+    return Partition(
+        ell_values=host(part.ell_values), ell_cols=host(part.ell_cols),
+        dia_data=host(part.dia_data),
+        dia_offsets=tuple(int(o) for o in part.dia_offsets),
+        kind=str(part.kind), mode=str(part.mode), n=int(part.n),
+        n_shards=int(part.n_shards), rows_local=int(part.rows_local),
+        halo_lo=int(part.halo_lo), halo_hi=int(part.halo_hi))
 
 
 def _numpy(v) -> np.ndarray:

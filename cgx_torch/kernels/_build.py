@@ -44,9 +44,9 @@ _SIGNATURES = {
     "cgx_fused_b_grid": [_I, _I, _I, _P],
     "cgx_fused_a_fit": [_I] * 6 + [_P],
     "cgx_fused_a": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                    _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                    _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "cgx_fused_b": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
-                    _P],
+                    _P, _P],
     "cgx_sr_grid": [_I] * 7 + [_P],
     "cgx_sr_cg": [_P] * 8 + [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                              _I, _I, _P, _I, _P, _P, _P, _P, _I, _P],
@@ -56,8 +56,8 @@ _SIGNATURES = {
     "cgx_multi_a_grid": [_I] * 12 + [_P],
     "cgx_multi_b_grid": [_I, _I, _P],
     "cgx_multi_a": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "cgx_multi_b": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
+                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P],
+    "cgx_multi_b": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     "cgx_wbell_resident": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cgx_wbell_tiered": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cgx_wbell_windowed": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

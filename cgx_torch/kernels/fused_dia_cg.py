@@ -283,22 +283,75 @@ def dia_prep(d, dtype, *, jacobi: bool = True, inv_diag=None,
     return (nx, ny, nz, tuple(taps), tuple(coeffs), planes, e, weight, sym)
 
 
+def dia_shard_engine(prep, dtype, shard, *, plane_dtype=None, device=None,
+                     engine=FusedCG):
+    """``(engine, e, planes)`` of shard ``shard`` (a
+    :class:`~cgx_torch.kernels.fused_engine.Shard`) of a DIA operator
+    prepared by :func:`dia_prep` (its tuple ``prep``): the rank's block of
+    ``nx / shard.size`` x-planes, ``e`` and ``planes`` its rows, all on
+    ``device`` (default the planes'); ``engine``: FusedCG (K3) or
+    FusedCGMulti (K5).  The symmetric mode's ghost planes of the
+    coefficients are cut from the whole planes, which every rank holds, so
+    the group carries only p's planes and the sums."""
+    from cgx_torch.dist.halo import cut_ghost_rows
+
+    nx, ny, nz, taps, coeffs, planes, e, weight, sym = prep
+    if nx % shard.size:
+        raise ValueError(f"{shard.size} shards do not divide nx={nx} (pad "
+                         f"to whole planes first)")
+    pl = ny * nz
+    nl = nx // shard.size * pl
+    rows = slice(shard.rank * nl, (shard.rank + 1) * nl)
+    dev = planes.device if device is None else device
+
+    def cut(v):
+        return None if v is None else v[..., rows].to(dev)
+
+    eng = engine(nx // shard.size, ny, nz, taps, dtype=dtype, coeffs=coeffs,
+                 planes=cut(planes), weight=cut(weight), sym=sym,
+                 plane_dtype=plane_dtype, shard=shard,
+                 planes_ext=cut_ghost_rows(planes, shard.rank, shard.size,
+                                           pl).to(dev) if sym else None)
+    return eng, cut(e), cut(planes)
+
+
 def build_fused_dia(d, dtype, *, jacobi: bool = True, inv_diag=None,
                     allow_sym: bool = True, plane_dtype=None,
-                    assume_symmetric: Optional[bool] = None):
+                    assume_symmetric: Optional[bool] = None,
+                    n_shards: Optional[int] = None,
+                    rank: Optional[int] = None, group=None):
     """``(engine, e, planes)`` for a DIA operator (see :func:`dia_prep`).
     ``plane_dtype``: the engine holds the scaled planes in this dtype (they
     are rounded after the scaling) while the vectors keep ``dtype``; the
-    returned ``planes`` are ``dtype``'s.  The JAX package's
-    ``n_shards``/``axis_name`` (distribution) and ``interpret`` have no
-    counterpart here."""
-    nx, ny, nz, taps, coeffs, planes, e, weight, sym = dia_prep(
-        d, dtype, jacobi=jacobi, inv_diag=inv_diag, allow_sym=allow_sym,
-        assume_symmetric=assume_symmetric)
-    eng = FusedCG(nx, ny, nz, taps, dtype=dtype, coeffs=coeffs,
-                  planes=planes, weight=weight, sym=sym,
-                  plane_dtype=plane_dtype)
-    return eng, e, planes
+    returned ``planes`` are ``dtype``'s.
+
+    Distribution (the JAX package's ``n_shards``/``axis_name``): with
+    ``group`` (a process group or a
+    :class:`~cgx_torch.dist.launch.RowMesh`, on whose device the engine
+    then lives) the engine, ``e`` and ``planes`` are this rank's block of
+    ``nx / n_shards`` x-planes (``n_shards`` defaults to the group's size
+    and must divide ``nx``; :func:`dia_shard_engine`); without a group,
+    ``n_shards`` and ``rank`` give a shard whose caller fills the ghost
+    planes.  The interpret mode has no counterpart here."""
+    from cgx_torch.kernels.fused_engine import Shard, shard_of
+
+    prep = dia_prep(d, dtype, jacobi=jacobi, inv_diag=inv_diag,
+                    allow_sym=allow_sym, assume_symmetric=assume_symmetric)
+    if group is not None:
+        shard = shard_of(group)
+        if n_shards is not None and int(n_shards) != shard.size:
+            raise ValueError(f"build_fused_dia: {n_shards} shards on a "
+                             f"group of {shard.size}")
+    elif n_shards is not None and n_shards > 1:
+        shard = Shard(int(rank), int(n_shards))
+    else:
+        nx, ny, nz, taps, coeffs, planes, e, weight, sym = prep
+        eng = FusedCG(nx, ny, nz, taps, dtype=dtype, coeffs=coeffs,
+                      planes=planes, weight=weight, sym=sym,
+                      plane_dtype=plane_dtype)
+        return eng, e, planes
+    return dia_shard_engine(prep, dtype, shard, plane_dtype=plane_dtype,
+                            device=getattr(group, "device", None))
 
 
 def fused_dia_cg(d, b: torch.Tensor, x0=None, *, tol: float = 1e-6,

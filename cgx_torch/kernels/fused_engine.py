@@ -38,7 +38,21 @@ ported: the CUDA kernels (``cgx_torch/csrc/fused_engine.cu``) run a flat
 grid-stride loop, so :meth:`FusedCG.state_to_flat` and
 :meth:`FusedCG.state_from_flat` (the checkpoint files' unscaled flat
 state, :mod:`cgx_torch.utils.checkpoint`) only undo and redo the Jacobi
-scaling.  ``axis_name`` (distribution) is not ported.
+scaling.
+
+Distribution (the JAX package's ``axis_name``): ``FusedCG(..., group=)``
+makes the engine one rank's :class:`Shard` of a grid cut into x-plane
+blocks, ``nx`` its own planes.  Before each kernel A the boundary planes of
+p travel to the neighbour ranks' ghost planes (the layout
+``[ghost | planes | ghost]``, :func:`cgx_torch.dist.halo.exchange_planes`;
+the outer ranks keep zero ghosts, as the JAX package's non-ring exchange),
+and the four sums run in the cross-rank mode of ``fused_engine.cu``: each
+rank's fp64 sums, unrounded, one all-reduce of two doubles after each
+kernel, rounded to fp32 once.  At one rank that is the single-card
+solve bit for bit; across ranks the sums differ only in the order of fp64
+additions.  The plain versions take the same form
+(:meth:`FusedCG.kernel_a_ext_reference`,
+:meth:`FusedCG.kernel_b_ext_reference`).
 
 On a CUDA tensor :meth:`FusedCG.run` launches kernel A and kernel B once
 per iteration from a Python loop.  The exit decision, α, β and the history
@@ -72,7 +86,7 @@ from cgx_torch.ops.spmv import shifted
 from cgx_torch.solve.cg import CGResult
 from cgx_torch.sparse.stencil import _shift
 
-__all__ = ["FusedCG", "FusedState", "tap_matvec", "threshold",
+__all__ = ["FusedCG", "FusedState", "Shard", "tap_matvec", "threshold",
            "plane_tap_arrays", "fused_a_launches", "fused_b_launches",
            "fused_a_bf16_launches", "fused_b_bf16_launches",
            "fused_a_bf16_planes_launches", "CHUNK", "B_ROWS",
@@ -104,6 +118,52 @@ _FIRST_DESIGN, _REDESIGN = 0, 1
 # the vector type (BRows in fused_engine.cu; two fp32 rows measured slower
 # than the first design on the H100, PERF.md §6).
 B_ROWS = {torch.float32: 1, torch.bfloat16: 2}
+
+
+@dataclass(frozen=True)
+class Shard:
+    """An engine's place in a grid cut into x-plane blocks: rank ``rank``
+    of ``size`` holds the rank-th block.  ``group``: the process group whose
+    ranks hold the blocks in order (the ghost planes and the sums travel
+    over it), or None for a shard whose caller supplies the ghost planes
+    (the kernel-level checks of one process)."""
+
+    rank: int
+    size: int
+    group: object = None
+
+    @property
+    def left(self) -> bool:
+        return self.rank > 0
+
+    @property
+    def right(self) -> bool:
+        return self.rank < self.size - 1
+
+
+def shard_of(group) -> Shard:
+    """This process's :class:`Shard` in ``group`` (a process group, or
+    a :class:`~cgx_torch.dist.launch.RowMesh`)."""
+    import torch.distributed as dist
+
+    from cgx_torch.dist.launch import RowMesh
+
+    if isinstance(group, RowMesh):
+        return Shard(group.rank, group.size, group.group)
+    return Shard(dist.get_rank(group), dist.get_world_size(group), group)
+
+
+def allsum(t: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+    """``t`` summed over the shard's group (a copy), or ``t`` itself
+    without a group."""
+    if shard is None:
+        return t
+    if shard.group is None and shard.size > 1:
+        raise ValueError("a shard without a process group cannot sum over "
+                         "its ranks")
+    from cgx_torch.dist import halo
+
+    return halo.all_reduce(t.clone(), shard.group)
 
 
 def check_no_alias(what: str, **tensors) -> None:
@@ -183,16 +243,31 @@ def tap_matvec(nx: int, ny: int, nz: int, taps, coeffs, planes, sym: bool,
     return y
 
 
-def threshold(b: torch.Tensor, tol: float, atol: float,
-              weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``max(tol²·Σ b²·w, atol²)`` in fp32 on ``b``'s device (``w = 1``
-    when ``weight`` is None); no host synchronisation."""
+def bsq_sum(b: torch.Tensor,
+            weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``Σ b²·w`` of a vector in fp32 (``w = 1`` when ``weight`` is
+    None)."""
     bsq = b.to(torch.float32) ** 2
     if weight is not None:
         bsq = bsq * weight.to(torch.float32)
+    return torch.sum(bsq)
+
+
+def clamp_threshold(bsq: torch.Tensor, tol: float,
+                    atol: float) -> torch.Tensor:
+    """``max(tol²·bsq, atol²)`` in fp32."""
     tol2 = torch.tensor(tol, dtype=torch.float32).square().item()
     atol2 = torch.tensor(atol, dtype=torch.float32).square().item()
-    return torch.clamp(torch.sum(bsq) * tol2, min=atol2)
+    return torch.clamp(bsq * tol2, min=atol2)
+
+
+def threshold(b: torch.Tensor, tol: float, atol: float,
+              weight: Optional[torch.Tensor] = None,
+              shard: Optional[Shard] = None) -> torch.Tensor:
+    """``max(tol²·Σ b²·w, atol²)`` in fp32 on ``b``'s device (``w = 1``
+    when ``weight`` is None); no host synchronisation.  On a shard of a
+    group the fp32 sum is summed over the ranks."""
+    return clamp_threshold(allsum(bsq_sum(b, weight), shard), tol, atol)
 
 
 def exact_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -279,6 +354,17 @@ def exact_sums(r: torch.Tensor, weight: Optional[torch.Tensor]):
     return s, torch.sum(rsq * weight.to(torch.float64)).float()
 
 
+def sums64(r: torch.Tensor, weight: Optional[torch.Tensor]) -> torch.Tensor:
+    """``[Σ r², Σ r²·w]`` of a vector in fp64, unrounded: a rank's share
+    of :func:`exact_sums`, which rounds the same sums."""
+    r64 = r.to(torch.float64)
+    rsq = r64 * r64
+    s = torch.sum(rsq)
+    if weight is None:
+        return torch.stack([s, s])
+    return torch.stack([s, torch.sum(rsq * weight.to(torch.float64))])
+
+
 def plane_tap_arrays(taps, coeffs):
     """ctypes host arrays ``(int[3·T], float[T], int[T])`` for the C entry
     points: the taps, the constant coefficients (0 for a plane tap) and
@@ -327,6 +413,18 @@ class FusedCG:
         float32 vectors halves the plane bytes.  Rounding the planes is a
         fixed perturbation of the operator (about 4e-3 relative), made
         once here; :func:`cgx_torch.solve.ir.ir_cg_solve` refines it away.
+      group: a process group (or a
+        :class:`~cgx_torch.dist.launch.RowMesh`) whose ranks hold the
+        grid's x-plane blocks in order: this engine is this rank's block
+        (``nx`` its planes; ``planes`` and ``weight`` its rows).
+      shard: the :class:`Shard` itself, for a shard without a group (its
+        caller supplies the ghost planes to the ``*_ext`` kernels).
+      planes_ext: in the symmetric mode of a shard, the planes with the
+        neighbours' boundary plane on each side, ``(n_planes, n +
+        2·ny·nz)``, cut from the whole planes
+        (:func:`cgx_torch.dist.halo.cut_ghost_rows`;
+        :func:`~cgx_torch.kernels.fused_dia_cg.dia_shard_engine` builds
+        such a shard): the mirror taps read the neighbours' coefficients.
     """
 
     def __init__(self, nx: int, ny: int, nz: int,
@@ -334,7 +432,9 @@ class FusedCG:
                  dtype=torch.float32, coeffs=None,
                  planes: Optional[torch.Tensor] = None,
                  weight: Optional[torch.Tensor] = None, sym: bool = False,
-                 plane_dtype=None):
+                 plane_dtype=None, group=None,
+                 shard: Optional[Shard] = None,
+                 planes_ext: Optional[torch.Tensor] = None):
         taps = tuple(tuple(int(d) for d in t) for t in taps)
         for (dx, dy, dk) in taps:
             if abs(dx) > 1:
@@ -361,6 +461,82 @@ class FusedCG:
             self.planes = None
         self.weight = (None if weight is None
                        else weight.to(dtype).contiguous())
+        self.shard = shard if shard is not None or group is None \
+            else shard_of(group)
+        self.plane = self.ny * self.nz         # elements of an x-plane
+        self.planes_ext = None
+        if self.shard is not None and self.sym:
+            shape = (n_planes, self.n + 2 * self.plane)
+            if planes_ext is None or tuple(planes_ext.shape) != shape:
+                raise ValueError(
+                    f"FusedCG: the symmetric mode of a shard needs "
+                    f"planes_ext of shape {shape} (the planes with their "
+                    f"ghost planes), got "
+                    f"{None if planes_ext is None else tuple(planes_ext.shape)}")
+            self.planes_ext = planes_ext.to(
+                device=self.planes.device,
+                dtype=self.plane_dtype).contiguous()
+
+    # -- a shard's ghost layout --------------------------------------------
+
+    def span(self) -> Tuple[int, int, int, int, int]:
+        """``(lo, hi, xlo, xhi, pstride)`` of ``cgx::Span``: the flat
+        range of p the rows may read (a ghost plane where a neighbour
+        exists), the x-planes a constant tap may reach, and the stride of
+        the planes the kernels read."""
+        n, nx, pl = self.n, self.nx, self.plane
+        if self.shard is None:
+            return 0, n, 0, nx, n
+        left, right = self.shard.left, self.shard.right
+        return (-pl if left else 0, n + pl if right else n,
+                -1 if left else 0, nx + 1 if right else nx,
+                n + 2 * pl if self.planes_ext is not None else n)
+
+    def ghosted(self, v: torch.Tensor) -> torch.Tensor:
+        """``v`` (this rank's rows; a block ``(k, n)`` too) in the
+        extended layout, its ghost planes filled from the neighbour ranks
+        over the group."""
+        from cgx_torch.dist import halo
+
+        sh = self.shard
+        if sh.group is None and sh.size > 1:
+            raise ValueError("a shard without a process group: fill the "
+                             "ghost planes yourself and call the *_ext "
+                             "kernels")
+        return halo.ghosted(v, self.plane, sh.rank, sh.size, sh.group)
+
+    def matvec_ext(self, v_ext: torch.Tensor) -> torch.Tensor:
+        """Plain ``Ã·v`` on this shard's rows from the extended ``v``:
+        the operator on the grid of ``nx + 2`` planes, its interior rows.
+        Where a rank has no neighbour its ghost plane is zero, as the whole
+        grid's zero fill, so the rows equal the whole grid's."""
+        n, pl = self.n, self.plane
+        planes = None
+        if self.planes is not None:
+            planes = self.planes_ext
+            if planes is None:
+                planes = torch.nn.functional.pad(self.planes, (pl, pl))
+        y = tap_matvec(self.nx + 2, self.ny, self.nz, self.taps,
+                       self.coeffs, planes, self.sym, v_ext)
+        return y[pl:pl + n]
+
+    def kernel_a_ext_reference(self, p_ext: torch.Tensor):
+        """Plain kernel A of a shard: ``(q, [Σ p·q, Σ q·q])`` from the
+        extended ``p``, the sums this rank's, fp64 and unrounded."""
+        pl = self.plane
+        p = p_ext[pl:pl + self.n]
+        q = self.matvec_ext(p_ext.float()).to(p.dtype)
+        q64, p64 = q.to(torch.float64), p.to(torch.float64)
+        return q, torch.stack([torch.sum(q64 * p64), torch.sum(q64 * q64)])
+
+    def kernel_b_ext_reference(self, rz, sums_a, x, r, p, q):
+        """Plain kernel B of a shard: p·q and q·q from ``sums_a`` (fp64,
+        summed over the ranks) rounded to fp32 once, then
+        :meth:`kernel_b_reference`'s update; ``(x', r', p', [Σ r'²,
+        Σ r'²·w])``, the sums this rank's, fp64 and unrounded."""
+        pq, qq = sums_a[0].float(), sums_a[1].float()
+        x, r, p = self._update_reference(rz, pq, qq, x, r, p, q)
+        return x, r, p, sums64(r, self.weight)
 
     # -- the operator and the two kernels --------------------------------
 
@@ -371,14 +547,19 @@ class FusedCG:
 
     def kernel_a_reference(self, p: torch.Tensor):
         """Plain kernel A: ``(q, Σ p·q, Σ q·q)``, sums exact to fp32; the
-        row in fp32, ``q`` rounded once to ``p``'s dtype."""
+        row in fp32, ``q`` rounded once to ``p``'s dtype.  On a shard of a
+        group: the ghost planes exchanged and the sums summed over the
+        ranks."""
+        if self.shard is not None:
+            q, s = self.kernel_a_ext_reference(self.ghosted(p))
+            s = allsum(s, self.shard).float()
+            return q, s[0], s[1]
         q = self.matvec(p.float()).to(p.dtype)
         return q, exact_dot(q, p), exact_dot(q, q)
 
-    def kernel_b_reference(self, rz, pq, qq, x, r, p, q):
-        """Plain kernel B: ``(x', r', p', Σ r'², Σ r'²·w)``.  α and β are
-        rounded to the vector dtype, each update is taken in fp32 and
-        rounded once."""
+    def _update_reference(self, rz, pq, qq, x, r, p, q):
+        """Kernel B's update: α and β rounded to the vector dtype, each
+        update taken in fp32 and rounded once."""
         dt = x.dtype
         alpha32 = rz / pq
         beta = ((alpha32 * alpha32 * qq - rz) / rz).to(dt).float()
@@ -387,18 +568,78 @@ class FusedCG:
         x = (x.float() + alpha * pf).to(dt)
         r_new = (r.float() - alpha * q.float()).to(dt)
         p_new = (r_new.float() + beta * pf).to(dt)
+        return x, r_new, p_new
+
+    def kernel_b_reference(self, rz, pq, qq, x, r, p, q):
+        """Plain kernel B: ``(x', r', p', Σ r'², Σ r'²·w)``.  α and β are
+        rounded to the vector dtype, each update is taken in fp32 and
+        rounded once.  On a shard of a group the sums are summed over the
+        ranks."""
+        x, r_new, p_new = self._update_reference(rz, pq, qq, x, r, p, q)
+        if self.shard is not None:
+            s = allsum(sums64(r_new, self.weight), self.shard).float()
+            return x, r_new, p_new, s[0], s[1]
         return (x, r_new, p_new) + exact_sums(r_new, self.weight)
 
     def kernel_a(self, p: torch.Tensor):
         """Kernel A once: ``(q, Σ p·q, Σ q·q)``.  A CPU tensor takes the
         plain version; on a CUDA tensor the kernel runs and the block
-        partials are summed here."""
+        partials are summed here (on a shard of a group: the ghost planes
+        exchanged first and the sums summed over the ranks)."""
         if p.device.type == "cpu":
             return self.kernel_a_reference(p)
+        if self.shard is not None:
+            q, s = self.kernel_a_ext(self.ghosted(p))
+            s = allsum(s, self.shard).float()
+            return q, s[0], s[1]
         q, part_a = self._kernel_a_call(p, design=_REDESIGN)
         ga = part_a.shape[0] // 2
         return (q, torch.sum(part_a[:ga]).float(),
                 torch.sum(part_a[ga:]).float())
+
+    def kernel_a_ext(self, p_ext: torch.Tensor):
+        """Kernel A of a shard once, in the cross-rank mode, from the
+        extended ``p`` (its ghost planes filled): ``(q, [Σ p·q, Σ q·q])``,
+        the sums this rank's, fp64 and unrounded.  A CPU tensor takes the
+        plain version."""
+        if p_ext.device.type == "cpu":
+            return self.kernel_a_ext_reference(p_ext)
+        pl = self.plane
+        p = p_ext[pl:pl + self.n]
+        lib, ga, gb = self._setup(p)
+        dev = p.device
+        q = torch.empty_like(p)
+        part_a = torch.empty(2 * ga, dtype=torch.float64, device=dev)
+        sums = torch.zeros(4, dtype=torch.float64, device=dev)
+        ctl = torch.zeros(16, dtype=torch.int32, device=dev)
+        f = ctl.view(torch.float32)
+        f[_RW] = 1.0                     # one iteration to go: rw > tol = 0
+        ctl[_MAXIT] = 1
+        with torch.cuda.device(dev):
+            self._launch_a(lib, self._a_args(p, q, part_a, ga, None, gb, ctl,
+                                             None, sums=sums))
+        return q, sums[:2].clone()
+
+    def kernel_b_ext(self, rz, sums_a, x, r, p, q):
+        """Kernel B of a shard once, in the cross-rank mode, on copies of
+        ``x, r, p``: p·q and q·q from ``sums_a`` (fp64, summed over the
+        ranks); ``(x', r', p', [Σ r'², Σ r'²·w])``, the sums this rank's,
+        fp64 and unrounded.  A CPU tensor takes the plain version."""
+        if x.device.type == "cpu":
+            return self.kernel_b_ext_reference(rz, sums_a, x, r, p, q)
+        lib, ga, gb = self._setup(x)
+        dev = x.device
+        x, r, p = x.clone(), r.clone(), p.clone()
+        part_b = torch.empty(2 * gb, dtype=torch.float64, device=dev)
+        sums = torch.zeros(4, dtype=torch.float64, device=dev)
+        sums[:2] = sums_a.to(device=dev, dtype=torch.float64)
+        ctl = torch.zeros(16, dtype=torch.int32, device=dev)
+        ctl.view(torch.float32)[_N_RZ] = torch.as_tensor(
+            rz, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            self._launch_b(lib, self._b_args(x, r, p, q, part_b, ga, part_b,
+                                             gb, ctl, None, sums=sums))
+        return x, r, p, sums[2:].clone()
 
     def _kernel_a_call(self, p: torch.Tensor, design: int):
         """One launch of kernel A in its x0 mode (``design``: the redesign,
@@ -460,7 +701,10 @@ class FusedCG:
         else:
             x = x0.to(self.dtype).clone()
             r = b - kernel_a(x)[0]
-        s, sw = exact_sums(r, self.weight)
+        if self.shard is not None:
+            s, sw = allsum(sums64(r, self.weight), self.shard).float()
+        else:
+            s, sw = exact_sums(r, self.weight)
         hist = torch.zeros(history_len, dtype=torch.float32, device=b.device)
         if history_len:
             hist[0] = sw
@@ -551,7 +795,7 @@ class FusedCG:
     def _solve(self, b, x0, tol, atol, maxiter, track_history, kernel_a,
                run) -> CGResult:
         maxiter = int(maxiter)
-        tol_sq = threshold(b, tol, atol, self.weight)
+        tol_sq = threshold(b, tol, atol, self.weight, self.shard)
         st = self._init(b, x0, maxiter + 1 if track_history else 0,
                         kernel_a)
         st = run(st, maxiter, tol_sq)
@@ -612,20 +856,37 @@ class FusedCG:
             "fused kernel A occupancy (redesign)")
         return even_grid(ga, fit.value)
 
+    def _planes_ptr(self):
+        """The planes the kernels read: their first local row (past the
+        ghost plane in a shard's symmetric mode), or None."""
+        if self.planes_ext is not None:
+            return (self.planes_ext.data_ptr()
+                    + self.plane * self.planes_ext.element_size())
+        return None if self.planes is None else self.planes.data_ptr()
+
+    def _span_arg(self):
+        """``cgx::Span`` for the C entries: None for a whole grid."""
+        if self.shard is None:
+            return None
+        return (ctypes.c_int * 5)(*self.span())
+
     def _a_args(self, p, q, part_a, ga, part_b, gb, ctl, hist, init=0,
-                design=_REDESIGN):
+                design=_REDESIGN, sums=None):
+        """Kernel A's C arguments; ``p`` the first local row of a shard's
+        extended buffer, ``sums`` the cross-rank sums (or None)."""
         taps_c, coef_c, plane_c = plane_tap_arrays(self.taps, self.coeffs)
         ptr = (lambda t: None if t is None else t.data_ptr())
         grid = (self.a_launch_grid(p.device, ga) if design == _REDESIGN
                 else ga)
-        return (p.data_ptr(), q.data_ptr(), ptr(self.planes),
+        return (p.data_ptr(), q.data_ptr(), self._planes_ptr(),
                 part_a.data_ptr(), ga, ptr(part_b), gb, ptr(ctl), ptr(hist),
                 init, self.nx, self.ny, self.nz, len(self.taps), taps_c,
                 coef_c, plane_c, int(self.sym), *self._bf16_flags(), design,
-                grid, torch.cuda.current_stream(p.device).cuda_stream)
+                grid, self._span_arg(), ptr(sums),
+                torch.cuda.current_stream(p.device).cuda_stream)
 
     def _b_args(self, x, r, p, q, part_a, ga, part_b, gb, ctl, hist,
-                design=_REDESIGN):
+                design=_REDESIGN, sums=None):
         if design == _REDESIGN:
             check_no_alias("FusedCG kernel B", x=x, r=r, p=p, q=q,
                            w=self.weight)
@@ -634,6 +895,7 @@ class FusedCG:
                 part_a.data_ptr(), ga, part_b.data_ptr(), gb,
                 ctl.data_ptr(), None if hist is None else hist.data_ptr(),
                 self.n, self._bf16_flags()[0], design,
+                None if sums is None else sums.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
 
     def _launch_a(self, lib, args, count: bool = True) -> None:
@@ -666,7 +928,22 @@ class FusedCG:
         dev = state.x.device
         for v, name in ((state.r, "r"), (state.p, "p")):
             check_cuda_vector(v, self.n, f"FusedCG state {name}", self.dtype)
-        x, r, p = state.x.clone(), state.r.clone(), state.p.clone()
+        x, r = state.x.clone(), state.r.clone()
+        sh, pl, sums = self.shard, self.plane, None
+        if sh is not None:
+            # The cross-rank mode: p in the ghost layout, fp64 sums.
+            if design != _REDESIGN or (sh.group is None and sh.size > 1):
+                raise ValueError("FusedCG: a shard runs the redesigned "
+                                 "kernels over its process group")
+            from cgx_torch.dist import halo
+
+            p_ext = torch.zeros(self.n + 2 * pl, dtype=self.dtype,
+                                device=dev)
+            p = p_ext[pl:pl + self.n]
+            p.copy_(state.p)
+            sums = torch.zeros(4, dtype=torch.float64, device=dev)
+        else:
+            p = state.p.clone()
         q = torch.empty_like(x)
         part_a = torch.empty(2 * ga, dtype=torch.float64, device=dev)
         part_b = torch.empty(2 * gb, dtype=torch.float64, device=dev)
@@ -680,9 +957,9 @@ class FusedCG:
         ctl[_HLEN] = hist.shape[0]
         hist_or_none = hist if hist.shape[0] else None
         args_a = self._a_args(p, q, part_a, ga, part_b, gb, ctl,
-                              hist_or_none, design=design)
+                              hist_or_none, design=design, sums=sums)
         args_b = self._b_args(x, r, p, q, part_a, ga, part_b, gb, ctl,
-                              hist_or_none, design=design)
+                              hist_or_none, design=design, sums=sums)
         count = design == _REDESIGN
         # At most upto − k + 1 (A, B) pairs: the last A takes the exit.
         budget, launched = max(upto, 0) + 1, 0
@@ -690,8 +967,16 @@ class FusedCG:
             while True:
                 chunk = min(CHUNK, budget - launched)
                 for _ in range(chunk):
+                    if sums is None:
+                        self._launch_a(lib, args_a, count)
+                        self._launch_b(lib, args_b, count)
+                        continue
+                    halo.exchange_planes(p_ext, pl, sh.rank, sh.size,
+                                         sh.group)
                     self._launch_a(lib, args_a, count)
+                    halo.all_reduce(sums[:2], sh.group)
                     self._launch_b(lib, args_b, count)
+                    halo.all_reduce(sums[2:], sh.group)
                 launched += chunk
                 if int(ctl[_DONE]):
                     break

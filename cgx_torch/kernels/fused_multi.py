@@ -21,8 +21,13 @@ it, so the column that exits last follows its single-RHS solve.
 
 The port keeps the block as k flat columns, ``(k, n)`` contiguous (the JAX
 package's ``b.T``).  The band-stacked TPU layout (``_to_layout_multi``, the
-``bps`` band tiling, VMEM limits) and ``_exchange_multi`` (distribution)
-are not ported.  ``plane_dtype=torch.bfloat16`` holds the shared planes in
+``bps`` band tiling, VMEM limits) is not ported.  Distribution
+(``_exchange_multi`` and the psums of ``_solve_multi``) is K3's
+(:mod:`cgx_torch.kernels.fused_engine`): ``group=`` makes the engine a
+rank's block of x-planes, P's columns carry a ghost plane on each side
+(filled from the neighbour ranks before each kernel A), and the per-column
+sums are reduced over the ranks in fp64, once after each kernel.
+``plane_dtype=torch.bfloat16`` holds the shared planes in
 bf16 (the vectors stay float32); kernel A widens each plane value as it
 loads it, so that mode equals the float32 mode on the planes rounded
 through bf16, bit for bit.
@@ -56,8 +61,10 @@ from cgx_torch.kernels import _build
 from cgx_torch.kernels.fused_cg import stencil_taps, supports
 from cgx_torch.kernels.fused_dia_cg import (dia_prep,
                                             wrap_entries_zero_or_none)
-from cgx_torch.kernels.fused_engine import (CHUNK, FusedCG, exact_sums,
-                                            plane_tap_arrays, threshold)
+from cgx_torch.kernels.fused_engine import (CHUNK, FusedCG, Shard, allsum,
+                                            bsq_sum, clamp_threshold,
+                                            exact_sums, plane_tap_arrays,
+                                            sums64)
 from cgx_torch.ops.blas import safe_recip
 from cgx_torch.solve.cg import CGResult
 
@@ -187,12 +194,22 @@ def march_reference(eng, p: torch.Tensor, plan: MarchPlan):
     are read from that stage at (dx, dy, dk) from the node with the first
     kernel A's masks, products and sums in tap order, and each node sums its
     rows in fp64 along the march (the block tree and the fold are plain
-    fp64 sums here)."""
+    fp64 sums here).  On a shard ``p`` is the extended block (ghost planes
+    on each side) and the stage and the masks take the shard's span
+    (:meth:`~cgx_torch.kernels.fused_engine.FusedCG.span`), as the
+    kernel's do: a chunk at the first or last local plane stages the
+    ghost plane."""
     n, nx, ny, nz = eng.n, eng.nx, eng.ny, eng.nz
     k = p.shape[0]
-    planes = None if eng.planes is None else eng.planes.float()
+    lo, hi, xlo, xhi, _ = eng.span()
+    p_base = 0 if eng.shard is None else eng.plane
+    if eng.planes_ext is not None:
+        planes, w_base = eng.planes_ext.float(), eng.plane
+    else:
+        planes, w_base = (None if eng.planes is None
+                          else eng.planes.float()), 0
     sym = eng.sym
-    q = torch.empty_like(p)
+    q = torch.empty((k, n), dtype=p.dtype)
     pq = torch.zeros(k, dtype=torch.float64)
     qq = torch.zeros(k, dtype=torch.float64)
     lines, width = plan.tj + 2 * plan.hj, plan.tk + 2 * plan.hk
@@ -210,9 +227,9 @@ def march_reference(eng, p: torch.Tensor, plan: MarchPlan):
                           torch.arange(i0 - 1, i1 + 1)[:, None, None],
                           j0, k0, torch.arange(lines)[None, :, None],
                           torch.arange(width)[None, None, :])
-        inside = (flat >= 0) & (flat < n)
+        inside = (flat >= lo) & (flat < hi)
         stage = torch.full((k,) + tuple(flat.shape), float("nan"))
-        stage[:, inside] = p[:, flat[inside]]
+        stage[:, inside] = p[:, flat[inside] + p_base]
         j = j0 + jx
         kk = k0 + kx
         row = (ii * ny + j) * nz + kk
@@ -225,7 +242,7 @@ def march_reference(eng, p: torch.Tensor, plan: MarchPlan):
         acc = torch.zeros((k,) + tuple(row.shape))
         for t, ((dx, dy, dk), c) in enumerate(zip(eng.taps,
                                                   eng.coeffs)):
-            ok = ((ii + dx >= 0) & (ii + dx < nx) & (j + dy >= 0)
+            ok = ((ii + dx >= xlo) & (ii + dx < xhi) & (j + dy >= 0)
                   & (j + dy < ny) & (kk + dk >= 0) & (kk + dk < nz))
             if c is not None:
                 x = at(dx, dy, dk)
@@ -238,14 +255,14 @@ def march_reference(eng, p: torch.Tensor, plan: MarchPlan):
                 continue
             w = planes[pl_index[t]]
             off = (dx * ny + dy) * nz + dk
-            fwd = (row + off >= 0) & (row + off < n)
-            rc = row.clamp(0, n - 1)
+            fwd = (row + off >= lo) & (row + off < hi)
+            rc = row.clamp(0, n - 1) + w_base
             term = torch.where(fwd, w[rc] * at(dx, dy, dk), 0.0)
             if sym and off != 0:
                 m = row - off
-                mir = (m >= 0) & (m < n)
+                mir = (m >= lo) & (m < hi)
                 term = torch.where(
-                    mir, term + w[m.clamp(0, n - 1)]
+                    mir, term + w[m.clamp(lo, hi - 1) + w_base]
                     * at(-dx, -dy, -dk), term)
             acc = acc + term
         q[:, row[live]] = acc[:, live]
@@ -257,11 +274,19 @@ def march_reference(eng, p: torch.Tensor, plan: MarchPlan):
 
 
 def thresholds(b: torch.Tensor, tol: float, atol: float,
-               weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+               weight: Optional[torch.Tensor] = None,
+               shard: Optional[Shard] = None) -> torch.Tensor:
     """Per column of ``b`` (``(k, n)``) the single-RHS exit threshold
-    :func:`~cgx_torch.kernels.fused_engine.threshold`, ``(k,)`` fp32."""
-    return torch.stack([threshold(b[j], tol, atol, weight)
-                        for j in range(b.shape[0])])
+    :func:`~cgx_torch.kernels.fused_engine.threshold`, ``(k,)`` fp32 (on a
+    shard of a group, the k sums summed over the ranks at once)."""
+    s = torch.stack([bsq_sum(b[j], weight) for j in range(b.shape[0])])
+    return clamp_threshold(allsum(s, shard), tol, atol)
+
+
+def _col_sums64(r: torch.Tensor, weight) -> torch.Tensor:
+    """``(2, k)`` fp64: each column's :func:`sums64`."""
+    return torch.stack([sums64(r[j], weight) for j in range(r.shape[0])],
+                       dim=1)
 
 
 @dataclass(frozen=True, eq=False)
@@ -285,9 +310,33 @@ class FusedCGMulti(FusedCG):
 
     # -- the two kernels -------------------------------------------------
 
+    def kernel_a_ext_reference(self, p_ext: torch.Tensor):
+        """Plain kernel A of a shard: ``(Q, [Σ p·q, Σ q·q])`` from the
+        extended block ``(k, n + 2·ny·nz)``, the sums ``(2, k)`` this
+        rank's, fp64 and unrounded, each column as K3's."""
+        cols = [FusedCG.kernel_a_ext_reference(self, p_ext[j])
+                for j in range(p_ext.shape[0])]
+        return (torch.stack([c[0] for c in cols]),
+                torch.stack([c[1] for c in cols], dim=1))
+
+    def kernel_b_ext_reference(self, rz, sums_a, x, r, p, q):
+        """Plain kernel B of a shard: p·q and q·q from ``sums_a`` (``(2,
+        k)`` fp64, summed over the ranks) rounded once, then
+        :meth:`kernel_b_reference`'s update; ``(X', R', P', (2, k) sums)``,
+        the sums this rank's, fp64 and unrounded."""
+        x, r, p = self._update_reference(rz, sums_a[0].float(),
+                                         sums_a[1].float(), x, r, p, q)
+        return x, r, p, _col_sums64(r, self.weight)
+
     def kernel_a_reference(self, p: torch.Tensor):
         """Plain kernel A: ``(Q, Σ p·q, Σ q·q)``, the sums ``(k,)`` exact
-        to fp32, each column as K3's plain version computes it."""
+        to fp32, each column as K3's plain version computes it (on a shard
+        of a group: the ghost planes of the block exchanged at once, the
+        sums summed over the ranks)."""
+        if self.shard is not None:
+            q, s = self.kernel_a_ext_reference(self.ghosted(p))
+            s = allsum(s, self.shard).float()
+            return q, s[0], s[1]
         cols = [FusedCG.kernel_a_reference(self, p[j])
                 for j in range(p.shape[0])]
         return (torch.stack([c[0] for c in cols]),
@@ -296,7 +345,19 @@ class FusedCGMulti(FusedCG):
 
     def kernel_b_reference(self, rz, pq, qq, x, r, p, q):
         """Plain kernel B: ``(X', R', P', Σ r'², Σ r'²·w)``, the sums
-        ``(k,)``; a column with ``rz`` or ``pq`` at 0 is frozen."""
+        ``(k,)``; a column with ``rz`` or ``pq`` at 0 is frozen.  On a
+        shard of a group the sums are summed over the ranks."""
+        x, r_new, p_new = self._update_reference(rz, pq, qq, x, r, p, q)
+        if self.shard is not None:
+            s = allsum(_col_sums64(r_new, self.weight), self.shard).float()
+            return x, r_new, p_new, s[0], s[1]
+        sums = [exact_sums(r_new[j], self.weight) for j in range(x.shape[0])]
+        return (x, r_new, p_new,
+                torch.stack([s[0] for s in sums]),
+                torch.stack([s[1] for s in sums]))
+
+    def _update_reference(self, rz, pq, qq, x, r, p, q):
+        """Kernel B's update with the live freeze: ``(X', R', P')``."""
         zero = torch.zeros_like(rz)
         one = torch.ones_like(rz)
         live = (rz > 0) & (pq > 0)
@@ -307,17 +368,76 @@ class FusedCGMulti(FusedCG):
         beta = beta.to(p.dtype)[:, None]
         x = x + alpha * p
         r_new = r - alpha * q
-        sums = [exact_sums(r_new[j], self.weight) for j in range(x.shape[0])]
-        return (x, r_new, r_new + beta * p,
-                torch.stack([s[0] for s in sums]),
-                torch.stack([s[1] for s in sums]))
+        return x, r_new, r_new + beta * p
 
     def kernel_a(self, p: torch.Tensor):
         """Kernel A once: ``(Q, Σ p·q, Σ q·q)``.  A CPU tensor takes the
         plain version; on a CUDA tensor the sums are the kernel's own."""
         if p.device.type == "cpu":
             return self.kernel_a_reference(p)
+        if self.shard is not None:
+            q, s = self.kernel_a_ext(self.ghosted(p))
+            s = allsum(s, self.shard).float()
+            return q, s[0], s[1]
         return self._kernel_a_call(p, self.a_design(), count=True)
+
+    def kernel_a_ext(self, p_ext: torch.Tensor):
+        """Kernel A of a shard once, in the cross-rank mode, from the
+        extended block ``(k, n + 2·ny·nz)`` (ghost planes filled): ``(Q,
+        (2, k) sums)``, the sums this rank's, fp64 and unrounded.  A CPU
+        tensor takes the plain version."""
+        if p_ext.device.type == "cpu":
+            return self.kernel_a_ext_reference(p_ext)
+        k, dev = p_ext.shape[0], p_ext.device
+        x_like = torch.empty((k, self.n), dtype=p_ext.dtype, device=dev)
+        design = self.a_design()
+        lib, ga, _ = self._setup(x_like, design)
+        self._check_ext(p_ext, k)
+        ctl, _ = self._ctl(k, dev)
+        ctl[_MAXIT] = 2 ** 31 - 1
+        part = torch.empty(2 * k * ga, dtype=torch.float64, device=dev)
+        sums = torch.zeros(4 * k, dtype=torch.float64, device=dev)
+        with torch.cuda.device(dev):
+            self._launch_a(lib, self._a_args(
+                self._interior(p_ext), x_like, part, ga, ctl, design,
+                ldp=p_ext.shape[1], sums=sums))
+        return x_like, sums[:2 * k].reshape(2, k).clone()
+
+    def kernel_b_ext(self, rz, sums_a, x, r, p, q):
+        """Kernel B of a shard once, in the cross-rank mode, on copies of
+        ``X, R, P``: p·q and q·q from ``sums_a`` (``(2, k)`` fp64, summed
+        over the ranks); ``(X', R', P', (2, k) sums)``, the sums this
+        rank's, fp64 and unrounded.  A CPU tensor takes the plain
+        version."""
+        if x.device.type == "cpu":
+            return self.kernel_b_ext_reference(rz, sums_a, x, r, p, q)
+        lib, _, gb = self._setup(x, self.a_design())
+        k, dev = x.shape[0], x.device
+        x, r, p = x.clone(), r.clone(), p.clone()
+        ctl, f = self._ctl(k, dev)
+        self._field(f, _RZ).copy_(torch.as_tensor(rz, dtype=torch.float32,
+                                                  device=dev))
+        ctl[_MAXIT] = 2 ** 31 - 1
+        sums = torch.zeros(4 * k, dtype=torch.float64, device=dev)
+        sums[:2 * k] = sums_a.reshape(-1).to(device=dev, dtype=torch.float64)
+        part = torch.empty(2 * k * gb, dtype=torch.float64, device=dev)
+        with torch.cuda.device(dev):
+            self._launch_b(lib, self._b_args(x, r, p, q, part, gb, ctl,
+                                             sums=sums))
+        return x, r, p, sums[2 * k:].reshape(2, k).clone()
+
+    def _interior(self, p_ext: torch.Tensor) -> torch.Tensor:
+        """The first local row of column 0 of an extended block (a view
+        that the C entries read with P's column stride)."""
+        return p_ext[:, self.plane:]
+
+    def _check_ext(self, p_ext: torch.Tensor, k: int) -> None:
+        if (tuple(p_ext.shape) != (k, self.n + 2 * self.plane)
+                or not p_ext.is_contiguous()
+                or p_ext.dtype != torch.float32):
+            raise ValueError(f"FusedCGMulti: expected a contiguous float32 "
+                             f"block ({k}, {self.n + 2 * self.plane}) in "
+                             f"the ghost layout, got {tuple(p_ext.shape)}")
 
     def _kernel_a_call(self, p: torch.Tensor, design: int, count: bool):
         """One launch of kernel A in ``design`` (counted if ``count``):
@@ -366,9 +486,12 @@ class FusedCGMulti(FusedCG):
         else:
             x = x0.to(self.dtype).contiguous().clone()
             r = b - kernel_a(x)[0]
-        sums = [exact_sums(r[j], self.weight) for j in range(b.shape[0])]
-        rz = torch.stack([torch.stack([s[0] for s in sums]),
-                          torch.stack([s[1] for s in sums])])
+        if self.shard is not None:
+            rz = allsum(_col_sums64(r, self.weight), self.shard).float()
+        else:
+            sums = [exact_sums(r[j], self.weight) for j in range(b.shape[0])]
+            rz = torch.stack([torch.stack([s[0] for s in sums]),
+                              torch.stack([s[1] for s in sums])])
         return FusedMultiState(x=x, r=r, p=r, rz=rz,
                                k=torch.zeros((), dtype=torch.int32,
                                              device=b.device))
@@ -425,7 +548,7 @@ class FusedCGMulti(FusedCG):
                            self.kernel_a_reference, self.run_reference)
 
     def _solve(self, b, x0, tol, atol, maxiter, kernel_a, run) -> CGResult:
-        tol_sq = thresholds(b, tol, atol, self.weight)
+        tol_sq = thresholds(b, tol, atol, self.weight, self.shard)
         st = self._init(b, x0, kernel_a)
         st = run(st, int(maxiter), tol_sq)
         return self.result(st, tol_sq)
@@ -518,21 +641,29 @@ class FusedCGMulti(FusedCG):
         return mp.tj, mp.tk, mp.length, mp.rows, mp.hj, mp.hk
 
     def _a_args(self, p, q, part, ga, ctl, design,
-                plan: Optional[MarchPlan] = None):
+                plan: Optional[MarchPlan] = None, ldp: Optional[int] = None,
+                sums=None):
+        """Kernel A's C arguments: P's columns ``ldp`` apart (default n;
+        a shard's P points at the first local row of its extended block),
+        ``sums`` the cross-rank sums (or None)."""
         taps_c, coef_c, plane_c = plane_tap_arrays(self.taps, self.coeffs)
         tj, tk, length, rows, hj, hk = self._plan_fields(design, plan)
-        return (p.data_ptr(), q.data_ptr(),
-                None if self.planes is None else self.planes.data_ptr(),
+        return (p.data_ptr(), q.data_ptr(), self._planes_ptr(),
                 part.data_ptr(), ga, ctl.data_ptr(), p.shape[0], self.nx,
                 self.ny, self.nz, len(self.taps), taps_c, coef_c, plane_c,
                 int(self.sym), self._bf16_flags()[1], design, tj, tk, rows,
-                length, hj, hk,
+                length, hj, hk, self._span_arg(),
+                self.n if ldp is None else int(ldp),
+                None if sums is None else sums.data_ptr(),
                 torch.cuda.current_stream(p.device).cuda_stream)
 
-    def _b_args(self, x, r, p, q, part, gb, ctl):
+    def _b_args(self, x, r, p, q, part, gb, ctl, ldp: Optional[int] = None,
+                sums=None):
         return (x.data_ptr(), r.data_ptr(), p.data_ptr(), q.data_ptr(),
                 None if self.weight is None else self.weight.data_ptr(),
                 part.data_ptr(), gb, ctl.data_ptr(), x.shape[0], self.n,
+                self.n if ldp is None else int(ldp),
+                None if sums is None else sums.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
 
     def _launch_a(self, lib, args, count: bool = True) -> None:
@@ -560,7 +691,22 @@ class FusedCGMulti(FusedCG):
             if v.shape != state.x.shape or not v.is_contiguous():
                 raise ValueError(f"FusedCGMulti state {name}: expected a "
                                  f"contiguous block like x")
-        x, r, p = state.x.clone(), state.r.clone(), state.p.clone()
+        x, r = state.x.clone(), state.r.clone()
+        sh, pl, sums, ldp = self.shard, self.plane, None, None
+        if sh is not None:
+            # The cross-rank mode: P in the ghost layout, fp64 sums.
+            if sh.group is None and sh.size > 1:
+                raise ValueError("FusedCGMulti: a shard runs over its "
+                                 "process group")
+            from cgx_torch.dist import halo
+
+            p_ext = torch.zeros((k, self.n + 2 * pl), dtype=self.dtype,
+                                device=dev)
+            p_ext[:, pl:pl + self.n] = state.p
+            p, ldp = self._interior(p_ext), p_ext.shape[1]
+            sums = torch.zeros(4 * k, dtype=torch.float64, device=dev)
+        else:
+            p = state.p.clone()
         q = torch.empty_like(x)
         part_a = torch.empty(2 * k * ga, dtype=torch.float64, device=dev)
         part_b = torch.empty(2 * k * gb, dtype=torch.float64, device=dev)
@@ -577,22 +723,35 @@ class FusedCGMulti(FusedCG):
         # The entry test on the device: no host read before the first chunk.
         ctl[_DONE] = (~((state.k < upto) & torch.any(rz[1] > tol))).to(
             torch.int32)
-        args_a = self._a_args(p, q, part_a, ga, ctl, design)
-        args_b = self._b_args(x, r, p, q, part_b, gb, ctl)
-        # At most upto − k (A, B) pairs: B counts the last one and exits.
-        budget, launched = upto, 0
+        args_a = self._a_args(p, q, part_a, ga, ctl, design, ldp=ldp,
+                              sums=sums)
+        args_b = self._b_args(x, r, p, q, part_b, gb, ctl, ldp=ldp,
+                              sums=sums)
+        # At most upto − k (A, B) pairs: B counts the last one and exits
+        # (across ranks the next A takes the exit: one pair more).
+        budget, launched = upto + (sums is not None), 0
         with torch.cuda.device(dev):
             while True:
                 chunk = min(CHUNK, budget - launched)
                 for _ in range(chunk):
+                    if sums is None:
+                        self._launch_a(lib, args_a, count)
+                        self._launch_b(lib, args_b, count)
+                        continue
+                    halo.exchange_planes(p_ext, pl, sh.rank, sh.size,
+                                         sh.group)
                     self._launch_a(lib, args_a, count)
+                    halo.all_reduce(sums[:2 * k], sh.group)
                     self._launch_b(lib, args_b, count)
+                    halo.all_reduce(sums[2 * k:], sh.group)
                 launched += chunk
                 if int(ctl[_DONE]):
                     break
                 if launched >= budget:
                     raise RuntimeError("FusedCGMulti: the kernels did not "
                                        "reach their exit")
+        if sums is not None:
+            p = p_ext[:, pl:pl + self.n].contiguous()
         return FusedMultiState(
             x=x, r=r, p=p,
             rz=torch.stack([self._field(f, _RZ), self._field(f, _RW)]).clone(),

@@ -16,10 +16,20 @@ the loop on the device.
 :func:`cg_solve_single_reduction` (Chronopoulos–Gear) and
 :func:`cg_solve_pipelined` (Ghysels–Vanroose, with periodic or adaptive
 residual replacement) keep their fused dots as one stacked tensor, the
-one all-reduce a distributed solve will need.  Each reads the device once
+one all-reduce of a distributed solve.  Each reads the device once
 an iteration: the single-reduction loop its exit test; the pipelined loop
 its exit test together with the replacement flag and the stagnation
 guard's strikes (see :func:`cg_solve_pipelined`).
+
+Distribution (the JAX package's ``axis_name``): with ``group=`` (a
+``torch.distributed`` process group) ``b``, ``x0`` and the matvec are one
+rank's rows, and every dot becomes one all-reduce over the group of the
+stacked local dots the loop already forms
+(:func:`cgx_torch.dist.halo.all_reduce`, counted): :func:`cg_solve` makes
+two an iteration, the single-reduction and pipelined loops one.  The
+default ``maxiter`` is the global size.  Every rank reads the same reduced
+bits, so every rank takes the same exit.  With ``group=None`` nothing
+changes.
 """
 from __future__ import annotations
 
@@ -85,8 +95,29 @@ def _as_apply(preconditioner):
     return preconditioner
 
 
-def _tol_sq(tol: float, atol: float, b: torch.Tensor) -> torch.Tensor:
-    bb = blas.norm_sq(b)
+def _reduce(vals, group):
+    """Local dots summed over ``group``'s ranks in one all-reduce of their
+    stack (without a group: as they are)."""
+    if group is None:
+        return list(vals)
+    # Imported at the call: cgx_torch.dist imports this module.
+    from cgx_torch.dist.halo import sum_over
+
+    return list(sum_over(torch.stack(list(vals)), group).unbind())
+
+
+def _global_rows(b: torch.Tensor, group) -> int:
+    """The global problem size: ``b``'s rows times the group's size."""
+    if group is None:
+        return int(b.shape[0])
+    import torch.distributed as dist
+
+    return int(b.shape[0]) * dist.get_world_size(group)
+
+
+def _tol_sq(tol: float, atol: float, b: torch.Tensor,
+            group=None) -> torch.Tensor:
+    bb, = _reduce([blas.norm_sq(b)], group)
     t = torch.tensor(tol, dtype=b.dtype, device=b.device)
     at = torch.tensor(atol, dtype=b.dtype, device=b.device)
     return torch.maximum(t ** 2 * bb, at ** 2)
@@ -102,6 +133,7 @@ def cg_solve(
     maxiter: Optional[int] = None,
     preconditioner=None,
     track_history: bool = False,
+    group=None,
 ) -> CGResult:
     """Solve ``A x = b`` for SPD ``A`` by (preconditioned) CG.
 
@@ -116,15 +148,18 @@ def cg_solve(
       preconditioner: ``None`` | matvec callable | object with ``.apply``.
       track_history: record ``‖r_k‖²`` per iteration into
         ``CGResult.history`` (length ``maxiter + 1``).
+      group: the process group of a row-distributed solve (``b``, ``x0``
+        and ``a`` this rank's rows), or None.
     """
     matvec = as_matvec(a)
     apply_m = _as_apply(preconditioner)
-    maxiter = int(b.shape[0] if maxiter is None else maxiter)
+    maxiter = int(_global_rows(b, group) if maxiter is None else maxiter)
     state = cg_init(matvec, b, x0, preconditioner=apply_m,
-                    history_len=maxiter + 1 if track_history else 0)
-    tol_sq = _tol_sq(tol, atol, b)
+                    history_len=maxiter + 1 if track_history else 0,
+                    group=group)
+    tol_sq = _tol_sq(tol, atol, b, group)
     cond, body = _make_cond_body(matvec, apply_m, maxiter, tol_sq,
-                                 track_history)
+                                 track_history, group)
     while cond(state):
         state = body(state)
 
@@ -139,8 +174,10 @@ def cg_solve(
 
 
 def cg_init(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
-            preconditioner=None, history_len: int = 0) -> CGState:
-    """Initial :class:`CGState` for ``A x = b`` (x₀ defaults to zeros)."""
+            preconditioner=None, history_len: int = 0,
+            group=None) -> CGState:
+    """Initial :class:`CGState` for ``A x = b`` (x₀ defaults to zeros);
+    ``group``: as :func:`cg_solve`'s."""
     matvec = as_matvec(a)
     apply_m = _as_apply(preconditioner)
     if x0 is None:
@@ -149,8 +186,11 @@ def cg_init(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
     else:
         r0 = b - matvec(x0)
     z0 = apply_m(r0) if apply_m is not None else r0
-    rz0 = blas.dot(r0, z0)
-    rr0 = blas.dot(r0, r0) if apply_m is not None else rz0
+    if apply_m is not None:
+        rz0, rr0 = _reduce([blas.dot(r0, z0), blas.dot(r0, r0)], group)
+    else:
+        rz0, = _reduce([blas.dot(r0, z0)], group)
+        rr0 = rz0
     hist0 = torch.zeros(history_len, dtype=b.dtype, device=b.device)
     if history_len:
         hist0[0] = rr0
@@ -159,19 +199,23 @@ def cg_init(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
                    history=hist0)
 
 
-def _make_cond_body(matvec, apply_m, maxiter, tol_sq, track_history):
+def _make_cond_body(matvec, apply_m, maxiter, tol_sq, track_history,
+                    group=None):
     def cond(s: CGState) -> bool:
         return bool((s.k < maxiter) & (s.rr > tol_sq))
 
     def body(s: CGState) -> CGState:
         q = matvec(s.p)
-        pq = blas.dot(s.p, q)
+        pq, = _reduce([blas.dot(s.p, q)], group)
         alpha = s.rz / pq
         x = s.x + alpha * s.p
         r = s.r - alpha * q
         z = apply_m(r) if apply_m is not None else r
-        rz = blas.dot(r, z)
-        rr = blas.dot(r, r) if apply_m is not None else rz
+        if apply_m is not None:
+            rz, rr = _reduce([blas.dot(r, z), blas.dot(r, r)], group)
+        else:
+            rz, = _reduce([blas.dot(r, z)], group)
+            rr = rz
         beta = rz / s.rz
         p = z + beta * s.p
         hist = s.history
@@ -214,6 +258,7 @@ def cg_solve_single_reduction(
     atol: float = 0.0,
     maxiter: Optional[int] = None,
     preconditioner=None,
+    group=None,
 ) -> CGResult:
     """Chronopoulos–Gear CG: one fused reduction per iteration.
 
@@ -222,13 +267,16 @@ def cg_solve_single_reduction(
     all-reduce of a distributed solve, at the cost of one more axpy and one
     more carried vector (``s = A p`` by linearity).  The trajectory is
     CG's in exact arithmetic.  Each iteration reads the exit test once.
+    ``group``: as :func:`cg_solve`'s (one all-reduce an iteration).
 
     Reference: Chronopoulos & Gear, J. Comput. Appl. Math. 25 (1989).
     """
+    from cgx_torch.dist.halo import sum_over
+
     matvec = as_matvec(a)
     apply_m = _as_apply(preconditioner)
-    maxiter = int(b.shape[0] if maxiter is None else maxiter)
-    tol_sq = _tol_sq(tol, atol, b)
+    maxiter = int(_global_rows(b, group) if maxiter is None else maxiter)
+    tol_sq = _tol_sq(tol, atol, b, group)
 
     if x0 is None:
         x = torch.zeros_like(b)
@@ -240,8 +288,10 @@ def cg_solve_single_reduction(
     w = matvec(u)
 
     def fused_dots(r, u, w):
-        """γ = rᵀu, δ = wᵀu, ρ = rᵀr as one stacked tensor."""
-        return torch.stack([blas.dot(r, u), blas.dot(w, u), blas.dot(r, r)])
+        """γ = rᵀu, δ = wᵀu, ρ = rᵀr as one stacked tensor (summed over
+        the group's ranks in one all-reduce)."""
+        return sum_over(torch.stack([blas.dot(r, u), blas.dot(w, u),
+                                     blas.dot(r, r)]), group)
 
     gamma, delta, rr = fused_dots(r, u, w)
     alpha = gamma / delta
@@ -277,6 +327,7 @@ def cg_solve_pipelined(
     preconditioner=None,
     replace_every: int = 25,
     adaptive_replace: bool = False,
+    group=None,
 ) -> CGResult:
     """Ghysels–Vanroose pipelined (P)CG: ``m = M⁻¹w`` and ``n = A m`` do
     not depend on the iteration's reduction, so a distributed solve can
@@ -307,14 +358,18 @@ def cg_solve_pipelined(
     state, together: the step after a replacement is computed before
     that state's exit test is read, and discarded (``discarded_steps``)
     if the test says stop, so the iterate and the count are the
-    ``lax.while_loop``'s.
+    ``lax.while_loop``'s.  ``group``: as :func:`cg_solve`'s (the seven
+    dots in one all-reduce an iteration; the drift model reads the global
+    ‖x‖ and ‖r‖).
     """
     global replacements, discarded_steps
+    from cgx_torch.dist.halo import sum_over
+
     matvec = as_matvec(a)
     apply_m = _as_apply(preconditioner)
-    maxiter = int(b.shape[0] if maxiter is None else maxiter)
+    maxiter = int(_global_rows(b, group) if maxiter is None else maxiter)
     dtype, dev = b.dtype, b.device
-    tol_sq = _tol_sq(tol, atol, b)
+    tol_sq = _tol_sq(tol, atol, b, group)
 
     def precond(v):
         return apply_m(v) if apply_m is not None else v
@@ -330,10 +385,11 @@ def cg_solve_pipelined(
 
     def fused_dots(r, u, w, p, s, x):
         """γ = rᵀu, δ = wᵀu, ρ = rᵀr, the cross terms uᵀs, pᵀw, pᵀs and
-        xᵀx (for the drift model) as one stacked tensor."""
-        return torch.stack([blas.dot(r, u), blas.dot(w, u), blas.dot(r, r),
-                            blas.dot(u, s), blas.dot(p, w), blas.dot(p, s),
-                            blas.dot(x, x)])
+        xᵀx (for the drift model) as one stacked tensor (summed over the
+        group's ranks in one all-reduce)."""
+        return sum_over(torch.stack(
+            [blas.dot(r, u), blas.dot(w, u), blas.dot(r, r), blas.dot(u, s),
+             blas.dot(p, w), blas.dot(p, s), blas.dot(x, x)]), group)
 
     def refresh(x, p):
         r2 = b - matvec(x)

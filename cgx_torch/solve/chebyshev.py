@@ -14,6 +14,10 @@ axis-aligned constant-coefficient Dirichlet stencils (stencil objects and
 constant DIA forms); :func:`estimate_bounds` estimates them by power
 iteration from a start vector drawn from a ``torch.Generator`` seeded 0
 on the vector's device, or from ``v0``.
+
+``group=`` (the JAX package's ``axis_name``): a row-distributed solve, the
+vectors one rank's rows; every norm and dot is summed over the group's
+ranks in one all-reduce, and the default ``maxiter`` is the global size.
 """
 from __future__ import annotations
 
@@ -122,7 +126,7 @@ def _dia_constant_taps(a):
 
 def estimate_bounds(a, n: int, iters: int = 30, key=None,
                     safety: float = 1.05, min_margin: float = 2.0,
-                    dtype=None, v0=None, device="cuda"
+                    dtype=None, v0=None, device="cuda", group=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(λ_min, λ_max)`` estimates for SPD ``A`` by power iteration, as
     0-d tensors.
@@ -137,7 +141,13 @@ def estimate_bounds(a, n: int, iters: int = 30, key=None,
     CPU) from ``key``, a ``torch.Generator`` on that device, by default
     one seeded 0.  Its values are not the JAX package's (``PRNGKey(0)``):
     compare the two packages with the same ``v0``.  Callers with padded
-    layouts mask padding slots of ``v0`` to zero."""
+    layouts mask padding slots of ``v0`` to zero.
+
+    ``group``: ``a`` acts on one rank's rows and ``n`` is their number;
+    every rank draws the same start vector, as the JAX package's shards
+    do, and the norms and dots are summed over the ranks."""
+    from cgx_torch.dist.halo import sum_over
+
     matvec = as_matvec(a)
     if v0 is None:
         dev = resolve_device(device)
@@ -148,12 +158,15 @@ def estimate_bounds(a, n: int, iters: int = 30, key=None,
         v0 = torch.randn(shape, generator=key, device=dev,
                          dtype=dtype or torch.float32)
 
+    def norm(v):
+        return torch.sqrt(sum_over(blas.norm_sq(v), group))
+
     def power(mv, v):
-        v = v / blas.norm(v)
+        v = v / norm(v)
         for _ in range(iters):
             w = mv(v)
-            v = w / blas.norm(w)
-        return blas.dot(v, mv(v))
+            v = w / norm(w)
+        return sum_over(blas.dot(v, mv(v)), group)
 
     lam_max = power(matvec, v0) * safety
     lam_min_shift = power(lambda v: lam_max * v - matvec(v), v0)
@@ -173,13 +186,21 @@ def chebyshev_solve(
     maxiter: Optional[int] = None,
     preconditioner=None,
     check_every: int = 16,
+    group=None,
 ) -> CGResult:
     """Chebyshev iteration on ``[λ_min, λ_max]`` (of ``M⁻¹A`` if a
-    preconditioner is given); a :class:`CGResult` like ``cg_solve``'s."""
+    preconditioner is given); a :class:`CGResult` like ``cg_solve``'s.
+    ``group``: a row-distributed solve (one all-reduce a check)."""
     global host_reads
+    from cgx_torch.dist.halo import sum_over
+
     matvec = as_matvec(a)
     apply_m = _as_apply(preconditioner)
     n = b.shape[0]
+    if maxiter is None and group is not None:
+        import torch.distributed as dist
+
+        n = n * dist.get_world_size(group)
     maxiter = int(n if maxiter is None else maxiter)
     check_every = max(1, int(check_every))
     dtype, dev = b.dtype, b.device
@@ -197,7 +218,7 @@ def chebyshev_solve(
     delta = torch.maximum(delta, eps * torch.maximum(theta.abs(), eps))
     sigma1 = theta / delta
 
-    tol_sq = scalar(tol) ** 2 * blas.norm_sq(b)
+    tol_sq = scalar(tol) ** 2 * sum_over(blas.norm_sq(b), group)
 
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -206,7 +227,7 @@ def chebyshev_solve(
         r0 = b - matvec(x0)
     z0 = apply_m(r0) if apply_m is not None else r0
     d = z0 / theta
-    rr = blas.norm_sq(r0)
+    rr = sum_over(blas.norm_sq(r0), group)
     x = x0 + d
     r = r0 - matvec(d)
     rho = 1.0 / sigma1
@@ -224,8 +245,8 @@ def chebyshev_solve(
         k += 1
         if k % check_every == 0:     # the only reduction in the loop
             host_reads += 1
-            go = bool(blas.norm_sq(r) > tol_sq)
-    rr_final = blas.norm_sq(r)
+            go = bool(sum_over(blas.norm_sq(r), group) > tol_sq)
+    rr_final = sum_over(blas.norm_sq(r), group)
     return CGResult(x=x, iterations=torch.tensor(k, dtype=torch.int32,
                                                  device=dev),
                     residual_norm_sq=rr_final, converged=rr_final <= tol_sq,

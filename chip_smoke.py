@@ -289,14 +289,27 @@ Phases (any failed check exits nonzero, and no result line is printed):
     ``trace`` around one K2 solve at 128³, ``trace_report`` naming K2's
     kernel with a device time, printed beside ``queued_ms`` of the same
     solve, and ``overlap_report``.  Each of HP, NF, CK and PF prints its
-    seconds.  Every profiler figure of the result line must be above 0.
+    seconds.  Every profiler figure of the result line must be above 0;
+49. D, distribution (``cgx_torch.dist``, after IC), on an NCCL group of one
+    rank formed on a free localhost port (one card: NCCL refuses two
+    ranks on one card): ``dist_fused_cg`` on the 224³ stencil (b = ones,
+    history) and on DIA-7 192³ under Jacobi, ``dist_fused_cg_multi`` on
+    DIA-27 160³ under Jacobi with B (n, 4), each equal to its single-card
+    solve bit for bit, one all-reduce after every kernel launch
+    (``halo.counters``); ``dist_cg_solve`` on DIA-7 128³ under Jacobi
+    against ``cg_solve``; the CUDA K3 A and K5 A of shard r of 4, ghost
+    planes cut from the neighbouring shards, against the whole grid's q
+    bit for bit, and their cross-rank kernel B against the plain
+    versions; the distributed engines' µs per iteration beside the
+    single-card ones in turns, and one all-reduce's host and device µs.
 
 The launch counters are set to 0 just before each of the paths 4, 6, 7,
-W3–W4, M2–M5, B1–B4, X1–X4, S1, S2, S4, E1–E5, SR, CH, HP, CK and PF and
-read just after it (K1's entry gives SR's and CH's as
+W3–W4, M2–M5, B1–B4, X1–X4, S1, S2, S4, E1–E5, SR, CH, HP, CK, PF and
+D1–D3 and read just after it (K1's entry gives SR's and CH's as
 ``solver_launches``; HP's, CK's and PF's launches are the keys
 ``hp_launches``, ``ck_launches`` and ``pf_launches`` of K1's, K2's, K3's,
-K4's, K7's and K8's entries).  The line before the last
+K4's, K7's and K8's entries; D's are ``dist_launches`` on the K3 A/B and
+K5 A/B entries, with ``dist_us_per_iter`` beside ``single_us_per_iter``).  The line before the last
 is a JSON object describing each kernel, with its bound (the larger of
 its bytes, each input read once and each output written once, over 3.35
 TB/s, and its operations over 67 TFLOP/s fp32, or 989 TFLOP/s on the
@@ -4403,6 +4416,285 @@ def profiling_main() -> None:
     print(json.dumps({"pf_launches": launches}))
 
 
+DIST_SHARDS = 4          # shards of D5's kernel checks
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for the process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_phases(dev, card, dias):
+    """D: distribution on one card (``cgx_torch.dist``).
+
+    D1–D3, the path as a user drives it on an NCCL group of one rank:
+    ``dist_fused_cg`` on the 224³ stencil (b = ones, history) and on DIA-7
+    192³ under Jacobi (seeded b), ``dist_fused_cg_multi`` on DIA-27 160³
+    under Jacobi with B (n, 4); each equal to its single-card solve
+    (``fused_stencil_cg``, ``fused_dia_cg``, ``fused_dia_cg_multi``) bit for
+    bit, iterations and history too.  K3's and K5's launch counters and the
+    collective counters are read around these three solves only: one
+    all-reduce after every kernel launch, two at each solve's start.  D4,
+    ``dist_cg_solve`` on DIA-7 128³ under Jacobi against ``cg_solve`` with
+    ``JacobiPrecond`` (the same loop).  D5, the CUDA K3 A and K5 A of shard
+    r of 4, their ghost planes cut from the neighbouring shards, against
+    the whole grid's product, q bit for bit (224³ stencil, DIA-7 192³,
+    DIA-27 160³ with its mirror taps), and their cross-rank-mode kernel B
+    against the plain versions (x', r', p' bit for bit, the fp64 sums to
+    1e-12).  D6, times: the distributed K3 and K5 iterations against the
+    single-card ones, CUDA events around whole solves in turns.  Returns
+    the extra keys of the K3 and K5 entries."""
+    import torch.distributed as dist
+
+    import cgx_torch
+    from cgx_torch import dist as tdist
+    from cgx_torch.dist import halo
+    from cgx_torch.io.poisson import poisson3d_dia27
+    from cgx_torch.kernels import fused_engine as k3
+    from cgx_torch.kernels import fused_multi as k5
+    from cgx_torch.kernels.fused_cg import build_fused, fused_stencil_cg
+    from cgx_torch.kernels.fused_dia_cg import (build_fused_dia, dia_prep,
+                                                dia_shard_engine,
+                                                fused_dia_cg)
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tdist.initialize(f"tcp://localhost:{free_port()}", 1, 0, device="cuda")
+    mesh = tdist.make_row_mesh(1)
+    check(dist.get_backend() == "nccl" and mesh.size == 1
+          and mesh.device == dev, "D: not an NCCL group of one rank")
+    print(f"D NCCL group of one rank on {mesh.device}: formed in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    a224 = cgx_torch.poisson3d_stencil(*N224)
+    b224 = torch.ones(a224.shape[0], dtype=torch.float32, device=dev)
+    a7 = dias["DIA-7 192^3"]
+    b7 = seeded_rhs(a7.shape[0], dev)
+    t0 = time.perf_counter()
+    d160 = poisson3d_dia27(*N160, variable=True, seed=SEED, device=dev)
+    print(f"D DIA-27 160^3 built in {time.perf_counter() - t0:.1f} s")
+    b160 = seeded_block(d160.shape[0], K_MULTI, SEED + 23, dev)
+    solvers = {
+        "224^3 stencil": (
+            lambda: fused_stencil_cg(a224, b224, tol=TOL,
+                                     maxiter=MAXIT_HIST,
+                                     track_history=True),
+            lambda: tdist.dist_fused_cg(a224, b224, mesh, tol=TOL,
+                                        maxiter=MAXIT_HIST,
+                                        track_history=True)),
+        "DIA-7 192^3": (
+            lambda: fused_dia_cg(a7, b7, tol=TOL, maxiter=MAXIT_HIST),
+            lambda: tdist.dist_fused_cg(a7, b7, mesh, jacobi=True, tol=TOL,
+                                        maxiter=MAXIT_HIST)),
+        "DIA-27 160^3 k=4": (
+            lambda: k5.fused_dia_cg_multi(d160, b160, tol=TOL,
+                                          maxiter=MAXIT_HIST),
+            lambda: tdist.dist_fused_cg_multi(d160, b160, mesh, jacobi=True,
+                                              tol=TOL, maxiter=MAXIT_HIST)),
+    }
+    refs = {label: single() for label, (single, _) in solvers.items()}
+    torch.cuda.synchronize()
+
+    # -- D1-D3: the distributed solves, counted -------------------------------
+    k3.fused_a_launches = k3.fused_b_launches = 0
+    k5.multi_a_launches = k5.multi_b_launches = 0
+    halo.reset_counters()
+    got = {label: run() for label, (_, run) in solvers.items()}
+    torch.cuda.synchronize()
+    launches = {"k3_a": k3.fused_a_launches, "k3_b": k3.fused_b_launches,
+                "k5_a": k5.multi_a_launches, "k5_b": k5.multi_b_launches}
+    comm = halo.counters()
+    print(f"D1-D3 launches: {launches}; collectives {comm}")
+    check(all(v > 0 for v in launches.values()),
+          f"D: a kernel of the distributed path did not launch: {launches}")
+    check(comm["all_reduces"] == 2 * len(solvers) + sum(launches.values()),
+          f"D: not one all-reduce after every kernel: {comm}, {launches}")
+    check(comm["all_gathers"] == comm["sends"] == 0,
+          f"D: one rank sent or gathered: {comm}")
+    for label, res in got.items():
+        ref = refs[label]
+        same = (torch.equal(res.x, ref.x)
+                and torch.equal(res.iterations, ref.iterations)
+                and torch.equal(res.history, ref.history)
+                and torch.equal(res.residual_norm_sq, ref.residual_norm_sq))
+        its = res.iterations.reshape(-1).tolist()
+        print(f"D {label}: iterations {its} (single card "
+              f"{ref.iterations.reshape(-1).tolist()}), converged "
+              f"{res.converged.reshape(-1).tolist()}; equal to the "
+              f"single-card solve bit for bit: {same}")
+        check(bool(torch.all(res.converged)), f"D {label} did not converge")
+        check(same, f"D {label}: the distributed solve differs from the "
+              "single-card one")
+
+    # -- D4: dist_cg_solve against cg_solve --------------------------------------
+    a128 = scaled_dia7(N128, dev)
+    b128 = seeded_rhs(a128.shape[0], dev)
+    part = tdist.partition_dia(a128, 1)
+    t0 = time.perf_counter()
+    res_d = tdist.dist_cg_solve(part, b128, mesh, jacobi=True, tol=TOL,
+                                maxiter=SOLVER_MAXIT)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_s = cgx_torch.cg_solve(
+        a128, b128, tol=TOL, maxiter=SOLVER_MAXIT,
+        preconditioner=cgx_torch.JacobiPrecond.from_matrix(a128))
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t0
+    dx = rel(res_d.x, res_s.x)
+    print(f"D4 dist_cg_solve DIA-7 128^3 Jacobi: {int(res_d.iterations)} "
+          f"iterations (cg_solve {int(res_s.iterations)}), |x - x_cg| / "
+          f"|x_cg| {dx:.3e} (bit for bit: {torch.equal(res_d.x, res_s.x)}); "
+          f"host {t_d:.2f} s (cg_solve {t_s:.2f} s)")
+    check(bool(res_d.converged), "D4 did not converge")
+    check(int(res_d.iterations) == int(res_s.iterations) and dx <= 1e-6,
+          "D4: dist_cg_solve left cg_solve's trajectory")
+
+    # -- D5: shard r of 4 with ghost planes against the whole grid -----------
+    errs = {"k3_a": 0.0, "k3_b": 0.0, "k5_a": 0.0, "k5_b": 0.0}
+    shards = DIST_SHARDS
+    whole3 = {"224^3 stencil": build_fused(a224, torch.float32),
+              "DIA-7 192^3": build_fused_dia(a7, torch.float32)[0]}
+    for label, eng in whole3.items():
+        p = seeded_rhs(eng.n, dev)
+        q_whole = eng.kernel_a(p)[0]
+        plane, nl = eng.ny * eng.nz, eng.n // shards
+        for r in range(shards):
+            rows = slice(r * nl, (r + 1) * nl)
+            if eng.planes is None:
+                se = k3.FusedCG(eng.nx // shards, eng.ny, eng.nz, eng.taps,
+                                coeffs=eng.coeffs,
+                                shard=k3.Shard(r, shards))
+            else:
+                se = build_fused_dia(a7, torch.float32, n_shards=shards,
+                                     rank=r)[0]
+            pe = halo.cut_ghost_rows(p, r, shards, plane)
+            q, s = se.kernel_a_ext(pe)
+            q_ref, s_ref = se.kernel_a_ext_reference(pe)
+            x = 0.5 * p[rows]
+            rz = torch.sum(p[rows].double() ** 2).float()
+            out = se.kernel_b_ext(rz, s, x, p[rows], p[rows], q)
+            out_ref = se.kernel_b_ext_reference(rz, s, x, p[rows], p[rows], q)
+            torch.cuda.synchronize()
+            errs["k3_a"] = max(errs["k3_a"],
+                               float((q - q_whole[rows]).abs().max()),
+                               float((q - q_ref).abs().max()))
+            errs["k3_b"] = max([errs["k3_b"]] + [
+                float((g - w).abs().max()) for g, w in zip(out[:3],
+                                                           out_ref[:3])])
+            same_a = torch.equal(q, q_whole[rows]) and torch.equal(q, q_ref)
+            same_b = all(torch.equal(g, w) for g, w in zip(out[:3],
+                                                           out_ref[:3]))
+            dev_a = float(((s - s_ref).abs() / s_ref.abs()).max())
+            dev_b = float(((out[3] - out_ref[3]).abs()
+                           / out_ref[3].abs()).max())
+            print(f"D5 K3 {label} shard {r} of {shards}: A's q equal to the "
+                  f"whole grid's rows and to the plain version bit for bit: "
+                  f"{same_a} (sums within {dev_a:.1e}); cross-rank B equal "
+                  f"to its plain version bit for bit: {same_b} (sums within "
+                  f"{dev_b:.1e})")
+            check(same_a and same_b and dev_a <= 1e-12 and dev_b <= 1e-12,
+                  f"D5 K3 {label} shard {r} disagrees")
+    prep160 = dia_prep(d160, torch.float32)
+    nx, ny, nz, taps, coeffs, planes, _, w, sym = prep160
+    whole5 = k5.FusedCGMulti(nx, ny, nz, taps, coeffs=coeffs, planes=planes,
+                             weight=w, sym=sym)
+    pb = seeded_block(whole5.n, K_MULTI, SEED + 29, dev).T.contiguous()
+    q_whole = whole5.kernel_a(pb)[0]
+    plane, nl = ny * nz, whole5.n // shards
+    for r in range(shards):
+        rows = slice(r * nl, (r + 1) * nl)
+        se = dia_shard_engine(prep160, torch.float32, k3.Shard(r, shards),
+                              engine=k5.FusedCGMulti)[0]
+        pe = halo.cut_ghost_rows(pb, r, shards, plane)
+        q, s = se.kernel_a_ext(pe)
+        q_ref, s_ref = se.kernel_a_ext_reference(pe)
+        x = 0.5 * pb[:, rows].contiguous()
+        rz = torch.sum(pb[:, rows].double() ** 2, dim=1).float()
+        pr = pb[:, rows].contiguous()
+        out = se.kernel_b_ext(rz, s, x, pr, pr, q)
+        out_ref = se.kernel_b_ext_reference(rz, s, x, pr, pr, q)
+        torch.cuda.synchronize()
+        errs["k5_a"] = max(errs["k5_a"],
+                           float((q - q_whole[:, rows]).abs().max()),
+                           float((q - q_ref).abs().max()))
+        errs["k5_b"] = max([errs["k5_b"]] + [
+            float((g - v).abs().max()) for g, v in zip(out[:3], out_ref[:3])])
+        same_a = torch.equal(q, q_whole[:, rows]) and torch.equal(q, q_ref)
+        same_b = all(torch.equal(g, v) for g, v in zip(out[:3], out_ref[:3]))
+        dev_a = float(((s - s_ref).abs() / s_ref.abs()).max())
+        dev_b = float(((out[3] - out_ref[3]).abs() / out_ref[3].abs()).max())
+        print(f"D5 K5 DIA-27 160^3 k={K_MULTI} shard {r} of {shards} "
+              f"(march {se.a_design() == k5._MARCH}): A's Q equal to the "
+              f"whole grid's rows and to the plain version bit for bit: "
+              f"{same_a} (sums within {dev_a:.1e}); cross-rank B equal to "
+              f"its plain version bit for bit: {same_b} (sums within "
+              f"{dev_b:.1e})")
+        check(same_a and same_b and dev_a <= 1e-12 and dev_b <= 1e-12,
+              f"D5 K5 shard {r} disagrees")
+
+    # -- D6: times ------------------------------------------------------------------
+    # The engines' solves alone (the operator prepared once), the
+    # cross-rank mode (an NCCL all-reduce after each kernel) beside the
+    # single-card mode, in turns.
+    e7 = build_fused_dia(a7, torch.float32)
+    e7d = build_fused_dia(a7, torch.float32, group=mesh)
+    nx, ny, nz, taps, coeffs, planes, e27, w, sym = prep160
+    b27 = (e27[:, None] * b160).T.contiguous()
+    engines = {
+        "224^3 stencil": (build_fused(a224, torch.float32),
+                          k3.FusedCG(*N224, whole3["224^3 stencil"].taps,
+                                     coeffs=whole3["224^3 stencil"].coeffs,
+                                     group=mesh), b224),
+        "DIA-7 192^3": (e7[0], e7d[0], e7[1] * b7),
+        "DIA-27 160^3 k=4": (
+            k5.FusedCGMulti(nx, ny, nz, taps, coeffs=coeffs, planes=planes,
+                            weight=w, sym=sym),
+            dia_shard_engine(prep160, torch.float32, k3.shard_of(mesh),
+                             engine=k5.FusedCGMulti)[0], b27)}
+    times = {}
+    for label, (single, multi_rank, b) in engines.items():
+        its = int(refs[label].iterations.reshape(-1)[0])
+        t_dist, t_single = time_pair(
+            lambda: multi_rank.solve(b, tol=TOL, maxiter=MAXIT_HIST),
+            lambda: single.solve(b, tol=TOL, maxiter=MAXIT_HIST), reps=3)
+        times[label] = (t_dist / its * 1e3, t_single / its * 1e3)
+        print(f"[{card}] D6 {label}: distributed (NCCL, one rank) "
+              f"{times[label][0]:.2f} us/iter, single card "
+              f"{times[label][1]:.2f} us/iter ({t_dist / t_single:.3f}x; "
+              f"{its} iterations; events around the engine's solve, in "
+              f"turns)")
+    # What one all-reduce of the iteration's two doubles costs the host
+    # (calls enqueued behind a spin kernel) and the card (queued events).
+    sums = torch.zeros(2, dtype=torch.float64, device=dev)
+    halo.reset_counters()
+    ar_host = host_us(lambda: halo.all_reduce(sums, mesh.group))
+    ar_dev = queued_ms(lambda: halo.all_reduce(sums, mesh.group)) * 1e3
+    print(f"[{card}] D6 one NCCL all-reduce of 2 doubles (one rank): "
+          f"host {ar_host:.2f} us a call, device {ar_dev:.2f} us a call "
+          f"(queued events); two an iteration")
+    dist.destroy_process_group()
+    print(f"D: {time.perf_counter() - t_phase:.1f} s")
+
+    def keys(kernel, t, err, **more):
+        return {"dist_launches": launches[kernel],
+                "dist_us_per_iter": t[0], "single_us_per_iter": t[1],
+                "dist_shard_max_abs_err": err, **more}
+
+    k3_t, k5_t = times["224^3 stencil"], times["DIA-27 160^3 k=4"]
+    dia7 = {"dist_dia7_us_per_iter": times["DIA-7 192^3"][0],
+            "single_dia7_us_per_iter": times["DIA-7 192^3"][1],
+            "all_reduce_host_us": ar_host, "all_reduce_device_us": ar_dev}
+    return {"fused_kernel_a": keys("k3_a", k3_t, errs["k3_a"], **dia7),
+            "fused_kernel_b": keys("k3_b", k3_t, errs["k3_b"], **dia7),
+            "fused_multi_a": keys("k5_a", k5_t, errs["k5_a"]),
+            "fused_multi_b": keys("k5_b", k5_t, errs["k5_b"])}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -4842,6 +5134,7 @@ def main() -> None:
     x_entries = mixed_phases(dev, card, dias, fp64_solution, relres_of)
     s_entries = sr_phases(dev, card, dias, fp64_solution, relres_of)
     solver_launches = solver_phases(dev, card, dias, fp64_solution)
+    d_extra = dist_phases(dev, card, dias)
 
     # Bounds: each input read once, each output written once (4 B words),
     # against the operations at the fp32 rate.  K1: x in, y out, 2 flops
@@ -4908,10 +5201,12 @@ def main() -> None:
         "wbell_resident": {"hp_launches": acc_launches["HP_k7"]},
         "wbell_tiered": {"hp_launches": acc_launches["HP_k8"]},
     }
+    for kernel, keys in d_extra.items():
+        extra.setdefault(kernel, {}).update(keys)
     for e in report["kernels"]:
         e.update(extra.get(e["name"], {}))
     check(all(any(e["name"] == nm for e in report["kernels"])
-              for nm in extra), "a kernel of HP, CK or PF has no entry")
+              for nm in extra), "a kernel of HP, CK, PF or D has no entry")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

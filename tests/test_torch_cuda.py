@@ -32,6 +32,7 @@ from cgx_torch.kernels import stencil as k1  # noqa: E402
 from cgx_torch.kernels import wbell as kw  # noqa: E402
 from cgx_torch.kernels.fused_cg import (  # noqa: E402
     build_fused, fused_stencil_cg, stencil_taps)
+from cgx_torch.dist.halo import cut_ghost_rows  # noqa: E402
 from torch_parity import (  # noqa: E402,F401
     cuda_device, scaled_dia_data, seeded, t, wide_reach_dia)
 
@@ -1979,3 +1980,194 @@ def test_native_format_on_card(cuda_device, tmp_path):
     w2, _ = load_matrix(path, device=cuda_device)
     x = w.to_internal(t(seeded(900, seed=4, dtype=np.float32), cuda_device))
     assert torch.equal(kw.wbell_spmv(w2, x), kw.wbell_spmv(w, x))
+
+
+# -- distribution: the fused engines across ranks -------------------------------
+
+
+def _dist_k3_whole(op, dev):
+    dims = (16, 12, 20)
+    if op == "stencil7":
+        return build_fused(cgx_torch.poisson3d_stencil(*dims),
+                           torch.float32), None
+    if op == "bf16_vectors":
+        return build_fused(cgx_torch.poisson3d_stencil(*dims),
+                           torch.bfloat16), None
+    if op == "dia7":
+        from cgx_torch.io.poisson import poisson3d_dia
+        a = poisson3d_dia(*dims, dtype=np.float32, device=dev)
+        d = torch.from_numpy(np.random.default_rng(31).uniform(
+            0.5, 2.0, a.shape[0]).astype(np.float32)).to(dev)
+        a = dataclasses.replace(a, data=a.data * d)
+        return fdia.build_fused_dia(a, torch.float32)[0], a
+    a = poisson3d_dia27(*dims, variable=True, device=dev)
+    kw = {"plane_dtype": torch.bfloat16} if op == "dia27_bf16" else {}
+    return fdia.build_fused_dia(a, torch.float32, **kw)[0], a
+
+
+@pytest.mark.parametrize("op", ["stencil7", "bf16_vectors", "dia7", "dia27",
+                                "dia27_bf16"])
+def test_dist_k3_shard_kernels(cuda_device, op):
+    """K3 A of shard r of 4 on the card, its ghost planes cut from the
+    neighbouring shards, gives the whole grid's q rows (the single-card
+    kernel's) bit for bit, and equals its plain version; kernel B in the
+    cross-rank mode equals its plain version (x', r', p' bit for bit, the
+    fp64 sums to 1e-12)."""
+    whole, a = _dist_k3_whole(op, cuda_device)
+    p = t(seeded(whole.n, seed=41, dtype=np.float32), cuda_device).to(
+        whole.dtype)
+    q_whole = whole.kernel_a(p)[0]
+    shards, plane = 4, whole.ny * whole.nz
+    nl = whole.n // shards
+    for r in range(shards):
+        rows = slice(r * nl, (r + 1) * nl)
+        if a is None:
+            eng = k3.FusedCG(whole.nx // shards, whole.ny, whole.nz,
+                             whole.taps, dtype=whole.dtype,
+                             coeffs=whole.coeffs, shard=k3.Shard(r, shards))
+        else:
+            eng = fdia.build_fused_dia(a, torch.float32, n_shards=shards,
+                                       rank=r,
+                                       plane_dtype=whole.plane_dtype)[0]
+        pe = cut_ghost_rows(p, r, shards, plane)
+        before = k3.fused_a_launches
+        q, s = eng.kernel_a_ext(pe)
+        torch.cuda.synchronize()
+        assert k3.fused_a_launches == before + 1
+        q_ref, s_ref = eng.kernel_a_ext_reference(pe)
+        assert torch.equal(q, q_whole[rows]) and torch.equal(q, q_ref)
+        assert float(((s - s_ref).abs() / s_ref.abs()).max()) <= 1e-12
+        x = (0.5 * p[rows].float()).to(whole.dtype)
+        rz = torch.sum(p[rows].double() ** 2).float()
+        out = eng.kernel_b_ext(rz, s, x, p[rows], p[rows], q)
+        out_ref = eng.kernel_b_ext_reference(rz, s, x, p[rows], p[rows], q)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(out[:3], out_ref[:3]))
+        assert float(((out[3] - out_ref[3]).abs()
+                      / out_ref[3].abs()).max()) <= 1e-12
+
+
+@pytest.mark.parametrize("op,k", [("stencil7", 4), ("dia27", 4),
+                                  ("dia27", 5)])
+def test_dist_k5_shard_kernels(cuda_device, op, k):
+    """K5 A (the march) of shard r of 4, its ghost planes cut from the
+    neighbours (a chunk's first and last planes reading them), gives the
+    whole grid's Q rows bit for bit and equals its plain version; its
+    cross-rank kernel B equals its plain version (k = 5: two column
+    groups)."""
+    from cgx_torch.kernels import fused_multi as k5
+
+    dims = (16, 12, 20)
+    if op == "stencil7":
+        nx, ny, nz, taps, coeffs = stencil_taps(
+            cgx_torch.poisson3d_stencil(*dims))
+        prep = None
+        whole = k5.FusedCGMulti(nx, ny, nz, taps, coeffs=coeffs)
+    else:
+        a = poisson3d_dia27(*dims, variable=True, device=cuda_device)
+        prep = fdia.dia_prep(a, torch.float32)
+        nx, ny, nz, taps, coeffs, planes, _, w, sym = prep
+        whole = k5.FusedCGMulti(nx, ny, nz, taps, coeffs=coeffs,
+                                planes=planes, weight=w, sym=sym)
+    pb = t(seeded(k * whole.n, seed=43, dtype=np.float32),
+           cuda_device).reshape(k, whole.n)
+    q_whole = whole.kernel_a(pb)[0]
+    shards, plane = 4, ny * nz
+    nl = whole.n // shards
+    for r in range(shards):
+        rows = slice(r * nl, (r + 1) * nl)
+        if prep is None:
+            eng = k5.FusedCGMulti(nx // shards, ny, nz, taps, coeffs=coeffs,
+                                  shard=k3.Shard(r, shards))
+        else:
+            eng = fdia.dia_shard_engine(prep, torch.float32,
+                                        k3.Shard(r, shards),
+                                        engine=k5.FusedCGMulti)[0]
+        assert eng.a_design() == k5._MARCH
+        pe = cut_ghost_rows(pb, r, shards, plane)
+        q, s = eng.kernel_a_ext(pe)
+        q_ref, s_ref = eng.kernel_a_ext_reference(pe)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q_whole[:, rows]) and torch.equal(q, q_ref)
+        assert float(((s - s_ref).abs() / s_ref.abs()).max()) <= 1e-12
+        pr = pb[:, rows].contiguous()
+        rz = torch.sum(pr.double() ** 2, dim=1).float()
+        out = eng.kernel_b_ext(rz, s, 0.5 * pr, pr, pr, q)
+        out_ref = eng.kernel_b_ext_reference(rz, s, 0.5 * pr, pr, pr, q)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, v) for g, v in zip(out[:3], out_ref[:3]))
+        assert float(((out[3] - out_ref[3]).abs()
+                      / out_ref[3].abs()).max()) <= 1e-12
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """An NCCL group of one rank on the card (destroyed after the module),
+    or a skip without a card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from cgx_torch import dist as tdist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs on the card")
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    tdist.initialize(f"tcp://localhost:{port}", 1, 0, device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield tdist.make_row_mesh(1)
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("case", ["stencil", "dia7_jacobi", "multi_dia27"])
+def test_dist_fused_one_rank_equals_single_card(cuda_device, nccl_mesh,
+                                                case):
+    """On an NCCL group of one rank the cross-rank kernels (fp64 sums
+    all-reduced between the kernels, rounded once) solve as the
+    single-card kernels, bit for bit; one all-reduce follows every kernel
+    launch, two more start the solve, and nothing is sent."""
+    from cgx_torch import dist as tdist
+    from cgx_torch.dist import halo
+    from cgx_torch.kernels import fused_multi as k5
+
+    dims = (32, 24, 20)
+    if case == "stencil":
+        a = cgx_torch.poisson3d_stencil(*dims)
+        b = t(seeded(a.shape[0], seed=47, dtype=np.float32), cuda_device)
+        ref = fused_stencil_cg(a, b, tol=1e-6, maxiter=2000,
+                               track_history=True)
+        run = lambda: tdist.dist_fused_cg(  # noqa: E731
+            a, b, nccl_mesh, tol=1e-6, maxiter=2000, track_history=True)
+    elif case == "dia7_jacobi":
+        from cgx_torch.io.poisson import poisson3d_dia
+        a = poisson3d_dia(*dims, dtype=np.float32, device=cuda_device)
+        b = t(seeded(a.shape[0], seed=53, dtype=np.float32), cuda_device)
+        ref = fdia.fused_dia_cg(a, b, tol=1e-6, maxiter=2000)
+        run = lambda: tdist.dist_fused_cg(  # noqa: E731
+            a, b, nccl_mesh, jacobi=True, tol=1e-6, maxiter=2000)
+    else:
+        a = poisson3d_dia27(*dims, variable=True, device=cuda_device)
+        b = t(seeded(a.shape[0] * 4, seed=59, dtype=np.float32),
+              cuda_device).reshape(a.shape[0], 4)
+        ref = k5.fused_dia_cg_multi(a, b, tol=1e-6, maxiter=2000)
+        run = lambda: tdist.dist_fused_cg_multi(  # noqa: E731
+            a, b, nccl_mesh, jacobi=True, tol=1e-6, maxiter=2000)
+    multi = case == "multi_dia27"
+    mod = k5 if multi else k3
+    names = (("multi_a_launches", "multi_b_launches") if multi
+             else ("fused_a_launches", "fused_b_launches"))
+    before = [getattr(mod, nm) for nm in names]
+    halo.reset_counters()
+    res = run()
+    torch.cuda.synchronize()
+    launched = [getattr(mod, nm) - b0 for nm, b0 in zip(names, before)]
+    comm = halo.counters()
+    assert min(launched) > 0
+    assert comm["all_reduces"] == 2 + sum(launched)
+    assert comm["sends"] == comm["all_gathers"] == 0
+    assert torch.equal(res.iterations, ref.iterations)
+    assert torch.equal(res.x, ref.x)
+    assert torch.equal(res.history, ref.history)
