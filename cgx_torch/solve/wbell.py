@@ -33,7 +33,7 @@ from cgx_torch.solve.cg import CGResult, cg_solve
 from cgx_torch.sparse.wbell import WBELLMatrix
 
 __all__ = ["wbell_cg_solve", "wbell_cg_solve_multi",
-           "WBellBlockJacobiPrecond", "wbell_poly_apply"]
+           "WBellBlockJacobiPrecond", "wbell_poly_apply", "batched_cg"]
 
 
 @dataclass(frozen=True, eq=False)
@@ -215,33 +215,61 @@ def wbell_cg_solve_multi(
         def apply_m(r):
             return r * idi[None] if idi is not None else r
 
-    precond_on = idi is not None or binv is not None
-    x = bi * 0 if xi0 is None else xi0
-    r = bi if xi0 is None else bi - spmm(xi0)
+    res = batched_cg(spmm, bi, xi0, apply_m,
+                     idi is not None or binv is not None, tol=tol,
+                     atol=atol, maxiter=maxiter)
+    xs = torch.stack([a.from_internal(res.x[j]) for j in range(k)], dim=1)
+    return dataclasses.replace(res, x=xs)
+
+
+def batched_cg(spmm, b: torch.Tensor, x0: Optional[torch.Tensor], apply_m,
+               precond_on: bool, *, tol: float, atol: float, maxiter: int,
+               group=None) -> CGResult:
+    """The JAX package's batched ``while_loop`` as a Python loop over
+    internal-layout columns ``(k, ...)``: per-column α and β, finished
+    columns frozen, one shared ``spmm`` and one host read per iteration.
+    With ``group`` (a row-distributed solve, each rank's slabs) the
+    column dots of each step are summed over the ranks in one all-reduce
+    (two an iteration, one before the loop); without it they are the
+    rank's own.  ``x`` comes back in the internal layout."""
+    from cgx_torch.dist.halo import sum_over
+
+    def reduced(*cols):
+        return sum_over(torch.stack(cols), group).unbind() \
+            if group is not None else cols
+
+    f32 = torch.float32
+    x = b * 0 if x0 is None else x0
+    r = b if x0 is None else b - spmm(x0)
     z = apply_m(r)
     p = z
-    rz = blas.dot_rows(r, z)
-    rr = blas.dot_rows(r, r) if precond_on else rz
-    tol_sq = torch.clamp(torch.tensor(tol, dtype=torch.float32) ** 2
-                         * blas.dot_rows(bi, bi),
-                         min=float(torch.tensor(atol,
-                                                dtype=torch.float32) ** 2))
-    it = torch.zeros(k, dtype=torch.int32, device=bi.device)
+    rz, rr, bb = reduced(blas.dot_rows(r, z), blas.dot_rows(r, r),
+                         blas.dot_rows(b, b))
+    if not precond_on:
+        rr = rz
+    tol_sq = torch.clamp(torch.tensor(tol, dtype=f32) ** 2 * bb,
+                         min=float(torch.tensor(atol, dtype=f32) ** 2))
+    k = b.shape[0]
+    it = torch.zeros(k, dtype=torch.int32, device=b.device)
     one = torch.ones((), dtype=rz.dtype, device=rz.device)
     while True:
         active = (rr > tol_sq) & (it < maxiter)
         if not bool(active.any()):
             break
         q = spmm(p)
-        pq = blas.dot_rows(p, q)
+        pq, = reduced(blas.dot_rows(p, q))
         alpha = torch.where(active, rz / torch.where(pq != 0, pq, one),
                             torch.zeros_like(pq))
         ax = alpha[:, None, None, None].to(x.dtype)
         x = x + ax * p
         r = r - ax * q
         z = apply_m(r)
-        rz_new = blas.dot_rows(r, z)
-        rr_new = blas.dot_rows(r, r) if precond_on else rz_new
+        if precond_on:
+            rz_new, rr_new = reduced(blas.dot_rows(r, z),
+                                     blas.dot_rows(r, r))
+        else:
+            rz_new, = reduced(blas.dot_rows(r, z))
+            rr_new = rz_new
         beta = torch.where(active, rz_new / torch.where(rz != 0, rz, one),
                            torch.zeros_like(rz))
         bx = beta[:, None, None, None].to(x.dtype)
@@ -249,8 +277,6 @@ def wbell_cg_solve_multi(
         rz = torch.where(active, rz_new, rz)
         rr = torch.where(active, rr_new, rr)
         it = it + active.to(torch.int32)
-    xs = torch.stack([a.from_internal(x[j]) for j in range(k)], dim=1)
-    return CGResult(x=xs, iterations=it, residual_norm_sq=rr,
+    return CGResult(x=x, iterations=it, residual_norm_sq=rr,
                     converged=rr <= tol_sq,
-                    history=torch.zeros(0, dtype=torch.float32,
-                                        device=bi.device))
+                    history=torch.zeros(0, dtype=f32, device=b.device))

@@ -45,7 +45,7 @@ from cgx_torch.sparse.types import CSRMatrix, ell_from_csr, resolve_device
 __all__ = ["WBELLMatrix", "wbell_from_csr", "auto_format", "pick_format",
            "WBELL_MIN_ROWS", "group_walk", "WBellRows", "row_layout",
            "rows_from_steps", "rows_from_entries", "ROW_SLICE",
-           "ROW_OFFSET_LIMIT", "STAGE_WINDOW_GROUPS"]
+           "ROW_OFFSET_LIMIT", "STAGE_WINDOW_GROUPS", "row_layout_builds"]
 
 # The JAX package's routing threshold, measured on a TPU v5e (a 2.0 s
 # build at 49 k rows breaks even at ~370 iterations); not measured on the
@@ -60,6 +60,9 @@ ROW_OFFSET_LIMIT = 1 << 16
 # K9's widest stage window, in groups of x (4 KB of fp32 each): two
 # buffers of it fit in the 227 KB of shared memory an H100 block may use.
 STAGE_WINDOW_GROUPS = 28
+
+# Row layouts built so far (a run resets it to show where layouts are built).
+row_layout_builds = 0
 
 
 def group_walk(og: torch.Tensor, keep: torch.Tensor, nt: int,
@@ -239,6 +242,8 @@ def _pack_rows(row, col, val, st, stage_group, nt, *, windowed=False,
                step=None) -> WBellRows:
     """Slice, pad and store the entries ``(row, col, val)``, given in walk
     order, entry e in stage ``st[e]`` of group ``stage_group[st[e]]``."""
+    global row_layout_builds
+    row_layout_builds += 1
     dev = row.device
     nrows = nt * 1024
     nst = int(stage_group.numel())

@@ -301,15 +301,43 @@ Phases (any failed check exits nonzero, and no result line is printed):
     planes cut from the neighbouring shards, against the whole grid's q
     bit for bit, and their cross-rank kernel B against the plain
     versions; the distributed engines' µs per iteration beside the
-    single-card ones in turns, and one all-reduce's host and device µs.
+    single-card ones in turns, and one all-reduce's host and device µs;
+50. DW1, on D's group (``dist_wbell_phases``): ``partition_wbell(thermal2,
+    4)`` built globally and per shard (host seconds; the per-shard build's
+    planes are the global build's), and for each shard r of 4, K7 over
+    shard r's row layout, its halo group slabs cut from the whole internal
+    x (``halo.cut_halo_rows``, no traffic), equal to its rows of the whole
+    matrix's K7 product bit for bit, and K8 at k = 4 over the shard's tier
+    plan (holding the shard's K7 layout) to its rows of the whole K8
+    product;
+51. DW2, ``dist_wbell_cg_solve`` (Jacobi, a seeded b) and
+    ``dist_wbell_cg_solve_multi`` (k = 4, K8) on thermal2 through one NCCL
+    rank, each held beside ``wbell_cg_solve`` / ``wbell_cg_solve_multi``
+    (iterations within 1 %, x within 1e-4), with K7's and K8's launches,
+    the collectives (two all-reduces an iteration, the one all-gather at
+    the boundary) and the row layouts built (none) read around the first
+    run, and µs per iteration of both in turns;
+52. DW3, ``make_dist_ir_df64_solver`` (Jacobi, two seeded b) and
+    ``make_dist_ir_df64_solver_multi`` (k = 4) on thermal2 over DW2's
+    partition, each to a TRUE relres ≤ 1.5e-6 in fp64, their outer cycles,
+    inner iterations and seconds beside HP's single-card figures;
+53. CLI, after the group is destroyed: ``python -m cgx_torch`` in
+    subprocesses: ``solve --poisson 128x128x128 --format stencil`` (K2's
+    iterations in process), ``solve --input`` NF's thermal2 bundle under
+    Jacobi, ``bench`` of the 128³ stencil (one JSON line on the route
+    ``select_backend`` gives in process), ``info``, each exiting 0, and
+    ``solve --devices 2``, which exits non-zero and names torchrun.  Each
+    of DW1–DW3 and CLI prints its seconds.
 
 The launch counters are set to 0 just before each of the paths 4, 6, 7,
-W3–W4, M2–M5, B1–B4, X1–X4, S1, S2, S4, E1–E5, SR, CH, HP, CK, PF and
-D1–D3 and read just after it (K1's entry gives SR's and CH's as
+W3–W4, M2–M5, B1–B4, X1–X4, S1, S2, S4, E1–E5, SR, CH, HP, CK, PF,
+D1–D3, DW2 and DW3 and read just after it (K1's entry gives SR's and CH's as
 ``solver_launches``; HP's, CK's and PF's launches are the keys
 ``hp_launches``, ``ck_launches`` and ``pf_launches`` of K1's, K2's, K3's,
 K4's, K7's and K8's entries; D's are ``dist_launches`` on the K3 A/B and
-K5 A/B entries, with ``dist_us_per_iter`` beside ``single_us_per_iter``).  The line before the last
+K5 A/B entries, with ``dist_us_per_iter`` beside ``single_us_per_iter``,
+and DW2's and DW3's ``dist_launches`` on K7's and K8's, with DW2's µs per
+iteration).  The line before the last
 is a JSON object describing each kernel, with its bound (the larger of
 its bytes, each input read once and each output written once, over 3.35
 TB/s, and its operations over 67 TFLOP/s fp32, or 989 TFLOP/s on the
@@ -337,6 +365,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -480,11 +509,18 @@ def device_ms(fn, calls: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = device_us(prof, lambda key: True)[0]
+    # A session now and then records no kernel at all; such a session is
+    # run again, and three empty sessions fail the smoke.
+    for session in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = device_us(prof, lambda key: True)[0]
+        if us > 0:
+            break
+        print(f"device_ms: profiler session {session} recorded no device "
+              f"time", file=sys.stderr)
     check(us > 0, "device_ms: the profiler recorded no device time")
     return us / calls / 1e3
 
@@ -3911,7 +3947,9 @@ def accuracy_phases(dev, card, thermal, dias):
     in rpq on the 160³ stencil) against their monolithic solves, after a
     preemption, and across backends.  ``thermal``
     is W1's ``(a, op, plan)``.  Returns each phase's launches of the
-    kernels it drove."""
+    kernels it drove, HP's single-card refinement figures at thermal2
+    (``HP_figures``: outer cycles, inner iterations, ms) and the path of
+    NF's thermal2 bundle, kept for the CLI phase (``NF_bundle``)."""
     import cgx_torch
     from cgx_torch.io import native_format as nf
     from cgx_torch.io.suitesparse import standin
@@ -4064,6 +4102,8 @@ def accuracy_phases(dev, card, thermal, dias):
               f"loop's {info['relres']:.3e}), {ms:.1f} ms per right-hand "
               f"side")
         check(rel_ <= 1.5e-6, f"HP thermal2 {nm}: true relres {rel_}")
+        launches.setdefault("HP_figures", {})[nm] = (
+            info["outer"], info["inner_iterations"], ms)
     print(f"HP IR-df64 thermal2: operator build (df64 ELL + WBELL) "
           f"{t_build:.2f} s on the host; K7 {k7_ir} launches in the first "
           f"solve, {launches['HP_k7']} in both")
@@ -4133,7 +4173,7 @@ def accuracy_phases(dev, card, thermal, dias):
     op2, _ = nf.load_df64_operator(path, device=dev)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
-    os.remove(path)
+    launches["NF_bundle"] = path          # kept for the CLI phase
     del op
     kw.wbell_resident_launches = 0
     res_p, info_p = cgx_torch.make_ir_df64_solver(
@@ -4194,6 +4234,8 @@ def accuracy_phases(dev, card, thermal, dias):
           f"launches, K7 {kw.wbell_resident_launches}")
     check(all(r <= 1.5e-6 for r in rels), f"HP multi: true relres {rels}")
     check(launches["HP_k8"] > 0, "HP multi: K8 was not launched")
+    launches["HP_figures"][f"k={K_MULTI}"] = (
+        info_k["outer"], info_k["inner_iterations"], ms_k)
     del op2, solve_k, solve_th, a_hp, a64
     print(f"HP multi: {time.perf_counter() - t_phase:.1f} s")
 
@@ -4447,7 +4489,8 @@ def dist_phases(dev, card, dias):
     against the plain versions (x', r', p' bit for bit, the fp64 sums to
     1e-12).  D6, times: the distributed K3 and K5 iterations against the
     single-card ones, CUDA events around whole solves in turns.  Returns
-    the extra keys of the K3 and K5 entries."""
+    the extra keys of the K3 and K5 entries and the row mesh, whose group
+    the DW phases go on using."""
     import torch.distributed as dist
 
     import cgx_torch
@@ -4677,7 +4720,6 @@ def dist_phases(dev, card, dias):
     print(f"[{card}] D6 one NCCL all-reduce of 2 doubles (one rank): "
           f"host {ar_host:.2f} us a call, device {ar_dev:.2f} us a call "
           f"(queued events); two an iteration")
-    dist.destroy_process_group()
     print(f"D: {time.perf_counter() - t_phase:.1f} s")
 
     def keys(kernel, t, err, **more):
@@ -4692,7 +4734,333 @@ def dist_phases(dev, card, dias):
     return {"fused_kernel_a": keys("k3_a", k3_t, errs["k3_a"], **dia7),
             "fused_kernel_b": keys("k3_b", k3_t, errs["k3_b"], **dia7),
             "fused_multi_a": keys("k5_a", k5_t, errs["k5_a"]),
-            "fused_multi_b": keys("k5_b", k5_t, errs["k5_b"])}
+            "fused_multi_b": keys("k5_b", k5_t, errs["k5_b"])}, mesh
+
+
+DW_SHARDS = 4            # shards of DW1's shard products
+
+
+def dist_wbell_phases(dev, card, thermal, mesh, hp_figures):
+    """DW1–DW3: the WBELL engine on row-group shards and the df64
+    refinement across ranks (``cgx_torch.dist.wbell``, ``.hp``) at the
+    thermal2 stand-in's full size, on D's NCCL group of one rank.
+
+    DW1: ``partition_wbell(thermal2, 4)`` built both ways (host seconds),
+    the per-shard build's planes the global build's; for each shard r of
+    4, K7 over shard r's row layout with its halo group slabs cut from the
+    whole internal x (no traffic) equals its rows of the whole matrix's K7
+    product bit for bit, and K8 at k = 4 over the shard's tier plan (which
+    holds the shard's K7 layout) its rows of the whole K8 product.  DW2,
+    the paths as a user drives them: ``dist_wbell_cg_solve`` (Jacobi, a
+    seeded b) and ``dist_wbell_cg_solve_multi`` (k = 4, K8) held beside
+    ``wbell_cg_solve`` and ``wbell_cg_solve_multi`` (iterations within 1 %,
+    x within 1e-4), K7's and K8's launches and the collectives counted
+    around the first distributed run, µs per iteration of both in turns.
+    DW3, ``make_dist_ir_df64_solver`` (two seeded b) and its multi-RHS form
+    (k = 4) to a TRUE relres ≤ 1.5e-6 in fp64, beside HP's single-card
+    figures.  Returns the extra keys of K7's and K8's entries."""
+    import cgx_torch
+    from cgx_torch.dist import halo
+    from cgx_torch.dist import hp as dhp
+    from cgx_torch.dist import wbell as dw
+    from cgx_torch.kernels import wbell as kw
+    from cgx_torch.sparse import wbell as sw
+
+    a, op = thermal
+    n = a.shape[0]
+    a64 = torch.sparse_csr_tensor(a.indptr, a.col_indices, a.values.double(),
+                                  size=a.shape)
+
+    def relres64(b, x):
+        """TRUE ‖b − A·x‖/‖b‖ in fp64 on the card (b, x any dtype)."""
+        b = torch.as_tensor(b).to(dev).double()
+        r = b - (a64 @ x.to(dev).double()[:, None])[:, 0]
+        return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+
+    # -- DW1. the shard products ---------------------------------------------
+    t_phase = time.perf_counter()
+    parts = {}
+    for per_shard in (False, True):
+        t0 = time.perf_counter()
+        parts[per_shard] = (dw.partition_wbell(a, DW_SHARDS,
+                                               per_shard=per_shard),
+                            time.perf_counter() - t0)
+    (part, t_g), (part_s, t_s) = parts[False], parts[True]
+    same_planes = all(
+        getattr(part, f) == getattr(part_s, f)
+        for f in ("gs", "halo_lo", "halo_hi", "nt_local", "ng_real"))
+    for d in range(DW_SHARDS):
+        kg = np.abs(part.values[d]).reshape(len(part.values[d]), -1).any(1)
+        ks = np.abs(part_s.values[d]).reshape(len(part_s.values[d]),
+                                              -1).any(1)
+        same_planes = same_planes and all(
+            np.array_equal(getattr(part, f)[d][kg], getattr(part_s, f)[d][ks])
+            for f in ("values", "lc", "p_og", "p_ga"))
+    print(f"DW1 partition_wbell(thermal2, {DW_SHARDS}) on the host: global "
+          f"build {t_g:.1f} s, per-shard build {t_s:.1f} s; gs {part.gs} "
+          f"groups, halos {part.halo_lo}/{part.halo_hi} groups, nt_local "
+          f"{part.nt_local}, {part.values.shape[1]} planes a shard; the "
+          f"per-shard build's planes are the global build's: {same_planes}")
+    check(same_planes, "DW1: the per-shard build's planes differ")
+    del parts, part_s
+    xs = seeded_block(n, 4, SEED + 53, dev)
+    xo = torch.stack([op.to_internal(xs[:, c]) for c in range(4)])
+    plan = kw.build_tier_plan(op)
+    y7 = kw.wbell_spmm(op, xo[:1])
+    y8 = kw.wbell_spmm_tiered(plan, xo)
+    xp = torch.stack([part.to_internal(xs[:, c]) for c in range(4)])
+    gs = part.gs
+    for r in range(DW_SHARDS):
+        t0 = time.perf_counter()
+        mem0 = torch.cuda.memory_allocated(dev)
+        loc = part.local(r, dev)
+        tiers = dw._local_tiers(part, loc)
+        torch.cuda.synchronize()
+        t_loc = time.perf_counter() - t0
+        held = (torch.cuda.memory_allocated(dev) - mem0) / 1e6
+        plans = part._cache[("tier_plans",)]
+        kept_off = sum(v[r].nbytes for v in (
+            part.values, part.lc, part.p_og, part.p_ga, plans.values,
+            plans.lc, plans.packed, plans.origin)) / 1e6
+        x_ext = halo.cut_halo_rows(xp.movedim(0, 1), r, DW_SHARDS,
+                                   part.halo_lo, part.halo_hi).movedim(1, 0)
+        y7r = dw.local_wbell_product(loc, x_ext[:1])
+        y8r = dw.local_wbell_product(loc, x_ext, tiers)
+        torch.cuda.synchronize()
+        rows = slice(r * gs, (r + 1) * gs)
+        s7 = torch.equal(y7r, y7[:, rows])
+        s8 = torch.equal(y8r, y8[:, rows])
+        print(f"DW1 shard {r} of {DW_SHARDS} ({loc.rows.nnz} nonzeros, "
+              f"its row layout and tier plan on the card in {t_loc:.2f} s, "
+              f"holding {held:.1f} MB there (its planes and tier plan, "
+              f"{kept_off:.1f} MB, stay on the host), "
+              f"the plan holding the shard's K7 layout: "
+              f"{tiers.rows is loc.rows}): K7 k=1 equal to the whole "
+              f"product's rows bit for bit: {s7}; K8 k=4: {s8}")
+        check(s7 and s8 and tiers.rows is loc.rows,
+              f"DW1 shard {r}: the shard product differs from the whole")
+        # Only the layout and the diagonal go to the card: the storages
+        # they hold, each in a block that the caching allocator may leave
+        # up to 1 MiB larger than asked (it splits off no smaller rest).
+        stores = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                  for t in (loc.diag, *(getattr(loc.rows, f) for f in (
+                      "values", "cols", "sbase", "rowmap", "sptr", "x0",
+                      "xlen")))}
+        check(held * 1e6 <= sum(stores.values()) + len(stores) * 2**20,
+              f"DW1 shard {r}: {held:.1f} MB on the card for a "
+              f"{sum(stores.values()) / 1e6:.1f} MB layout and diagonal")
+        # The next shard's bytes are read from a card without this one's.
+        part._cache.clear()
+        del loc, tiers
+    del part, plan, xp, y7, y8
+    print(f"DW1: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- DW2. the distributed WBELL solves -----------------------------------
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    part1 = dw.partition_wbell(a, mesh.size)
+    dw._local_tiers(part1, part1.local(mesh.rank, dev))
+    torch.cuda.synchronize()
+    print(f"DW2 partition_wbell(thermal2, {mesh.size}) with its shard's row "
+          f"layout and tier plan: {time.perf_counter() - t0:.1f} s")
+    b = seeded_rhs(n, dev)
+    B = seeded_block(n, K_MULTI, SEED + 59, dev)
+    plan = kw.build_tier_plan(op)
+    cases = {
+        "k=1": (lambda: dw.dist_wbell_cg_solve(
+                    part1, b, mesh, tol=TOL, maxiter=MAXIT_WBELL,
+                    preconditioner="jacobi"),
+                lambda: cgx_torch.wbell_cg_solve(
+                    op, b, tol=TOL, maxiter=MAXIT_WBELL, jacobi=True)),
+        f"k={K_MULTI}": (lambda: dw.dist_wbell_cg_solve_multi(
+                    part1, B, mesh, tol=TOL, maxiter=MAXIT_WBELL,
+                    jacobi=True),
+                lambda: cgx_torch.wbell_cg_solve_multi(
+                    op, B, tol=TOL, maxiter=MAXIT_WBELL, jacobi=True,
+                    tier_plan=plan))}
+    launches = {"k7": 0, "k8": 0}
+    us = {}
+    for label, (dist_run, single_run) in cases.items():
+        multi = label != "k=1"
+        # The path as a user drives it, counted: its launches, collectives
+        # and layout builds read around it alone.
+        kw.wbell_resident_launches = kw.wbell_tiered_launches = 0
+        builds = sw.row_layout_builds
+        halo.reset_counters()
+        out = {}
+        t_d1 = event_ms(lambda: out.setdefault("res", dist_run()))
+        k7, k8 = kw.wbell_resident_launches, kw.wbell_tiered_launches
+        comm = halo.counters()
+        built = sw.row_layout_builds - builds
+        res = out["res"]
+        t_s1 = event_ms(lambda: out.setdefault("ref", single_run()))
+        ref = out["ref"]
+        # Then one more of each, in reverse order (dist, single, single,
+        # dist): ms per solve by events.
+        t_s2, t_d2 = event_ms(single_run), event_ms(dist_run)
+        its = res.iterations.reshape(-1).tolist()
+        its_s = ref.iterations.reshape(-1).tolist()
+        top = max(its)
+        launches["k7"] += k7
+        launches["k8"] += k8
+        t_d, t_s = (t_d1 + t_d2) / 2, (t_s1 + t_s2) / 2
+        us[label] = (t_d / top * 1e3, t_s / max(its_s) * 1e3)
+        xd, xr = res.x.reshape(n, -1), ref.x.reshape(n, -1)
+        cols = range(xd.shape[1])
+        dx = max(rel(xd[:, j], xr[:, j]) for j in cols)
+        rr = [relres64(B[:, j] if multi else b, xd[:, j]) for j in cols]
+        print(f"[{card}] DW2 dist_wbell_cg_solve{'_multi' if multi else ''}"
+              f" thermal2 {label} Jacobi (one NCCL rank): iterations {its} "
+              f"(single card {its_s}), converged "
+              f"{res.converged.reshape(-1).tolist()}, |x - x_single| / "
+              f"|x_single| {dx:.3e}, true relres (fp64) "
+              f"{[f'{v:.3e}' for v in rr]}; {us[label][0]:.2f} us/iter "
+              f"distributed, {us[label][1]:.2f} single card "
+              f"({t_d / t_s:.3f}x; events around each solve, in turns "
+              f"dist, single, single, dist)")
+        print(f"DW2 {label} counted run: K7 {k7} and K8 {k8} launches; "
+              f"collectives {comm} ({(comm['all_reduces'] - (1 if multi else 2)) / top:.2f} "
+              f"all-reduces an iteration, the one all-gather at the "
+              f"boundary); row layouts built {built}")
+        check(bool(torch.all(res.converged)), f"DW2 {label} did not converge")
+        check(all(abs(i - j) <= 0.01 * j for i, j in zip(its, its_s)),
+              f"DW2 {label}: iterations {its} vs {its_s}")
+        check(dx <= 1e-4, f"DW2 {label}: x differs by {dx}")
+        check(built == 0, f"DW2 {label}: the solve built a row layout")
+        # Two all-reduces an iteration after one (the block) or two (the
+        # threshold, r₀'s dots) before the loop; one all-gather, at the
+        # boundary; no message on one rank.
+        check(comm == {"sends": 0, "recvs": 0,
+                       "all_reduces": (1 if multi else 2) + 2 * top,
+                       "all_gathers": 1},
+              f"DW2 {label}: collectives {comm} for {top} iterations")
+        check((k7, k8) == ((0, top) if multi else (top, 0)),
+              f"DW2 {label}: K7 {k7}, K8 {k8} launches for {top} "
+              f"iterations")
+    del plan, part1, cases
+    print(f"DW2: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- DW3. the df64 refinement across ranks -------------------------------
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 61)
+    t0 = time.perf_counter()
+    solve = dhp.make_dist_ir_df64_solver(a, mesh, tol=TOL,
+                                         inner_precond="jacobi")
+    solve_k = dhp.make_dist_ir_df64_solver_multi(a, mesh, tol=TOL)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    kw.wbell_resident_launches = kw.wbell_tiered_launches = 0
+    runs = {}
+    for name in ("b1", "b2"):
+        bv = rng.standard_normal(n)
+        t0 = time.perf_counter()
+        res, info = solve(bv)
+        runs[name] = (bv, res, info, time.perf_counter() - t0)
+    Bk = rng.standard_normal((n, K_MULTI))
+    t0 = time.perf_counter()
+    res_k, info_k = solve_k(Bk)
+    t_k = time.perf_counter() - t0
+    k7, k8 = kw.wbell_resident_launches, kw.wbell_tiered_launches
+    launches["k7"] += k7
+    launches["k8"] += k8
+    hp_single = " ".join(f"{nm} {o} outer/{i} inner/{ms / 1e3:.2f} s"
+                         for nm, (o, i, ms) in hp_figures.items())
+    for name, (bv, res, info, secs) in runs.items():
+        rr = relres64(torch.from_numpy(bv), res.x.hi.double() + res.x.lo.double())
+        print(f"[{card}] DW3 dist IR-df64 thermal2 Jacobi {name} (one NCCL "
+              f"rank): {info['outer']} outer cycles, "
+              f"{info['inner_iterations']} inner iterations, true relres "
+              f"(fp64) {rr:.3e} (the loop's {info['relres']:.3e}), "
+              f"{secs:.2f} s")
+        check(rr <= 1.5e-6, f"DW3 {name}: true relres {rr}")
+    rrk = [relres64(torch.from_numpy(Bk[:, j]),
+                    res_k.x.hi[:, j].double() + res_k.x.lo[:, j].double())
+           for j in range(K_MULTI)]
+    print(f"[{card}] DW3 dist IR-df64 multi thermal2 k={K_MULTI} (K8): "
+          f"{info_k['outer']} outer cycles, {info_k['inner_iterations']} "
+          f"inner iterations, true relres (fp64) per column "
+          f"{[f'{v:.3e}' for v in rrk]}, {t_k:.2f} s; K7 {k7} and K8 {k8} "
+          f"launches in DW3; host build of both solvers {t_build:.1f} s; "
+          f"HP's single-card figures (other seeded b): {hp_single}")
+    check(all(v <= 1.5e-6 for v in rrk), f"DW3 multi: true relres {rrk}")
+    check(k7 > 0 and k8 > 0, f"DW3: K7 {k7}, K8 {k8} launches")
+    print(f"DW3: {time.perf_counter() - t_phase:.1f} s")
+    return {"wbell_resident": {"dist_launches": launches["k7"],
+                               "dist_us_per_iter": us["k=1"][0],
+                               "single_us_per_iter": us["k=1"][1]},
+            "wbell_tiered": {"dist_launches": launches["k8"],
+                             "dist_us_per_iter": us[f"k={K_MULTI}"][0],
+                             "single_us_per_iter": us[f"k={K_MULTI}"][1]}}
+
+
+def cli_phase(dev, card, bundle, k2_its):
+    """CLI: ``python -m cgx_torch`` in subprocesses on the card, each
+    printing its seconds: ``solve`` of the 128³ stencil (its iterations
+    K2's count in process, ``k2_its``), ``solve --input`` of NF's thermal2
+    bundle under Jacobi (the df64 refinement it implies), ``bench`` of the
+    128³ stencil (one JSON line, its path ``select_backend``'s), ``info``,
+    and ``solve --devices 2``, which must exit non-zero and name torchrun
+    (one card holds one NCCL rank).  Removes the bundle."""
+    import cgx_torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t_phase = time.perf_counter()
+
+    def start(args):
+        return subprocess.Popen([sys.executable, "-m", "cgx_torch"] + args,
+                                cwd=root, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def finish(proc, args, t0):
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"CLI {' '.join(args)}: no exit within 600 s")
+        print(f"CLI python -m cgx_torch {' '.join(args)}: exit "
+              f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+              f"stderr tail {err.strip().splitlines()[-3:]}")
+        return proc.returncode, out, err
+
+    def run(args):
+        return finish(start(args), args, time.perf_counter())
+
+    grid = "x".join(str(d) for d in N128)
+    # Two that barely touch the card run beside the others.
+    side = {}
+    for args in (["info"], ["solve", "--poisson", grid, "--devices", "2"]):
+        side[args[0]] = (start(args), args, time.perf_counter())
+    code, _, err = run(["solve", "--poisson", grid, "--format", "stencil"])
+    m = re.search(r"iterations=(\d+) converged=True", err)
+    check(code == 0 and m is not None and int(m.group(1)) == k2_its,
+          f"CLI solve {grid}: exit {code}, want iterations={k2_its} "
+          f"converged=True (K2's count in process; the JAX package's 300)")
+    code, _, err = run(["solve", "--input", bundle, "--precond", "jacobi"])
+    os.remove(bundle)
+    check(code == 0 and "format=ir_df64 (prebuilt bundle)" in err
+          and "converged=True" in err and "true_relres=" in err,
+          f"CLI solve --input bundle: exit {code}")
+    code, out, err = run(["bench", "--poisson", grid, "--format", "stencil",
+                          "--reps", "3"])
+    lines = out.strip().splitlines()
+    rec = json.loads(lines[-1]) if code == 0 and lines else {}
+    a128 = cgx_torch.poisson3d_stencil(*N128)
+    route = cgx_torch.select_backend(
+        a128, torch.ones(a128.shape[0], device=dev))
+    print(f"[{card}] CLI bench {grid} stencil: {json.dumps(rec)}")
+    check(len(lines) == 1 and rec.get("path") == route == "resident_stencil"
+          and rec.get("device") == "cuda" and rec.get("converged") is True
+          and rec.get("iterations") == k2_its,
+          f"CLI bench: exit {code}, {lines}, in-process route {route}")
+    code, out, err = finish(*side["info"])
+    check(code == 0 and torch.cuda.get_device_name(0) in out,
+          f"CLI info: exit {code}")
+    code, out, err = finish(*side["solve"])
+    check(code != 0 and "torchrun --nproc-per-node 2" in err,
+          f"CLI solve --devices 2 on one card: exit {code}, {err[-300:]}")
+    print(f"CLI: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -5130,11 +5498,18 @@ def main() -> None:
     e_entries = proto_phases(dev, card, thermal, bells)
     del bells
     acc_launches = accuracy_phases(dev, card, thermal, dias)
-    del thermal
+    thermal = thermal[:2]           # the CSR and its WBELL operator, for DW
     x_entries = mixed_phases(dev, card, dias, fp64_solution, relres_of)
     s_entries = sr_phases(dev, card, dias, fp64_solution, relres_of)
     solver_launches = solver_phases(dev, card, dias, fp64_solution)
-    d_extra = dist_phases(dev, card, dias)
+    d_extra, mesh = dist_phases(dev, card, dias)
+    dw_extra = dist_wbell_phases(dev, card, thermal, mesh,
+                                 acc_launches["HP_figures"])
+    from torch import distributed as torch_dist
+    torch_dist.destroy_process_group()
+    del thermal, mesh
+    cli_phase(dev, card, acc_launches["NF_bundle"],
+              int(results[0][3].iterations))
 
     # Bounds: each input read once, each output written once (4 B words),
     # against the operations at the fp32 rate.  K1: x in, y out, 2 flops
@@ -5201,12 +5576,13 @@ def main() -> None:
         "wbell_resident": {"hp_launches": acc_launches["HP_k7"]},
         "wbell_tiered": {"hp_launches": acc_launches["HP_k8"]},
     }
-    for kernel, keys in d_extra.items():
+    for kernel, keys in list(d_extra.items()) + list(dw_extra.items()):
         extra.setdefault(kernel, {}).update(keys)
     for e in report["kernels"]:
         e.update(extra.get(e["name"], {}))
     check(all(any(e["name"] == nm for e in report["kernels"])
-              for nm in extra), "a kernel of HP, CK, PF or D has no entry")
+              for nm in extra), "a kernel of HP, CK, PF, D or DW has no "
+          "entry")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
