@@ -540,7 +540,7 @@ def cmd_bench(args):
     if isinstance(a, IRDF64Operator):
         raise SystemExit("cgx_torch bench does not take ir_df64 bundles; "
                          "use `python -m cgx_torch solve --input "
-                         "bundle.npz`")
+                         "bundle.npz` or python -m cgx_torch.bench.df64_rhs")
     m = _make_precond(args, a)
     backend = cgx_torch.select_backend(a, b, m)
 

@@ -77,21 +77,24 @@ class GridMesh:
 
 
 def make_grid_mesh(r: int, c: Optional[int] = None,
-                   device=None) -> GridMesh:
-    """The r × r grid over the default group (whose size must be r²).
-    Creates every grid row's and column's subgroup, on every rank in the
-    same order."""
+                   device=None) -> Optional[GridMesh]:
+    """The r × r grid over the first r² ranks of the default group, as
+    the JAX package's grid takes the first r² devices.  Every rank of the
+    group calls it (it creates every grid row's and column's subgroup, on
+    every rank in the same order); a rank past the grid gets ``None``."""
     c = c or r
     if c != r:
         raise ValueError("make_grid_mesh: square grids only")
     if not dist.is_initialized():
         raise RuntimeError("make_grid_mesh: no process group")
     size, rank = dist.get_world_size(), dist.get_rank()
-    if size != r * r:
+    if size < r * r:
         raise ValueError(f"make_grid_mesh: a {r} x {r} grid on {size} "
                          f"processes")
     rows = [dist.new_group([a * r + b for b in range(r)]) for a in range(r)]
     cols = [dist.new_group([a * r + b for a in range(r)]) for b in range(r)]
+    if rank >= r * r:
+        return None
     a, b = divmod(rank, r)
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())

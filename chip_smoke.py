@@ -327,17 +327,46 @@ Phases (any failed check exits nonzero, and no result line is printed):
     Jacobi, ``bench`` of the 128³ stencil (one JSON line on the route
     ``select_backend`` gives in process), ``info``, each exiting 0, and
     ``solve --devices 2``, which exits non-zero and names torchrun.  Each
-    of DW1–DW3 and CLI prints its seconds.
+    of DW1–DW3 and CLI prints its seconds;
+54. SC, on D's group before it is destroyed (``cgx_torch.bench.scaling``):
+    ``comm_report`` of ``partition_dia`` of DIA-7 192³ at 4 shards under
+    the card's ``LinkModel``, ``measure_scaling`` of DIA-7 128³ at the
+    group's one rank (its iterations ``cg_solve``'s), and the one-rank
+    costs ``LinkModel`` quotes: an all-reduce of one fp64 word and an
+    all-gather of 4 KiB, CUDA events around 100 calls;
+55. SS, the SuiteSparse sweep (``cgx_torch.bench.suitesparse``):
+    ``bench_matrix("thermal2", W1's CSR, fmt="auto", reps=1)``, all four
+    preconditioners (none, jacobi and block_jacobi on WBELL through K7,
+    ic0 on CSR; each converged, none with an error; the jacobi row's
+    iterations those of one unchunked ``cg_solve``), then ``main(["--names",
+    "bcsstk17", "--escalate-df64", "--reps", "1"])``, each fp32 row that
+    did not converge carrying a df64 record at TRUE relres ≤ 1.5·tol;
+56. DR, the warm df64 run per right-hand side
+    (``cgx_torch.bench.df64_rhs``): ``python -m cgx_torch.bench.df64_rhs
+    --name thermal2 --rhs 1`` (its build and TRUE-residual checks) in a
+    child process beside SS, then in process ``--multi 4 --operator`` NF's
+    bundle (K8), and ``--multi 4 --operator`` a missing path, which exits
+    non-zero;
+57. RF, the reference program's full-size problem
+    (``cgx_torch.bench.reference_full``): ``build_full_problem()`` (n =
+    52,269, 345 diagonals), 31 fp32 updates on the card against a float64
+    numpy CG of the same updates (rel < 1e-3), and ``main`` against the
+    compiled reference where its tree is present;
+58. GE, ``cgx_torch.graft_entry.entry()`` on the card: converged, ‖r‖ ≤
+    1e-5·‖b‖.  Each of SC, SS, DR, RF and GE prints its seconds, and the
+    whole run's seconds are printed last on the standard error.
 
 The launch counters are set to 0 just before each of the paths 4, 6, 7,
 W3–W4, M2–M5, B1–B4, X1–X4, S1, S2, S4, E1–E5, SR, CH, HP, CK, PF,
-D1–D3, DW2 and DW3 and read just after it (K1's entry gives SR's and CH's as
+D1–D3, DW2, DW3, SS's thermal2 sweep and DR's ``--multi`` run, and read
+just after it (K1's entry gives SR's and CH's as
 ``solver_launches``; HP's, CK's and PF's launches are the keys
 ``hp_launches``, ``ck_launches`` and ``pf_launches`` of K1's, K2's, K3's,
 K4's, K7's and K8's entries; D's are ``dist_launches`` on the K3 A/B and
 K5 A/B entries, with ``dist_us_per_iter`` beside ``single_us_per_iter``,
 and DW2's and DW3's ``dist_launches`` on K7's and K8's, with DW2's µs per
-iteration).  The line before the last
+iteration; SS's are ``ss_launches`` on K7's entry, DR's ``dr_launches``
+on K8's).  The line before the last
 is a JSON object describing each kernel, with its bound (the larger of
 its bytes, each input read once and each output written once, over 3.35
 TB/s, and its operations over 67 TFLOP/s fp32, or 989 TFLOP/s on the
@@ -4993,6 +5022,286 @@ def dist_wbell_phases(dev, card, thermal, mesh, hp_figures):
                              "single_us_per_iter": us[f"k={K_MULTI}"][1]}}
 
 
+SS_NAMES = "bcsstk17"      # SS's escalation sweep (main's --names)
+LINK_SLAB = 1024           # floats of SC's one-rank all-gather (4 KiB)
+RF_ITERS = 30              # the reference's run-full count (31 updates)
+
+
+def scaling_phase(dev, card, dias, mesh):
+    """SC, on D's NCCL group of one rank: ``comm_report`` of
+    ``partition_dia`` of DIA-7 192³ at 4 shards under the card's
+    ``LinkModel``; ``measure_scaling`` of DIA-7 128³ at the group's one
+    rank, its iterations those of ``cg_solve`` with the same Jacobi and b;
+    and the costs ``LinkModel`` quotes: one all-reduce of an fp64 word and
+    one all-gather of a 4 KiB slab at one rank, CUDA events around 100
+    calls, beside the host's µs per call."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    import cgx_torch
+    from cgx_torch.bench.scaling import LinkModel, comm_report, measure_scaling
+    from cgx_torch.dist.partition import partition_dia
+
+    t_phase = time.perf_counter()
+    link = LinkModel()
+    t0 = time.perf_counter()
+    part = partition_dia(dias["DIA-7 192^3"], 4)
+    rep = comm_report(part, link=link)
+    print(f"[{card}] SC comm_report(DIA-7 192^3, 4 shards) under "
+          f"{dc.asdict(link)} (partition {time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(rep)}")
+    check(rep["mode"] == "halo" and 0 < rep["predicted_efficiency"] <= 1
+          and rep["comm_bytes_per_iter_per_chip"]
+          == (part.halo_lo + part.halo_hi) * 4, f"SC: comm_report {rep}")
+    del part
+
+    a128 = scaled_dia7(N128, dev)
+    b128 = seeded_rhs(a128.shape[0], dev)
+    out = measure_scaling(a128, b128, [1], tol=TOL, maxiter=SOLVER_MAXIT,
+                          device=dev)
+    ref = cgx_torch.cg_solve(a128, b128, tol=TOL, maxiter=SOLVER_MAXIT,
+                             preconditioner=cgx_torch.JacobiPrecond
+                             .from_matrix(a128))
+    print(f"[{card}] SC measure_scaling(DIA-7 128^3, [1]) at one NCCL rank: "
+          f"{json.dumps(out)}; cg_solve {int(ref.iterations)} iterations")
+    check(len(out) == 1 and out[0]["devices"] == 1
+          and out[0]["efficiency"] == 1.0 and out[0]["seconds"] > 0
+          and out[0]["iterations"] == int(ref.iterations),
+          f"SC: measure_scaling {out}")
+    del a128, b128
+
+    word = torch.zeros(1, dtype=torch.float64, device=dev)
+    slab = torch.ones(LINK_SLAB, dtype=torch.float32, device=dev)
+    gathered = torch.empty(LINK_SLAB * mesh.size, dtype=torch.float32,
+                           device=dev)
+    costs = {}
+    for label, fn in (
+            ("all_reduce", lambda: dist.all_reduce(word, group=mesh.group)),
+            ("all_gather", lambda: dist.all_gather_into_tensor(
+                gathered, slab, group=mesh.group))):
+        fn()
+        torch.cuda.synchronize()
+        ev = statistics.median(event_ms(fn, inner=100) for _ in range(5))
+        costs[label] = (ev * 1e3, host_us(fn))
+    print(f"[{card}] SC one NCCL rank: an all-reduce of one fp64 word "
+          f"{costs['all_reduce'][0]:.2f} us by events (host "
+          f"{costs['all_reduce'][1]:.2f} us a call), an all-gather of "
+          f"{LINK_SLAB * 4} B {costs['all_gather'][0]:.2f} us (host "
+          f"{costs['all_gather'][1]:.2f}); LinkModel quotes "
+          f"psum_latency_us {link.psum_latency_us}, ici_latency_us "
+          f"{link.ici_latency_us}")
+    check(all(v[0] > 0 for v in costs.values()), f"SC: costs {costs}")
+    print(f"SC: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _quiet_main(main, argv):
+    """``(exit code, stdout)`` of a harness's ``main(argv)`` run in
+    process; its stderr passes through."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            code = main(argv)
+        except SystemExit as e:
+            code = e.code
+    return code, buf.getvalue()
+
+
+def sweep_phases(dev, card, thermal, bundle):
+    """SS and DR.  SS, the SuiteSparse sweep as a user drives it:
+    ``bench_matrix("thermal2", a, True, fmt="auto", reps=1)`` on W1's CSR
+    ``a``, all four preconditioners, K7's launches read around it (the
+    none, jacobi and block_jacobi rows on WBELL, ic0 on CSR; every row
+    converged, no error); the jacobi row's iterations equal to one
+    unchunked ``cg_solve`` over the same WBELL operator (W1's: the build
+    is deterministic), preconditioner and right-hand side; then
+    ``main(["--names", "bcsstk17", "--escalate-df64", "--reps", "1"])``
+    in process, each fp32 row that did not converge carrying a df64 record
+    at TRUE relres ≤ 1.5·tol.  DR, the warm df64 run: ``python -m
+    cgx_torch.bench.df64_rhs --name thermal2 --rhs 1`` (its build and its
+    own TRUE-residual checks) in a child process that runs beside SS (its
+    host build, ~40 s, overlaps SS's host-bound loops; SS's times are
+    taken beside it), then in process ``--multi 4 --operator`` NF's
+    thermal2 bundle with K8's launches read around it, and ``--multi 4
+    --operator`` a missing path, which must exit non-zero.  Returns K7's
+    and K8's launches."""
+    import cgx_torch
+    from cgx_torch.bench import df64_rhs, suitesparse
+    from cgx_torch.kernels import wbell as kw
+
+    a, op = thermal
+    root = os.path.dirname(os.path.abspath(__file__))
+    dr_args = ["--name", "thermal2", "--rhs", "1"]
+    t_dr = time.perf_counter()
+    dr_child = subprocess.Popen(
+        [sys.executable, "-m", "cgx_torch.bench.df64_rhs"] + dr_args,
+        cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    t_phase = time.perf_counter()
+    kw.wbell_resident_launches = 0
+    rows = suitesparse.bench_matrix("thermal2", a, True, fmt="auto", reps=1,
+                                    device=dev)
+    torch.cuda.synchronize()
+    k7 = kw.wbell_resident_launches
+    for rec in rows:
+        print(f"[{card}] SS {json.dumps(rec)}")
+    by = {r["precond"]: r for r in rows}
+    print(f"SS thermal2 launches: K7 {k7}")
+    check(k7 > 0, "SS: the WBELL rows did not launch K7")
+    check([by[p]["format"] for p in ("none", "jacobi", "block_jacobi",
+                                     "ic0")] == ["wbell"] * 3 + ["csr"],
+          f"SS: formats {[(p, r['format']) for p, r in by.items()]}")
+    check(all("error" not in r and r["converged"] and r["relres"] <= TOL
+              for r in rows), "SS: a thermal2 row failed or missed tol")
+    # The jacobi row's own right-hand side (its last timed one) through
+    # one unchunked cg_solve over the same WBELL operator and Jacobi.
+    base = np.random.default_rng(0).standard_normal(a.shape[0]).astype(
+        np.float32)
+    b_row = op.to_internal(torch.from_numpy(
+        (base * (1 + 0.001 * 1)).astype(np.float32)).to(dev))
+    m = cgx_torch.JacobiPrecond(inv_diag=op.to_internal(
+        (1.0 / a.diagonal()).to(torch.float32)))
+    ref = cgx_torch.cg_solve(op, b_row, tol=TOL, maxiter=8000,
+                             preconditioner=m)
+    print(f"SS jacobi row {by['jacobi']['iterations']} iterations, one "
+          f"unchunked cg_solve {int(ref.iterations)}")
+    check(by["jacobi"]["iterations"] == int(ref.iterations),
+          "SS: the chunked jacobi row left the unchunked trajectory")
+    del ref, b_row, m
+
+    t0 = time.perf_counter()
+    code, out = _quiet_main(suitesparse.main,
+                            ["--names", SS_NAMES, "--escalate-df64",
+                             "--reps", "1"])
+    recs = [json.loads(line) for line in out.strip().splitlines()]
+    for rec in recs:
+        print(f"[{card}] SS {json.dumps(rec)}")
+    print(f"SS main --names {SS_NAMES} --escalate-df64: exit {code} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(code == 0 and len(recs) == 4, f"SS main: exit {code}, "
+          f"{len(recs)} rows")
+    for rec in recs:
+        if rec.get("converged", True):
+            continue
+        d = rec.get("df64", {})
+        check(d.get("true_relres", np.inf) <= 1.5 * TOL,
+              f"SS: {rec['precond']}'s df64 record {d}")
+    print(f"SS: {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    try:
+        out, err = dr_child.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        dr_child.kill()
+        dr_child.communicate()
+        fail("DR df64_rhs --name thermal2: no exit within 600 s")
+    code = dr_child.returncode
+    lines = out.strip().splitlines()
+    rec = json.loads(lines[-1]) if code == 0 and lines else {}
+    print(f"[{card}] DR python -m cgx_torch.bench.df64_rhs "
+          f"{' '.join(dr_args)} (beside SS, {time.perf_counter() - t_dr:.1f} "
+          f"s from its start): exit {code}; {json.dumps(rec)}; stderr tail "
+          f"{err.strip().splitlines()[-3:]}")
+    check(code == 0 and rec.get("outer", 0) > 0
+          and max(rec["relres"] + [rec["first_rhs_relres"]]) <= 1.5 * TOL,
+          f"DR --name thermal2: exit {code}")
+    kw.wbell_tiered_launches = 0
+    code, out = _quiet_main(df64_rhs.main,
+                            ["--name", "thermal2", "--rhs", "1", "--multi",
+                             str(K_MULTI), "--operator", bundle])
+    torch.cuda.synchronize()
+    k8 = kw.wbell_tiered_launches
+    rec = json.loads(out.strip().splitlines()[-1]) if code == 0 else {}
+    print(f"[{card}] DR {json.dumps(rec)}")
+    print(f"DR --multi {K_MULTI} launches: K8 {k8}")
+    check(code == 0 and rec.get("operator") == "loaded" and k8 > 0
+          and max(np.ravel(rec["relres"] + [rec["first_rhs_relres"]]))
+          <= 1.5 * TOL, f"DR --multi {K_MULTI}: exit {code}, K8 {k8}")
+    missing = os.path.join(os.path.dirname(bundle), "missing_bundle.npz")
+    code, _ = _quiet_main(df64_rhs.main, ["--multi", str(K_MULTI),
+                                          "--operator", missing])
+    print(f"DR --multi --operator <missing>: exit {code!r}")
+    check(code not in (0, None) and not os.path.exists(missing),
+          "DR: --multi with a missing --operator did not exit non-zero")
+    print(f"DR: {time.perf_counter() - t_phase:.1f} s")
+    return k7, k8
+
+
+def numpy_cg(a64, b, updates):
+    """``updates`` CG updates in fp64 from x = 0 (the port's recurrence),
+    by scipy's CSR product on the host."""
+    x = np.zeros_like(b)
+    r = b.copy()
+    p = r.copy()
+    rz = r @ r
+    for _ in range(updates):
+        q = a64 @ p
+        alpha = rz / (p @ q)
+        x += alpha * p
+        r -= alpha * q
+        rz_new = r @ r
+        p = r + (rz_new / rz) * p
+        rz = rz_new
+    return x
+
+
+def reference_phase(dev, card):
+    """RF: ``build_full_problem()`` (n = 52,269, 345 diagonals), the port's
+    solve (``solve_full``: 31 updates in fp32 on the card) against a
+    float64 numpy CG of the same 31 updates, at ``main``'s bar (rel <
+    1e-3), and ``main`` itself where the reference tree is present."""
+    from cgx_torch.bench import reference_full
+    from cgx_torch.sparse.types import csr_from_scipy
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    s, b = reference_full.build_full_problem()
+    a = csr_from_scipy(s, device=dev)
+    n_diags = len(np.unique(s.indices - np.repeat(np.arange(s.shape[0]),
+                                                  np.diff(s.indptr))))
+    print(f"RF build_full_problem: n {s.shape[0]}, {s.nnz} nonzeros, "
+          f"{n_diags} diagonals, built in {time.perf_counter() - t0:.1f} s")
+    check(s.shape[0] == 52269 and n_diags == 345, "RF: the problem's shape")
+    x, t_cold, t_warm = reference_full.solve_full(a, b, RF_ITERS,
+                                                  device=dev)
+    x64 = numpy_cg(s, b, RF_ITERS + 1)
+    rel_dx = float(np.linalg.norm(x - x64) / np.linalg.norm(x64))
+    print(f"[{card}] RF {RF_ITERS + 1} updates: fp32 on the card "
+          f"{t_warm * 1e3:.2f} ms (first {t_cold * 1e3:.2f} ms, events), "
+          f"against fp64 numpy CG: rel {rel_dx:.3e} (bar 1e-3)")
+    check(np.isfinite(x).all() and rel_dx < 1e-3, f"RF: rel {rel_dx}")
+    if os.path.exists(os.path.join(reference_full.REF_DIR, "cg.c")):
+        code, out = _quiet_main(reference_full.main, [])
+        print(f"[{card}] RF main: exit {code}, {out.strip()[-300:]}")
+        check(code == 0, f"RF main: exit {code}")
+    else:
+        print(f"RF main: the reference binary was not built (no tree at "
+              f"{reference_full.REF_DIR})")
+    print(f"RF: {time.perf_counter() - t_phase:.1f} s")
+
+
+def entry_phase(dev, card):
+    """GE: ``cgx_torch.graft_entry.entry()`` on the card (its default),
+    converged with ‖r‖ ≤ 1e-5·‖b‖."""
+    from cgx_torch.graft_entry import entry
+
+    t_phase = time.perf_counter()
+    fn, args = entry()
+    check(args[0].data.device == dev and args[1].device == dev,
+          "GE: entry() did not build on the card")
+    x, its, rr = fn(*args)
+    torch.cuda.synchronize()
+    bn = float(torch.linalg.vector_norm(args[1]))
+    print(f"GE entry(): {int(its)} iterations, |r| {float(rr) ** 0.5:.3e} "
+          f"(bar 1e-5 * {bn:.3e}), x {tuple(x.shape)}")
+    check(int(its) < 200 and float(rr) ** 0.5 <= 1e-5 * bn
+          and bool(torch.isfinite(x).all()), "GE: entry() did not converge")
+    print(f"GE: {time.perf_counter() - t_phase:.1f} s")
+
+
 def cli_phase(dev, card, bundle, k2_its):
     """CLI: ``python -m cgx_torch`` in subprocesses on the card, each
     printing its seconds: ``solve`` of the 128³ stencil (its iterations
@@ -5505,9 +5814,15 @@ def main() -> None:
     d_extra, mesh = dist_phases(dev, card, dias)
     dw_extra = dist_wbell_phases(dev, card, thermal, mesh,
                                  acc_launches["HP_figures"])
+    scaling_phase(dev, card, dias, mesh)
     from torch import distributed as torch_dist
     torch_dist.destroy_process_group()
-    del thermal, mesh
+    del mesh
+    ss_k7, dr_k8 = sweep_phases(dev, card, thermal,
+                                acc_launches["NF_bundle"])
+    del thermal
+    reference_phase(dev, card)
+    entry_phase(dev, card)
     cli_phase(dev, card, acc_launches["NF_bundle"],
               int(results[0][3].iterations))
 
@@ -5573,8 +5888,10 @@ def main() -> None:
         "fused_kernel_a": {"ck_launches": acc_launches["CK_fused"]},
         "fused_kernel_b": {"ck_launches": acc_launches["CK_fused_b"]},
         "sr_cg": {"ck_launches": acc_launches["CK_sr"]},
-        "wbell_resident": {"hp_launches": acc_launches["HP_k7"]},
-        "wbell_tiered": {"hp_launches": acc_launches["HP_k8"]},
+        "wbell_resident": {"hp_launches": acc_launches["HP_k7"],
+                           "ss_launches": ss_k7},
+        "wbell_tiered": {"hp_launches": acc_launches["HP_k8"],
+                         "dr_launches": dr_k8},
     }
     for kernel, keys in list(d_extra.items()) + list(dw_extra.items()):
         extra.setdefault(kernel, {}).update(keys)

@@ -6,7 +6,8 @@ its default is the card) and compares what they print: the iterations
 (equal in fp64, within 2 in fp32), the residual norms (fp64: the printed
 three digits within 1 %), the routing lines and the legacy-compat dump
 line by line.  ``--devices N`` spawns N gloo ranks on the port's side and
-runs on N virtual devices on cgx's.
+runs on N virtual devices on cgx's; the ``--devices 8`` cases share one
+spawn (``eight_ranks``).
 
 ``test_select_backend_routes_fused_on_tpu`` has no counterpart here: it
 simulates cgx's TPU routing rule (``jax.default_backend() == "tpu"``), and
@@ -130,12 +131,58 @@ def test_bench_json_reports_path(capsys):
     assert _bench_json(theirs[1])["path"] in ("xla", "padded")
 
 
-def test_solve_distributed(capsys):
+# The ``--devices 8`` cases: cgx runs each argv on 8 virtual devices; the
+# port's sides run in one spawn of 8 gloo ranks for the module (each rank
+# runs every case's ``cmd_solve`` in turn, as ``main`` runs one).
+# ``main``'s own spawn is held by the ``--devices 4`` tests below.
+_EIGHT_RANKS = {
+    "distributed": ["solve", "--poisson", "16x16", "--format", "dia",
+                    "--dtype", "f64", "--precond", "jacobi", "--devices",
+                    "8", "--tol", "1e-8"],
+    "method_flag": ["solve", "--poisson", "16x16", "--format", "dia",
+                    "--dtype", "f64", "--precond", "jacobi", "--devices",
+                    "8", "--tol", "1e-8", "--method", "single_reduction"],
+    "fused_stencil": ["solve", "--poisson", "16x6x7", "--format", "stencil",
+                      "--dtype", "f32", "--devices", "8", "--tol", "1e-5"],
+    "ic0_sweep": ["solve", "--poisson", "16x16", "--format", "dia",
+                  "--dtype", "f64", "--precond", "ic0-sweep", "--sweeps",
+                  "2", "--devices", "8", "--tol", "1e-8"],
+}
+
+
+def _rank_solves(mesh, argvs):
+    """One spawned rank: every case's ``solve`` on ``mesh``, in order."""
+    from cgx_torch.cli import _rank_solve
+
+    return [_rank_solve(mesh, argv) for argv in argvs]
+
+
+@pytest.fixture(scope="module")
+def eight_ranks():
+    """Rank 0's ``(exit code, stdout, stderr)`` of each ``--devices 8``
+    case (``--device cpu`` appended), as ``main`` returns and prints
+    them."""
+    from cgx_torch.dist import run_spmd
+
+    names = list(_EIGHT_RANKS)
+    argvs = [_EIGHT_RANKS[k] + ["--device", "cpu"] for k in names]
+    got = run_spmd(_rank_solves, 8, argvs)[0]
+    return {k: (code or 0, out, err) for k, (code, out, err)
+            in zip(names, got)}
+
+
+def both_on_eight(name, capsys, eight_ranks):
+    """``(cgx's (code, out, err), the port's)`` of a ``--devices 8``
+    case."""
+    from cgx.cli import main as cgx_main
+
+    return _run(cgx_main, _EIGHT_RANKS[name], capsys), eight_ranks[name]
+
+
+def test_solve_distributed(capsys, eight_ranks):
     """``--devices 8``: 8 gloo ranks (cgx: 8 virtual devices), the same
     iterations in fp64."""
-    theirs, mine = both(["solve", "--poisson", "16x16", "--format", "dia",
-                         "--dtype", "f64", "--precond", "jacobi",
-                         "--devices", "8", "--tol", "1e-8"], capsys)
+    theirs, mine = both_on_eight("distributed", capsys, eight_ranks)
     _same_solve(theirs, mine)
 
 
@@ -211,29 +258,21 @@ def test_native_format_roundtrip(tmp_path):
             np.testing.assert_allclose(b2.numpy(), b)
 
 
-def test_solve_distributed_method_flag(capsys):
+def test_solve_distributed_method_flag(capsys, eight_ranks):
     """``--method single_reduction`` across 8 ranks."""
-    theirs, mine = both(["solve", "--poisson", "16x16", "--format", "dia",
-                         "--dtype", "f64", "--precond", "jacobi",
-                         "--devices", "8", "--tol", "1e-8", "--method",
-                         "single_reduction"], capsys)
+    theirs, mine = both_on_eight("method_flag", capsys, eight_ranks)
     _same_solve(theirs, mine)
 
 
-def test_solve_distributed_fused_stencil(capsys):
+def test_solve_distributed_fused_stencil(capsys, eight_ranks):
     """A stencil across 8 ranks takes the fused engine (K3's plain
     version on the CPU)."""
-    theirs, mine = both(["solve", "--poisson", "16x6x7", "--format",
-                         "stencil", "--dtype", "f32", "--devices", "8",
-                         "--tol", "1e-5"], capsys)
+    theirs, mine = both_on_eight("fused_stencil", capsys, eight_ranks)
     _same_solve(theirs, mine, fp64=False)
 
 
-def test_solve_distributed_ic0_sweep(capsys):
-    theirs, mine = both(["solve", "--poisson", "16x16", "--format", "dia",
-                         "--dtype", "f64", "--precond", "ic0-sweep",
-                         "--sweeps", "2", "--devices", "8", "--tol", "1e-8"],
-                        capsys)
+def test_solve_distributed_ic0_sweep(capsys, eight_ranks):
+    theirs, mine = both_on_eight("ic0_sweep", capsys, eight_ranks)
     _same_solve(theirs, mine)
 
 
@@ -495,6 +534,31 @@ def test_solve_bundle_rejects_devices(tmp_path, capsys):
     save_df64_operator(p, op)
     with pytest.raises(SystemExit, match="single-device"):
         main(["solve", "--input", p, "--devices", "4", "--device", "cpu"])
+
+
+def test_bench_rejects_df64_bundle(tmp_path):
+    """``bench --input`` of a df64 bundle exits with cgx's reason, and each
+    package names its own per-RHS harness (``python -m
+    cgx_torch.bench.df64_rhs`` for the port)."""
+    import scipy.sparse as sp
+
+    import cgx
+    from cgx.cli import main as cgx_main
+    from cgx.io.native_format import save_df64_operator
+    from cgx.solve.hp import IRDF64Operator, df64_ell_from_csr
+    from cgx_torch.cli import main
+
+    a = sp.random(400, 400, density=0.02, random_state=3, format="csr")
+    a = sp.csr_matrix((a + a.T) + sp.eye(400) * 10.0)
+    op = IRDF64Operator(a_hp=df64_ell_from_csr(a), wb=cgx.wbell_from_csr(a),
+                        diag=a.diagonal())
+    p = str(tmp_path / "op.npz")
+    save_df64_operator(p, op)
+    with pytest.raises(SystemExit, match=r"python -m cgx\.bench\.df64_rhs"):
+        cgx_main(["bench", "--input", p])
+    with pytest.raises(SystemExit, match=r"does not take ir_df64 bundles.*"
+                       r"python -m cgx_torch\.bench\.df64_rhs"):
+        main(["bench", "--input", p, "--device", "cpu"])
 
 
 # -- the port's own boundaries ------------------------------------------------
