@@ -13,6 +13,7 @@ from cgx_torch.kernels.fused_engine import FusedCG
 from cgx_torch.kernels.fused_onepass import OnePassCG
 from cgx_torch.solve.cg import CGResult
 from cgx_torch.sparse.stencil import GeneralStencil3D, Stencil2D, Stencil3D
+from cgx_torch.utils.profiling import PREP, annotate
 
 __all__ = ["stencil_taps", "supports", "build_fused", "fused_stencil_cg"]
 
@@ -71,6 +72,7 @@ def fused_stencil_cg(s, b, x0=None, *, tol: float = 1e-6, atol: float = 0.0,
     or, with ``one_pass``, the one-pass engine; semantics of
     ``cg_solve(s, b, x0, ..., track_history=...)`` (exact sums rounded to
     fp32)."""
-    eng = build_fused(s, b.dtype, one_pass=one_pass)
+    with annotate(PREP):
+        eng = build_fused(s, b.dtype, one_pass=one_pass)
     return eng.solve(b, x0, tol=tol, atol=atol, maxiter=maxiter,
                      track_history=track_history)

@@ -14,7 +14,8 @@ agree with ``spmv(d, ·)``, exactly when those slots hold zeros
 (:func:`wrap_entries_zero`), so the kernel routes refuse other data.
 
 The checks run with torch on the data's device and read back one boolean
-each (the JAX package copies the whole data to the host with numpy).
+each (the JAX package copies the whole data to the host with numpy); each
+is a ``cgx.check.*`` span (:mod:`cgx_torch.utils.profiling`).
 Torch data is never traced, so the ``*_or_none`` checks never return
 None here; the names stay for callers of both packages.
 
@@ -35,6 +36,8 @@ from cgx_torch.ops.blas import safe_recip
 from cgx_torch.ops.spmv import shifted
 from cgx_torch.solve.cg import CGResult
 from cgx_torch.sparse.types import DIAMatrix
+from cgx_torch.utils.profiling import (CHECK_SYM, CHECK_WRAP, PREP, PREP_DIA,
+                                       RESULT, annotate, host_read)
 
 __all__ = ["fused_dia_cg", "supports_dia", "dia_pattern_dims",
            "dia_engine_spec", "wrap_entries_zero",
@@ -122,42 +125,46 @@ def wrap_entries_zero(d) -> bool:
 def wrap_entries_zero_or_none(d):
     """:func:`wrap_entries_zero`, computed on the data's device with one
     boolean read back; False when the offsets do not decompose."""
-    spec = dia_engine_spec(d)
-    if spec is None:
-        return False
-    nx, ny, nz, taps = spec
-    n = d.shape[0]
-    data = d.data
-    i = torch.arange(n, device=data.device)
-    kz = i % nz
-    jy = (i // nz) % ny
-    bad = torch.zeros((), dtype=torch.bool, device=data.device)
-    for t, ((dx, dy, dk), off) in enumerate(zip(taps, map(int, d.offsets))):
-        if dy == 0 and dk == 0:
-            continue                    # pure x-plane shift: no wrap
-        cross = ((jy + dy < 0) | (jy + dy >= ny)
-                 | (kz + dk < 0) | (kz + dk >= nz))
-        in_range = (i + off >= 0) & (i + off < n)
-        bad = bad | torch.any((torch.abs(data[t]) > 0) & cross & in_range)
-    return not bool(bad)
+    with annotate(CHECK_WRAP):
+        spec = dia_engine_spec(d)
+        if spec is None:
+            return False
+        nx, ny, nz, taps = spec
+        n = d.shape[0]
+        data = d.data
+        i = torch.arange(n, device=data.device)
+        kz = i % nz
+        jy = (i // nz) % ny
+        bad = torch.zeros((), dtype=torch.bool, device=data.device)
+        for t, ((dx, dy, dk), off) in enumerate(zip(taps,
+                                                    map(int, d.offsets))):
+            if dy == 0 and dk == 0:
+                continue                    # pure x-plane shift: no wrap
+            cross = ((jy + dy < 0) | (jy + dy >= ny)
+                     | (kz + dk < 0) | (kz + dk >= nz))
+            in_range = (i + off >= 0) & (i + off < n)
+            bad = bad | torch.any((torch.abs(data[t]) > 0) & cross
+                                  & in_range)
+        return not host_read(bad, bool)
 
 
 def data_symmetric_or_none(d):
     """True iff the DIA data describes a symmetric matrix: the offset set
     is sign-symmetric and ``data[-off][i] == data[+off][i-off]`` for each
     pair, to ``np.allclose(rtol=1e-6, atol=0)``; one boolean read back."""
-    offs = tuple(map(int, d.offsets))
-    if any(-off not in offs for off in offs):
-        return False
-    data = d.data
-    ok = torch.ones((), dtype=torch.bool, device=data.device)
-    for t_pos, off in enumerate(offs):
-        if off <= 0:
-            continue
-        a = data[offs.index(-off)][off:]
-        b = data[t_pos][:-off]
-        ok = ok & torch.all(torch.abs(a - b) <= 1e-6 * torch.abs(b))
-    return bool(ok)
+    with annotate(CHECK_SYM):
+        offs = tuple(map(int, d.offsets))
+        if any(-off not in offs for off in offs):
+            return False
+        data = d.data
+        ok = torch.ones((), dtype=torch.bool, device=data.device)
+        for t_pos, off in enumerate(offs):
+            if off <= 0:
+                continue
+            a = data[offs.index(-off)][off:]
+            b = data[t_pos][:-off]
+            ok = ok & torch.all(torch.abs(a - b) <= 1e-6 * torch.abs(b))
+        return host_read(ok, bool)
 
 
 # bf16_plane_speedup's constants are the TPU's (a v5e's ~100 MB of usable
@@ -220,8 +227,14 @@ def dia_prep(d, dtype, *, jacobi: bool = True, inv_diag=None,
     the diagonal plus one tap per ``±off`` pair.  When ``diag·inv_diag``
     is 1 the scaled diagonal is kept as the constant tap 1.0 instead of a
     plane.  ``assume_symmetric`` overrides the symmetry check (``False``
-    forces the all-planes operator).
+    forces the all-planes operator).  A ``cgx.prep.dia`` span.
     """
+    with annotate(PREP_DIA):
+        return _dia_prep(d, dtype, jacobi, inv_diag, allow_sym,
+                         assume_symmetric)
+
+
+def _dia_prep(d, dtype, jacobi, inv_diag, allow_sym, assume_symmetric):
     spec = dia_engine_spec(d)
     if spec is None or not supports_dia(d):
         raise ValueError(
@@ -261,9 +274,9 @@ def dia_prep(d, dtype, *, jacobi: bool = True, inv_diag=None,
             diag64 = d.data[diag_idx].to(torch.float64)
             inv64 = (torch.as_tensor(inv_diag, device=dev).to(torch.float64)
                      if inv_diag is not None else safe_recip(diag64))
-            unit_diag = torch.allclose(diag64 * inv64,
-                                       torch.ones_like(diag64),
-                                       rtol=1e-6, atol=1e-6)
+            unit_diag = host_read(torch.isclose(
+                diag64 * inv64, torch.ones_like(diag64), rtol=1e-6,
+                atol=1e-6).all(), bool)
 
     if sym:
         order = ([diag_idx] if diag_idx is not None else []) + \
@@ -368,19 +381,24 @@ def fused_dia_cg(d, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
     converges to the solution of the rounded operator, whose true residual
     plateaus near the planes' rounding (``ir_cg_solve`` removes that).
     """
-    if wrap_entries_zero_or_none(d) is False:
-        raise ValueError(
-            "fused_dia_cg: DIA data has nonzero entries at x-plane-"
-            "crossing slots (offsets ±1 at the j/k-extremes, ±nz in the "
-            "j-boundary planes); the kernels would compute another "
-            "operator — use cg_solve instead")
-    eng, e, _ = build_fused_dia(d, b.dtype, jacobi=jacobi, inv_diag=inv_diag,
-                                plane_dtype=plane_dtype,
-                                assume_symmetric=assume_symmetric)
-    if e is None:
-        return eng.solve(b, x0, tol=tol, atol=atol, maxiter=maxiter,
-                         track_history=track_history)
-    x0_s = None if x0 is None else x0 * safe_recip(e)
-    res = eng.solve(e * b, x0_s, tol=tol, atol=atol, maxiter=maxiter,
+    with annotate(PREP):
+        if wrap_entries_zero_or_none(d) is False:
+            raise ValueError(
+                "fused_dia_cg: DIA data has nonzero entries at x-plane-"
+                "crossing slots (offsets ±1 at the j/k-extremes, ±nz in the "
+                "j-boundary planes); the kernels would compute another "
+                "operator — use cg_solve instead")
+        eng, e, _ = build_fused_dia(d, b.dtype, jacobi=jacobi,
+                                    inv_diag=inv_diag,
+                                    plane_dtype=plane_dtype,
+                                    assume_symmetric=assume_symmetric)
+        b_s, x0_s = b, x0
+        if e is not None:
+            b_s = e * b
+            x0_s = None if x0 is None else x0 * safe_recip(e)
+    res = eng.solve(b_s, x0_s, tol=tol, atol=atol, maxiter=maxiter,
                     track_history=track_history)
-    return dataclasses.replace(res, x=e * res.x)
+    if e is None:
+        return res
+    with annotate(RESULT):
+        return dataclasses.replace(res, x=e * res.x)

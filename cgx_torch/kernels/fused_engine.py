@@ -85,6 +85,8 @@ from cgx_torch.kernels import _build
 from cgx_torch.ops.spmv import shifted
 from cgx_torch.solve.cg import CGResult
 from cgx_torch.sparse.stencil import _shift
+from cgx_torch.utils.profiling import (ENGINE, PREP, RESULT, annotate,
+                                       host_read)
 
 __all__ = ["FusedCG", "FusedState", "Shard", "tap_matvec", "threshold",
            "plane_tap_arrays", "fused_a_launches", "fused_b_launches",
@@ -726,13 +728,15 @@ class FusedCG:
         x, r, p = state.x, state.r, state.p
         rz, rw = state.rz[0], state.rz[1]
         hist = state.history.clone()
-        k = int(state.k)
-        while k < upto and bool(rw > tol_sq):
-            q, pq, qq = self.kernel_a_reference(p)
-            x, r, p, rz, rw = self.kernel_b_reference(rz, pq, qq, x, r, p, q)
-            k += 1
-            if hist.shape[0]:
-                hist[min(k, hist.shape[0] - 1)] = rw
+        with annotate(ENGINE):
+            k = host_read(state.k, int)
+            while k < upto and host_read(rw > tol_sq, bool):
+                q, pq, qq = self.kernel_a_reference(p)
+                x, r, p, rz, rw = self.kernel_b_reference(rz, pq, qq, x, r,
+                                                          p, q)
+                k += 1
+                if hist.shape[0]:
+                    hist[min(k, hist.shape[0] - 1)] = rw
         return FusedState(x=x, r=r, p=p, rz=torch.stack([rz, rw]),
                           k=torch.tensor(k, dtype=torch.int32,
                                          device=x.device), history=hist)
@@ -740,14 +744,15 @@ class FusedCG:
     def result(self, state: FusedState, tol_sq,
                maxiter: Optional[int] = None) -> CGResult:
         """Package a :class:`CGResult`; the history is padded after the
-        exit with the final value."""
-        hist = state.history
-        if hist.shape[0] > 0 and maxiter is not None:
-            idx = torch.arange(maxiter + 1, device=hist.device)
-            hist = torch.where(idx <= state.k, hist, state.rz[1])
-        return CGResult(x=state.x, iterations=state.k,
-                        residual_norm_sq=state.rz[1],
-                        converged=state.rz[1] <= tol_sq, history=hist)
+        exit with the final value (a ``cgx.result`` span)."""
+        with annotate(RESULT):
+            hist = state.history
+            if hist.shape[0] > 0 and maxiter is not None:
+                idx = torch.arange(maxiter + 1, device=hist.device)
+                hist = torch.where(idx <= state.k, hist, state.rz[1])
+            return CGResult(x=state.x, iterations=state.k,
+                            residual_norm_sq=state.rz[1],
+                            converged=state.rz[1] <= tol_sq, history=hist)
 
     # -- checkpoint interop (flat CGState <-> FusedState) -----------------
 
@@ -795,9 +800,10 @@ class FusedCG:
     def _solve(self, b, x0, tol, atol, maxiter, track_history, kernel_a,
                run) -> CGResult:
         maxiter = int(maxiter)
-        tol_sq = threshold(b, tol, atol, self.weight, self.shard)
-        st = self._init(b, x0, maxiter + 1 if track_history else 0,
-                        kernel_a)
+        with annotate(PREP):
+            tol_sq = threshold(b, tol, atol, self.weight, self.shard)
+            st = self._init(b, x0, maxiter + 1 if track_history else 0,
+                            kernel_a)
         st = run(st, maxiter, tol_sq)
         return self.result(st, tol_sq, maxiter)
 
@@ -924,46 +930,49 @@ class FusedCG:
                   design: int = _REDESIGN) -> FusedState:
         from cgx_torch.kernels.stencil import check_cuda_vector
 
-        lib, ga, gb = self._setup(state.x)
-        dev = state.x.device
-        for v, name in ((state.r, "r"), (state.p, "p")):
-            check_cuda_vector(v, self.n, f"FusedCG state {name}", self.dtype)
-        x, r = state.x.clone(), state.r.clone()
-        sh, pl, sums = self.shard, self.plane, None
-        if sh is not None:
-            # The cross-rank mode: p in the ghost layout, fp64 sums.
-            if design != _REDESIGN or (sh.group is None and sh.size > 1):
-                raise ValueError("FusedCG: a shard runs the redesigned "
-                                 "kernels over its process group")
-            from cgx_torch.dist import halo
+        with annotate(PREP):
+            lib, ga, gb = self._setup(state.x)
+            dev = state.x.device
+            for v, name in ((state.r, "r"), (state.p, "p")):
+                check_cuda_vector(v, self.n, f"FusedCG state {name}",
+                                  self.dtype)
+            x, r = state.x.clone(), state.r.clone()
+            sh, pl, sums = self.shard, self.plane, None
+            if sh is not None:
+                # The cross-rank mode: p in the ghost layout, fp64 sums.
+                if design != _REDESIGN or (sh.group is None and sh.size > 1):
+                    raise ValueError("FusedCG: a shard runs the redesigned "
+                                     "kernels over its process group")
+                from cgx_torch.dist import halo
 
-            p_ext = torch.zeros(self.n + 2 * pl, dtype=self.dtype,
-                                device=dev)
-            p = p_ext[pl:pl + self.n]
-            p.copy_(state.p)
-            sums = torch.zeros(4, dtype=torch.float64, device=dev)
-        else:
-            p = state.p.clone()
-        q = torch.empty_like(x)
-        part_a = torch.empty(2 * ga, dtype=torch.float64, device=dev)
-        part_b = torch.empty(2 * gb, dtype=torch.float64, device=dev)
-        hist = state.history.to(torch.float32).clone()
-        ctl = torch.zeros(16, dtype=torch.int32, device=dev)
-        f = ctl.view(torch.float32)
-        f[_RZ:_RW + 1] = state.rz.to(torch.float32)
-        ctl[_K] = state.k.to(torch.int32)
-        f[_TOL] = torch.as_tensor(tol_sq, dtype=torch.float32, device=dev)
-        ctl[_MAXIT] = min(upto, 2 ** 31 - 1)
-        ctl[_HLEN] = hist.shape[0]
-        hist_or_none = hist if hist.shape[0] else None
-        args_a = self._a_args(p, q, part_a, ga, part_b, gb, ctl,
-                              hist_or_none, design=design, sums=sums)
-        args_b = self._b_args(x, r, p, q, part_a, ga, part_b, gb, ctl,
-                              hist_or_none, design=design, sums=sums)
-        count = design == _REDESIGN
-        # At most upto − k + 1 (A, B) pairs: the last A takes the exit.
-        budget, launched = max(upto, 0) + 1, 0
-        with torch.cuda.device(dev):
+                p_ext = torch.zeros(self.n + 2 * pl, dtype=self.dtype,
+                                    device=dev)
+                p = p_ext[pl:pl + self.n]
+                p.copy_(state.p)
+                sums = torch.zeros(4, dtype=torch.float64, device=dev)
+            else:
+                p = state.p.clone()
+            q = torch.empty_like(x)
+            part_a = torch.empty(2 * ga, dtype=torch.float64, device=dev)
+            part_b = torch.empty(2 * gb, dtype=torch.float64, device=dev)
+            hist = state.history.to(torch.float32).clone()
+            ctl = torch.zeros(16, dtype=torch.int32, device=dev)
+            f = ctl.view(torch.float32)
+            f[_RZ:_RW + 1] = state.rz.to(torch.float32)
+            ctl[_K] = state.k.to(torch.int32)
+            f[_TOL] = torch.as_tensor(tol_sq, dtype=torch.float32,
+                                      device=dev)
+            ctl[_MAXIT] = min(upto, 2 ** 31 - 1)
+            ctl[_HLEN] = hist.shape[0]
+            hist_or_none = hist if hist.shape[0] else None
+            args_a = self._a_args(p, q, part_a, ga, part_b, gb, ctl,
+                                  hist_or_none, design=design, sums=sums)
+            args_b = self._b_args(x, r, p, q, part_a, ga, part_b, gb, ctl,
+                                  hist_or_none, design=design, sums=sums)
+            count = design == _REDESIGN
+            # At most upto − k + 1 (A, B) pairs: the last A takes the exit.
+            budget, launched = max(upto, 0) + 1, 0
+        with annotate(ENGINE), torch.cuda.device(dev):
             while True:
                 chunk = min(CHUNK, budget - launched)
                 for _ in range(chunk):
@@ -978,7 +987,7 @@ class FusedCG:
                     self._launch_b(lib, args_b, count)
                     halo.all_reduce(sums[2:], sh.group)
                 launched += chunk
-                if int(ctl[_DONE]):
+                if host_read(ctl[_DONE], int):
                     break
                 if launched >= budget:
                     raise RuntimeError("FusedCG: the kernels did not reach "

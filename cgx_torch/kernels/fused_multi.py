@@ -67,6 +67,8 @@ from cgx_torch.kernels.fused_engine import (CHUNK, FusedCG, Shard, allsum,
                                             sums64)
 from cgx_torch.ops.blas import safe_recip
 from cgx_torch.solve.cg import CGResult
+from cgx_torch.utils.profiling import (ENGINE, PREP, RESULT, annotate,
+                                       host_read)
 
 __all__ = ["FusedCGMulti", "FusedMultiState", "MarchPlan", "march_plan",
            "march_reference", "thresholds",
@@ -511,25 +513,29 @@ class FusedCGMulti(FusedCG):
         loop with one host read per iteration (any device)."""
         x, r, p = state.x, state.r, state.p
         rz, rw = state.rz[0], state.rz[1]
-        k = int(state.k)
-        while k < upto and bool(torch.any(rw > tol_sq)):
-            q, pq, qq = self.kernel_a_reference(p)
-            x, r, p, rz, rw = self.kernel_b_reference(rz, pq, qq, x, r, p, q)
-            k += 1
+        with annotate(ENGINE):
+            k = host_read(state.k, int)
+            while k < upto and host_read(torch.any(rw > tol_sq), bool):
+                q, pq, qq = self.kernel_a_reference(p)
+                x, r, p, rz, rw = self.kernel_b_reference(rz, pq, qq, x, r,
+                                                          p, q)
+                k += 1
         return FusedMultiState(x=x, r=r, p=p, rz=torch.stack([rz, rw]),
                                k=torch.tensor(k, dtype=torch.int32,
                                               device=x.device))
 
     def result(self, state: FusedMultiState, tol_sq) -> CGResult:
         """Package a :class:`CGResult`: ``x`` is ``(n, k)`` (a view of the
-        ``(k, n)`` block), ``iterations`` the shared count as ``(k,)``."""
+        ``(k, n)`` block), ``iterations`` the shared count as ``(k,)`` (a
+        ``cgx.result`` span)."""
         k = state.x.shape[0]
-        return CGResult(x=state.x.T, iterations=state.k.reshape(1).expand(
-                            k).clone(),
-                        residual_norm_sq=state.rz[1],
-                        converged=state.rz[1] <= tol_sq,
-                        history=torch.zeros(0, dtype=torch.float32,
-                                            device=state.x.device))
+        with annotate(RESULT):
+            return CGResult(x=state.x.T,
+                            iterations=state.k.reshape(1).expand(k).clone(),
+                            residual_norm_sq=state.rz[1],
+                            converged=state.rz[1] <= tol_sq,
+                            history=torch.zeros(0, dtype=torch.float32,
+                                                device=state.x.device))
 
     # -- monolithic solve ---------------------------------------------------
 
@@ -548,8 +554,9 @@ class FusedCGMulti(FusedCG):
                            self.kernel_a_reference, self.run_reference)
 
     def _solve(self, b, x0, tol, atol, maxiter, kernel_a, run) -> CGResult:
-        tol_sq = thresholds(b, tol, atol, self.weight, self.shard)
-        st = self._init(b, x0, kernel_a)
+        with annotate(PREP):
+            tol_sq = thresholds(b, tol, atol, self.weight, self.shard)
+            st = self._init(b, x0, kernel_a)
         st = run(st, int(maxiter), tol_sq)
         return self.result(st, tol_sq)
 
@@ -684,53 +691,55 @@ class FusedCGMulti(FusedCG):
     def _run_cuda(self, state: FusedMultiState, upto: int, tol_sq,
                   design: Optional[int] = None,
                   count: bool = True) -> FusedMultiState:
-        design = self.a_design() if design is None else design
-        lib, ga, gb = self._setup(state.x, design)
-        k, dev = state.x.shape[0], state.x.device
-        for v, name in ((state.r, "r"), (state.p, "p")):
-            if v.shape != state.x.shape or not v.is_contiguous():
-                raise ValueError(f"FusedCGMulti state {name}: expected a "
-                                 f"contiguous block like x")
-        x, r = state.x.clone(), state.r.clone()
-        sh, pl, sums, ldp = self.shard, self.plane, None, None
-        if sh is not None:
-            # The cross-rank mode: P in the ghost layout, fp64 sums.
-            if sh.group is None and sh.size > 1:
-                raise ValueError("FusedCGMulti: a shard runs over its "
-                                 "process group")
-            from cgx_torch.dist import halo
+        with annotate(PREP):
+            design = self.a_design() if design is None else design
+            lib, ga, gb = self._setup(state.x, design)
+            k, dev = state.x.shape[0], state.x.device
+            for v, name in ((state.r, "r"), (state.p, "p")):
+                if v.shape != state.x.shape or not v.is_contiguous():
+                    raise ValueError(f"FusedCGMulti state {name}: expected a "
+                                     f"contiguous block like x")
+            x, r = state.x.clone(), state.r.clone()
+            sh, pl, sums, ldp = self.shard, self.plane, None, None
+            if sh is not None:
+                # The cross-rank mode: P in the ghost layout, fp64 sums.
+                if sh.group is None and sh.size > 1:
+                    raise ValueError("FusedCGMulti: a shard runs over its "
+                                     "process group")
+                from cgx_torch.dist import halo
 
-            p_ext = torch.zeros((k, self.n + 2 * pl), dtype=self.dtype,
-                                device=dev)
-            p_ext[:, pl:pl + self.n] = state.p
-            p, ldp = self._interior(p_ext), p_ext.shape[1]
-            sums = torch.zeros(4 * k, dtype=torch.float64, device=dev)
-        else:
-            p = state.p.clone()
-        q = torch.empty_like(x)
-        part_a = torch.empty(2 * k * ga, dtype=torch.float64, device=dev)
-        part_b = torch.empty(2 * k * gb, dtype=torch.float64, device=dev)
-        ctl, f = self._ctl(k, dev)
-        rz = state.rz.to(torch.float32)
-        tol = torch.as_tensor(tol_sq, dtype=torch.float32,
-                              device=dev).expand(k)
-        self._field(f, _RZ).copy_(rz[0])
-        self._field(f, _RW).copy_(rz[1])
-        self._field(f, _TOL).copy_(tol)
-        upto = min(max(upto, 0), 2 ** 31 - 1)
-        ctl[_IT] = state.k.to(torch.int32)
-        ctl[_MAXIT] = upto
-        # The entry test on the device: no host read before the first chunk.
-        ctl[_DONE] = (~((state.k < upto) & torch.any(rz[1] > tol))).to(
-            torch.int32)
-        args_a = self._a_args(p, q, part_a, ga, ctl, design, ldp=ldp,
-                              sums=sums)
-        args_b = self._b_args(x, r, p, q, part_b, gb, ctl, ldp=ldp,
-                              sums=sums)
-        # At most upto − k (A, B) pairs: B counts the last one and exits
-        # (across ranks the next A takes the exit: one pair more).
-        budget, launched = upto + (sums is not None), 0
-        with torch.cuda.device(dev):
+                p_ext = torch.zeros((k, self.n + 2 * pl), dtype=self.dtype,
+                                    device=dev)
+                p_ext[:, pl:pl + self.n] = state.p
+                p, ldp = self._interior(p_ext), p_ext.shape[1]
+                sums = torch.zeros(4 * k, dtype=torch.float64, device=dev)
+            else:
+                p = state.p.clone()
+            q = torch.empty_like(x)
+            part_a = torch.empty(2 * k * ga, dtype=torch.float64, device=dev)
+            part_b = torch.empty(2 * k * gb, dtype=torch.float64, device=dev)
+            ctl, f = self._ctl(k, dev)
+            rz = state.rz.to(torch.float32)
+            tol = torch.as_tensor(tol_sq, dtype=torch.float32,
+                                  device=dev).expand(k)
+            self._field(f, _RZ).copy_(rz[0])
+            self._field(f, _RW).copy_(rz[1])
+            self._field(f, _TOL).copy_(tol)
+            upto = min(max(upto, 0), 2 ** 31 - 1)
+            ctl[_IT] = state.k.to(torch.int32)
+            ctl[_MAXIT] = upto
+            # The entry test on the device: no host read before the first
+            # chunk.
+            ctl[_DONE] = (~((state.k < upto) & torch.any(rz[1] > tol))).to(
+                torch.int32)
+            args_a = self._a_args(p, q, part_a, ga, ctl, design, ldp=ldp,
+                                  sums=sums)
+            args_b = self._b_args(x, r, p, q, part_b, gb, ctl, ldp=ldp,
+                                  sums=sums)
+            # At most upto − k (A, B) pairs: B counts the last one and exits
+            # (across ranks the next A takes the exit: one pair more).
+            budget, launched = upto + (sums is not None), 0
+        with annotate(ENGINE), torch.cuda.device(dev):
             while True:
                 chunk = min(CHUNK, budget - launched)
                 for _ in range(chunk):
@@ -745,7 +754,7 @@ class FusedCGMulti(FusedCG):
                     self._launch_b(lib, args_b, count)
                     halo.all_reduce(sums[2 * k:], sh.group)
                 launched += chunk
-                if int(ctl[_DONE]):
+                if host_read(ctl[_DONE], int):
                     break
                 if launched >= budget:
                     raise RuntimeError("FusedCGMulti: the kernels did not "
@@ -806,11 +815,12 @@ def fused_stencil_cg_multi(s, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
     """
     if b.dim() != 2:
         raise ValueError(f"expected b of shape (n, k), got {tuple(b.shape)}")
-    spec = stencil_taps(s)
-    if spec is None or not supports(s):
-        raise ValueError("unsupported operator for the fused multi path")
-    nx, ny, nz, taps, coeffs = spec
-    eng = FusedCGMulti(nx, ny, nz, taps, dtype=b.dtype, coeffs=coeffs)
+    with annotate(PREP):
+        spec = stencil_taps(s)
+        if spec is None or not supports(s):
+            raise ValueError("unsupported operator for the fused multi path")
+        nx, ny, nz, taps, coeffs = spec
+        eng = FusedCGMulti(nx, ny, nz, taps, dtype=b.dtype, coeffs=coeffs)
     return eng.solve(b.T, None if x0 is None else x0.T, tol=tol, atol=atol,
                      maxiter=int(maxiter))
 
@@ -826,21 +836,23 @@ def fused_dia_cg_multi(d, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
     shared by the columns."""
     if b.dim() != 2:
         raise ValueError(f"expected b of shape (n, k), got {tuple(b.shape)}")
-    if wrap_entries_zero_or_none(d) is False:
-        raise ValueError("DIA data has nonzero x-plane-crossing entries")
-    nx, ny, nz, taps, coeffs, planes, e, weight, sym = dia_prep(
-        d, b.dtype, jacobi=jacobi, inv_diag=inv_diag,
-        assume_symmetric=assume_symmetric)
-    eng = FusedCGMulti(nx, ny, nz, taps, dtype=b.dtype, coeffs=coeffs,
-                       planes=planes, weight=weight, sym=sym,
-                       plane_dtype=plane_dtype)
-    b2 = b.T
-    x0_2 = None if x0 is None else x0.T
-    if e is not None:
-        b2 = b2 * e[None]
-        if x0_2 is not None:
-            x0_2 = x0_2 * safe_recip(e)[None]
+    with annotate(PREP):
+        if wrap_entries_zero_or_none(d) is False:
+            raise ValueError("DIA data has nonzero x-plane-crossing entries")
+        nx, ny, nz, taps, coeffs, planes, e, weight, sym = dia_prep(
+            d, b.dtype, jacobi=jacobi, inv_diag=inv_diag,
+            assume_symmetric=assume_symmetric)
+        eng = FusedCGMulti(nx, ny, nz, taps, dtype=b.dtype, coeffs=coeffs,
+                           planes=planes, weight=weight, sym=sym,
+                           plane_dtype=plane_dtype)
+        b2 = b.T
+        x0_2 = None if x0 is None else x0.T
+        if e is not None:
+            b2 = b2 * e[None]
+            if x0_2 is not None:
+                x0_2 = x0_2 * safe_recip(e)[None]
     res = eng.solve(b2, x0_2, tol=tol, atol=atol, maxiter=int(maxiter))
-    if e is not None:
-        res = dataclasses.replace(res, x=res.x * e[:, None])
-    return res
+    if e is None:
+        return res
+    with annotate(RESULT):
+        return dataclasses.replace(res, x=res.x * e[:, None])

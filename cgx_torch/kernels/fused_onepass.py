@@ -39,6 +39,7 @@ import torch
 
 from cgx_torch.kernels import _build
 from cgx_torch.kernels.fused_engine import CHUNK, FusedCG, FusedState
+from cgx_torch.utils.profiling import host_read
 
 __all__ = ["OnePassCG", "onepass_launches", "launch_grid", "STREAMS",
            "DEVICE_STREAMS"]
@@ -148,8 +149,8 @@ class OnePassCG(FusedCG):
         """Plain version of :meth:`run`: one host read per iteration."""
         x, r, p, dots = state.x, state.r, state.p, state.rz
         hist = state.history.clone()
-        k = int(state.k)
-        while k < upto and bool(dots[1] > tol_sq):
+        k = host_read(state.k, int)
+        while k < upto and host_read(dots[1] > tol_sq, bool):
             x, r, p, dots = self.kernel_c_reference(dots, x, r, p)
             k += 1
             if hist.shape[0]:
@@ -189,7 +190,7 @@ class OnePassCG(FusedCG):
             grid = self._shape(lib, dev, ga, gb)
         else:
             grid = self._occupancy(lib, dev, _FIRST_DESIGN)
-        k0 = int(state.k)
+        k0 = host_read(state.k, int)
         x = state.x.clone()
         # Iterate k lives in buffer k & 1 of r and of p.
         rb = [torch.empty_like(x), torch.empty_like(x)]
@@ -224,12 +225,12 @@ class OnePassCG(FusedCG):
                     if design == _REDESIGN:
                         onepass_launches += 1
                 launched += chunk
-                if int(ctl[_DONE]):
+                if host_read(ctl[_DONE], int):
                     break
                 if launched >= budget:
                     raise RuntimeError("OnePassCG: the kernel did not reach "
                                        "its exit")
-        k = int(ctl[_K])
+        k = host_read(ctl[_K], int)
         return FusedState(x=x, r=rb[k & 1], p=pb[k & 1],
                           rz=f[_RZ:_QQ + 1].clone(), k=ctl[_K].clone(),
                           history=hist)

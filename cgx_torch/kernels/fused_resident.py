@@ -46,6 +46,8 @@ from cgx_torch.kernels.fused_engine import (plane_tap_arrays, tap_matvec,
                                             threshold)
 from cgx_torch.ops.blas import safe_recip
 from cgx_torch.solve.cg import CGResult
+from cgx_torch.utils.profiling import (ENGINE, PREP, RESULT, annotate,
+                                       host_read)
 
 __all__ = ["resident_cg_call", "resident_cg", "resident_cg_reference",
            "two_phase_reference", "pingpong_step", "pingpong_exit",
@@ -170,41 +172,43 @@ def two_phase_reference(spec, b: torch.Tensor, x0=None, *, planes=None,
         return tap_matvec(nx, ny, nz, taps, coeffs, planes, sym, v)
 
     dtype = b.dtype
-    tol_sq = threshold(b, tol, atol, weight)
-    if resume is None:
-        x = torch.zeros_like(b) if x0 is None else x0.to(dtype).clone()
-        r = b - matvec(x)
-        bufs = [None, None]
-        rz, rw = _sums(r, weight)
-    else:
-        x, r, p_in, rz, rw = resume
-        bufs = [p_in, None]
-        rz = torch.as_tensor(rz, dtype=torch.float32, device=b.device)
-        rw = torch.as_tensor(rw, dtype=torch.float32, device=b.device)
-    beta = None
-    k = 0
-    while k < maxiter and bool(rw > tol_sq):
-        read, write = pingpong_step(k, resume is not None)
-        p_old = r if read == "r" else bufs[read]
-        p_new = p_old if k == 0 else r + beta * p_old
-        bufs[write] = p_new
-        q = matvec(p_new)
-        pq = torch.sum(p_new.to(torch.float32) * q.to(torch.float32))
-        alpha = (rz / pq).to(dtype)
-        x = x + alpha * p_new
-        r = r - alpha * q
-        rz_new, rw = _sums(r, weight)
-        beta = (rz_new / rz).to(dtype)
-        rz = rz_new
-        k += 1
-    src = pingpong_exit(k, resume is not None)
-    if src == "r":
-        bufs[0] = r
-    elif src is not None:
-        bufs[0] = r + beta * bufs[src]
-    return (x, r, bufs[0], torch.tensor(k, dtype=torch.int32,
-                                        device=b.device),
-            torch.stack([rz, rw]), tol_sq)
+    with annotate(PREP):
+        tol_sq = threshold(b, tol, atol, weight)
+        if resume is None:
+            x = torch.zeros_like(b) if x0 is None else x0.to(dtype).clone()
+            r = b - matvec(x)
+            bufs = [None, None]
+            rz, rw = _sums(r, weight)
+        else:
+            x, r, p_in, rz, rw = resume
+            bufs = [p_in, None]
+            rz = torch.as_tensor(rz, dtype=torch.float32, device=b.device)
+            rw = torch.as_tensor(rw, dtype=torch.float32, device=b.device)
+    with annotate(ENGINE):
+        beta = None
+        k = 0
+        while k < maxiter and host_read(rw > tol_sq, bool):
+            read, write = pingpong_step(k, resume is not None)
+            p_old = r if read == "r" else bufs[read]
+            p_new = p_old if k == 0 else r + beta * p_old
+            bufs[write] = p_new
+            q = matvec(p_new)
+            pq = torch.sum(p_new.to(torch.float32) * q.to(torch.float32))
+            alpha = (rz / pq).to(dtype)
+            x = x + alpha * p_new
+            r = r - alpha * q
+            rz_new, rw = _sums(r, weight)
+            beta = (rz_new / rz).to(dtype)
+            rz = rz_new
+            k += 1
+        src = pingpong_exit(k, resume is not None)
+        if src == "r":
+            bufs[0] = r
+        elif src is not None:
+            bufs[0] = r + beta * bufs[src]
+        return (x, r, bufs[0], torch.tensor(k, dtype=torch.int32,
+                                            device=b.device),
+                torch.stack([rz, rw]), tol_sq)
 
 
 def resident_grid(spec, device, *, planes=None, weight=None,
@@ -267,73 +271,82 @@ def _resident_cuda(spec, b, x0, *, planes, weight, sym, tol, atol, maxiter,
     from cgx_torch.kernels import _build
     from cgx_torch.kernels.stencil import check_cuda_vector, tap_arrays
 
-    nx, ny, nz, taps, coeffs = spec
-    n = nx * ny * nz
-    check_cuda_vector(b, n, "resident_cg")
-    if len(taps) > 27:
-        raise ValueError("resident_cg: at most 27 taps")
-    planes_mode = planes is not None or weight is not None
-    n_planes = sum(1 for c in coeffs if c is None)
-    if n_planes and (planes is None or tuple(planes.shape) != (n_planes, n)):
-        raise ValueError(f"resident_cg: need {n_planes} planes of {n} rows")
-    for t, name, ok in ((planes, "planes", (torch.float32, torch.bfloat16)),
-                        (weight, "weight", (torch.float32,))):
-        if t is not None and (t.device != b.device or t.dtype not in ok
-                              or not t.is_contiguous()):
-            raise ValueError(f"resident_cg: {name} must be a contiguous "
-                             f"{' or '.join(map(str, ok))} tensor on "
-                             f"{b.device}")
-    full = _grid(spec, b.device, planes, weight, sym, variant)
-    if grid is None:
-        props = torch.cuda.get_device_properties(b.device)
-        grid = (full if variant != _TWO_PHASE else default_grid(
-            full, n, props.multi_processor_count, props.L2_cache_size,
-            planes_mode))
-    elif not 1 <= int(grid) <= full:
-        raise ValueError(f"resident_cg: grid {grid} outside 1..{full}, the "
-                         f"blocks that fit on the card at once")
-    dev = b.device
-    tol_sq = threshold(b, tol, atol, weight)
-    if resume is None:
-        x = torch.zeros_like(b)
-        if x0 is not None:
-            check_cuda_vector(x0, n, "resident_cg x0")
-            x.copy_(x0)
-        r = b.clone()
-        p = torch.empty_like(b)
-        flag, rz_in = 0, None
-    else:
-        xs, rs, ps, rz_s, rw_s = resume
-        for v, name in ((xs, "x"), (rs, "r"), (ps, "p")):
-            check_cuda_vector(v, n, f"resident_cg resume {name}")
-        x, r, p = xs.clone(), rs.clone(), ps.clone()
-        flag = 1
-        rz_in = torch.stack([
-            torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(())
-            for v in (rz_s, rw_s)])
-    # The two-phase kernel's second p buffer, and q.
-    p1 = torch.empty_like(b) if variant == _TWO_PHASE else None
-    q = torch.empty_like(b)
-    k_out = torch.empty(1, dtype=torch.int32, device=dev)
-    rz_out = torch.empty(2, dtype=torch.float32, device=dev)
-    lib = _build.library()
-    maxit = min(int(maxiter), 2 ** 31 - 1)
-    rz_ptr = None if rz_in is None else rz_in.data_ptr()
-    p1_ptr = None if p1 is None else p1.data_ptr()
-    grid = int(grid)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with annotate(PREP):
+        nx, ny, nz, taps, coeffs = spec
+        n = nx * ny * nz
+        check_cuda_vector(b, n, "resident_cg")
+        if len(taps) > 27:
+            raise ValueError("resident_cg: at most 27 taps")
+        planes_mode = planes is not None or weight is not None
+        n_planes = sum(1 for c in coeffs if c is None)
+        if n_planes and (planes is None
+                         or tuple(planes.shape) != (n_planes, n)):
+            raise ValueError(f"resident_cg: need {n_planes} planes of {n} "
+                             f"rows")
+        for t, name, ok in ((planes, "planes",
+                             (torch.float32, torch.bfloat16)),
+                            (weight, "weight", (torch.float32,))):
+            if t is not None and (t.device != b.device or t.dtype not in ok
+                                  or not t.is_contiguous()):
+                raise ValueError(f"resident_cg: {name} must be a contiguous "
+                                 f"{' or '.join(map(str, ok))} tensor on "
+                                 f"{b.device}")
+        full = _grid(spec, b.device, planes, weight, sym, variant)
+        if grid is None:
+            props = torch.cuda.get_device_properties(b.device)
+            grid = (full if variant != _TWO_PHASE else default_grid(
+                full, n, props.multi_processor_count, props.L2_cache_size,
+                planes_mode))
+        elif not 1 <= int(grid) <= full:
+            raise ValueError(f"resident_cg: grid {grid} outside 1..{full}, "
+                             f"the blocks that fit on the card at once")
+        dev = b.device
+        tol_sq = threshold(b, tol, atol, weight)
+        if resume is None:
+            x = torch.zeros_like(b)
+            if x0 is not None:
+                check_cuda_vector(x0, n, "resident_cg x0")
+                x.copy_(x0)
+            r = b.clone()
+            p = torch.empty_like(b)
+            flag, rz_in = 0, None
+        else:
+            xs, rs, ps, rz_s, rw_s = resume
+            for v, name in ((xs, "x"), (rs, "r"), (ps, "p")):
+                check_cuda_vector(v, n, f"resident_cg resume {name}")
+            x, r, p = xs.clone(), rs.clone(), ps.clone()
+            flag = 1
+            rz_in = torch.stack([
+                torch.as_tensor(v, dtype=torch.float32,
+                                device=dev).reshape(())
+                for v in (rz_s, rw_s)])
+        # The two-phase kernel's second p buffer, and q.
+        p1 = torch.empty_like(b) if variant == _TWO_PHASE else None
+        q = torch.empty_like(b)
+        k_out = torch.empty(1, dtype=torch.int32, device=dev)
+        rz_out = torch.empty(2, dtype=torch.float32, device=dev)
+        lib = _build.library()
+        maxit = min(int(maxiter), 2 ** 31 - 1)
+        rz_ptr = None if rz_in is None else rz_in.data_ptr()
+        p1_ptr = None if p1 is None else p1.data_ptr()
+        grid = int(grid)
         if not planes_mode:
-            partials = torch.empty(2 * grid, dtype=torch.float32, device=dev)
+            partials = torch.empty(2 * grid, dtype=torch.float32,
+                                   device=dev)
             tap_c, coef_c = tap_arrays(taps, coeffs)
+        else:
+            partials = torch.empty(3 * grid, dtype=torch.float32,
+                                   device=dev)
+            tap_c, coef_c, plane_c = plane_tap_arrays(taps, coeffs)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    with annotate(ENGINE), torch.cuda.device(dev):
+        if not planes_mode:
             rc = lib.cgx_resident_cg(
                 x.data_ptr(), r.data_ptr(), p.data_ptr(), p1_ptr,
                 q.data_ptr(), partials.data_ptr(), grid, nx, ny, nz, len(taps),
                 tap_c, coef_c, tol_sq.data_ptr(), maxit, flag, rz_ptr,
                 k_out.data_ptr(), rz_out.data_ptr(), variant, stream)
         else:
-            partials = torch.empty(3 * grid, dtype=torch.float32, device=dev)
-            tap_c, coef_c, plane_c = plane_tap_arrays(taps, coeffs)
             rc = lib.cgx_resident_dia_cg(
                 x.data_ptr(), r.data_ptr(), p.data_ptr(), p1_ptr,
                 q.data_ptr(), partials.data_ptr(), grid, nx, ny, nz, len(taps),
@@ -343,7 +356,7 @@ def _resident_cuda(spec, b, x0, *, planes, weight, sym, tol, atol, maxiter,
                 int(planes is not None and planes.dtype == torch.bfloat16),
                 tol_sq.data_ptr(), maxit, flag, rz_ptr, k_out.data_ptr(),
                 rz_out.data_ptr(), variant, stream)
-    _build.check(rc, "resident_cg cooperative launch")
+        _build.check(rc, "resident_cg cooperative launch")
     if variant == _TWO_PHASE and planes_mode:
         resident_dia_launches += 1
         if planes is not None and planes.dtype == torch.bfloat16:
@@ -411,9 +424,10 @@ def resident_cg(spec, b: torch.Tensor, x0=None, *, planes=None,
     x, _, _, k, rz, tol_sq = resident_cg_call(
         spec, b, x0, planes=planes, weight=weight, sym=sym, tol=tol,
         atol=atol, maxiter=maxiter)
-    return CGResult(x=x, iterations=k, residual_norm_sq=rz[1],
-                    converged=rz[1] <= tol_sq,
-                    history=torch.zeros(0, device=b.device))
+    with annotate(RESULT):
+        return CGResult(x=x, iterations=k, residual_norm_sq=rz[1],
+                        converged=rz[1] <= tol_sq,
+                        history=torch.zeros(0, device=b.device))
 
 
 def resident_supported(a, dtype=torch.float32) -> bool:
@@ -444,9 +458,10 @@ def resident_stencil_cg(s, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
                         maxiter: int = 1000) -> CGResult:
     """Whole-solve CG on a constant-coefficient stencil; semantics of
     :func:`cgx_torch.solve.cg.cg_solve` (no history)."""
-    spec = stencil_taps(s)
-    if spec is None or not supports(s):
-        raise ValueError("resident_stencil_cg: unsupported operator")
+    with annotate(PREP):
+        spec = stencil_taps(s)
+        if spec is None or not supports(s):
+            raise ValueError("resident_stencil_cg: unsupported operator")
     return resident_cg(spec, b, x0, tol=tol, atol=atol, maxiter=int(maxiter))
 
 
@@ -462,21 +477,23 @@ def resident_dia_cg(d, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
     from cgx_torch.kernels.fused_dia_cg import (dia_prep,
                                                 wrap_entries_zero_or_none)
 
-    if wrap_entries_zero_or_none(d) is False:
-        raise ValueError(
-            "resident_dia_cg: DIA data has nonzero x-plane-crossing "
-            "entries — use cg_solve instead")
-    nx, ny, nz, taps, coeffs, planes, e, weight, sym = dia_prep(
-        d, b.dtype, jacobi=jacobi, inv_diag=inv_diag)
-    if plane_dtype is not None:
-        planes = planes.to(plane_dtype)
-    b_s, x0_s = b, x0
-    if e is not None:
-        b_s = e * b
-        x0_s = None if x0 is None else x0 * safe_recip(e)
+    with annotate(PREP):
+        if wrap_entries_zero_or_none(d) is False:
+            raise ValueError(
+                "resident_dia_cg: DIA data has nonzero x-plane-crossing "
+                "entries — use cg_solve instead")
+        nx, ny, nz, taps, coeffs, planes, e, weight, sym = dia_prep(
+            d, b.dtype, jacobi=jacobi, inv_diag=inv_diag)
+        if plane_dtype is not None:
+            planes = planes.to(plane_dtype)
+        b_s, x0_s = b, x0
+        if e is not None:
+            b_s = e * b
+            x0_s = None if x0 is None else x0 * safe_recip(e)
     res = resident_cg((nx, ny, nz, taps, coeffs), b_s, x0_s, planes=planes,
                       weight=weight, sym=sym, tol=tol, atol=atol,
                       maxiter=int(maxiter))
-    if e is not None:
-        res = dataclasses.replace(res, x=e * res.x)
-    return res
+    if e is None:
+        return res
+    with annotate(RESULT):
+        return dataclasses.replace(res, x=e * res.x)

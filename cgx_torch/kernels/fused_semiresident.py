@@ -61,6 +61,7 @@ from cgx_torch.kernels.fused_engine import (FusedCG, exact_sums,
                                             plane_tap_arrays)
 from cgx_torch.kernels.fused_onepass import launch_grid
 from cgx_torch.solve.cg import CGResult
+from cgx_torch.utils.profiling import host_read
 
 __all__ = ["SRGeometry", "make_sr_geometry", "sr_mode", "sr_cg",
            "sr_cg_call", "sr_cg_reference", "sr_stencil_cg", "sr_dia_cg",
@@ -220,14 +221,14 @@ def sr_cg_reference(g: SRGeometry, b: torch.Tensor, *, coeffs,
     rz, rw = rz[0], rz[1]
     maxiter = int(maxiter)
     k = 0
-    if k < maxiter and bool(rw > tol_sq):
+    if k < maxiter and host_read(rw > tol_sq, bool):
         q, pq, qq = eng.kernel_a_reference(p)
         while True:
             if g.mode != "rpq":
                 q = eng.matvec(p)
             x, r, p, rz, rw = eng.kernel_b_reference(rz, pq, qq, x, r, p, q)
             k += 1
-            if not (k < maxiter and bool(rw > tol_sq)):
+            if not (k < maxiter and host_read(rw > tol_sq, bool)):
                 break
             q, pq, qq = eng.kernel_a_reference(p)
     return (x, r, p, torch.tensor(k, dtype=torch.int32, device=b.device),

@@ -67,6 +67,7 @@ from cgx_torch.solve.wbell import (WBellBlockJacobiPrecond, wbell_cg_solve,
                                    wbell_cg_solve_multi)
 from cgx_torch.sparse.types import DIAMatrix
 from cgx_torch.sparse.wbell import WBELLMatrix
+from cgx_torch.utils.profiling import ROUTE, SOLVE, annotate
 
 __all__ = ["auto_solve", "select_backend", "RESIDENT_MIN_ROWS",
            "FUSED_MIN_ROWS"]
@@ -87,23 +88,26 @@ _IR_ROUTES = ("fused_stencil", "fused_dia", "sr_stencil", "sr_dia",
 def select_backend(a, b: torch.Tensor, preconditioner=None) -> str:
     """The backend :func:`auto_solve` would route this problem to:
     ``"wbell"``, ``"resident_stencil"``, ``"resident_dia"`` or ``"xla"``.
-    The device is ``b.device``; the DIA checks run on the data's device."""
-    if isinstance(a, WBELLMatrix):
-        return "wbell"
-    n = b.shape[0]
-    on_cuda = b.device.type == "cuda"
-    jac = isinstance(preconditioner, JacobiPrecond)
-    stencil_ok = (on_cuda and preconditioner is None
-                  and fused_cg.supports(a))
-    # The DIA route also needs zero entries at every x-plane-crossing
-    # slot (fused_dia_cg.wrap_entries_zero); the check reads the data.
-    dia_ok = (on_cuda and (preconditioner is None or jac)
-              and n >= RESIDENT_MIN_ROWS and b.dtype == torch.float32
-              and supports_dia(a) and wrap_entries_zero_or_none(a) is True)
-    if (stencil_ok or dia_ok) and n >= RESIDENT_MIN_ROWS \
-            and resident_supported(a, b.dtype):
-        return "resident_stencil" if stencil_ok else "resident_dia"
-    return "xla"
+    The device is ``b.device``; the DIA checks run on the data's device
+    (a ``cgx.route`` span)."""
+    with annotate(ROUTE):
+        if isinstance(a, WBELLMatrix):
+            return "wbell"
+        n = b.shape[0]
+        on_cuda = b.device.type == "cuda"
+        jac = isinstance(preconditioner, JacobiPrecond)
+        stencil_ok = (on_cuda and preconditioner is None
+                      and fused_cg.supports(a))
+        # The DIA route also needs zero entries at every x-plane-crossing
+        # slot (fused_dia_cg.wrap_entries_zero); the check reads the data.
+        dia_ok = (on_cuda and (preconditioner is None or jac)
+                  and n >= RESIDENT_MIN_ROWS and b.dtype == torch.float32
+                  and supports_dia(a)
+                  and wrap_entries_zero_or_none(a) is True)
+        if (stencil_ok or dia_ok) and n >= RESIDENT_MIN_ROWS \
+                and resident_supported(a, b.dtype):
+            return "resident_stencil" if stencil_ok else "resident_dia"
+        return "xla"
 
 
 def auto_solve(
@@ -126,7 +130,18 @@ def auto_solve(
     ``JacobiPrecond``, a ``PolynomialPrecond`` (its ``steps`` and
     ``omega`` over the matrix diagonal), a ``WBellBlockJacobiPrecond``,
     ``"block_jacobi"`` or ``"poly"``; anything else raises ``ValueError``.
+
+    The call is a ``cgx.solve`` span (:mod:`cgx_torch.utils.profiling`).
     """
+    with annotate(SOLVE):
+        return _auto_solve(a, b, x0, tol=tol, atol=atol, maxiter=maxiter,
+                           preconditioner=preconditioner,
+                           track_history=track_history, backend=backend,
+                           mixed_precision=mixed_precision)
+
+
+def _auto_solve(a, b, x0, *, tol, atol, maxiter, preconditioner,
+                track_history, backend, mixed_precision) -> CGResult:
     if b.dim() == 2:
         if isinstance(a, WBELLMatrix):
             return _wbell_solve(wbell_cg_solve_multi, a, b, x0,

@@ -41,6 +41,8 @@ from cgx_torch.ops import blas
 from cgx_torch.ops.spmv import spmm
 from cgx_torch.solve.cg import CGResult, _as_apply, _tol_sq
 from cgx_torch.solve.precond import JacobiPrecond
+from cgx_torch.utils.profiling import (ENGINE, PREP, RESULT, ROUTE, annotate,
+                                       host_read)
 
 __all__ = ["cg_solve_multi", "block_cg_solve", "FUSED_MIN_ROWS"]
 
@@ -97,12 +99,14 @@ def _sequential_fused_multi(kind, a, b, x0, *, tol, atol, maxiter,
                              atol=atol, maxiter=maxiter, jacobi=jacobi,
                              inv_diag=invd, assume_symmetric=sym)
                 for j in range(b.shape[1])]
-    return CGResult(
-        x=torch.stack([c.x for c in cols], dim=1),
-        iterations=torch.stack([c.iterations for c in cols]),
-        residual_norm_sq=torch.stack([c.residual_norm_sq for c in cols]),
-        converged=torch.stack([c.converged for c in cols]),
-        history=torch.stack([c.history for c in cols]))
+    with annotate(RESULT):
+        return CGResult(
+            x=torch.stack([c.x for c in cols], dim=1),
+            iterations=torch.stack([c.iterations for c in cols]),
+            residual_norm_sq=torch.stack([c.residual_norm_sq
+                                          for c in cols]),
+            converged=torch.stack([c.converged for c in cols]),
+            history=torch.stack([c.history for c in cols]))
 
 
 def _columns(fn, v: torch.Tensor) -> torch.Tensor:
@@ -124,43 +128,46 @@ def _batched_cg(a, b, x0, *, tol, atol, maxiter, preconditioner) -> CGResult:
     def precond(r):
         return _columns(apply_m, r) if apply_m is not None else r
 
-    bt = b.T.contiguous()
-    k = bt.shape[0]
-    if x0 is None:
-        x, r = torch.zeros_like(bt), bt
-    else:
-        x = x0.T.contiguous()
-        r = bt - matvec(x)
-    z = precond(r)
-    p = z
-    rz = blas.dot_rows(r, z)
-    rr = blas.dot_rows(r, r) if apply_m is not None else rz
-    tol_sq = torch.stack([_tol_sq(tol, atol, bt[j]) for j in range(k)])
-    it = torch.zeros(k, dtype=torch.int32, device=b.device)
-    while True:
-        active = (it < maxiter) & (rr > tol_sq)
-        if not bool(torch.any(active)):
-            break
-        q = matvec(p)
-        alpha = (rz / blas.dot_rows(p, q))[:, None]
-        x_new = x + alpha * p
-        r_new = r - alpha * q
-        z_new = precond(r_new)
-        rz_new = blas.dot_rows(r_new, z_new)
-        rr_new = (blas.dot_rows(r_new, r_new) if apply_m is not None
-                  else rz_new)
-        p_new = z_new + (rz_new / rz)[:, None] * p
-        keep = active[:, None]
-        x = torch.where(keep, x_new, x)
-        r = torch.where(keep, r_new, r)
-        p = torch.where(keep, p_new, p)
-        rz = torch.where(active, rz_new, rz)
-        rr = torch.where(active, rr_new, rr)
-        it = it + active.to(torch.int32)
-    return CGResult(x=x.T, iterations=it, residual_norm_sq=rr,
-                    converged=rr <= tol_sq,
-                    history=torch.zeros((k, 0), dtype=b.dtype,
-                                        device=b.device))
+    with annotate(PREP):
+        bt = b.T.contiguous()
+        k = bt.shape[0]
+        if x0 is None:
+            x, r = torch.zeros_like(bt), bt
+        else:
+            x = x0.T.contiguous()
+            r = bt - matvec(x)
+        z = precond(r)
+        p = z
+        rz = blas.dot_rows(r, z)
+        rr = blas.dot_rows(r, r) if apply_m is not None else rz
+        tol_sq = torch.stack([_tol_sq(tol, atol, bt[j]) for j in range(k)])
+        it = torch.zeros(k, dtype=torch.int32, device=b.device)
+    with annotate(ENGINE):
+        while True:
+            active = (it < maxiter) & (rr > tol_sq)
+            if not host_read(torch.any(active), bool):
+                break
+            q = matvec(p)
+            alpha = (rz / blas.dot_rows(p, q))[:, None]
+            x_new = x + alpha * p
+            r_new = r - alpha * q
+            z_new = precond(r_new)
+            rz_new = blas.dot_rows(r_new, z_new)
+            rr_new = (blas.dot_rows(r_new, r_new) if apply_m is not None
+                      else rz_new)
+            p_new = z_new + (rz_new / rz)[:, None] * p
+            keep = active[:, None]
+            x = torch.where(keep, x_new, x)
+            r = torch.where(keep, r_new, r)
+            p = torch.where(keep, p_new, p)
+            rz = torch.where(active, rz_new, rz)
+            rr = torch.where(active, rr_new, rr)
+            it = it + active.to(torch.int32)
+    with annotate(RESULT):
+        return CGResult(x=x.T, iterations=it, residual_norm_sq=rr,
+                        converged=rr <= tol_sq,
+                        history=torch.zeros((k, 0), dtype=b.dtype,
+                                            device=b.device))
 
 
 def cg_solve_multi(
@@ -210,24 +217,27 @@ def _multi_route(a, b, preconditioner, backend: str):
     """``(mode, kind, jacobi)``: the route of :func:`cg_solve_multi`,
     ``mode`` one of ``"xla"``, ``"fused"``, ``"sequential"``, and for the
     fused modes the operator kind of :func:`_fused_multi_backend`.  Reads
-    only ``b``'s device, dtype and shape (and the DIA data's checks)."""
-    if backend not in ("auto", "xla", "fused", "sequential"):
-        raise ValueError(f"unknown backend {backend!r}")
-    if backend == "xla" or (backend == "auto" and not (
-            b.device.type == "cuda" and b.dtype == torch.float32
-            and b.shape[0] >= FUSED_MIN_ROWS)):
-        return "xla", None, False
-    routed = _fused_multi_backend(a, b, preconditioner)
-    if routed is None:
-        if backend == "auto":
+    only ``b``'s device, dtype and shape (and the DIA data's checks); a
+    ``cgx.route`` span."""
+    with annotate(ROUTE):
+        if backend not in ("auto", "xla", "fused", "sequential"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if backend == "xla" or (backend == "auto" and not (
+                b.device.type == "cuda" and b.dtype == torch.float32
+                and b.shape[0] >= FUSED_MIN_ROWS)):
             return "xla", None, False
-        raise ValueError(f"backend={backend!r}: operator/"
-                         "preconditioner not fused-capable")
-    kind, jac = routed
-    mode = backend
-    if backend == "auto":
-        mode = "sequential" if kind == "dia" and _narrow_band(a) else "fused"
-    return mode, kind, jac
+        routed = _fused_multi_backend(a, b, preconditioner)
+        if routed is None:
+            if backend == "auto":
+                return "xla", None, False
+            raise ValueError(f"backend={backend!r}: operator/"
+                             "preconditioner not fused-capable")
+        kind, jac = routed
+        mode = backend
+        if backend == "auto":
+            mode = ("sequential" if kind == "dia" and _narrow_band(a)
+                    else "fused")
+        return mode, kind, jac
 
 
 def block_cg_solve(

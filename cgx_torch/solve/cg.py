@@ -41,6 +41,7 @@ import torch
 
 from cgx_torch.ops import blas
 from cgx_torch.ops.spmv import spmv
+from cgx_torch.utils.profiling import ENGINE, PREP, RESULT, annotate, host_read
 
 __all__ = ["CGResult", "CGState", "cg_solve", "cg_solve_single_reduction",
            "cg_solve_pipelined", "cg_init", "cg_chunk", "as_matvec"]
@@ -151,26 +152,30 @@ def cg_solve(
       group: the process group of a row-distributed solve (``b``, ``x0``
         and ``a`` this rank's rows), or None.
     """
-    matvec = as_matvec(a)
-    apply_m = _as_apply(preconditioner)
-    maxiter = int(_global_rows(b, group) if maxiter is None else maxiter)
-    state = cg_init(matvec, b, x0, preconditioner=apply_m,
-                    history_len=maxiter + 1 if track_history else 0,
-                    group=group)
-    tol_sq = _tol_sq(tol, atol, b, group)
-    cond, body = _make_cond_body(matvec, apply_m, maxiter, tol_sq,
-                                 track_history, group)
-    while cond(state):
-        state = body(state)
+    with annotate(PREP):
+        matvec = as_matvec(a)
+        apply_m = _as_apply(preconditioner)
+        maxiter = int(_global_rows(b, group) if maxiter is None else maxiter)
+        state = cg_init(matvec, b, x0, preconditioner=apply_m,
+                        history_len=maxiter + 1 if track_history else 0,
+                        group=group)
+        tol_sq = _tol_sq(tol, atol, b, group)
+        cond, body = _make_cond_body(matvec, apply_m, maxiter, tol_sq,
+                                     track_history, group)
+    with annotate(ENGINE):
+        while cond(state):
+            state = body(state)
 
-    history = state.history
-    if track_history:
-        # Pad post-exit slots with the final residual so plots stay flat.
-        idx = torch.arange(maxiter + 1, device=b.device)
-        history = torch.where(idx <= state.k, history, state.rr)
-    return CGResult(x=state.x, iterations=state.k,
-                    residual_norm_sq=state.rr,
-                    converged=state.rr <= tol_sq, history=history)
+    with annotate(RESULT):
+        history = state.history
+        if track_history:
+            # Pad post-exit slots with the final residual so plots stay
+            # flat.
+            idx = torch.arange(maxiter + 1, device=b.device)
+            history = torch.where(idx <= state.k, history, state.rr)
+        return CGResult(x=state.x, iterations=state.k,
+                        residual_norm_sq=state.rr,
+                        converged=state.rr <= tol_sq, history=history)
 
 
 def cg_init(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
@@ -202,7 +207,7 @@ def cg_init(a, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
 def _make_cond_body(matvec, apply_m, maxiter, tol_sq, track_history,
                     group=None):
     def cond(s: CGState) -> bool:
-        return bool((s.k < maxiter) & (s.rr > tol_sq))
+        return host_read((s.k < maxiter) & (s.rr > tol_sq), bool)
 
     def body(s: CGState) -> CGState:
         q = matvec(s.p)
@@ -239,10 +244,11 @@ discarded_steps = 0
 
 
 def _read(flags: torch.Tensor) -> list:
-    """One read of a small tensor from the device, counted."""
+    """One read of a small tensor from the device, counted (and a
+    ``cgx.sync`` span)."""
     global host_reads
     host_reads += 1
-    return flags.tolist()
+    return host_read(flags)
 
 
 def _count(k: int, b: torch.Tensor) -> torch.Tensor:

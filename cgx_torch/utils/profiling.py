@@ -8,12 +8,55 @@ instrumentation is whole-second wall clock around the solve
   is there) CUDA activities, written as a Chrome trace (JSON) into
   ``log_dir``; view it in Perfetto or ``chrome://tracing``, or read it
   with :func:`trace_report` / :func:`overlap_report`;
-* :func:`annotate` — a named region on that timeline (``record_function``);
+* :func:`annotate` — the program's span: a named region on that timeline
+  (``record_function``) that is also kept in memory (:func:`spans`);
+* :func:`host_read` — the program's one way to bring device state to the
+  host, each read a ``cgx.sync`` span;
 * :func:`time_fresh` — the best time of a call over distinct inputs, taken
   between two card synchronisations, the inputs cycled so that none is
   warm in the L2 from the call before;
 * :func:`solve_stats` — derived metrics of a solve (per-iteration time,
   nnz/s, effective bandwidth against an operator byte model).
+
+Spans.  While a ``torch.profiler`` session records (:func:`trace`, or any
+``torch.profiler.profile(...)`` the caller opens), each span enters
+``record_function``, so it lands in the session's Chrome trace on the
+profiler's clock beside the kernels and copies it launched, and appends
+``Span(name, start_ns, end_ns, parent, call)`` to an in-memory list
+(host ``time.perf_counter_ns``; ``parent`` the index of the enclosing
+span, ``call`` the index of the outermost ``cgx.solve`` span, shared by
+every span of one solve).  With no session recording a span costs one
+check and returns a shared null context: nothing is timed or kept.
+:func:`spans` returns the list and :func:`clear_spans` empties it; the
+program never writes it to disk.  Spans are kept for one thread.
+
+The solve path's spans (a fixed set):
+
+* ``cgx.solve`` — ``auto_solve``, the whole call; a nested one is a child;
+* ``cgx.route`` — ``select_backend`` and ``cg_solve_multi``'s route, with
+  the checks they run;
+* ``cgx.check.wrap``, ``cgx.check.sym`` — each DIA check, wherever called;
+* ``cgx.prep`` — everything between the route and the engine's first
+  launch: the threshold, the engine's construction, state and history,
+  grid queries, tap arrays (a call may have several segments), with
+  ``dia_prep`` nested as ``cgx.prep.dia``;
+* ``cgx.engine`` — the engine's host loop: K2's launch, K3's and K5's
+  chunk loops, the loops' iterations;
+* ``cgx.sync`` — each :func:`host_read`, mostly inside ``cgx.engine``;
+* ``cgx.result`` — packaging the answer: K3's history padding, the DIA
+  unscaling, the ``CGResult``.
+
+``cgx.route``, ``cgx.prep``, ``cgx.engine`` and ``cgx.result`` are
+siblings under ``cgx.solve``.  No span wraps a single kernel launch of a
+loop.  The counter :func:`host_syncs` is the number of ``cgx.sync``
+spans.  An operator's use::
+
+    with profiling.trace("/tmp/tb"):
+        auto_solve(a, b)
+
+then open ``/tmp/tb/trace_0.json`` in Perfetto (ui.perfetto.dev): each
+``cgx.*`` span sits on the host thread over the torch operations and
+launches it made, and the device's kernels line up below it.
 
 The JAX package reads the TPU profiler's ``.xplane.pb``
 (``cgx.utils.xplane``); the port reads the Chrome trace's JSON instead,
@@ -28,12 +71,26 @@ import glob
 import json
 import os
 import time
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, NamedTuple, Optional
 
 import torch
 
 __all__ = ["trace", "time_fresh", "solve_stats", "annotate",
-           "trace_report", "overlap_report"]
+           "trace_report", "overlap_report", "host_read", "host_syncs",
+           "spans", "clear_spans", "Span", "SPAN_NAMES"]
+
+# The program's spans (the module note says where each is opened).
+SOLVE = "cgx.solve"
+ROUTE = "cgx.route"
+CHECK_WRAP = "cgx.check.wrap"
+CHECK_SYM = "cgx.check.sym"
+PREP = "cgx.prep"
+PREP_DIA = "cgx.prep.dia"
+ENGINE = "cgx.engine"
+SYNC = "cgx.sync"
+RESULT = "cgx.result"
+SPAN_NAMES = (SOLVE, ROUTE, CHECK_WRAP, CHECK_SYM, PREP, PREP_DIA, ENGINE,
+              SYNC, RESULT)
 
 # Trace event categories that run on the device.
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset", "gpu_user_annotation")
@@ -62,9 +119,95 @@ def trace(log_dir: str):
         prof.export_chrome_trace(os.path.join(log_dir, f"trace_{n}.json"))
 
 
+class Span(NamedTuple):
+    """One recorded span: host nanoseconds (``time.perf_counter_ns``),
+    the index of the enclosing span and of the outermost ``cgx.solve``
+    (None outside any)."""
+
+    name: str
+    start_ns: int
+    end_ns: Optional[int]
+    parent: Optional[int]
+    call: Optional[int]
+
+
+_spans: list = []
+_open: list = []        # indices of the spans entered and not yet left
+_generation = 0         # bumped by clear_spans: spans open then are dropped
+_recording = torch.autograd._profiler_enabled
+_NULL = contextlib.nullcontext()
+
+
+class _Recorded:
+    """A span while a session records: ``record_function`` and the list."""
+
+    __slots__ = ("name", "_rf", "_i", "_gen")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        # The profiler takes its start inside record_function's enter and
+        # its end at the close of the exit: the span starts halfway
+        # through the enter and ends after the exit, so that its length
+        # agrees with the trace's.
+        self._rf = torch.profiler.record_function(self.name)
+        t0 = time.perf_counter_ns()
+        self._rf.__enter__()
+        start = (t0 + time.perf_counter_ns()) // 2
+        parent = _open[-1] if _open else None
+        call = None if parent is None else _spans[parent].call
+        if call is None and self.name == SOLVE:
+            call = len(_spans)
+        self._i, self._gen = len(_spans), _generation
+        _spans.append(Span(self.name, start, None, parent, call))
+        _open.append(self._i)
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        end = time.perf_counter_ns()
+        if self._gen == _generation:
+            _open.pop()
+            _spans[self._i] = _spans[self._i]._replace(end_ns=end)
+        return False
+
+
 def annotate(name: str):
-    """A named region that shows on the trace's timeline."""
-    return torch.profiler.record_function(name)
+    """The program's span ``name``: recorded while a profiler session
+    records, else a shared null context after one check."""
+    if not _recording():
+        return _NULL
+    return _Recorded(name)
+
+
+def host_read(t: torch.Tensor, read: Callable = torch.Tensor.tolist):
+    """``read(t)`` (``int``, ``bool`` or ``tolist``) of a tensor the solve
+    computed: a blocking read of device state, a ``cgx.sync`` span."""
+    if not _recording():
+        return read(t)
+    with _Recorded(SYNC):
+        return read(t)
+
+
+def spans() -> list:
+    """The recorded :class:`Span` list, in the order the spans opened."""
+    return list(_spans)
+
+
+def clear_spans() -> None:
+    """Empty the recorded list (spans open now are not recorded)."""
+    global _generation
+    _spans.clear()
+    _open.clear()
+    _generation += 1
+
+
+def host_syncs(call: Optional[int] = None) -> int:
+    """The counter of blocking reads: the recorded ``cgx.sync`` spans (of
+    solve ``call`` alone, where given)."""
+    return sum(1 for s in _spans if s.name == SYNC
+               and (call is None or s.call == call))
 
 
 def time_fresh(fn: Callable, variants: Iterable, reps: int = 3) -> float:
